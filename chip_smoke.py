@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+
+  1. build   nvcc builds the three Task Bench kernels (K1 FMA body, K2
+             memory sweep, K3 single-step megakernel) from ``src/``.
+  2. parity  each kernel against its plain PyTorch version on the card,
+             at the main path's width W = 2112 and at W = 65536.
+  3. main    the main path: the 7 halo patterns through ``pallas_step``
+             and ``fused(use_kernels=True)`` at W = 2112, T = 1000,
+             payload 64, compute_bound grain 64, checked against each
+             other and against ``fused(use_kernels=False)``; one
+             memory_bound run; a small-input check against the CPU plain
+             path. The launch counters are zeroed just before and read
+             just after.
+  4. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
+             2112} (one task per SM times overdecomposition 1 and 16), on
+             both backends.
+  5. times   each kernel and its plain version timed with CUDA events at
+             the main path's shapes, beside its bound on this card.
+
+The last lines are the card's name and power limit, a ``{"kernels": ...}``
+JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
+the rest of the repository beside it, the script exits non-zero and prints
+no result. It imports nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+HALO_PATTERNS = ("trivial", "no_comm", "stencil_1d", "stencil_1d_periodic",
+                 "dom", "nearest", "random_nearest")
+W_MAIN, T_MAIN, PAYLOAD, GRAIN = 2112, 1000, 64, 64
+W_WIDE = 65536  # a 16 MiB state
+SMS = 132
+GRAINS = (1, 4, 16, 64, 256, 1024, 4096, 16384)  # configs/taskbench.py PAPER
+# Tolerances, max abs error. K1: the kernel's fmaf and the plain
+# multiply-then-add round alike (0.5*x is exact), so only the last bit may
+# move. K2, K3 and the backends: sums taken in another order (the sweep's
+# mean, the combine's weighted sum with fused multiply-adds), on values in
+# [0, 1].
+TOL_K1 = 1e-6
+TOL = 1e-5
+# The T-step memory_bound run accumulates those roundings: the sweep adds
+# 1e-6 per pass and the combine averages, so nothing contracts a difference
+# away as the FMA body does; allow ~2 ulp of 0.5 per step.
+TOL_MEMORY_RUN = T_MAIN * 1.2e-7
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check_close(name: str, got, want, tol: float) -> float:
+    if tuple(got.shape) != tuple(want.shape):
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values")
+    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+    if not err <= tol:
+        fail(f"{name}: max abs error {err} > {tol}")
+    return err
+
+
+def gpu_ms(fn, n: int) -> float:
+    """Device time of one call of ``fn``, in ms: n calls between two CUDA
+    events, queued behind a device sleep so that the host's enqueue time
+    does not leave the device idle between them. Fails if the host took
+    longer to enqueue the calls than the sleep lasted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    asleep.record()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if enqueue_ms >= asleep.elapsed_time(start):
+        fail(f"enqueueing {n} calls took {enqueue_ms:.3f} ms, longer than the "
+             f"{asleep.elapsed_time(start):.3f} ms device sleep meant to cover it")
+    return start.elapsed_time(end) / n
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import repro_torch
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
+        return 2
+    if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT / "src"):
+        print("chip_smoke: repro_torch was not imported from this checkout",
+              file=sys.stderr)
+        return 2
+
+    from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.bodies import apply_body
+    from repro_torch.kernels.taskbench_step import taskbench_step_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; card: {smi}", flush=True)
+
+    # ---------------------------------------------------------------- build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.3f} s "
+          f"-> {_build.library_path('taskbench_step').parent}", flush=True)
+    for lib, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "warning" in line or "Used" in line or "Compiling entry" in line:
+                print(f"  {lib}: {line.strip()}")
+
+    # --------------------------------------------------------------- parity
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"taskbench_compute": 0.0, "memory_bound": 0.0, "taskbench_step": 0.0}
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen) * 0.9 + 0.1
+
+    for rows, p in ((37, 13), (W_MAIN, PAYLOAD), (W_WIDE, PAYLOAD)):
+        x = rand(rows, p)
+        for it in (0, 1, 16, 1024):
+            e1 = check_close(f"K1 rows={rows} P={p} it={it}",
+                             ops.taskbench_compute(x, it),
+                             apply_body(x, "compute_bound", it, 0), TOL_K1)
+            e2 = check_close(f"K2 rows={rows} P={p} it={it}",
+                             ops.taskbench_memory(x, it, 2048),
+                             apply_body(x, "memory_bound", it, 2048), TOL)
+            errs["taskbench_compute"] = max(errs["taskbench_compute"], e1)
+            errs["memory_bound"] = max(errs["memory_bound"], e2)
+    kinds = (("compute_bound", GRAIN), ("memory_bound", 4), ("empty", 0))
+    for W in (W_MAIN, W_WIDE):
+        for K in (1, 3):
+            D = 3
+            wgt = torch.rand((K, W, D), device=dev, generator=gen) / D
+            idx = torch.randint(0, W + D - 1, (K, W, D), device=dev,
+                                generator=gen, dtype=torch.int32)
+            idx[:, ::2, 1] = idx[:, ::2, 0]  # duplicate slots: onehot merges them
+            for combine in ("window", "gather", "onehot", "pair"):
+                src = rand(K, 2 * W if combine == "pair" else W + D - 1, PAYLOAD)
+                for kind, it in kinds:
+                    kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
+                    e3 = check_close(f"K3 W={W} K={K} {combine} {kind}",
+                                     ops.taskbench_step(src, idx, wgt, **kw),
+                                     taskbench_step_plain(src, idx, wgt, **kw), TOL)
+                    errs["taskbench_step"] = max(errs["taskbench_step"], e3)
+    torch.cuda.synchronize()
+    print(f"[parity] K1 K2 K3 agree with their plain versions in "
+          f"{time.perf_counter() - t0:.3f} s; max abs errors {errs}", flush=True)
+
+    # ------------------------------------------------------------ main path
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+
+    def counted(fn):
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def run_all(g: TaskGraph, init):
+        ps, d_ps = counted(lambda: get_runtime("pallas_step").execute(g, init))
+        fk, d_fk = counted(lambda: get_runtime("fused", use_kernels=True).execute(g, init))
+        fp, d_fp = counted(lambda: get_runtime("fused").execute(g, init))
+        body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
+        want_ps = {"taskbench_compute": 0, "memory_bound": 0, "taskbench_step": g.steps}
+        want_fk = {"taskbench_compute": 0, "memory_bound": 0, "taskbench_step": 0}
+        want_fk[body] = g.steps
+        if d_ps != want_ps or d_fk != want_fk or any(d_fp.values()):
+            fail(f"{g.describe()}: launches pallas_step {d_ps}, fused "
+                 f"kernels {d_fk}, fused plain {d_fp}")
+        if get_runtime("pallas_step").dispatches_per_run(g) != d_ps["taskbench_step"]:
+            fail("pallas_step.dispatches_per_run disagrees with its launches")
+        return [torch.from_numpy(a) for a in (ps, fk, fp)]
+
+    for pattern in HALO_PATTERNS:
+        g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+        init = rand(W_MAIN, PAYLOAD)
+        ps, fk, fp = run_all(g, init)
+        check_close(f"{pattern}: pallas_step vs fused(kernels)", ps, fk, TOL)
+        check_close(f"{pattern}: fused(kernels) vs fused(plain)", fk, fp, TOL)
+        for combine in ("gather", "onehot"):
+            out, d = counted(lambda: get_runtime(
+                "pallas_step", combine=combine).execute(g, init))
+            if d["taskbench_step"] != T_MAIN:
+                fail(f"{pattern} {combine}: launches {d}")
+            check_close(f"{pattern}: pallas_step {combine} vs window",
+                        torch.from_numpy(out), ps, TOL)
+    g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                  kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
+    ps, fk, fp = run_all(g, rand(W_MAIN, PAYLOAD))
+    check_close("memory_bound: pallas_step vs fused(kernels)", ps, fk, TOL_MEMORY_RUN)
+    check_close("memory_bound: fused(kernels) vs fused(plain)", fk, fp, TOL_MEMORY_RUN)
+    # Grain 64 drives every state to the FMA's fixed point 0.2, so also
+    # check the dataflow where it shows: grain 1, 8 steps, against the
+    # plain path on the CPU.
+    for pattern in HALO_PATTERNS:
+        g = TaskGraph(steps=8, width=64, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", 1), radius=3, seed=1)
+        want = torch.from_numpy(get_runtime("fused", device="cpu").execute(g))
+        init = get_runtime("fused", device="cpu")._init(g, None)
+        for rt in (get_runtime("pallas_step"), get_runtime("fused", use_kernels=True),
+                   get_runtime("pallas_step", combine="onehot")):
+            check_close(f"small {pattern} {rt.name}",
+                        torch.from_numpy(rt.execute(g, init)), want, TOL)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"kernel {k} was not launched on the main path")
+    print(f"[main] {len(HALO_PATTERNS)} halo patterns, W={W_MAIN} T={T_MAIN} "
+          f"P={PAYLOAD} grain {GRAIN}: pallas_step (window, gather, onehot), "
+          f"fused(kernels) and fused(plain) agree; launches {launches}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ----------------------------------------------------------------- METG
+    t0 = time.perf_counter()
+    step_wall = {}
+    for od in (1, 16):
+        W = SMS * od
+        for rt_name, opts in (("pallas_step", {}), ("fused", {"use_kernels": True})):
+            rt = get_runtime(rt_name, **opts)
+            samples = []
+            for grain in GRAINS:
+                g = TaskGraph(steps=T_MAIN, width=W, pattern="stencil_1d",
+                              payload=PAYLOAD, kernel=KernelSpec("compute_bound", grain))
+                s, st = rt.measure(g, reps=5, warmup=1)
+                samples.append(s)
+                step_wall[(rt_name, W, grain)] = s.wall_time / T_MAIN
+                print(f"  {rt_name} W={W} grain={grain}: wall {s.wall_time:.6f} s "
+                      f"({s.wall_time / T_MAIN * 1e6:.3f} us/step, "
+                      f"{s.flops_per_second / 1e9:.3f} GFLOP/s, "
+                      f"granularity {s.granularity_us:.4f} us, "
+                      f"{st.dispatches} launches)")
+            m = compute_metg(samples)
+            metg = "unreached" if m.metg_us is None else f"{m.metg_us:.4f} us"
+            print(f"METG(50%) {rt_name} W={W} (od {od}, T={T_MAIN}, 5 reps): "
+                  f"{metg}, peak {m.peak_flops_per_second / 1e9:.3f} GFLOP/s "
+                  f"| {smi}", flush=True)
+    print(f"[metg] {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---------------------------------------------------------------- times
+    x = rand(W_MAIN, PAYLOAD)
+    H, D = 1, 3  # stencil_1d: the METG pattern
+    g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                  kernel=KernelSpec("compute_bound", GRAIN))
+    from repro_torch.core.runtimes.pallas_step import _window_operands
+
+    _, w_np = _window_operands(g, H)
+    wgt = torch.from_numpy(w_np)[None].to(dev)
+    src = rand(1, W_MAIN + 2 * H, PAYLOAD)
+    n_el = W_MAIN * PAYLOAD
+    mem_it, scratch = 4, 2048
+    step_kw = dict(kind="compute_bound", iterations=GRAIN, scratch=scratch,
+                   combine="window")
+    cases = [
+        ("taskbench_compute", "K1", "src/repro_torch/kernels/csrc/taskbench_compute.cu",
+         "src/repro/kernels/taskbench_compute.py:30",
+         lambda: ops.taskbench_compute(x, GRAIN),
+         lambda: apply_body(x, "compute_bound", GRAIN, 0),
+         2 * n_el * 4, 2 * n_el * GRAIN),
+        ("memory_bound", "K2", "src/repro_torch/kernels/csrc/memory_bound.cu",
+         "src/repro/kernels/bodies.py:107",
+         lambda: ops.taskbench_memory(x, mem_it, scratch),
+         lambda: apply_body(x, "memory_bound", mem_it, scratch),
+         2 * n_el * 4, W_MAIN * (scratch * (mem_it + 1) + PAYLOAD)),
+        ("taskbench_step", "K3", "src/repro_torch/kernels/csrc/taskbench_step.cu",
+         "src/repro/kernels/taskbench_step.py:368",
+         lambda: ops.taskbench_step(src, None, wgt, **step_kw),
+         lambda: taskbench_step_plain(src, None, wgt, **step_kw),
+         (src.numel() + wgt.numel() + n_el) * 4, n_el * (2 * D + 2 * GRAIN)),
+    ]
+    kernels = []
+    for kname, tag, source, replaces, kern, plain, nbytes, nops in cases:
+        check_close(f"{tag} timing inputs", kern(), plain(), TOL)
+        ms = gpu_ms(kern, 200)
+        plain_ms = gpu_ms(plain, 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_FLOPS_PER_S * 1e3
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": errs[kname],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "launches_per_run": T_MAIN,
+        })
+        print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {T_MAIN} "
+              f"launches per main-path run (plain version {plain_ms * 1e3:.3f} us, "
+              f"no yardstick; no single PyTorch call computes it), bound "
+              f"{max(t_bytes, t_ops) * 1e3:.3f} us by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
+    k3_us = kernels[2]["ms"] * 1e3
+    wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
+    print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
+          f"K3 {k3_us:.3f} us: device busy share ~{k3_us / wall_us:.4f}")
+
+    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+              or m == "repro" or m.startswith("repro.")]
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {loaded[:5]}")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
