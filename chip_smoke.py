@@ -5,22 +5,34 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build   nvcc builds the three Task Bench kernels (K1 FMA body, K2
-             memory sweep, K3 single-step megakernel) from ``src/``.
-  2. parity  each kernel against its plain PyTorch version on the card,
-             at the main path's width W = 2112 and at W = 65536.
+  1. build   nvcc builds the four Task Bench kernels (K1 FMA body, K2
+             memory sweep, K3 single-step megakernel, K4 temporal-blocked
+             megakernel) from ``src/``, one nvcc process each, in parallel.
+  2. parity  each kernel against its plain PyTorch version on the card:
+             K1-K3 at the main path's width W = 2112 and at W = 65536, K3
+             also on out-of-range indices; K4 at the blocked main path's
+             buffer (M = 2144 rows) for every combine, fixed and
+             time-varying tables, every body, S in {2, 8}, an act mask with
+             a masked tail and a frozen member; the pipelined phases
+             stitched together equal to one full K4 launch, bit for bit.
   3. main    the main path: the 7 halo patterns through ``pallas_step``
              and ``fused(use_kernels=True)`` at W = 2112, T = 1000,
              payload 64, compute_bound grain 64, checked against each
-             other and against ``fused(use_kernels=False)``; one
-             memory_bound run; a small-input check against the CPU plain
-             path. The launch counters are zeroed just before and read
-             just after.
+             other and against ``fused(use_kernels=False)``; then
+             ``pallas_step(steps_per_launch=8)`` serial and pipelined on
+             every pattern (window; gather and onehot on two), held to the
+             S = 1 run and pipelined equal to serial bit for bit; one
+             memory_bound run of each; small-input checks against the CPU
+             plain path. The launch counters are zeroed just before and
+             read just after, and each run's launches must equal the
+             runtime's ``dispatches_per_run``.
   4. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
-             both backends.
+             both backends and on ``pallas_step(steps_per_launch=8)``
+             pipelined and serial.
   5. times   each kernel and its plain version timed with CUDA events at
-             the main path's shapes, beside its bound on this card.
+             the main path's shapes, beside its bound on this card; K4 as
+             one full launch and as the pipelined phases.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
@@ -58,6 +70,8 @@ TOL = 1e-5
 # 1e-6 per pass and the combine averages, so nothing contracts a difference
 # away as the FMA body does; allow ~2 ulp of 0.5 per step.
 TOL_MEMORY_RUN = T_MAIN * 1.2e-7
+S_MAIN = 8  # the blocked main path's steps per launch
+BLOCKED_RUNS = (("pipelined", {}), ("serial", {"pipeline": False}))
 
 
 def fail(msg: str) -> None:
@@ -77,11 +91,15 @@ def check_close(name: str, got, want, tol: float) -> float:
     return err
 
 
-def gpu_ms(fn, n: int) -> float:
+def gpu_ms(fn, n: int, cover: bool = True) -> float:
     """Device time of one call of ``fn``, in ms: n calls between two CUDA
-    events, queued behind a device sleep so that the host's enqueue time
-    does not leave the device idle between them. Fails if the host took
-    longer to enqueue the calls than the sleep lasted."""
+    events, queued behind a device sleep (~0.1 s at the H100's clocks) so
+    that the host's enqueue time does not leave the device idle between
+    them. Fails if the host took longer to enqueue the calls than the sleep
+    lasted. ``cover=False`` drops the sleep, for a function that issues
+    more operations than the card's launch queue holds (the enqueue then
+    blocks until the sleep ends): the events then span the host's enqueue
+    gaps too."""
     import torch
 
     for _ in range(3):
@@ -90,14 +108,15 @@ def gpu_ms(fn, n: int) -> float:
     asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     t0 = time.perf_counter()
     asleep.record()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    if cover:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(n):
         fn()
     end.record()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
-    if enqueue_ms >= asleep.elapsed_time(start):
+    if cover and enqueue_ms >= asleep.elapsed_time(start):
         fail(f"enqueueing {n} calls took {enqueue_ms:.3f} ms, longer than the "
              f"{asleep.elapsed_time(start):.3f} ms device sleep meant to cover it")
     return start.elapsed_time(end) / n
@@ -121,9 +140,14 @@ def main() -> int:
         return 2
 
     from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
+    from repro_torch.core.patterns import halo_radius
+    from repro_torch.core.runtimes import pallas_step as ps_mod
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bodies import apply_body
-    from repro_torch.kernels.taskbench_step import taskbench_step_plain
+    from repro_torch.kernels.taskbench_step import (
+        taskbench_step_blocked_plain,
+        taskbench_step_plain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,7 +162,12 @@ def main() -> int:
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    print(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.3f} s "
+    libs = sorted({lib for lib, _ in _build.ENTRIES.values()})
+    missing = [lib for lib in libs if not _build.library_path(lib).exists()]
+    if missing:
+        fail(f"[build] libraries missing after the build: {missing}")
+    print(f"[build] {len(libs)} libraries ({len(logs)} built now) in "
+          f"{time.perf_counter() - t0:.3f} s "
           f"-> {_build.library_path('taskbench_step').parent}", flush=True)
     for lib, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -148,7 +177,7 @@ def main() -> int:
     # --------------------------------------------------------------- parity
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"taskbench_compute": 0.0, "memory_bound": 0.0, "taskbench_step": 0.0}
+    errs = {entry: 0.0 for entry in _build.ENTRIES}
 
     def rand(*shape):
         return torch.rand(shape, device=dev, generator=gen) * 0.9 + 0.1
@@ -180,9 +209,72 @@ def main() -> int:
                                      ops.taskbench_step(src, idx, wgt, **kw),
                                      taskbench_step_plain(src, idx, wgt, **kw), TOL)
                     errs["taskbench_step"] = max(errs["taskbench_step"], e3)
+    # K3 on out-of-range indices: gather wraps a negative index once and
+    # clamps; an onehot slot outside the source adds nothing
+    src = rand(1, 6, PAYLOAD)
+    idx = torch.tensor([[[-1, 0], [6, 1], [-7, 2], [9, -2], [-2, -2]]],
+                       dtype=torch.int32, device=dev)
+    wgt = torch.full((1, 5, 2), 0.5, device=dev)
+    for combine in ("gather", "onehot"):
+        kw = dict(kind="empty", iterations=0, combine=combine)
+        errs["taskbench_step"] = max(errs["taskbench_step"], check_close(
+            f"K3 out-of-range {combine}", ops.taskbench_step(src, idx, wgt, **kw),
+            taskbench_step_plain(src, idx, wgt, **kw), TOL))
+    # K4 at the blocked main path's buffer: W + 2 * S * r rows (r = 2)
+    M, K, D = W_MAIN + 2 * S_MAIN * 2, 3, 5
+    for S in (2, S_MAIN):
+        act = torch.ones((K, S), device=dev)
+        act[:, S - 1] = 0.0  # the masked tail of a run's last launch
+        act[K - 1] = 0.0     # a frozen member
+        src = rand(K, M, PAYLOAD)
+        for combine, tv in (("window", False), ("gather", False), ("onehot", False),
+                            ("gather", True), ("onehot", True)):
+            shape = (K, S, M, D) if tv else (K, M, D)
+            wgt = torch.rand(shape, device=dev, generator=gen) / D
+            idx = torch.randint(-2, M + 2, shape, device=dev, generator=gen,
+                                dtype=torch.int32)
+            idx[..., ::2, 1] = idx[..., ::2, 0]
+            for kind, it in kinds:
+                kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
+                got = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw)
+                case = f"K4 S={S} {combine}{' time-varying' if tv else ''} {kind}"
+                errs["taskbench_blocked"] = max(errs["taskbench_blocked"], check_close(
+                    case, got, taskbench_step_blocked_plain(src, idx, wgt, act, **kw),
+                    TOL))
+                if not torch.equal(got[K - 1], src[K - 1]):
+                    fail(f"{case}: the frozen member changed")
+    # the pipelined phases, stitched, against one full launch (bit for bit)
+    g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="random_nearest",
+                  payload=PAYLOAD, kernel=KernelSpec("compute_bound", 1), radius=2)
+    depth = S_MAIN * 2
+    state = rand(1, W_MAIN, PAYLOAD)
+    act = torch.ones((1, S_MAIN), device=dev)
+    act[0, -3:] = 0.0
+    rows = torch.from_numpy(ps_mod._extend_rows(W_MAIN, depth)).to(dev)
+    hl, hr = ps_mod._prologue_exchange(state, depth)
+    side = torch.cuda.Stream()
+    for combine in ("window", "gather", "onehot"):
+        for kind, it in (("compute_bound", 1), ("memory_bound", 2)):
+            rt = get_runtime("pallas_step", combine=combine, steps_per_launch=S_MAIN)
+            idx, wgt, _, _ = (torch.from_numpy(a)[None].to(dev)
+                              for a in rt._blocked_operands(g, 2))
+            kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine,
+                      steps_per_launch=S_MAIN)
+            iext, wext = ps_mod._extend_tables(idx, wgt, depth, combine, row_axis=1)
+            full = ops.taskbench_step(state.index_select(1, rows), iext, wext, act,
+                                      **kw)[:, depth:depth + W_MAIN]
+            ph = ps_mod._phase_tables(idx, wgt, depth, combine)
+            for stream in (None, side):
+                stitched, _, _ = ps_mod._pipelined_launch(
+                    state, hl, hr, act, ph, depth, kw, stream)
+                torch.cuda.synchronize()
+                if not torch.equal(stitched, full):
+                    fail(f"K4 phases ({combine} {kind}, side stream "
+                         f"{stream is not None}): stitched != full launch")
     torch.cuda.synchronize()
-    print(f"[parity] K1 K2 K3 agree with their plain versions in "
-          f"{time.perf_counter() - t0:.3f} s; max abs errors {errs}", flush=True)
+    print(f"[parity] K1 K2 K3 K4 agree with their plain versions, K4's phases "
+          f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
+          f"max abs errors {errs}", flush=True)
 
     # ------------------------------------------------------------ main path
     t0 = time.perf_counter()
@@ -200,8 +292,9 @@ def main() -> int:
         fk, d_fk = counted(lambda: get_runtime("fused", use_kernels=True).execute(g, init))
         fp, d_fp = counted(lambda: get_runtime("fused").execute(g, init))
         body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
-        want_ps = {"taskbench_compute": 0, "memory_bound": 0, "taskbench_step": g.steps}
-        want_fk = {"taskbench_compute": 0, "memory_bound": 0, "taskbench_step": 0}
+        want_ps = dict.fromkeys(_build.ENTRIES, 0)
+        want_ps["taskbench_step"] = g.steps
+        want_fk = dict.fromkeys(_build.ENTRIES, 0)
         want_fk[body] = g.steps
         if d_ps != want_ps or d_fk != want_fk or any(d_fp.values()):
             fail(f"{g.describe()}: launches pallas_step {d_ps}, fused "
@@ -210,11 +303,42 @@ def main() -> int:
             fail("pallas_step.dispatches_per_run disagrees with its launches")
         return [torch.from_numpy(a) for a in (ps, fk, fp)]
 
+    blocked_launches = {}
+
+    def run_blocked(g: TaskGraph, init, want, tol: float, combine: str = "window"):
+        """pallas_step(steps_per_launch=S_MAIN), pipelined and serial: each
+        held to the S = 1 run ``want``, its launches to 1 K3 plus one (serial)
+        or two (pipelined) K4 per blocked launch and to dispatches_per_run,
+        and pipelined equal to serial bit for bit."""
+        outs = {}
+        for label, opts in BLOCKED_RUNS:
+            rt = get_runtime("pallas_step", combine=combine,
+                             steps_per_launch=S_MAIN, **opts)
+            out, d = counted(lambda: rt.execute(g, init))
+            split = rt._pipeline_active(g.width, S_MAIN, halo_radius(g))
+            want_d = dict.fromkeys(_build.ENTRIES, 0)
+            want_d["taskbench_step"] = 1
+            want_d["taskbench_blocked"] = -(-(g.steps - 1) // S_MAIN) * (1 + split)
+            if d != want_d or sum(d.values()) != rt.dispatches_per_run(g):
+                fail(f"{g.describe()} {combine} S={S_MAIN} {label}: launches {d}, "
+                     f"expected {want_d}, dispatches_per_run "
+                     f"{rt.dispatches_per_run(g)}")
+            blocked_launches[label] = d["taskbench_blocked"]
+            outs[label] = torch.from_numpy(out)
+            check_close(f"{g.pattern} {combine} S={S_MAIN} {label} vs S=1",
+                        outs[label], want, tol)
+        if not torch.equal(outs["pipelined"], outs["serial"]):
+            fail(f"{g.pattern} {combine} S={S_MAIN}: pipelined != serial")
+
     for pattern in HALO_PATTERNS:
         g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern=pattern, payload=PAYLOAD,
                       kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
         init = rand(W_MAIN, PAYLOAD)
         ps, fk, fp = run_all(g, init)
+        run_blocked(g, init, ps, TOL)
+        if pattern in ("stencil_1d", "random_nearest"):
+            for combine in ("gather", "onehot"):
+                run_blocked(g, init, ps, TOL, combine)
         check_close(f"{pattern}: pallas_step vs fused(kernels)", ps, fk, TOL)
         check_close(f"{pattern}: fused(kernels) vs fused(plain)", fk, fp, TOL)
         for combine in ("gather", "onehot"):
@@ -226,9 +350,11 @@ def main() -> int:
                         torch.from_numpy(out), ps, TOL)
     g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
                   kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
-    ps, fk, fp = run_all(g, rand(W_MAIN, PAYLOAD))
+    init = rand(W_MAIN, PAYLOAD)
+    ps, fk, fp = run_all(g, init)
     check_close("memory_bound: pallas_step vs fused(kernels)", ps, fk, TOL_MEMORY_RUN)
     check_close("memory_bound: fused(kernels) vs fused(plain)", fk, fp, TOL_MEMORY_RUN)
+    run_blocked(g, init, ps, TOL_MEMORY_RUN)
     # Grain 64 drives every state to the FMA's fixed point 0.2, so also
     # check the dataflow where it shows: grain 1, 8 steps, against the
     # plain path on the CPU.
@@ -238,8 +364,11 @@ def main() -> int:
         want = torch.from_numpy(get_runtime("fused", device="cpu").execute(g))
         init = get_runtime("fused", device="cpu")._init(g, None)
         for rt in (get_runtime("pallas_step"), get_runtime("fused", use_kernels=True),
-                   get_runtime("pallas_step", combine="onehot")):
-            check_close(f"small {pattern} {rt.name}",
+                   get_runtime("pallas_step", combine="onehot"),
+                   get_runtime("pallas_step", steps_per_launch=3),
+                   get_runtime("pallas_step", steps_per_launch=3, pipeline=False),
+                   get_runtime("pallas_step", steps_per_launch=3, combine="gather")):
+            check_close(f"small {pattern} {rt.name} {rt.options}",
                         torch.from_numpy(rt.execute(g, init)), want, TOL)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -248,16 +377,23 @@ def main() -> int:
             fail(f"kernel {k} was not launched on the main path")
     print(f"[main] {len(HALO_PATTERNS)} halo patterns, W={W_MAIN} T={T_MAIN} "
           f"P={PAYLOAD} grain {GRAIN}: pallas_step (window, gather, onehot), "
-          f"fused(kernels) and fused(plain) agree; launches {launches}; "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"fused(kernels) and fused(plain) agree; pallas_step(steps_per_launch="
+          f"{S_MAIN}) pipelined and serial agree with S=1 and with each other bit "
+          f"for bit, K4 launches per run {blocked_launches} (+1 K3); launches "
+          f"{launches}; {time.perf_counter() - t0:.3f} s", flush=True)
 
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall = {}
     for od in (1, 16):
         W = SMS * od
-        for rt_name, opts in (("pallas_step", {}), ("fused", {"use_kernels": True})):
+        for rt_name, opts in (
+                ("pallas_step", {}), ("fused", {"use_kernels": True}),
+                ("pallas_step", {"steps_per_launch": S_MAIN}),
+                ("pallas_step", {"steps_per_launch": S_MAIN, "pipeline": False})):
             rt = get_runtime(rt_name, **opts)
+            if opts.get("steps_per_launch"):
+                rt_name += f"[S={S_MAIN}{',serial' if 'pipeline' in opts else ''}]"
             samples = []
             for grain in GRAINS:
                 g = TaskGraph(steps=T_MAIN, width=W, pattern="stencil_1d",
@@ -308,21 +444,50 @@ def main() -> int:
          lambda: taskbench_step_plain(src, None, wgt, **step_kw),
          (src.numel() + wgt.numel() + n_el) * 4, n_el * (2 * D + 2 * GRAIN)),
     ]
+    # K4 at the blocked main path's shape: nearest (r = 2, window D = 5),
+    # S = 8, a buffer of M = W + 2 * S * r = 2144 rows
+    gb = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="nearest", payload=PAYLOAD,
+                   kernel=KernelSpec("compute_bound", GRAIN), radius=2)
+    Hb, Db = 2, 5
+    depth = S_MAIN * Hb
+    M = W_MAIN + 2 * depth
+    wb = torch.from_numpy(_window_operands(gb, Hb)[1])[None].to(dev)
+    wext = ps_mod._wrap(wb, depth, 1)
+    srcb = rand(1, M, PAYLOAD)
+    actb = torch.ones((1, S_MAIN), device=dev)
+    blk_kw = dict(step_kw, steps_per_launch=S_MAIN)
+
+    def k4_cost(rows):
+        """(bytes, f32 operations) of one K4 launch on a `rows`-row buffer:
+        src, weights and act read once, the buffer written once; per depth
+        a D-tap combine and the grain-64 FMA chain per element."""
+        return ((2 * rows * PAYLOAD + rows * Db + S_MAIN) * 4,
+                S_MAIN * rows * PAYLOAD * (2 * Db + 2 * GRAIN))
+
+    cases.append(
+        ("taskbench_blocked", "K4", "src/repro_torch/kernels/csrc/taskbench_blocked.cu",
+         "src/repro/kernels/taskbench_step.py:275",
+         lambda: ops.taskbench_step(srcb, None, wext, actb, **blk_kw),
+         lambda: taskbench_step_blocked_plain(srcb, None, wext, actb, **step_kw),
+         *k4_cost(M)))
     kernels = []
     for kname, tag, source, replaces, kern, plain, nbytes, nops in cases:
         check_close(f"{tag} timing inputs", kern(), plain(), TOL)
         ms = gpu_ms(kern, 200)
-        plain_ms = gpu_ms(plain, 4)
+        # K4's plain version issues ~1100 operations per call, more than
+        # the launch queue holds: its time spans the host's enqueue gaps
+        plain_ms = gpu_ms(plain, 2, cover=False) if tag == "K4" else gpu_ms(plain, 4)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
+        per_run = dict(blocked_launches) if tag == "K4" else T_MAIN
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": errs[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "launches_per_run": T_MAIN,
+            "library_ms": None, "launches_per_run": per_run,
         })
-        print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {T_MAIN} "
+        print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {per_run} "
               f"launches per main-path run (plain version {plain_ms * 1e3:.3f} us, "
               f"no yardstick; no single PyTorch call computes it), bound "
               f"{max(t_bytes, t_ops) * 1e3:.3f} us by "
@@ -331,6 +496,53 @@ def main() -> int:
     wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
     print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
           f"K3 {k3_us:.3f} us: device busy share ~{k3_us / wall_us:.4f}")
+    # K4's pipelined phases at their shapes: the boundary buffer (6 * depth
+    # rows) and the interior (the owned W rows)
+    ph = ps_mod._phase_tables(None, wb, depth, "window")
+    state = rand(1, W_MAIN, PAYLOAD)
+    bl, br = rand(1, 3 * depth, PAYLOAD), rand(1, 3 * depth, PAYLOAD)
+    k4 = kernels[3]
+    for phase, fn, rows in (
+            ("boundary", lambda: ops.taskbench_boundary(
+                bl, br, ph.i_bnd, ph.w_bnd, actb, depth=depth, **blk_kw), 6 * depth),
+            ("interior", lambda: ops.taskbench_interior(
+                state, ph.i_int, ph.w_int, actb, depth=depth, **blk_kw), W_MAIN)):
+        ms = gpu_ms(fn, 200)
+        nbytes, nops = k4_cost(rows)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3
+        k4[f"{phase}_ms"], k4[f"{phase}_bound_ms"] = ms, bound
+        print(f"[time] K4 {phase} launch ({rows} rows, S={S_MAIN}): {ms * 1e3:.3f} us, "
+              f"bound {bound * 1e3:.3f} us | {smi}", flush=True)
+    # K4's cost per depth: the full buffer at S = 2 beside S = S_MAIN
+    act2 = torch.ones((1, 2), device=dev)
+    k4["ms_at_S2"] = ms2 = gpu_ms(lambda: ops.taskbench_step(
+        srcb, None, wext, act2, **dict(step_kw, steps_per_launch=2)), 200)
+    per_depth = (k4["ms"] - ms2) / (S_MAIN - 2)
+    print(f"[time] K4 full buffer: S=2 {ms2 * 1e3:.3f} us, S={S_MAIN} "
+          f"{k4['ms'] * 1e3:.3f} us: {per_depth * 1e3:.3f} us per depth, "
+          f"{(ms2 - 2 * per_depth) * 1e3:.3f} us per launch besides | {smi}",
+          flush=True)
+    # one whole pipelined launch (two concatenations, the two phases, the
+    # stitching concatenation), its interior on the same stream or on a
+    # second one: how far the two K4 launches overlap on the card
+    hl, hr = ps_mod._prologue_exchange(state, depth)
+    side = torch.cuda.Stream()
+    for label, stream in (("one stream", None), ("two streams", side)):
+        # ~9 operations per call: 50 calls stay within the launch queue
+        k4[f"pipelined_launch_ms_{label.replace(' ', '_')}"] = ms = gpu_ms(
+            lambda: ps_mod._pipelined_launch(state, hl, hr, actb, ph, depth,
+                                             blk_kw, stream), 50)
+        print(f"[time] pipelined launch, interior on {label}: {ms * 1e3:.3f} us "
+              f"(boundary {k4['boundary_ms'] * 1e3:.3f} + interior "
+              f"{k4['interior_ms'] * 1e3:.3f} us alone) | {smi}", flush=True)
+    for label, key, k4_us in (
+            ("serial", f"pallas_step[S={S_MAIN},serial]", k4["ms"] * 1e3),
+            ("pipelined", f"pallas_step[S={S_MAIN}]",
+             (k4["boundary_ms"] + k4["interior_ms"]) * 1e3)):
+        wall_us = step_wall[(key, W_MAIN, GRAIN)] * 1e6
+        print(f"[time] {key} W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us "
+              f"per timestep, K4 {k4_us / S_MAIN:.3f} us per timestep ({label}): "
+              f"device busy share ~{k4_us / S_MAIN / wall_us:.4f}")
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro.")]

@@ -40,6 +40,7 @@ ENTRIES = {
     "memory_bound": ("memory_bound", (_P, _P, _I, _I, _I, _I, _P)),
     "taskbench_step": ("taskbench_step",
                        (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+    "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.

@@ -1,0 +1,51 @@
+// The gather and onehot combines, shared by the single-step megakernel
+// (taskbench_step.cu) and the temporal-blocked one (taskbench_blocked.cu),
+// so both follow one index rule. The plain PyTorch twin is
+// taskbench_step.py::_slot_combine.
+//
+// Index rule (the reference's, src/repro/kernels/taskbench_step.py):
+//   gather  src[idx] as jnp indexing reads it: a negative index counts once
+//           from the end (i + S), then the row is clamped to [0, S - 1];
+//   onehot  the one-hot matrix (idx == column) matches no column for an
+//           index outside [0, S), so such a slot adds nothing; duplicate
+//           slots merge into one row carrying their summed weight.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tb {
+
+__device__ __forceinline__ int gather_row(int r, int S) {
+  if (r < 0) r += S;
+  return r < 0 ? 0 : (r >= S ? S - 1 : r);
+}
+
+// Weighted sum over the D slots (ir, wr) of one output row, at column c of
+// an S-row, P-column source.
+template <bool ONEHOT>
+__device__ __forceinline__ float combine_slots(const float* __restrict__ src,
+                                               const int* __restrict__ ir,
+                                               const float* __restrict__ wr,
+                                               int S, int P, int D, int c) {
+  float acc = 0.f;
+  for (int j = 0; j < D; ++j) {
+    const int r = ir[j];
+    if constexpr (!ONEHOT) {
+      acc = fmaf(src[static_cast<size_t>(gather_row(r, S)) * P + c], wr[j], acc);
+    } else {
+      // slot j contributes once per distinct in-range row, carrying the
+      // summed weight of every slot that names that row
+      if (r < 0 || r >= S) continue;
+      bool seen = false;
+      for (int i = 0; i < j; ++i) seen |= ir[i] == r;
+      if (seen) continue;
+      float ws = 0.f;
+      for (int i = j; i < D; ++i)
+        if (ir[i] == r) ws += wr[i];
+      acc = fmaf(src[static_cast<size_t>(r) * P + c], ws, acc);
+    }
+  }
+  return acc;
+}
+
+}  // namespace tb

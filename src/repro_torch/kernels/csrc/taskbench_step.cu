@@ -33,9 +33,12 @@
 // broadcast from L1 within a row) and runs the FMA body on them as 4
 // independent register chains. The memory body runs one CTA per output row:
 // the combined row goes to shared memory, then tb::memory_sweep_row sweeps
-// the true payload in shared memory, as K2 does. Gather indices are clamped
-// to [0, S) as XLA's gather clamps, so a bad table cannot read outside src.
+// the true payload in shared memory, as K2 does. Gather and onehot follow
+// the reference's index rule (combine.cuh: negative gather indices count
+// from the end, then clamp; out-of-range onehot slots add nothing), so a
+// bad table cannot read outside src.
 #include "bodies.cuh"
+#include "combine.cuh"
 
 namespace {
 
@@ -48,10 +51,6 @@ constexpr int THREADS = 256;
 constexpr int CHAINS = 4;
 constexpr int TILE = THREADS * CHAINS;  // output elements per compute CTA
 
-__device__ __forceinline__ int clamp_row(int r, int S) {
-  return r < 0 ? 0 : (r >= S ? S - 1 : r);
-}
-
 // The combined value of output element (w, c) of one member; src, idx and
 // wgt already point at the member's slices.
 template <int MODE>
@@ -63,30 +62,16 @@ __device__ __forceinline__ float combine_elem(const float* __restrict__ src,
   if constexpr (MODE == PAIR) {
     return (src[static_cast<size_t>(w) * P + c] +
             src[static_cast<size_t>(W + w) * P + c]) * 0.5f;
-  } else {
+  } else if constexpr (MODE == WINDOW) {
     const float* wr = wgt + static_cast<size_t>(w) * D;
-    const int* ir = MODE == WINDOW ? nullptr : idx + static_cast<size_t>(w) * D;
     float acc = 0.f;
-    for (int j = 0; j < D; ++j) {
-      if constexpr (MODE == WINDOW) {
-        acc = fmaf(src[static_cast<size_t>(w + j) * P + c], wr[j], acc);
-      } else if constexpr (MODE == GATHER) {
-        acc = fmaf(src[static_cast<size_t>(clamp_row(ir[j], S)) * P + c],
-                   wr[j], acc);
-      } else {
-        // ONEHOT: slot j contributes once per distinct row, carrying the
-        // summed weight of every slot that names that row
-        const int r = ir[j];
-        bool seen = false;
-        for (int i = 0; i < j; ++i) seen |= ir[i] == r;
-        if (seen) continue;
-        float ws = 0.f;
-        for (int i = j; i < D; ++i)
-          if (ir[i] == r) ws += wr[i];
-        acc = fmaf(src[static_cast<size_t>(clamp_row(r, S)) * P + c], ws, acc);
-      }
-    }
+    for (int j = 0; j < D; ++j)
+      acc = fmaf(src[static_cast<size_t>(w + j) * P + c], wr[j], acc);
     return acc;
+  } else {
+    return tb::combine_slots<MODE == ONEHOT>(
+        src, idx + static_cast<size_t>(w) * D, wgt + static_cast<size_t>(w) * D,
+        S, P, D, c);
   }
 }
 

@@ -1,7 +1,7 @@
 """Public wrappers over the port's Task Bench kernels.
 
 Counterpart of ``repro.kernels.ops`` (its Task Bench wrappers). One rule for
-all three: a tensor on the CPU goes to the kernel's plain PyTorch version; a
+all of them: a tensor on the CPU goes to the kernel's plain PyTorch version; a
 tensor on the card goes to the CUDA kernel, which launches or raises. There
 is no fallback from the card to the plain version, and a tensor on any
 other device raises. Each kernel's launches are counted in
@@ -17,9 +17,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bodies import apply_body, fma_body, memory_bound
 from repro_torch.kernels.taskbench_compute import taskbench_compute as _compute_kernel
 from repro_torch.kernels.taskbench_step import (
-    check_step_operands,
-    taskbench_step as _step_kernel,
-    taskbench_step_plain,
+    step_on_device,
+    taskbench_step_boundary,
+    taskbench_step_interior,
 )
 
 
@@ -50,19 +50,31 @@ def taskbench_memory(x: torch.Tensor, iterations: int, scratch: int) -> torch.Te
     return out.reshape(shape)
 
 
-def taskbench_step(src, idx, wgt, *, kind: str = "compute_bound",
-                   iterations: int = 16, scratch: int = 2048,
-                   combine: str = "gather", steps_per_launch: int = 1):
-    """One fused Task Bench timestep for K graphs (K3 on the card).
+def taskbench_step(src, idx, wgt, act=None, **kw):
+    """Fused Task Bench timestep(s) for K graphs: K3 on the card, or K4 at
+    ``steps_per_launch > 1`` (which requires the (K, S) ``act`` mask).
 
     See ``repro_torch.kernels.taskbench_step`` for the operand contract;
     the operands are checked on either device.
     """
-    kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
-    if _on_card(src):
-        return _step_kernel(src, idx, wgt, steps_per_launch=steps_per_launch, **kw)
-    check_step_operands(src, idx, wgt, steps_per_launch=steps_per_launch, **kw)
-    return taskbench_step_plain(src, idx, wgt, **kw)
+    _on_card(src)
+    return step_on_device(src, idx, wgt, act, **kw)
+
+
+def taskbench_interior(src, idx, wgt, act, *, depth: int, **kw):
+    """Interior phase of a pipelined blocked launch (owned block only;
+    returns the (K, B - 2*depth, payload) rows valid after S depths).
+    See kernels.taskbench_step.taskbench_step_interior."""
+    _on_card(src)
+    return taskbench_step_interior(src, idx, wgt, act, depth=depth, **kw)
+
+
+def taskbench_boundary(left, right, idx, wgt, act, *, depth: int, **kw):
+    """Boundary phase of a pipelined blocked launch (both 3*depth edge
+    buffers of all K members in ONE launch; returns the new edge rows).
+    See kernels.taskbench_step.taskbench_step_boundary."""
+    _on_card(left)
+    return taskbench_step_boundary(left, right, idx, wgt, act, depth=depth, **kw)
 
 
 def launch_counts() -> Dict[str, int]:

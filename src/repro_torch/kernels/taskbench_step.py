@@ -1,9 +1,11 @@
-"""K3 wrapper: the single-step Task Bench megakernel, and its host operands.
+"""K3 and K4 wrappers: the Task Bench megakernels, and their host operands.
 
-Counterpart of ``repro.kernels.taskbench_step`` at ``steps_per_launch=1``.
-One launch of ``csrc/taskbench_step.cu`` runs one whole timestep for K
-graphs: combine each output row's dependency rows of the previous state,
-then the grain body on the combined row.
+Counterpart of ``repro.kernels.taskbench_step``. One launch of
+``csrc/taskbench_step.cu`` (K3) runs one whole timestep for K graphs:
+combine each output row's dependency rows of the previous state, then the
+grain body on the combined row. One launch of ``csrc/taskbench_blocked.cu``
+(K4, ``steps_per_launch=S > 1``) runs S timesteps on a deep-halo working
+buffer (the contract below).
 
 Operands (``prepare_step_operands`` builds idx/wgt host-side):
 
@@ -20,13 +22,29 @@ Combine modes (``COMBINE_MODES``): window (slot j weighs src row w + j;
 idx unused), gather (src rows idx[w, j]), onehot (the same sum with
 duplicate slots merged, the reference's one-hot matrix product), and pair
 ((src row w + src row W + w) * 0.5, the butterfly plan's mode; idx unused,
-wgt's row count declares W). ``steps_per_launch > 1`` (the reference's
-temporal-blocked kernel) is not ported yet: it raises NotImplementedError.
+wgt's row count declares W). Index rule of gather and onehot, as the
+reference's: a negative gather index counts once from the end (i + S), then
+the row is clamped to [0, S - 1]; an onehot slot outside [0, S) adds
+nothing.
+
+Temporal blocking (``steps_per_launch=S > 1``, K4): square operands, src
+(K, M, payload) and wgt (K, M, D) (every working row carries its own
+weights), a required (K, S) ``act`` mask (member k runs depth d iff
+act[k, d] > 0.5; otherwise its buffer passes through), and the full
+(K, M, payload) buffer after S depths out. The window combine is centred
+and zero-padded: row i sums rows i - h .. i + h (D = 2h + 1).
+Gather/onehot idx address the buffer itself, and may carry a depth axis,
+(K, S, M, D), one table per depth. pair is rejected. The caller slices the
+rows still valid after S depths (each depth's valid span shrinks by the
+pattern's radius per side); ``taskbench_step_interior`` and
+``taskbench_step_boundary`` are the pipelined runtime's two phases.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bodies import apply_body, check_scratch
@@ -39,11 +57,6 @@ KINDS = ("compute_bound", "memory_bound", "empty")
 #: to WEIGHT_DTYPE by finalize_weights, for every operand builder.
 WEIGHT_ACCUM_DTYPE = np.float64
 WEIGHT_DTYPE = np.float32
-
-BLOCKED_NOT_PORTED = (
-    "steps_per_launch > 1 (the temporal-blocked megakernel, the reference's "
-    "_blocked_step_kernel) is not ported yet: ROADMAP.md, port slice 2")
-
 
 def finalize_weights(wgt: np.ndarray) -> np.ndarray:
     """Round host-accumulated combine weights once to the kernel dtype."""
@@ -79,14 +92,16 @@ def prepare_step_operands(dep_lists, width: int, self_pos) -> tuple:
     return idx, finalize_weights(wgt)
 
 
-def check_step_operands(src, idx, wgt, *, combine: str, kind: str,
+def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
                         iterations: int, scratch: int,
                         steps_per_launch: int = 1) -> None:
-    """The reference's operand checks for one step; raises ValueError.
+    """The reference's operand checks; raises ValueError.
 
     Same messages as ``repro.kernels.taskbench_step.taskbench_step_pallas``
-    for an unknown mode, operand rank, K mismatch, pair (S == 2W), window
-    (S >= W + D - 1) and gather/onehot (idx.shape == wgt.shape).
+    (and, at ``steps_per_launch > 1``, its ``_blocked_call``) for an unknown
+    mode, operand rank, K mismatch, pair (S == 2W), window (S >= W + D - 1)
+    and gather/onehot (idx.shape == wgt.shape); blocked: the act mask,
+    square operands, time-varying tables and pair.
     """
     if combine not in COMBINE_MODES:
         raise ValueError(f"unknown combine mode {combine!r}; known {COMBINE_MODES}")
@@ -101,7 +116,23 @@ def check_step_operands(src, idx, wgt, *, combine: str, kind: str,
     if steps_per_launch < 1:
         raise ValueError(f"steps_per_launch must be >= 1, got {steps_per_launch}")
     if steps_per_launch > 1:
-        raise NotImplementedError(BLOCKED_NOT_PORTED)
+        if act is None:
+            raise ValueError("steps_per_launch > 1 requires an act mask")
+        if act.ndim != 2 or act.shape[1] != steps_per_launch:
+            raise ValueError(
+                f"act must be (K, {steps_per_launch}), got {tuple(act.shape)}")
+        _check_blocked_operands(src, idx, wgt, act, combine)
+    else:
+        _check_single_step_operands(src, idx, wgt, combine)
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    if kind == "memory_bound" and iterations > 0:
+        check_scratch(scratch, extra_floats=src.shape[2])
+
+
+def _check_single_step_operands(src, idx, wgt, combine: str) -> None:
     K, S, _ = src.shape
     _, W, D = wgt.shape
     if wgt.shape[0] != K:
@@ -118,18 +149,65 @@ def check_step_operands(src, idx, wgt, *, combine: str, kind: str,
             f"window combine needs src rows >= W + D - 1 = {W + D - 1}, "
             f"got {S} (window D = {D} includes the halo)"
         )
-    if kind not in KINDS:
-        raise ValueError(f"unknown kernel kind {kind!r}")
-    if iterations < 0:
-        raise ValueError("iterations must be >= 0")
-    if kind == "memory_bound" and iterations > 0:
-        check_scratch(scratch, extra_floats=src.shape[2])
+
+
+def _check_blocked_operands(src, idx, wgt, act, combine: str) -> None:
+    K, M, _ = src.shape
+    S = act.shape[1]
+    if combine == "pair":
+        raise ValueError(
+            "pair combine is per-step only (blocked butterfly launches "
+            "use gather/onehot with time-varying tables)")
+    if wgt.ndim == 4:
+        if combine == "window":
+            raise ValueError(
+                "window combine has no time-varying form (halo patterns "
+                "have period 1); use gather or onehot")
+        if tuple(wgt.shape[:3]) != (K, S, M):
+            raise ValueError(
+                f"time-varying tables must be (K, S, M, D) = ({K}, {S}, "
+                f"{M}, ...), got {tuple(wgt.shape)}")
+        if tuple(idx.shape) != tuple(wgt.shape):
+            raise ValueError(
+                f"operand shape mismatch: {tuple(idx.shape)}/{tuple(wgt.shape)}")
+    else:
+        if tuple(wgt.shape[:2]) != (K, M):
+            raise ValueError(
+                f"blocked path needs square operands: src {tuple(src.shape)} vs "
+                f"wgt {tuple(wgt.shape)} (every working row carries its own weights)"
+            )
+        if combine != "window" and tuple(idx.shape) != tuple(wgt.shape):
+            raise ValueError(
+                f"operand shape mismatch: {tuple(idx.shape)}/{tuple(wgt.shape)}")
+    if act.shape[0] != K:
+        raise ValueError(f"act must be (K, S), got {tuple(act.shape)} for K={K}")
+
+
+def _slot_combine(srcf, idx, wgt, onehot: bool) -> torch.Tensor:
+    """Gather/onehot weighted sum of (K, S, P) rows over (K, R, D) slots,
+    under the reference's index rule (see the module docstring)."""
+    K, S = srcf.shape[0], srcf.shape[1]
+    D = wgt.shape[-1]
+    raw = idx.long()
+    rows = torch.where(raw < 0, raw + S, raw).clamp(0, S - 1)
+    w = wgt
+    if onehot:
+        # one weight per distinct in-range row: the one-hot matrix merges
+        # duplicate slots into the slot that names the row first, and an
+        # index outside [0, S) matches none of its columns
+        same = raw[..., :, None] == raw[..., None, :]  # (K, R, D, D)
+        earlier = torch.ones(D, D, dtype=torch.bool, device=srcf.device).tril(-1)
+        first = ~(same & earlier).any(dim=-1) & (raw >= 0) & (raw < S)
+        merged = (same.float() * wgt[..., None, :]).sum(dim=-1)
+        w = torch.where(first, merged, torch.zeros_like(merged))
+    members = torch.arange(K, device=srcf.device)[:, None, None]
+    return (srcf[members, rows] * w[..., None]).sum(dim=2)
 
 
 def taskbench_step_plain(src, idx, wgt, *, kind: str = "compute_bound",
                          iterations: int = 16, scratch: int = 2048,
                          combine: str = "gather") -> torch.Tensor:
-    """Plain PyTorch version of the kernel (operands checked by the caller)."""
+    """Plain PyTorch version of K3 (operands checked by the caller)."""
     K, S, _ = src.shape
     W, D = wgt.shape[1], wgt.shape[2]
     srcf = src.float()
@@ -140,45 +218,69 @@ def taskbench_step_plain(src, idx, wgt, *, kind: str = "compute_bound",
         for j in range(D):
             x = x + srcf[:, j:j + W] * wgt[:, :, j, None]
     else:
-        rows = idx.long().clamp(0, S - 1)
-        w = wgt
-        if combine == "onehot":
-            # one weight per distinct row: the one-hot matrix merges
-            # duplicate slots into the slot that names the row first
-            same = rows[..., :, None] == rows[..., None, :]  # (K, W, D, D)
-            earlier = torch.ones(D, D, dtype=torch.bool, device=src.device).tril(-1)
-            first = ~(same & earlier).any(dim=-1)
-            merged = (same.float() * wgt[..., None, :]).sum(dim=-1)
-            w = torch.where(first, merged, torch.zeros_like(merged))
-        members = torch.arange(K, device=src.device)[:, None, None]
-        x = (srcf[members, rows] * w[..., None]).sum(dim=2)
+        x = _slot_combine(srcf, idx, wgt, combine == "onehot")
     return apply_body(x.to(src.dtype), kind, iterations, scratch)
+
+
+def taskbench_step_blocked_plain(src, idx, wgt, act, *,
+                                 kind: str = "compute_bound",
+                                 iterations: int = 16, scratch: int = 2048,
+                                 combine: str = "gather") -> torch.Tensor:
+    """Plain PyTorch version of K4 (operands checked by the caller)."""
+    M = src.shape[1]
+    time_varying = wgt.ndim == 4
+    buf = src.float()
+    for d in range(act.shape[1]):
+        w = wgt[:, d] if time_varying else wgt
+        if combine == "window":
+            h = (w.shape[2] - 1) // 2
+            work = F.pad(buf, (0, 0, h, h))  # zero rows +-h
+            x = torch.zeros_like(buf)
+            for j in range(w.shape[2]):
+                x = x + work[:, j:j + M] * w[:, :, j, None]
+        else:
+            x = _slot_combine(buf, idx[:, d] if time_varying else idx, w,
+                              combine == "onehot")
+        x = apply_body(x, kind, iterations, scratch)
+        buf = torch.where(act[:, d, None, None] > 0.5, x, buf)
+    return buf.to(src.dtype)
 
 
 _MODE_CODE = {"window": 0, "gather": 1, "onehot": 2, "pair": 3}
 
 
-def taskbench_step(src, idx, wgt, *, kind: str = "compute_bound",
+def _require_card(tensors, dtypes) -> None:
+    src = tensors[0]
+    for t, dtype in zip(tensors, dtypes):
+        if t.device != src.device or t.device.type != "cuda" or t.dtype != dtype:
+            raise ValueError(
+                f"taskbench_step takes float32 src/wgt/act and int32 idx on one "
+                f"CUDA device, got {t.dtype} on {t.device}")
+
+
+def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    iterations: int = 16, scratch: int = 2048,
                    combine: str = "gather",
                    steps_per_launch: int = 1) -> torch.Tensor:
-    """K3: one fused Task Bench timestep for K graphs on the card.
+    """K3 (one timestep) or K4 (``steps_per_launch > 1``) on the card.
 
     Checks the operands as the reference does, then launches
-    ``csrc/taskbench_step.cu``; returns (K, W, payload). Raises on tensors
-    that are not on the card, not contiguous float32 (int32 idx), or not
-    on one device.
+    ``csrc/taskbench_step.cu`` and returns (K, W, payload), or
+    ``csrc/taskbench_blocked.cu`` and returns (K, M, payload). Raises on
+    tensors that are not on the card, not float32 (int32 idx), or not on
+    one device.
     """
-    check_step_operands(src, idx, wgt, combine=combine, kind=kind,
+    check_step_operands(src, idx, wgt, act, combine=combine, kind=kind,
                         iterations=iterations, scratch=scratch,
                         steps_per_launch=steps_per_launch)
     uses_idx = combine in ("gather", "onehot")
+    memory = kind == "memory_bound" and iterations > 0
+    body_iters = iterations if memory or kind == "compute_bound" else 0
+    if steps_per_launch > 1:
+        return _launch_blocked(src, idx if uses_idx else None, wgt, act, combine,
+                               memory, body_iters, scratch)
     tensors = (src, wgt, idx) if uses_idx else (src, wgt)
-    for t, dtype in zip(tensors, (torch.float32, torch.float32, torch.int32)):
-        if t.device != src.device or t.device.type != "cuda" or t.dtype != dtype:
-            raise ValueError(
-                f"taskbench_step takes float32 src/wgt and int32 idx on one "
-                f"CUDA device, got {t.dtype} on {t.device}")
+    _require_card(tensors, (torch.float32, torch.float32, torch.int32))
     K, S, P = src.shape
     W, D = wgt.shape[1], wgt.shape[2]
     if K > 65535:
@@ -186,14 +288,84 @@ def taskbench_step(src, idx, wgt, *, kind: str = "compute_bound",
     src, wgt = src.contiguous(), wgt.contiguous()
     idx = idx.contiguous() if uses_idx else None
     out = torch.empty((K, W, P), dtype=src.dtype, device=src.device)
-    memory = kind == "memory_bound" and iterations > 0
-    fma_iters = iterations if kind == "compute_bound" else 0
     if out.numel():
         with torch.cuda.device(src.device):
             _build.launch("taskbench_step", src.data_ptr(),
                           idx.data_ptr() if uses_idx else None,
                           wgt.data_ptr(), out.data_ptr(), K, S, W, P, D,
-                          _MODE_CODE[combine], int(memory),
-                          iterations if memory else fma_iters, scratch,
+                          _MODE_CODE[combine], int(memory), body_iters,
+                          scratch, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch):
+    """One K4 launch on checked operands; idx is None for window."""
+    tensors = (src, wgt, act) if idx is None else (src, wgt, act, idx)
+    _require_card(tensors, (torch.float32,) * 3 + (torch.int32,))
+    K, M, P = src.shape
+    S, D = act.shape[1], wgt.shape[-1]
+    src, wgt, act = src.contiguous(), wgt.contiguous(), act.contiguous()
+    idx = None if idx is None else idx.contiguous()
+    out = torch.empty_like(src)
+    if out.numel():
+        tmp = torch.empty_like(src)  # the depths' ping-pong partner of out
+        with torch.cuda.device(src.device):
+            _build.launch("taskbench_blocked", src.data_ptr(),
+                          None if idx is None else idx.data_ptr(),
+                          wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                          tmp.data_ptr(), K, M, P, D, S, _MODE_CODE[combine],
+                          int(wgt.ndim == 4), int(memory), iterations, scratch,
                           torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
+                   iterations: int = 16, scratch: int = 2048,
+                   combine: str = "gather",
+                   steps_per_launch: int = 1) -> torch.Tensor:
+    """The step on the tensors' device: K3/K4 on a CUDA tensor (launch or
+    raise); on a CPU tensor the plain version, after the same checks."""
+    kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
+    if src.device.type == "cuda":
+        return taskbench_step(src, idx, wgt, act,
+                              steps_per_launch=steps_per_launch, **kw)
+    check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch, **kw)
+    if steps_per_launch > 1:
+        return taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
+    return taskbench_step_plain(src, idx, wgt, **kw)
+
+
+def taskbench_step_interior(src, idx, wgt, act, *, depth: int,
+                            **kw) -> torch.Tensor:
+    """Interior phase of a pipelined blocked launch (one K4 launch on the
+    card, the plain version on the CPU).
+
+    The working buffer is the owned (K, B, payload) block alone, with
+    per-row tables for it. After S depths the rows whose light cone never
+    left the block survive, [depth, B - depth) with depth = S * r: those
+    are returned, and they depend on no halo. Requires B > 2 * depth.
+    """
+    B = src.shape[1]
+    if B <= 2 * depth:
+        raise ValueError(
+            f"interior phase needs block > 2*depth, got {B} <= {2 * depth}")
+    return step_on_device(src, idx, wgt, act, **kw)[:, depth:B - depth]
+
+
+def taskbench_step_boundary(left, right, idx, wgt, act, *, depth: int, **kw):
+    """Boundary phase of a pipelined blocked launch (one K4 launch on the
+    card, the plain version on the CPU).
+
+    ``left``/``right`` are the (K, 3 * depth, payload) edge buffers, [halo |
+    first 2 * depth owned rows] and [last 2 * depth owned rows | halo],
+    stacked row-wise into one (K, 6 * depth) working buffer; neither side's
+    surviving rows have a light cone that crosses the junction. idx/wgt
+    follow that layout. Returns (left_out, right_out), each the middle
+    (K, depth, payload) rows of its side: the block's new edge rows.
+    """
+    if left.shape != right.shape or left.shape[1] != 3 * depth:
+        raise ValueError(
+            f"boundary buffers must both be (K, {3 * depth}, payload), got "
+            f"{tuple(left.shape)}/{tuple(right.shape)}")
+    out = step_on_device(torch.cat([left, right], dim=1), idx, wgt, act, **kw)
+    return out[:, depth:2 * depth], out[:, 4 * depth:5 * depth]

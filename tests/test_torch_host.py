@@ -175,9 +175,10 @@ def test_registry_and_options():
         get_runtime("fused", device="cpu", use_pallas=True)
     with pytest.raises(ValueError, match="unknown combine option"):
         get_runtime("pallas_step", device="cpu", combine="pair")
-    for s in (2, 8, "auto"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            get_runtime("pallas_step", device="cpu", steps_per_launch=s)
+    for s in (2, 8):
+        get_runtime("pallas_step", device="cpu", steps_per_launch=s, pipeline=False)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        get_runtime("pallas_step", device="cpu", steps_per_launch="auto")
     with pytest.raises(ValueError, match="steps_per_launch must be >= 1"):
         get_runtime("pallas_step", device="cpu", steps_per_launch=0)
     get_runtime("pallas_step", device="cpu", steps_per_launch=1)

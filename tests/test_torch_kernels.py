@@ -143,11 +143,20 @@ def test_step_shape_checks_match_reference(case):
 
 
 def test_step_blocked_is_not_ported():
+    """The blocked path's refusals carry the reference's messages: a depth
+    below 1, no act mask, time-varying tables at one step, pair."""
     src, idx, wgt = _step_operands("gather", 1, 4, 2, 0)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ops.taskbench_step(_t(src), _t(idx), _t(wgt), steps_per_launch=3)
-    with pytest.raises(ValueError, match="steps_per_launch must be >= 1"):
-        ops.taskbench_step(_t(src), _t(idx), _t(wgt), steps_per_launch=0)
+    act = np.ones((1, 3), np.float32)
+    for args, kw in [((src, idx, wgt, None), dict(steps_per_launch=0)),
+                     ((src, idx, wgt, None), dict(steps_per_launch=3)),
+                     ((src, idx[:, None], wgt[:, None], None), {}),
+                     ((src[:, :4], idx, wgt, act), dict(steps_per_launch=3,
+                                                        combine="pair"))]:
+        want = _error(lambda: ref_ops.taskbench_step(
+            *(None if a is None else jnp.asarray(a) for a in args), **kw))
+        got = _error(lambda: ops.taskbench_step(
+            *(None if a is None else _t(a) for a in args), **kw))
+        assert got == want
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
@@ -162,8 +171,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
     src, idx, wgt = (_t(a) for a in _step_operands("gather", 1, 4, 2, 0))
     with pytest.raises(ValueError, match="CUDA device"):
         taskbench_step(src, idx, wgt, combine="gather")
-    assert ops.launch_counts() == {
-        "taskbench_compute": 0, "memory_bound": 0, "taskbench_step": 0}
+    act = torch.ones(1, 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        taskbench_step(src[:, :4], idx, wgt, act, combine="gather", steps_per_launch=3)
+    assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
+                                   "taskbench_step": 0, "taskbench_blocked": 0}
 
 
 def test_ops_route_cpu_tensors_to_the_plain_versions():
