@@ -5,17 +5,22 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build   nvcc builds the four Task Bench kernels (K1 FMA body, K2
-             memory sweep, K3 single-step megakernel, K4 temporal-blocked
-             megakernel) from ``src/``, one nvcc process each, in parallel.
+  1. build   nvcc builds the six kernels (K1 FMA body, K2 memory sweep,
+             K3 single-step megakernel, K4 temporal-blocked megakernel, K5
+             flash attention, K6 decode attention) from ``src/``, one nvcc
+             process per source, all started together.
   2. parity  each kernel against its plain PyTorch version on the card:
              K1-K3 at the main path's width W = 2112 and at W = 65536, K3
              also on out-of-range indices; K4 at the blocked main path's
              buffer (M = 2144 rows) for every combine, fixed and
              time-varying tables, every body, S in {2, 8}, an act mask with
              a masked tail and a frozen member; the pipelined phases
-             stitched together equal to one full K4 launch, bit for bit.
-  3. main    the main path: the 7 halo patterns through ``pallas_step``
+             stitched together equal to one full K4 launch, bit for bit;
+             K5 at the serving prefill (8 x 16 heads x 1024 x 128, causal)
+             and a windowed ragged case, K6 at the serving decode (q 8 x 16
+             x 128 over an 8 x 8 x 1088 x 128 cache, lengths 0 .. 1088,
+             window 0 and 256), each in bf16 and f32.
+  3. main    the Task Bench main path: the 7 halo patterns through ``pallas_step``
              and ``fused(use_kernels=True)`` at W = 2112, T = 1000,
              payload 64, compute_bound grain 64, checked against each
              other and against ``fused(use_kernels=False)``; then
@@ -30,9 +35,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial.
-  5. times   each kernel and its plain version timed with CUDA events at
+  5. serve   the LM serving path: ``repro_torch.launch.serve.serve`` on
+             full-width internlm2-1.8b (24 layers, d_model 2048, f32
+             storage, bf16 compute, random weights from seed 0), batch 8,
+             prompt 1024, 64 tokens greedy. The launch counters, zeroed
+             just before, must read 24 K5 and 24 x 63 K6 (split pass and
+             combine pass each); every step's logits finite; the prefill
+             and 4 decode steps, teacher-forced with the served tokens,
+             held against the same model on its plain path on the card;
+             3 more decode steps under ``torch.profiler`` (device kernels,
+             and host operators by self CPU time).
+  6. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes, beside its bound on this card; K4 as
-             one full launch and as the pipelined phases.
+             one full launch and as the pipelined phases; K5 and K6 at the
+             serving shapes beside ``scaled_dot_product_attention`` on the
+             same inputs (a yardstick only: the port never calls it).
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
@@ -71,6 +88,30 @@ TOL = 1e-5
 # away as the FMA body does; allow ~2 ulp of 0.5 per step.
 TOL_MEMORY_RUN = T_MAIN * 1.2e-7
 S_MAIN = 8  # the blocked main path's steps per launch
+TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
+                     "taskbench_blocked")
+# Published H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet, 700 W).
+BF16_FLOPS_PER_S = 989e12
+# The serving cell: internlm2-1.8b at full width, batch 8, prompt 1024,
+# 64 generated tokens (63 decode steps), greedy.
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "internlm2-1.8b", 8, 1024, 64
+# Attention tolerances (K5, K6 against their plain versions on the same
+# inputs). f32: sums in another order (online softmax by tiles against one
+# dense softmax; K6's query pre-scaled before the product), on outputs of
+# magnitude ~1. bf16: both versions compute in f32 (the same sums in
+# another order, TOL_ATTN_F32 apart) and round once to bf16, so each output
+# is held to TOL_ATTN_F32 plus one bf16 ulp of its own plain value.
+TOL_ATTN_F32 = 2e-5
+# m and l of K6 are f32 in both versions: 1e-5 of max(|value|, 1) (l sums
+# up to 1088 terms in another order; an empty row's m is -1e30 in both).
+TOL_STATS_REL = 1e-5
+# [serve]: the kernel path against the plain path, max |difference| over
+# max |logit|, prefill and 4 teacher-forced decode steps; bf16 activations
+# through 24 layers, where the two attention versions may round an
+# output one bf16 ulp apart and the residual stream carries that on. On the
+# H100 the sound paths read 1.42-1.63% apart, and a control whose K6
+# misses each step's own token read 3.45-10.2% at every decode step.
+TOL_SERVE_REL = 0.025
 BLOCKED_RUNS = (("pipelined", {}), ("serial", {"pipeline": False}))
 
 
@@ -88,6 +129,32 @@ def check_close(name: str, got, want, tol: float) -> float:
     err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
     if not err <= tol:
         fail(f"{name}: max abs error {err} > {tol}")
+    return err
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each |x|, 0 where x is 0: 2^(floor(log2 |x|) - 7)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.double().abs())) - 7)
+
+
+def check_attn(name: str, got, want) -> float:
+    """K5/K6 output against its plain version, element by element:
+    TOL_ATTN_F32 in f32, TOL_ATTN_F32 + one bf16 ulp of the plain value in
+    bf16. Returns the max abs error."""
+    import torch
+
+    if got.dtype != want.dtype:
+        fail(f"{name}: dtype {got.dtype} != {want.dtype}")
+    if want.dtype == torch.float32:
+        return check_close(name, got, want, TOL_ATTN_F32)
+    err = check_close(name, got.float(), want.float(), float("inf"))
+    excess = (got.double() - want.double()).abs() - (TOL_ATTN_F32 + bf16_ulp(want))
+    if excess.numel() and excess.max().item() > 0:
+        i = int(excess.argmax())
+        fail(f"{name}: |got - want| at flat index {i} ({got.flatten()[i].item()} vs "
+             f"{want.flatten()[i].item()}) exceeds {TOL_ATTN_F32} + one bf16 ulp")
     return err
 
 
@@ -139,10 +206,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
     from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
     from repro_torch.core.patterns import halo_radius
     from repro_torch.core.runtimes import pallas_step as ps_mod
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch.serve import _grow_caches, make_prompts, serve
+    from repro_torch.models.model import Model
     from repro_torch.kernels.bodies import apply_body
     from repro_torch.kernels.taskbench_step import (
         taskbench_step_blocked_plain,
@@ -271,8 +345,45 @@ def main() -> int:
                 if not torch.equal(stitched, full):
                     fail(f"K4 phases ({combine} {kind}, side stream "
                          f"{stream is not None}): stitched != full launch")
+    # K5 at the serving prefill and a windowed ragged case; K6 at the
+    # serving decode, lengths from empty to past the capacity
+    def normal(*shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    cfg_serve = get_config(SERVE_ARCH)
+    Hq, Hkv, hd = cfg_serve.n_heads, cfg_serve.n_kv_heads, cfg_serve.head_dim_
+    cap = SERVE_PROMPT + SERVE_GEN
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Sq, Sk, causal, window in ((SERVE_B, SERVE_PROMPT, SERVE_PROMPT, True, 0),
+                                          (2, 1000, 1000, True, 300),
+                                          (2, 77, 1000, False, 0)):
+            q = normal(B, Hq, Sq, hd, dtype=dtype)
+            k, v = normal(B, Hkv, Sk, hd, dtype=dtype), normal(B, Hkv, Sk, hd, dtype=dtype)
+            kw = dict(causal=causal, window=window)
+            errs["flash_attention"] = max(errs["flash_attention"], check_attn(
+                f"K5 {dtype} B={B} Sq={Sq} Sk={Sk} {kw}",
+                ops.flash_attention(q, k, v, **kw), ref.attention_plain(q, k, v, **kw)))
+        lengths = torch.tensor([0, 1, 513, 1024, 1050, cap - 1, cap, cap + 1],
+                               dtype=torch.int32, device=dev)
+        q = normal(len(lengths), Hq, hd, dtype=dtype)
+        kc, vc = (normal(len(lengths), Hkv, cap, hd, dtype=dtype) for _ in range(2))
+        for window in (0, 256):
+            o, m, l = ops.decode_attention(q, kc, vc, lengths, window=window,
+                                           return_stats=True)
+            wo, wm, wl = ref.decode_attention_plain(q, kc, vc, lengths, window=window,
+                                                    return_stats=True)
+            case = f"K6 {dtype} window={window}"
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           check_attn(case, o, wo))
+            for stat, got, want in (("m", m, wm), ("l", l, wl)):
+                rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+                if not rel <= TOL_STATS_REL:
+                    fail(f"{case} {stat}: relative error {rel} > {TOL_STATS_REL}")
+            if l[0].abs().max().item() != 0.0 or o[0].abs().max().item() != 0.0:
+                fail(f"{case}: an empty cache gave l or o != 0")
+    errs["decode_attention_combine"] = errs["decode_attention"]  # K6's two launches
     torch.cuda.synchronize()
-    print(f"[parity] K1 K2 K3 K4 agree with their plain versions, K4's phases "
+    print(f"[parity] K1-K6 agree with their plain versions, K4's phases "
           f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
 
@@ -373,8 +484,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was not launched on the main path")
+        if (n == 0) == (k in TASKBENCH_KERNELS):
+            fail(f"kernel {k}: {n} launches on the Task Bench main path")
     print(f"[main] {len(HALO_PATTERNS)} halo patterns, W={W_MAIN} T={T_MAIN} "
           f"P={PAYLOAD} grain {GRAIN}: pallas_step (window, gather, onehot), "
           f"fused(kernels) and fused(plain) agree; pallas_step(steps_per_launch="
@@ -412,6 +523,121 @@ def main() -> int:
                   f"{metg}, peak {m.peak_flops_per_second / 1e9:.3f} GFLOP/s "
                   f"| {smi}", flush=True)
     print(f"[metg] {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---------------------------------------------------------------- serve
+    t0 = time.perf_counter()
+    n_layers, steps = cfg_serve.n_layers, SERVE_GEN - 1
+    ops.reset_launch_counts()
+    res = serve(cfg_serve, batch=SERVE_B, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                seed=0, verbose=True, device="cuda")
+    torch.cuda.synchronize()
+    serve_launches = ops.launch_counts()
+    want_d = dict.fromkeys(_build.ENTRIES, 0)
+    want_d.update(flash_attention=n_layers, decode_attention=n_layers * steps,
+                  decode_attention_combine=n_layers * steps)
+    if serve_launches != want_d:
+        fail(f"[serve] launches {serve_launches}, expected {want_d}")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or res.poisoned_steps:
+        fail(f"[serve] tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
+    rep = res.report
+    serve_stats = {
+        "prefill_s": res.prefill_s,
+        "prefill_tok_per_s": SERVE_B * SERVE_PROMPT / res.prefill_s,
+        "decode_tok_per_s": res.tokens_per_s,
+        "decode_tok_per_s_steady": rep.tokens_per_s,
+        "step_wall_p50_ms": rep.p50_wall * 1e3,
+        "step_wall_mean_ms": rep.mean_wall * 1e3,
+        "flagged_steps": len(res.flagged_steps),
+    }
+    # the same model (seed 0) through the kernels and through the plain
+    # path, on the served prompts, teacher-forced with the served tokens
+    mem0 = torch.cuda.max_memory_allocated()
+    models = {"kernels": Model(cfg_serve, device=dev, seed=0),
+              "plain": Model(dataclasses.replace(cfg_serve, use_flash=False),
+                             device=dev, seed=0)}
+    prompts = make_prompts(cfg_serve, SERVE_B, SERVE_PROMPT, 0, dev)
+    served = torch.from_numpy(res.tokens).to(dev)
+    state = {}
+    for label, model in models.items():
+        lg, c = model.prefill(prompts)
+        state[label] = [lg], _grow_caches(model, c, SERVE_B, cap)
+    lengths = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+    for i in range(4):
+        for label, model in models.items():
+            lgs, c = state[label]
+            lg, c = model.decode_step(served[:, i:i + 1], lengths, c)
+            state[label] = lgs + [lg], c
+        lengths = lengths + 1
+    serve_rel = []
+    for i, (lk, lp) in enumerate(zip(state["kernels"][0], state["plain"][0])):
+        what = "prefill" if i == 0 else f"decode step {i - 1}"
+        if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())):
+            fail(f"[serve] {what}: non-finite logits")
+        if not torch.equal(lk.argmax(-1), served[:, i]):
+            fail(f"[serve] {what}: the kernel path's argmax differs from the served token")
+        serve_rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
+    if not max(serve_rel) <= TOL_SERVE_REL:
+        fail(f"[serve] kernel vs plain path, max |diff| / max |logit| of the prefill "
+             f"and 4 decode steps: {serve_rel}, above {TOL_SERVE_REL}")
+    agree = [float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+             for lk, lp in zip(state["kernels"][0], state["plain"][0])]
+    # where a decode step's device time goes: 3 more steps of the kernel
+    # path under torch.profiler, its kernels' device times summed by name
+    from torch.profiler import ProfilerActivity, profile
+
+    km, (_, c) = models["kernels"], state["kernels"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(4, 7):
+            _, c = km.decode_step(served[:, i:i + 1], lengths, c)
+            lengths = lengths + 1
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    # and where its host time goes: the operators by self CPU time
+    cpu_avg = prof.key_averages()
+    cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
+    cpu_ops_ms = sum(a.self_cpu_time_total for a in cpu_avg) / 1e3
+    # the prefill again, its bf16 weight copies and libraries now warm
+    t1 = time.perf_counter()
+    km.prefill(prompts)
+    torch.cuda.synchronize()
+    serve_stats["prefill_warm_s"] = time.perf_counter() - t1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    serve_stats["profile_3_steps"] = {
+        "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / window_ms,
+        "top_kernels_ms": {name[:80]: ms for name, ms in top},
+        "cpu_ops_self_ms": cpu_ops_ms,
+        "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
+                            for a in cpu_top}}
+    serve_stats.update(kernel_vs_plain_rel=serve_rel, argmax_agreement=agree,
+                       peak_gib_with_two_models=torch.cuda.max_memory_allocated() / 2**30,
+                       peak_gib_serve=mem0 / 2**30)
+    del models, state
+    torch.cuda.empty_cache()
+    print(f"[serve] 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
+          f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
+    print(f"[serve] the same 3 steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
+          f"in all; the top by self CPU time (ms, calls): "
+          f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
+          flush=True)
+    print(f"[serve] {SERVE_ARCH} ({cfg_serve.n_layers} layers, d_model "
+          f"{cfg_serve.d_model}, bf16 compute), batch "
+          f"{SERVE_B}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: prefill "
+          f"{serve_stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
+          f"warm {serve_stats['prefill_warm_s'] * 1e3:.3f} ms), "
+          f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
+          f"p50 step wall {rep.p50_wall * 1e3:.3f} ms; launches {serve_launches}; "
+          f"kernel vs plain path, max |diff| / max |logit|: {serve_rel} (argmax "
+          f"agreement {agree}); {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({"serve": serve_stats}), flush=True)
 
     # ---------------------------------------------------------------- times
     x = rand(W_MAIN, PAYLOAD)
@@ -543,6 +769,72 @@ def main() -> int:
         print(f"[time] {key} W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us "
               f"per timestep, K4 {k4_us / S_MAIN:.3f} us per timestep ({label}): "
               f"device busy share ~{k4_us / S_MAIN / wall_us:.4f}")
+
+    # K5 and K6 at the serving shapes, beside their bounds and PyTorch's
+    # scaled_dot_product_attention on the same inputs (a yardstick only)
+    gen_t = torch.Generator(device=dev).manual_seed(1)
+
+    def bf16(*shape):
+        return torch.randn(shape, device=dev, generator=gen_t).to(torch.bfloat16)
+
+    B, S = SERVE_B, SERVE_PROMPT
+    q5, k5, v5 = bf16(B, Hq, S, hd), bf16(B, Hkv, S, hd), bf16(B, Hkv, S, hd)
+    nbytes5 = 2 * (2 * q5.numel() + k5.numel() + v5.numel())
+    nops5 = 4 * B * Hq * S * S * hd / 2  # q k^T and p v, causal half
+    q6, kc6, vc6 = bf16(B, Hq, hd), bf16(B, Hkv, cap, hd), bf16(B, Hkv, cap, hd)
+    len6 = torch.randint(S, cap, (B,), device=dev, generator=gen_t, dtype=torch.int32)
+    visible = int(len6.sum())
+    nbytes6 = 2 * 2 * visible * Hkv * hd + 2 * 2 * q6.numel() + 4 * B + 2 * 4 * B * Hq
+    nops6 = 4 * visible * Hq * hd
+    mask6 = (torch.arange(cap, device=dev)[None, :] < len6[:, None])[:, None, None, :]
+    attn_cases = [
+        ("flash_attention", "K5", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:103",
+         lambda: ops.flash_attention(q5, k5, v5, causal=True),
+         lambda: ref.attention_plain(q5, k5, v5, causal=True),
+         lambda: F.scaled_dot_product_attention(q5, k5, v5, is_causal=True,
+                                                enable_gqa=True),
+         nbytes5, nops5, serve_launches["flash_attention"], (20, 3, 50)),
+        ("decode_attention", "K6",
+         "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:76",
+         lambda: ops.decode_attention(q6, kc6, vc6, len6, return_stats=True),
+         lambda: ref.decode_attention_plain(q6, kc6, vc6, len6, return_stats=True),
+         lambda: F.scaled_dot_product_attention(q6[:, :, None], kc6, vc6,
+                                                attn_mask=mask6, enable_gqa=True),
+         nbytes6, nops6, serve_launches["decode_attention"]
+         + serve_launches["decode_attention_combine"], (200, 20, 200)),
+    ]
+    for kname, tag, source, replaces, kern, plain, lib, nbytes, nops, n, reps in attn_cases:
+        got, want = kern(), plain()
+        if tag == "K6":
+            got, want = got[0], want[0]
+        check_attn(f"{tag} timing inputs", got, want)
+        ms, plain_ms, lib_ms = (gpu_ms(fn, r) for fn, r in zip((kern, plain, lib), reps))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / BF16_FLOPS_PER_S * 1e3
+        rec = {
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n, "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        }
+        if tag == "K6":
+            rec["launches_per_run"] = {k: serve_launches[k] for k in
+                                       ("decode_attention", "decode_attention_combine")}
+            rec["decode_share"] = n_layers * ms / (rep.p50_wall * 1e3)
+        else:
+            rec["launches_per_run"] = serve_launches["flash_attention"]
+            rec["prefill_share"] = n_layers * ms / (res.prefill_s * 1e3)
+        kernels.append(rec)
+        print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {n} launches in "
+              f"the serve run (plain version {plain_ms * 1e3:.3f} us, "
+              f"scaled_dot_product_attention {lib_ms * 1e3:.3f} us), bound "
+              f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']} | {smi}", flush=True)
+    print(f"[time] K6 x {n_layers} layers = {kernels[-1]['decode_share']:.4f} of the "
+          f"p50 decode step wall; K5 x {n_layers} = {kernels[-2]['prefill_share']:.4f} "
+          f"of the prefill wall", flush=True)
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro.")]

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry -> (library, argument types). The entry is named after the
 #: Python wrapper that calls it.
 ENTRIES = {
@@ -41,6 +41,11 @@ ENTRIES = {
     "taskbench_step": ("taskbench_step",
                        (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
+    "flash_attention": ("flash_attention", (_P,) * 4 + (_I,) * 8 + (_F, _I, _P)),
+    # K6 is two launches, the split pass and the combine pass, counted apart
+    "decode_attention": ("decode_attention",
+                         (_P,) * 7 + (_I,) * 6 + (_F, _I, _I, _I, _P)),
+    "decode_attention_combine": ("decode_attention", (_P,) * 6 + (_I,) * 4 + (_P,)),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.

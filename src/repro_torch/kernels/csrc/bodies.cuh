@@ -9,6 +9,8 @@
 
 #include <cuda_runtime.h>
 
+#include "error.cuh"
+
 namespace tb {
 
 // x <- A*x + B. A = 0.5 is a power of two, so A*x is exact and fmaf rounds
@@ -78,9 +80,3 @@ __device__ __forceinline__ void memory_sweep_row(const float* row, float* out,
 }
 
 }  // namespace tb
-
-// Each shared library is built from exactly one .cu file that includes this
-// header, so this C entry is defined once per library.
-extern "C" const char* tb_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

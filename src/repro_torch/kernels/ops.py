@@ -1,20 +1,25 @@
-"""Public wrappers over the port's Task Bench kernels.
+"""Public wrappers over the port's kernels: Task Bench's and attention's.
 
-Counterpart of ``repro.kernels.ops`` (its Task Bench wrappers). One rule for
-all of them: a tensor on the CPU goes to the kernel's plain PyTorch version; a
-tensor on the card goes to the CUDA kernel, which launches or raises. There
-is no fallback from the card to the plain version, and a tensor on any
-other device raises. Each kernel's launches are counted in
-``_build.LAUNCHES`` (see `launch_counts`), by the wrapper that launches it.
+Counterpart of ``repro.kernels.ops`` (its Task Bench and attention
+wrappers). One rule for all of them: a tensor on the CPU goes to the
+kernel's plain PyTorch version; a tensor on the card goes to the CUDA
+kernel, which launches or raises. There is no fallback from the card to the
+plain version, and a tensor on any other device raises. The attention
+wrappers also take ``use_kernel=False``, which runs the plain version on
+either device, as the reference's does. Each kernel's launches are counted
+in ``_build.LAUNCHES`` (see `launch_counts`), by the wrapper that launches
+it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.bodies import apply_body, fma_body, memory_bound
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.taskbench_compute import taskbench_compute as _compute_kernel
 from repro_torch.kernels.taskbench_step import (
     step_on_device,
@@ -75,6 +80,35 @@ def taskbench_boundary(left, right, idx, wgt, act, *, depth: int, **kw):
     See kernels.taskbench_step.taskbench_step_boundary."""
     _on_card(left)
     return taskbench_step_boundary(left, right, idx, wgt, act, depth=depth, **kw)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """Attention over q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D): K5 on the
+    card, ``ref.attention_plain`` on the CPU or with ``use_kernel=False``."""
+    if use_kernel and _on_card(q):
+        return _flash_kernel(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    return ref.attention_plain(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, *, sm_scale: Optional[float] = None,
+                     window: int = 0, return_stats: bool = False,
+                     use_kernel: bool = True):
+    """Returns o (B, Hq, D), or (o, m, l) softmax stats with
+    ``return_stats=True`` (the stats feed an lse-combine across cache
+    shards): K6 on the card, ``ref.decode_attention_plain`` on the CPU or
+    with ``use_kernel=False``."""
+    if not (use_kernel and _on_card(q)):
+        return ref.decode_attention_plain(q, k_cache, v_cache, lengths,
+                                          sm_scale=sm_scale, window=window,
+                                          return_stats=return_stats)
+    o, m, l = _decode_kernel(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
+                             window=window)
+    return (o, m, l) if return_stats else o
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,11 +1,18 @@
-"""Plain PyTorch oracles for the Task Bench kernels.
+"""Plain PyTorch oracles: the Task Bench kernels' and the attention kernels'.
 
-Counterpart of the Task Bench part of ``repro.kernels.ref``. These re-derive
-the semantics independently of ``kernels/bodies.py`` (which the runtimes
-and the CUDA kernels' plain versions share), so a test can catch a
-regression in the shared bodies.
+Counterpart of ``repro.kernels.ref``. The Task Bench oracles re-derive the
+semantics independently of ``kernels/bodies.py`` (which the runtimes and
+the CUDA kernels' plain versions share), so a test can catch a regression
+in the shared bodies. ``attention_plain`` and ``decode_attention_plain``
+are the plain versions of K5 and K6 (``ops.flash_attention`` and
+``ops.decode_attention`` run them on CPU tensors and with
+``use_kernel=False``), written from ``attention_ref`` and
+``decode_attention_ref``.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -53,3 +60,72 @@ def taskbench_step_ref(src, idx, wgt, *, kind: str = "compute_bound",
             raise ValueError(f"unknown kernel kind {kind!r}")
         outs.append(x)
     return torch.stack(outs)
+
+
+# --------------------------------------------------------------- attention
+
+NEG_INF = -1e30
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Dense masked softmax attention, f32 inside, q's dtype out.
+
+    q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D); query head h reads key head
+    h // (Hq // Hkv). Row i sees key j when j <= i (causal) and
+    i - j < window (window > 0); a row that sees nothing gives 0.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    kx = k.repeat_interleave(G, dim=1).float()
+    vx = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * sm_scale
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window > 0:
+        mask &= (qi - kj) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           sm_scale: Optional[float] = None, window: int = 0,
+                           return_stats: bool = False):
+    """One query per head over a cache: q (B, Hq, D), caches (B, Hkv, S, D),
+    lengths (B,). Position p of sequence b is visible when p < lengths[b]
+    and (window > 0) p >= lengths[b] - window. Returns o in q's dtype, or
+    (o, m, l) with the f32 softmax max and sum per (b, head); a sequence
+    that sees nothing gives o = 0, l = 0, m = -1e30.
+    """
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    kx = k_cache.repeat_interleave(G, dim=1).float()
+    vx = v_cache.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), kx) * sm_scale
+    pos = torch.arange(S, device=q.device)[None, :]
+    lengths = lengths.to(q.device)[:, None]
+    valid = pos < lengths
+    if window > 0:
+        valid &= pos >= lengths - window
+    valid = valid[:, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    lsafe = torch.where(l == 0.0, 1.0, l)
+    o = (torch.einsum("bhs,bhsd->bhd", p, vx) / lsafe[..., None]).to(q.dtype)
+    if return_stats:
+        return o, m, l
+    return o

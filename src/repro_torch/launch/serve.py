@@ -1,0 +1,206 @@
+"""Batched serving loop: prefill a prompt batch, decode tokens step by step.
+
+Counterpart of ``repro.launch.serve`` on one device. The serving path runs
+the KV caches, the flash attention kernel (K5) in prefill and the decode
+attention kernel (K6) in every decode step. The OverheadProfiler reports
+per-token dispatch overhead — the serving analogue of the paper's per-task
+overhead measurement, where a "task" is one decode step of one sequence.
+Each decode step's wall ends with a ``torch.cuda.synchronize()``. Weights
+are random, drawn from ``seed``; prompts from ``seed + 1``; sampling (when
+not greedy) from ``seed + 2``. The reference's ``mesh`` option is not
+ported yet (ROADMAP Queue 1 item 8).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+      --batch 8 --prompt-len 1024 --gen 64          # on the card
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import ARCHS, get_config
+from repro_torch.core.instrumentation import OverheadProfiler
+from repro_torch.models.model import Model
+from repro_torch.resilience import DEFAULT_DEADLINE_FACTOR, DeadlineDetector
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: np.ndarray  # (B, gen)
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float
+    report: Optional[Any]
+    #: decode steps whose wall blew the self-calibrated deadline
+    #: (resilience.DeadlineDetector): [{step, wall_us, deadline_us,
+    #: overshoot_us}] — a stalled step is REPORTED, never silently absorbed
+    flagged_steps: List[dict] = dataclasses.field(default_factory=list)
+    #: decode steps whose logits carried NaN/Inf (poisoned output)
+    poisoned_steps: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def healthy(self) -> bool:
+        return not self.flagged_steps and not self.poisoned_steps
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                 device) -> torch.Tensor:
+    """The (batch, prompt_len) random prompts `serve` runs for ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab, (batch, prompt_len), dtype=torch.int64,
+                         generator=gen, device=device)
+
+
+def serve(
+    cfg: ModelConfig,
+    *,
+    batch: int,
+    prompt_len: int,
+    gen: int,
+    seed: int = 0,
+    greedy: bool = True,
+    temperature: float = 1.0,
+    verbose: bool = True,
+    deadline_factor: Optional[float] = None,
+    device: str = "cuda",
+) -> ServeResult:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
+    ``gen - 1`` more tokens per sequence (the first comes from the prefill's
+    logits). Runs on the card unless ``device="cpu"``; raises when asked
+    for the card and none is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("serve(device='cuda') needs a CUDA card; pass "
+                               "device='cpu' to run the plain path on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    model = Model(cfg, device=dev, seed=seed)
+    capacity = prompt_len + gen
+    prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
+    sampler = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(prompts)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    # prefill caches hold exactly prompt_len entries; grow to capacity
+    caches = _grow_caches(model, caches, batch, capacity)
+
+    profiler = OverheadProfiler(
+        devices=1,
+        tasks_per_step=batch,  # one "task" = one sequence's token step
+        tokens_per_step=batch,  # each decode step emits one token per seq
+        device=str(dev),
+    )
+    # deadline detector around each decode step: no cost model prices a
+    # decode step, so it self-calibrates from the run's own clean walls.
+    # Step 0 carries the first launches (and, on the card, the kernels'
+    # first load): its wall is excluded from the calibration median.
+    detector = DeadlineDetector(factor=deadline_factor or DEFAULT_DEADLINE_FACTOR)
+    detector.note_recompile_boundary()
+    flagged: List[dict] = []
+    poisoned: List[int] = []
+    lengths = torch.full((batch,), prompt_len, dtype=torch.int32, device=dev)
+    tok = logits.argmax(dim=-1)[:, None]
+    out: List[torch.Tensor] = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        t1 = time.perf_counter()
+        lg, caches = model.decode_step(tok, lengths, caches)
+        # argmax of poisoned logits still yields a legal token id, so
+        # health is read off the logits
+        bad = ~torch.isfinite(lg).all()
+        if greedy:
+            tok = lg.argmax(dim=-1)[:, None]
+        else:
+            tok = torch.multinomial(torch.softmax(lg / temperature, dim=-1), 1,
+                                    generator=sampler)
+        _sync(dev)
+        wall = time.perf_counter() - t1
+        profiler.record(wall)
+        det = detector.observe(wall * 1e6)
+        if det is not None:
+            flagged.append({"step": i, "wall_us": det.wall_us,
+                            "deadline_us": det.deadline_us,
+                            "overshoot_us": det.overshoot_us})
+            profiler.flagged.append(i)
+        if bool(bad):
+            poisoned.append(i)
+            profiler.poisoned.append(i)
+        lengths = lengths + 1
+        out.append(tok)
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+
+    report = profiler.report() if profiler.records else None
+    tps = batch * (gen - 1) / decode_s if decode_s > 0 else 0.0
+    if verbose:
+        # the report's tokens_per_s is steady-state (warmup step dropped);
+        # this one includes it, matching the returned decode_s
+        print(f"prefill: {prefill_s*1e3:.1f} ms for {batch}x{prompt_len} "
+              f"({batch*prompt_len/max(prefill_s,1e-9):.0f} tok/s)")
+        print(f"decode : {decode_s*1e3:.1f} ms for {batch}x{gen-1} "
+              f"({tps:.0f} tok/s)")
+        if report:
+            print("\n-- per-token overhead (paper methodology, §3) --")
+            for line in report.lines():
+                print("  " + line)
+        for f in flagged:
+            print(f"WARNING: decode step {f['step']} blew its deadline: "
+                  f"{f['wall_us']:.0f}us > {f['deadline_us']:.0f}us")
+        for i in poisoned:
+            print(f"WARNING: decode step {i} produced non-finite logits")
+    return ServeResult(tokens=tokens, prefill_s=prefill_s, decode_s=decode_s,
+                       tokens_per_s=tps, report=report, flagged_steps=flagged,
+                       poisoned_steps=poisoned)
+
+
+def _grow_caches(model: Model, caches, batch: int, capacity: int):
+    """Copy prefill caches (length = prompt_len) into capacity-sized buffers
+    (zeros past the prompt), along the sequence dim of each K and V."""
+    full = model.init_caches(batch, capacity)
+    for dst, src in zip(full, caches):
+        for name, t in src["attn"].items():
+            dst["attn"][name][:, :, :t.shape[2]] = t
+    return full
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sample", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+                seed=args.seed, greedy=not args.sample, device=args.device)
+    print(f"\ngenerated tokens (first 2 rows): {res.tokens[:2].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
 plain PyTorch version, the pipelined phases and schedule against the serial
-ones bit for bit, and the runtimes on the card against the CPU plain path. Every test carries the ``gpu`` marker and skips without a card.
+ones bit for bit, the runtimes on the card against the CPU plain path, and
+the LM serving path (K5, K6) on the card against the same weights on the
+CPU. Every test carries the ``gpu`` marker and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,7 +15,10 @@ import torch
 
 from repro_torch.core import KernelSpec, TaskGraph, get_runtime
 from repro_torch.core.runtimes import pallas_step as ps
-from repro_torch.kernels import ops
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.launch.serve import _grow_caches
+from repro_torch.models.model import Model
 from repro_torch.kernels.bodies import apply_body
 from repro_torch.kernels.taskbench_step import (
     taskbench_step_blocked_plain,
@@ -207,3 +212,120 @@ def test_pipelined_pallas_step_equals_serial_on_card(cuda, pattern, S):
                              steps_per_launch=S, pipeline=False).execute(g)
         assert np.array_equal(got, serial)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------ attention (K5, K6)
+#
+# Tolerances, against the plain version on the same inputs. f32: the same
+# sums in another order (online softmax by tiles against one dense
+# softmax; the K6 query pre-scaled before the product), atol 2e-5 on
+# outputs of magnitude ~1. bf16: both compute in f32 (those sums, 2e-5
+# apart) and round once to bf16, so each output is held to 2e-5 plus one
+# bf16 ulp of its own plain value, 2^(floor(log2 |want|) - 7).
+
+
+def _attn_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = torch.full(want.shape, 2e-5, dtype=torch.float64, device=want.device)
+    if want.dtype == torch.bfloat16:
+        tol += torch.exp2(torch.floor(torch.log2(want.double().abs())) - 7)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+def _normal(shape, seed, device, dtype):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 5), (False, 70)])
+@pytest.mark.parametrize("group,seq,D", [(1, 13, 16), (2, 100, 64), (4, 200, 128),
+                                         (2, 65, 80), (1, 70, 256)])
+def test_flash_kernel_matches_plain(cuda, dtype, causal, window, group, seq, D):
+    q = _normal((2, 2 * group, seq, D), 1, cuda, dtype)
+    k, v = _normal((2, 2, seq, D), 2, cuda, dtype), _normal((2, 2, seq, D), 3, cuda, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    _attn_close(got, ref.attention_plain(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(9, 40), (64, 200), (130, 129)])
+def test_flash_kernel_with_other_query_and_key_lengths(cuda, dtype, sq, sk):
+    q = _normal((1, 4, sq, 128), 4, cuda, dtype)
+    k, v = _normal((1, 2, sk, 128), 5, cuda, dtype), _normal((1, 2, sk, 128), 6, cuda, dtype)
+    for causal, window in ((True, 0), (False, 0), (True, 17)):
+        _attn_close(ops.flash_attention(q, k, v, causal=causal, window=window, sm_scale=0.2),
+                    ref.attention_plain(q, k, v, causal=causal, window=window, sm_scale=0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 3, 300])
+@pytest.mark.parametrize("group,S,D", [(1, 24, 16), (2, 1088, 128), (4, 300, 80),
+                                       (8, 700, 64), (2, 40, 256)])
+def test_decode_kernel_matches_plain(cuda, dtype, window, group, S, D):
+    """o, m and l at lengths 0, 1, S - 1, S and one past S."""
+    B, Hkv = 5, 2
+    q = _normal((B, Hkv * group, D), 7, cuda, dtype)
+    kc, vc = _normal((B, Hkv, S, D), 8, cuda, dtype), _normal((B, Hkv, S, D), 9, cuda, dtype)
+    lengths = torch.tensor([0, 1, S - 1, S, S + 1], dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()
+    o, m, l = ops.decode_attention(q, kc, vc, lengths, window=window, return_stats=True)
+    after = ops.launch_counts()
+    assert after["decode_attention"] == before["decode_attention"] + 1
+    assert after["decode_attention_combine"] == before["decode_attention_combine"] + 1
+    wo, wm, wl = ref.decode_attention_plain(q, kc, vc, lengths, window=window,
+                                            return_stats=True)
+    _attn_close(o, wo)
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-5, atol=2e-5)
+    assert l[0].abs().max().item() == 0.0 and o[0].abs().max().item() == 0.0
+    assert m[0].max().item() == np.float32(-1e30)
+
+
+def test_attention_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 3, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ops.flash_attention(x, x[:, :2], x[:, :2])
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(*(torch.zeros(1, 2, 4, 24, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(*(torch.zeros(1, 2, 4, 16, device=cuda, dtype=torch.float16),) * 3)
+    c = torch.zeros(1, 1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="group"):
+        ops.decode_attention(torch.zeros(1, 9, 16, device=cuda), c, c,
+                             torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma3-4b"])
+def test_reduced_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
+    """One prefill and 3 decode steps of the reduced model (f32) on the card
+    through K5 and K6, against the same weights on the CPU plain path: K5
+    launches n_layers times, K6 n_layers times per step (split pass and
+    combine pass each)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompts = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))).long()
+    ops.reset_launch_counts()
+    lg, cc = card.prefill(prompts.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, pc = cpu.prefill(prompts)
+    torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+    cc, pc = _grow_caches(card, cc, 2, 16), _grow_caches(cpu, pc, 2, 16)
+    lengths = torch.full((2,), 12, dtype=torch.int32)
+    tok = want.argmax(-1)[:, None]
+    ops.reset_launch_counts()
+    for _ in range(3):
+        lg, cc = card.decode_step(tok.to(cuda), lengths.to(cuda), cc)
+        want, pc = cpu.decode_step(tok, lengths, pc)
+        torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok, lengths = want.argmax(-1)[:, None], lengths + 1
+    counts = ops.launch_counts()
+    assert counts["decode_attention"] == counts["decode_attention_combine"] == 3 * cfg.n_layers
+    assert counts["flash_attention"] == 0

@@ -33,7 +33,10 @@ def test_port_imports_no_jax_and_no_reference_module():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert {"repro_torch.core.runtimes.pallas_step", "repro_torch.kernels._build",
-            "repro_torch.kernels.ops", "repro_torch.core.metg"} <= set(got["modules"])
+            "repro_torch.kernels.ops", "repro_torch.core.metg",
+            "repro_torch.launch.serve", "repro_torch.models.model",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention"} <= set(got["modules"])
 
 
 def _imported_roots(path: Path):

@@ -22,6 +22,8 @@ from repro_torch.kernels.bodies import (
     memory_bound,
     memory_sweep_body,
 )
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.taskbench_compute import taskbench_compute
 from repro_torch.kernels.taskbench_step import (
     taskbench_step,
@@ -174,8 +176,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
     act = torch.ones(1, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         taskbench_step(src[:, :4], idx, wgt, act, combine="gather", steps_per_launch=3)
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention(q[:, :, 0], q, q, torch.ones(1, dtype=torch.int32))
     assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
-                                   "taskbench_step": 0, "taskbench_blocked": 0}
+                                   "taskbench_step": 0, "taskbench_blocked": 0,
+                                   "flash_attention": 0, "decode_attention": 0,
+                                   "decode_attention_combine": 0}
 
 
 def test_ops_route_cpu_tensors_to_the_plain_versions():
