@@ -5,10 +5,11 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build   nvcc builds the six kernels (K1 FMA body, K2 memory sweep,
+  1. build   nvcc builds the eight kernels (K1 FMA body, K2 memory sweep,
              K3 single-step megakernel, K4 temporal-blocked megakernel, K5
-             flash attention, K6 decode attention) from ``src/``, one nvcc
-             process per source, all started together.
+             flash attention, K6 decode attention, K7 SSD intra-chunk, K8
+             RMSNorm) from ``src/``, one nvcc process per source, all
+             started together.
   2. parity  each kernel against its plain PyTorch version on the card:
              K1-K3 at the main path's width W = 2112 and at W = 65536, K3
              also on out-of-range indices; K4 at the blocked main path's
@@ -19,7 +20,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              K5 at the serving prefill (8 x 16 heads x 1024 x 128, causal)
              and a windowed ragged case, K6 at the serving decode (q 8 x 16
              x 128 over an 8 x 8 x 1088 x 128 cache, lengths 0 .. 1088,
-             window 0 and 256), each in bf16 and f32.
+             window 0 and 256), K5 and K6 at hymba-1.5b's (group 5, head
+             dim 64, window 1024); K7 at mamba2-130m's and hymba-1.5b's
+             prefill chunks, at T = 5 and at G = 2, with some dtA <= -30;
+             K8 at mamba2's norm shapes and (37, 1000); each in bf16 and f32.
   3. main    the Task Bench main path: the 7 halo patterns through ``pallas_step``
              and ``fused(use_kernels=True)`` at W = 2112, T = 1000,
              payload 64, compute_bound grain 64, checked against each
@@ -35,21 +39,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial.
-  5. serve   the LM serving path: ``repro_torch.launch.serve.serve`` on
-             full-width internlm2-1.8b (24 layers, d_model 2048, f32
-             storage, bf16 compute, random weights from seed 0), batch 8,
-             prompt 1024, 64 tokens greedy. The launch counters, zeroed
-             just before, must read 24 K5 and 24 x 63 K6 (split pass and
-             combine pass each); every step's logits finite; the prefill
-             and 4 decode steps, teacher-forced with the served tokens,
-             held against the same model on its plain path on the card;
-             3 more decode steps under ``torch.profiler`` (device kernels,
-             and host operators by self CPU time).
+  5. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
+             each at full width and depth, f32 storage, bf16 compute,
+             random weights from seed 0, greedy: [serve] internlm2-1.8b,
+             batch 8, prompt 1024, 64 tokens (launches: 24 K5, 24 x 63 K6
+             split + combine); [serve-ssm] mamba2-130m, batch 8, prompt
+             1024, 64 tokens (24 K7 in the prefill, nothing in decode);
+             [serve-hybrid] hymba-1.5b, batch 4, prompt 1024, 16 tokens
+             (32 K5 + 32 K7, 32 x 15 K6 split + combine). For each, the
+             launch counters, zeroed just before, must read exactly that;
+             every step's logits finite; the prefill and 4 decode steps,
+             teacher-forced with the served tokens, held against the same
+             model on its plain path on the card; 3 more decode steps
+             under ``torch.profiler`` (device kernels, and host operators
+             by self CPU time); the prefill again, warm. Then [norm]:
+             ``ops.rmsnorm``, K8's one entry point (the models call its
+             plain version, as the reference's do), at mamba2's norm
+             shapes, 2 launches.
   6. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes, beside its bound on this card; K4 as
              one full launch and as the pipelined phases; K5 and K6 at the
              serving shapes beside ``scaled_dot_product_attention`` on the
-             same inputs (a yardstick only: the port never calls it).
+             same inputs, K8 beside ``rms_norm`` (yardsticks only: the port
+             never calls them); K7 at the mamba2 prefill's chunks.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
@@ -112,6 +124,32 @@ TOL_STATS_REL = 1e-5
 # H100 the sound paths read 1.42-1.63% apart, and a control whose K6
 # misses each step's own token read 3.45-10.2% at every decode step.
 TOL_SERVE_REL = 0.025
+# The SSM serving cells, at full width and depth: mamba2-130m (24 layers,
+# d_model 768, 24 SSD heads of 64, state 128), batch 8, prompt 1024, 64
+# tokens; hymba-1.5b (32 layers, d_model 1600, 25 query over 5 KV heads,
+# window 1024, 50 SSD heads of 64, state 16), batch 4, prompt 1024, 16
+# tokens, so that decode positions pass the window.
+SSM_ARCH, SSM_B, SSM_PROMPT, SSM_GEN = "mamba2-130m", 8, 1024, 64
+HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN = "hymba-1.5b", 4, 1024, 16
+# [serve-ssm] and [serve-hybrid]: the kernel path against the plain path
+# over the prefill and 4 teacher-forced decode steps, as [serve]: max
+# |difference| / max |logit| ("max") and ||difference|| / ||logits||
+# ("rms"). The SSD runs in f32 there (the conv's f32 bias promotes its
+# output), so K7 and its plain version differ by f32 sums in another order;
+# bf16 roundings downstream carry that on through the layers, and in hymba
+# K5's and K6's bf16 outputs add theirs. On the H100 the sound paths read
+# (the same in every run) mamba2 max 1.35-1.60%, rms 0.90-0.93%, hymba max
+# 2.42-3.12%, rms 2.74-2.88%; a control whose K7 drops its decay mask L read
+# mamba2 max 11.6-15.9%, rms 10.1-16.7%, hymba max 2.72-5.96%, rms
+# 3.22-5.64% at every step. Each limit lies between the two.
+TOL_SERVE_SSM = {"max": 0.025, "rms": 0.015}
+TOL_SERVE_HYB = {"max": 0.035, "rms": 0.031}
+# K7 and K8 against their plain versions: both compute in f32 (FMAs from
+# shared memory against einsums and reductions: the same sums in another
+# order), so an output is held to TOL_F32_SCALED of the output's scale,
+# max(1, max |plain|); a bf16 output is rounded once from those sums, so it
+# also gets one bf16 ulp of its own plain value.
+TOL_F32_SCALED = 2e-5
 BLOCKED_RUNS = (("pipelined", {}), ("serial", {"pipeline": False}))
 
 
@@ -158,9 +196,31 @@ def check_attn(name: str, got, want) -> float:
     return err
 
 
+def check_scaled(name: str, got, want) -> float:
+    """K7/K8 output against its plain version, element by element:
+    TOL_F32_SCALED * max(1, max |want|), plus one bf16 ulp of each plain
+    value in bf16. Returns the max abs error."""
+    import torch
+
+    if got.dtype != want.dtype:
+        fail(f"{name}: dtype {got.dtype} != {want.dtype}")
+    err = check_close(name, got.float(), want.float(), float("inf"))
+    tol = TOL_F32_SCALED * max(1.0, want.double().abs().max().item())
+    excess = (got.double() - want.double()).abs() - tol
+    if want.dtype == torch.bfloat16:
+        excess -= bf16_ulp(want)
+    if excess.numel() and excess.max().item() > 0:
+        i = int(excess.argmax())
+        fail(f"{name}: |got - want| at flat index {i} ({got.flatten()[i].item()} vs "
+             f"{want.flatten()[i].item()}) exceeds {tol}"
+             f"{' + one bf16 ulp' if want.dtype == torch.bfloat16 else ''}")
+    return err
+
+
 def gpu_ms(fn, n: int, cover: bool = True) -> float:
     """Device time of one call of ``fn``, in ms: n calls between two CUDA
-    events, queued behind a device sleep (~0.1 s at the H100's clocks) so
+    events, queued behind a device sleep (at least ~0.1 s at the H100's
+    clocks, and twice the host time one warm call predicts for the n) so
     that the host's enqueue time does not leave the device idle between
     them. Fails if the host took longer to enqueue the calls than the sleep
     lasted. ``cover=False`` drops the sleep, for a function that issues
@@ -172,11 +232,17 @@ def gpu_ms(fn, n: int, cover: bool = True) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    # one warm call's host time (the first calls may load modules)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     t0 = time.perf_counter()
     asleep.record()
     if cover:
-        torch.cuda._sleep(200_000_000)
+        # ~2e6 sleep cycles per ms at the card's clocks
+        torch.cuda._sleep(int(max(200_000_000, 4e6 * host_ms * n)))
     start.record()
     for _ in range(n):
         fn()
@@ -190,6 +256,7 @@ def gpu_ms(fn, n: int, cover: bool = True) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -382,8 +449,65 @@ def main() -> int:
             if l[0].abs().max().item() != 0.0 or o[0].abs().max().item() != 0.0:
                 fail(f"{case}: an empty cache gave l or o != 0")
     errs["decode_attention_combine"] = errs["decode_attention"]  # K6's two launches
+    # K5 and K6 at hymba's shape: GQA group 5, head dim 64, window 1024
+    cfg_hyb = get_config(HYB_ARCH)
+    hq, hkv, hhd, win = (cfg_hyb.n_heads, cfg_hyb.n_kv_heads, cfg_hyb.head_dim_,
+                         cfg_hyb.window)
+    hcap = HYB_PROMPT + HYB_GEN
+    for dtype in (torch.bfloat16, torch.float32):
+        q = normal(HYB_B, hq, HYB_PROMPT, hhd, dtype=dtype)
+        k, v = (normal(HYB_B, hkv, HYB_PROMPT, hhd, dtype=dtype) for _ in range(2))
+        errs["flash_attention"] = max(errs["flash_attention"], check_attn(
+            f"K5 hymba {dtype}", ops.flash_attention(q, k, v, causal=True, window=win),
+            ref.attention_plain(q, k, v, causal=True, window=win)))
+        lengths = torch.tensor([0, 1, win - 1, win, win + 1, hcap], dtype=torch.int32,
+                               device=dev)
+        q = normal(len(lengths), hq, hhd, dtype=dtype)
+        kc, vc = (normal(len(lengths), hkv, hcap, hhd, dtype=dtype) for _ in range(2))
+        errs["decode_attention"] = max(errs["decode_attention"], check_attn(
+            f"K6 hymba {dtype}", ops.decode_attention(q, kc, vc, lengths, window=win),
+            ref.decode_attention_plain(q, kc, vc, lengths, window=win)))
+    errs["decode_attention_combine"] = errs["decode_attention"]
+    # K7 at the serving prefills' chunks (mamba2: BC = 8 x 8 chunks, 24
+    # heads, N 128; hymba: 50 heads, N 16), at a 5-token prompt, with two
+    # groups; some dtA <= -30, whose decays underflow and must stay finite
+    def ssd_inputs(BC, H, G, T, N, P, dtype):
+        x = normal(BC, H, T, P, dtype=dtype)
+        b, c = normal(BC, G, T, N, dtype=dtype), normal(BC, G, T, N, dtype=dtype)
+        dt = torch.rand((BC, H, T), device=dev, generator=gen) * 0.1 + 0.001
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        dta = dt * A[None, :, None]
+        dta[:, :, ::7] = -35.0
+        return x, b, c, dta, dt
+
+    cfg_ssm = get_config(SSM_ARCH)
+    ssd_cases = (
+        ("mamba2", SSM_B * SSM_PROMPT // cfg_ssm.ssm_chunk, cfg_ssm.ssm_heads,
+         cfg_ssm.ssm_groups, cfg_ssm.ssm_chunk, cfg_ssm.ssm_state, cfg_ssm.ssm_head_dim),
+        ("hymba", HYB_B * HYB_PROMPT // cfg_hyb.ssm_chunk, cfg_hyb.ssm_heads,
+         cfg_hyb.ssm_groups, cfg_hyb.ssm_chunk, cfg_hyb.ssm_state, cfg_hyb.ssm_head_dim),
+        ("T=5", 8, 24, 1, 5, 128, 64),
+        ("G=2", 16, 8, 2, 128, 16, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, *shape in ssd_cases:
+            args = ssd_inputs(*shape, dtype=dtype)
+            (y, st), (wy, wst) = ops.ssd_chunk(*args), ref.ssd_chunk_plain(*args)
+            case = f"K7 {label} {dtype} (BC, H, G, T, N, P) = {tuple(shape)}"
+            errs["ssd_chunk"] = max(errs["ssd_chunk"], check_scaled(f"{case} y", y, wy),
+                                    check_scaled(f"{case} state", st, wst))
+    # K8 at mamba2's norm shapes (d_model, and the gated norm over ssm_inner)
+    # and a ragged one, weights in f32 (the model's) and in x's dtype
+    for rows, d in ((SSM_B * SSM_PROMPT, cfg_ssm.d_model),
+                    (SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner), (37, 1000)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = normal(rows, d, dtype=dtype) * 3.0
+            for wdt in (torch.float32, dtype):
+                w = normal(d, dtype=wdt)
+                errs["rmsnorm"] = max(errs["rmsnorm"], check_scaled(
+                    f"K8 ({rows}, {d}) {dtype} w {wdt}", ops.rmsnorm(x, w, 1e-5),
+                    ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
-    print(f"[parity] K1-K6 agree with their plain versions, K4's phases "
+    print(f"[parity] K1-K8 agree with their plain versions, K4's phases "
           f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
 
@@ -525,119 +649,178 @@ def main() -> int:
     print(f"[metg] {time.perf_counter() - t0:.3f} s", flush=True)
 
     # ---------------------------------------------------------------- serve
-    t0 = time.perf_counter()
-    n_layers, steps = cfg_serve.n_layers, SERVE_GEN - 1
-    ops.reset_launch_counts()
-    res = serve(cfg_serve, batch=SERVE_B, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
-                seed=0, verbose=True, device="cuda")
-    torch.cuda.synchronize()
-    serve_launches = ops.launch_counts()
-    want_d = dict.fromkeys(_build.ENTRIES, 0)
-    want_d.update(flash_attention=n_layers, decode_attention=n_layers * steps,
-                  decode_attention_combine=n_layers * steps)
-    if serve_launches != want_d:
-        fail(f"[serve] launches {serve_launches}, expected {want_d}")
-    if res.tokens.shape != (SERVE_B, SERVE_GEN) or res.poisoned_steps:
-        fail(f"[serve] tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
-    rep = res.report
-    serve_stats = {
-        "prefill_s": res.prefill_s,
-        "prefill_tok_per_s": SERVE_B * SERVE_PROMPT / res.prefill_s,
-        "decode_tok_per_s": res.tokens_per_s,
-        "decode_tok_per_s_steady": rep.tokens_per_s,
-        "step_wall_p50_ms": rep.p50_wall * 1e3,
-        "step_wall_mean_ms": rep.mean_wall * 1e3,
-        "flagged_steps": len(res.flagged_steps),
-    }
-    # the same model (seed 0) through the kernels and through the plain
-    # path, on the served prompts, teacher-forced with the served tokens
-    mem0 = torch.cuda.max_memory_allocated()
-    models = {"kernels": Model(cfg_serve, device=dev, seed=0),
-              "plain": Model(dataclasses.replace(cfg_serve, use_flash=False),
-                             device=dev, seed=0)}
-    prompts = make_prompts(cfg_serve, SERVE_B, SERVE_PROMPT, 0, dev)
-    served = torch.from_numpy(res.tokens).to(dev)
-    state = {}
-    for label, model in models.items():
-        lg, c = model.prefill(prompts)
-        state[label] = [lg], _grow_caches(model, c, SERVE_B, cap)
-    lengths = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32, device=dev)
-    for i in range(4):
-        for label, model in models.items():
-            lgs, c = state[label]
-            lg, c = model.decode_step(served[:, i:i + 1], lengths, c)
-            state[label] = lgs + [lg], c
-        lengths = lengths + 1
-    serve_rel = []
-    for i, (lk, lp) in enumerate(zip(state["kernels"][0], state["plain"][0])):
-        what = "prefill" if i == 0 else f"decode step {i - 1}"
-        if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())):
-            fail(f"[serve] {what}: non-finite logits")
-        if not torch.equal(lk.argmax(-1), served[:, i]):
-            fail(f"[serve] {what}: the kernel path's argmax differs from the served token")
-        serve_rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
-    if not max(serve_rel) <= TOL_SERVE_REL:
-        fail(f"[serve] kernel vs plain path, max |diff| / max |logit| of the prefill "
-             f"and 4 decode steps: {serve_rel}, above {TOL_SERVE_REL}")
-    agree = [float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-             for lk, lp in zip(state["kernels"][0], state["plain"][0])]
-    # where a decode step's device time goes: 3 more steps of the kernel
-    # path under torch.profiler, its kernels' device times summed by name
-    from torch.profiler import ProfilerActivity, profile
-
-    km, (_, c) = models["kernels"], state["kernels"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        for i in range(4, 7):
-            _, c = km.decode_step(served[:, i:i + 1], lengths, c)
-            lengths = lengths + 1
+    def serve_path(tag: str, arch: str, batch: int, prompt: int, gen: int,
+                   want: dict, tol: float):
+        """Serve ``arch`` at full width and depth through ``serve`` (random
+        weights from seed 0, greedy), the launch counters zeroed just before
+        and held to ``want`` just after; then the same model through the
+        kernels and through the plain path, teacher-forced with the served
+        tokens (the prefill and 4 decode steps held to ``tol``: limits on
+        max |diff| / max |logit| and ||diff|| / ||logits||, None where a
+        metric is only printed), 3 more
+        decode steps under torch.profiler, and the prefill again, warm.
+        Returns (cfg, serve result, launches, stats)."""
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cap = prompt + gen
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, verbose=True,
+                    device="cuda")
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t1) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    # and where its host time goes: the operators by self CPU time
-    cpu_avg = prof.key_averages()
-    cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
-    cpu_ops_ms = sum(a.self_cpu_time_total for a in cpu_avg) / 1e3
-    # the prefill again, its bf16 weight copies and libraries now warm
-    t1 = time.perf_counter()
-    km.prefill(prompts)
+        launches = ops.launch_counts()
+        want_d = dict.fromkeys(_build.ENTRIES, 0)
+        want_d.update(want)
+        if launches != want_d:
+            fail(f"{tag} launches {launches}, expected {want_d}")
+        if res.tokens.shape != (batch, gen) or res.poisoned_steps:
+            fail(f"{tag} tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
+        rep = res.report
+        stats = {
+            "arch": arch, "batch": batch, "prompt": prompt, "gen": gen,
+            "prefill_s": res.prefill_s,
+            "prefill_tok_per_s": batch * prompt / res.prefill_s,
+            "decode_tok_per_s": res.tokens_per_s,
+            "decode_tok_per_s_steady": rep.tokens_per_s,
+            "step_wall_p50_ms": rep.p50_wall * 1e3,
+            "step_wall_mean_ms": rep.mean_wall * 1e3,
+            "flagged_steps": len(res.flagged_steps),
+            "peak_gib_serve": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        # the same model (seed 0) through the kernels and through the plain
+        # path, on the served prompts, teacher-forced with the served tokens
+        models = {"kernels": Model(cfg, device=dev, seed=0),
+                  "plain": Model(dataclasses.replace(cfg, use_flash=False),
+                                 device=dev, seed=0)}
+        prompts = make_prompts(cfg, batch, prompt, 0, dev)
+        served = torch.from_numpy(res.tokens).to(dev)
+        state = {}
+        for label, model in models.items():
+            lg, c = model.prefill(prompts)
+            state[label] = [lg], _grow_caches(model, c, batch, cap)
+        lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+        for i in range(4):
+            for label, model in models.items():
+                lgs, c = state[label]
+                lg, c = model.decode_step(served[:, i:i + 1], lengths, c)
+                state[label] = lgs + [lg], c
+            lengths = lengths + 1
+        rel, rms = [], []
+        for i, (lk, lp) in enumerate(zip(state["kernels"][0], state["plain"][0])):
+            what = "prefill" if i == 0 else f"decode step {i - 1}"
+            if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())):
+                fail(f"{tag} {what}: non-finite logits")
+            if not torch.equal(lk.argmax(-1), served[:, i]):
+                fail(f"{tag} {what}: the kernel path's argmax differs from the served token")
+            rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
+            rms.append((torch.linalg.vector_norm(lk - lp) / torch.linalg.vector_norm(lp)).item())
+        print(f"{tag} kernel vs plain path, prefill and 4 decode steps: max |diff| / "
+              f"max |logit| {rel} (limit {tol['max']}); ||diff|| / ||logits|| {rms} "
+              f"(limit {tol['rms']})", flush=True)
+        for metric, got in (("max", rel), ("rms", rms)):
+            if tol[metric] is not None and not max(got) <= tol[metric]:
+                fail(f"{tag} kernel vs plain path ({metric}): {got}, above {tol[metric]}")
+        agree = [float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+                 for lk, lp in zip(state["kernels"][0], state["plain"][0])]
+        # where a decode step's device time goes: 3 more steps of the kernel
+        # path under torch.profiler, its kernels' device times summed by name
+        from torch.profiler import ProfilerActivity, profile
+
+        km, (_, c) = models["kernels"], state["kernels"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(4, 7):
+                _, c = km.decode_step(served[:, i:i + 1], lengths, c)
+                lengths = lengths + 1
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t1) * 1e3
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy_ms = sum(by_name.values())
+        # and where its host time goes: the operators by self CPU time
+        cpu_avg = prof.key_averages()
+        cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
+        cpu_ops_ms = sum(a.self_cpu_time_total for a in cpu_avg) / 1e3
+        # the prefill again, its bf16 weight copies and libraries now warm
+        t1 = time.perf_counter()
+        km.prefill(prompts)
+        torch.cuda.synchronize()
+        stats["prefill_warm_s"] = time.perf_counter() - t1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        stats["profile_3_steps"] = {
+            "window_ms": window_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / window_ms,
+            "top_kernels_ms": {name[:80]: ms for name, ms in top},
+            "cpu_ops_self_ms": cpu_ops_ms,
+            "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
+                                for a in cpu_top}}
+        stats.update(kernel_vs_plain_rel=rel, kernel_vs_plain_rms=rms,
+                     argmax_agreement=agree,
+                     peak_gib_with_two_models=torch.cuda.max_memory_allocated() / 2**30)
+        del models, state, c, km
+        torch.cuda.empty_cache()
+        print(f"{tag} 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
+              f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
+              f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
+        print(f"{tag} the same 3 steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
+              f"in all; the top by self CPU time (ms, calls): "
+              f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
+              flush=True)
+        print(f"{tag} {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16 "
+              f"compute), batch {batch}, prompt {prompt}, gen {gen}: prefill "
+              f"{stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
+              f"warm {stats['prefill_warm_s'] * 1e3:.3f} ms), "
+              f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
+              f"p50 step wall {rep.p50_wall * 1e3:.3f} ms; launches {launches}; "
+              f"kernel vs plain path, max |diff| / max |logit|: {rel}, ||diff|| / "
+              f"||logits||: {rms} (argmax agreement {agree}); "
+              f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+        print(json.dumps({tag.strip("[]"): stats}), flush=True)
+        return cfg, res, launches, stats
+
+    n_layers, steps = cfg_serve.n_layers, SERVE_GEN - 1
+    _, res, serve_launches, _ = serve_path(
+        "[serve]", SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN,
+        dict(flash_attention=n_layers, decode_attention=n_layers * steps,
+             decode_attention_combine=n_layers * steps), {"max": TOL_SERVE_REL, "rms": None})
+    rep = res.report
+    # mamba2-130m: K7 once per layer in the prefill, no kernel in decode
+    _, res_ssm, ssm_launches, ssm_stats = serve_path(
+        "[serve-ssm]", SSM_ARCH, SSM_B, SSM_PROMPT, SSM_GEN,
+        dict(ssd_chunk=cfg_ssm.n_layers), TOL_SERVE_SSM)
+    # hymba-1.5b: K5 and K7 once per layer in the prefill, K6 per layer and step
+    hl, hs = cfg_hyb.n_layers, HYB_GEN - 1
+    _, _, hyb_launches, hyb_stats = serve_path(
+        "[serve-hybrid]", HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN,
+        dict(flash_attention=hl, ssd_chunk=hl, decode_attention=hl * hs,
+             decode_attention_combine=hl * hs), TOL_SERVE_HYB)
+
+    # ----------------------------------------------------------------- norm
+    # K8's one entry point, ops.rmsnorm, over mamba2-130m's norm shapes: the
+    # embedded prompts of the served batch (d_model rows) and a gated-norm
+    # input (ssm_inner rows), bf16, with the model's f32 weights
+    t0 = time.perf_counter()
+    emb = Model(cfg_ssm, device=dev, seed=0)
+    xs = [emb.embed[make_prompts(cfg_ssm, SSM_B, SSM_PROMPT, 0, dev)].to(torch.bfloat16)
+          .reshape(-1, cfg_ssm.d_model),
+          normal(SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner, dtype=torch.bfloat16)]
+    ws = [emb.final_norm.detach(), emb.layers[0].ssm.norm_w.detach()]
+    del emb
+    ops.reset_launch_counts()
+    normed = [ops.rmsnorm(x, w, cfg_ssm.norm_eps) for x, w in zip(xs, ws)]
     torch.cuda.synchronize()
-    serve_stats["prefill_warm_s"] = time.perf_counter() - t1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    serve_stats["profile_3_steps"] = {
-        "window_ms": window_ms, "device_busy_ms": busy_ms,
-        "busy_share": busy_ms / window_ms,
-        "top_kernels_ms": {name[:80]: ms for name, ms in top},
-        "cpu_ops_self_ms": cpu_ops_ms,
-        "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
-                            for a in cpu_top}}
-    serve_stats.update(kernel_vs_plain_rel=serve_rel, argmax_agreement=agree,
-                       peak_gib_with_two_models=torch.cuda.max_memory_allocated() / 2**30,
-                       peak_gib_serve=mem0 / 2**30)
-    del models, state
-    torch.cuda.empty_cache()
-    print(f"[serve] 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
-          f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
-    print(f"[serve] the same 3 steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
-          f"in all; the top by self CPU time (ms, calls): "
-          f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
-          flush=True)
-    print(f"[serve] {SERVE_ARCH} ({cfg_serve.n_layers} layers, d_model "
-          f"{cfg_serve.d_model}, bf16 compute), batch "
-          f"{SERVE_B}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: prefill "
-          f"{serve_stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
-          f"warm {serve_stats['prefill_warm_s'] * 1e3:.3f} ms), "
-          f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
-          f"p50 step wall {rep.p50_wall * 1e3:.3f} ms; launches {serve_launches}; "
-          f"kernel vs plain path, max |diff| / max |logit|: {serve_rel} (argmax "
-          f"agreement {agree}); {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
-    print(json.dumps({"serve": serve_stats}), flush=True)
+    norm_launches = ops.launch_counts()
+    if norm_launches != dict(dict.fromkeys(_build.ENTRIES, 0), rmsnorm=len(xs)):
+        fail(f"[norm] launches {norm_launches}")
+    for x, w, o in zip(xs, ws, normed):
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_scaled(
+            f"[norm] {tuple(x.shape)}", o, ref.rmsnorm_plain(x, w, cfg_ssm.norm_eps)))
+    print(f"[norm] ops.rmsnorm over {[tuple(x.shape) for x in xs]} bf16: launches "
+          f"{norm_launches['rmsnorm']} K8, agree with the plain version; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     # ---------------------------------------------------------------- times
     x = rand(W_MAIN, PAYLOAD)
@@ -820,6 +1003,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
         }
+        rec["launches_by_path"] = {"serve": n, "serve-hybrid": hyb_launches[kname] + (
+            hyb_launches["decode_attention_combine"] if tag == "K6" else 0)}
         if tag == "K6":
             rec["launches_per_run"] = {k: serve_launches[k] for k in
                                        ("decode_attention", "decode_attention_combine")}
@@ -836,10 +1021,97 @@ def main() -> int:
           f"p50 decode step wall; K5 x {n_layers} = {kernels[-2]['prefill_share']:.4f} "
           f"of the prefill wall", flush=True)
 
+    # K7 at the mamba2-130m serving prefill's chunks, in the f32 the path
+    # gives it (and in bf16 beside), K8 at mamba2's norm shapes in bf16
+    # beside torch.nn.functional.rms_norm (a yardstick only)
+    def ssd_cost(BC, H, G, T, N, P, item):
+        """(bytes, operations) of one K7 launch: x, B, C, dtA and dt read
+        once, y and the state written once; C B^T once per (chunk, group)
+        over the causal half, then per head the decay mask, the two
+        products (the causal half of Y) and the scalings."""
+        tri = T * (T + 1) // 2
+        nbytes = item * (2 * BC * H * T * P + 2 * BC * G * T * N) + 4 * (
+            2 * BC * H * T + BC * H * N * P)
+        nops = 2 * BC * G * tri * N + BC * H * (tri + 2 * tri * P + 2 * T * N * P
+                                                + T * P + T * N)
+        return nbytes, nops
+
+    shape7 = ssd_cases[0][1:]
+    x7 = ssd_inputs(*shape7, dtype=torch.float32)
+    x7b = tuple(t.to(torch.bfloat16) if i < 3 else t for i, t in enumerate(x7))
+    got, want = ops.ssd_chunk(*x7), ref.ssd_chunk_plain(*x7)
+    check_scaled("K7 timing inputs y", got[0], want[0])
+    check_scaled("K7 timing inputs state", got[1], want[1])
+    ms7 = gpu_ms(lambda: ops.ssd_chunk(*x7), 50)
+    # the plain version issues ~140 operations per call (its cumsum is a
+    # loop over T): its time spans the host's enqueue gaps, as K4's plain
+    plain7 = gpu_ms(lambda: ref.ssd_chunk_plain(*x7), 3, cover=False)
+    ms7b = gpu_ms(lambda: ops.ssd_chunk(*x7b), 50)
+    nbytes, nops = ssd_cost(*shape7, 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
+    nb_b, no_b = ssd_cost(*shape7, 2)
+    bound_b = max(nb_b / HBM_BYTES_PER_S, no_b / BF16_FLOPS_PER_S) * 1e3
+    warm_s = ssm_stats["prefill_warm_s"]
+    rec7 = {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:68",
+        "launches": ssm_launches["ssd_chunk"], "max_abs_err": errs["ssd_chunk"],
+        "ms": ms7, "plain_ms": plain7, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "shape_BC_H_G_T_N_P": list(shape7), "dtype": "float32",
+        "ms_bf16": ms7b, "bound_ms_bf16": bound_b,
+        "launches_by_path": {"serve-ssm": ssm_launches["ssd_chunk"],
+                             "serve-hybrid": hyb_launches["ssd_chunk"]},
+        "prefill_share_warm": cfg_ssm.n_layers * ms7 / (warm_s * 1e3),
+        "prefill_share_cold": cfg_ssm.n_layers * ms7 / (res_ssm.prefill_s * 1e3),
+    }
+    kernels.append(rec7)
+    print(f"[time] K7 ssd_chunk: {ms7 * 1e3:.3f} us per launch at (BC, H, G, T, N, P) = "
+          f"{shape7} f32 ({ms7b * 1e3:.3f} us in bf16, bound {bound_b * 1e3:.3f} us), "
+          f"{rec7['launches']} launches in the serve-ssm run (plain version "
+          f"{plain7 * 1e3:.3f} us, no yardstick; no single PyTorch call computes it), "
+          f"bound {rec7['bound_ms'] * 1e3:.3f} us by {rec7['bound_by']} | {smi}", flush=True)
+    print(f"[time] K7 x {cfg_ssm.n_layers} layers = {rec7['prefill_share_warm']:.4f} of "
+          f"the warm mamba2 prefill wall ({warm_s * 1e3:.3f} ms), "
+          f"{rec7['prefill_share_cold']:.4f} of the cold one", flush=True)
+    rec8 = None
+    for rows, d in ((SSM_B * SSM_PROMPT, cfg_ssm.d_model),
+                    (SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner)):
+        x8 = bf16(rows, d)
+        w8 = bf16(d)
+        check_scaled("K8 timing inputs", ops.rmsnorm(x8, w8, 1e-5),
+                     ref.rmsnorm_plain(x8, w8, 1e-5))
+        ms8 = gpu_ms(lambda: ops.rmsnorm(x8, w8, 1e-5), 200)
+        plain8 = gpu_ms(lambda: ref.rmsnorm_plain(x8, w8, 1e-5), 50)
+        lib8 = gpu_ms(lambda: F.rms_norm(x8, (d,), w8, 1e-5), 200)
+        t_bytes = 2 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * rows * d / BF16_FLOPS_PER_S * 1e3
+        print(f"[time] K8 rmsnorm ({rows}, {d}) bf16: {ms8 * 1e3:.3f} us per launch "
+              f"(plain version {plain8 * 1e3:.3f} us, rms_norm {lib8 * 1e3:.3f} us), "
+              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
+        if rec8 is None:
+            rec8 = {
+                "name": "rmsnorm", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "replaces": "src/repro/kernels/rmsnorm.py:31",
+                "launches": norm_launches["rmsnorm"], "max_abs_err": errs["rmsnorm"],
+                "ms": ms8, "plain_ms": plain8, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib8, "shape": [rows, d], "dtype": "bfloat16",
+                "launches_by_path": {"norm": norm_launches["rmsnorm"]}}
+        else:
+            rec8["gated_shape"] = [rows, d]
+            rec8.update(gated_ms=ms8, gated_plain_ms=plain8, gated_library_ms=lib8,
+                        gated_bound_ms=max(t_bytes, t_ops))
+    kernels.append(rec8)
+
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro.")]
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.3f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,8 @@ ENTRIES = {
     "decode_attention": ("decode_attention",
                          (_P,) * 7 + (_I,) * 6 + (_F, _I, _I, _I, _P)),
     "decode_attention_combine": ("decode_attention", (_P,) * 6 + (_I,) * 4 + (_P,)),
+    "ssd_chunk": ("ssd_chunk", (_P,) * 7 + (_I,) * 7 + (_P,)),
+    "rmsnorm": ("rmsnorm", (_P,) * 3 + (_I, _I, _F, _I, _I, _P)),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.

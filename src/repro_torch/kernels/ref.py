@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles: the Task Bench kernels' and the attention kernels'.
+"""Plain PyTorch oracles: the Task Bench kernels', the attention kernels',
+RMSNorm's and SSD's.
 
 Counterpart of ``repro.kernels.ref``. The Task Bench oracles re-derive the
 semantics independently of ``kernels/bodies.py`` (which the runtimes and
@@ -7,12 +8,15 @@ in the shared bodies. ``attention_plain`` and ``decode_attention_plain``
 are the plain versions of K5 and K6 (``ops.flash_attention`` and
 ``ops.decode_attention`` run them on CPU tensors and with
 ``use_kernel=False``), written from ``attention_ref`` and
-``decode_attention_ref``.
+``decode_attention_ref``; ``rmsnorm_plain`` (K8) and ``ssd_chunk_plain``
+(K7) likewise, from ``rmsnorm_ref`` and ``ssd_chunk_ref``.
+``ssd_sequential_plain`` is the token-by-token recurrence that chunked SSD
+must equal.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -129,3 +133,82 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     if return_stats:
         return o, m, l
     return o
+
+
+# ----------------------------------------------------------------- rmsnorm
+
+
+def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w over the last dim, in f32, cast back
+    to x's dtype."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------- SSD
+
+
+def ssd_chunk_plain(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    dta: torch.Tensor, dt: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD terms for x (BC, H, T, P), b and c (BC, G, T, N),
+    dta and dt (BC, H, T); head h reads group h // (H / G). With
+    a = cumsum(dta) over the chunk, in f32:
+
+      y[i]  = sum_{j <= i} (c_i . b_j) exp(a_i - a_j) dt_j x_j  (x's dtype)
+      state = sum_t exp(a_T - a_t) dt_t b_t (outer) x_t          (f32)
+
+    The cumsum adds in f32 in token order, one token after the other, as
+    K7 does, so that both take the same a: a_i - a_j is a difference of two
+    sums that may be far larger than it (|a| reaches hundreds for strongly
+    decaying heads), and another association of the sum would move it by
+    their rounding. The exponent is masked to -inf above the diagonal
+    before ``exp`` (a_i - a_j > 0 there and may overflow), so no inf meets
+    a 0.
+    """
+    T = x.shape[2]
+    ratio = x.shape[1] // b.shape[1]
+    bh = b.repeat_interleave(ratio, dim=1).float()  # (BC, H, T, N)
+    ch = c.repeat_interleave(ratio, dim=1).float()
+    xf = x.float()
+    dta = dta.float()
+    a = torch.empty_like(dta)  # (BC, H, T)
+    run = torch.zeros_like(dta[..., 0])
+    for t in range(T):
+        run = run + dta[..., t]
+        a[..., t] = run
+    causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    logl = torch.where(causal, a[..., :, None] - a[..., None, :], float("-inf"))
+    scores = torch.einsum("bhin,bhjn->bhij", ch, bh) * torch.exp(logl)
+    y = torch.einsum("bhij,bhjp->bhip", scores, xf * dt.float()[..., None])
+    decay_to_end = torch.exp(a[..., -1:] - a)  # (BC, H, T)
+    bw = bh * (decay_to_end * dt.float())[..., None]
+    state = torch.einsum("bhtn,bhtp->bhnp", bw, xf)
+    return y.to(x.dtype), state
+
+
+def ssd_sequential_plain(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         dta: torch.Tensor, dt: torch.Tensor,
+                         init_state: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token recurrence, the ground truth for chunked SSD: x (B, S,
+    H, P), b and c (B, S, G, N), dta and dt (B, S, H), init_state (B, H, N,
+    P). Returns (y (B, S, H, P) in x's dtype, final state f32).
+
+      S_t = exp(dtA_t) S_{t-1} + dt_t * B_t (outer) x_t ;   y_t = C_t . S_t
+    """
+    Bsz, S, H, P = x.shape
+    N = b.shape[3]
+    ratio = H // b.shape[2]
+    bh = b.repeat_interleave(ratio, dim=2).float()
+    ch = c.repeat_interleave(ratio, dim=2).float()
+    xf, dta, dt = x.float(), dta.float(), dt.float()
+    state = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        state = (torch.exp(dta[:, t])[..., None, None] * state
+                 + torch.einsum("bhn,bhp->bhnp", bh[:, t] * dt[:, t, :, None], xf[:, t]))
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -2,7 +2,11 @@
 
 Counterpart of ``repro.launch.serve`` on one device. The serving path runs
 the KV caches, the flash attention kernel (K5) in prefill and the decode
-attention kernel (K6) in every decode step. The OverheadProfiler reports
+attention kernel (K6) in every decode step; the ``ssm`` and ``hybrid``
+kinds (mamba2-130m, hymba-1.5b) also run the SSD intra-chunk kernel (K7)
+in prefill and carry O(1) SSM states through decode. The ``moe`` and
+``xattn`` kinds and embedding inputs raise ``NotImplementedError``
+(ROADMAP Queue 1 item 12). The OverheadProfiler reports
 per-token dispatch overhead — the serving analogue of the paper's per-task
 overhead measurement, where a "task" is one decode step of one sequence.
 Each decode step's wall ends with a ``torch.cuda.synchronize()``. Weights
@@ -15,6 +19,8 @@ Usage:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --batch 8 --prompt-len 1024 --gen 64          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -171,12 +177,20 @@ def serve(
 
 
 def _grow_caches(model: Model, caches, batch: int, capacity: int):
-    """Copy prefill caches (length = prompt_len) into capacity-sized buffers
-    (zeros past the prompt), along the sequence dim of each K and V."""
+    """Copy prefill caches (length = prompt_len) into capacity-sized buffers.
+
+    Attention K and V grow along the sequence dim (zeros past the prompt);
+    the SSM conv window and state are O(1) and pass through.
+    """
     full = model.init_caches(batch, capacity)
     for dst, src in zip(full, caches):
-        for name, t in src["attn"].items():
-            dst["attn"][name][:, :, :t.shape[2]] = t
+        for part, tensors in src.items():
+            for name, t in tensors.items():
+                d = dst[part][name]
+                if d.shape == t.shape:
+                    dst[part][name] = t.to(d.dtype)
+                else:  # attention K/V: (B, Hkv, S, hd), a prefix along dim 2
+                    d[:, :, :t.shape[2]] = t
     return full
 
 

@@ -3,11 +3,15 @@
 Counterpart of ``repro.models.blocks`` for the kinds the port serves:
 
   attn / local / global   pre-norm self-attention + pre-norm SwiGLU MLP
+  ssm                     pre-norm Mamba-2 mixer (+ MLP only if d_ff > 0)
+  hybrid                  Hymba: attention and SSM heads in parallel on the
+                          same normed input, outputs normed and mixed by
+                          the fuse_a / fuse_s scalars; + MLP
 
-The reference's ``moe``, ``ssm``, ``hybrid`` and ``xattn`` kinds are not
-ported yet (ROADMAP Queue 1 item 12); they raise ``NotImplementedError``.
-Every block returns (x, cache', aux) as the reference's does; aux (the MoE
-load-balancing loss there) is 0 for these kinds.
+The reference's ``moe`` and ``xattn`` kinds are not ported yet (ROADMAP
+Queue 1 item 12); they raise ``NotImplementedError``. Every block returns
+(x, cache', aux) as the reference's does; aux (the MoE load-balancing loss
+there) is 0 for these kinds.
 """
 from __future__ import annotations
 
@@ -17,10 +21,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KINDS, attn_fwd, attn_init, init_cache
+from repro_torch.models import attention
+from repro_torch.models.attention import attn_fwd, attn_init, init_cache
 from repro_torch.models.layers import mlp_fwd, mlp_init, rmsnorm_fwd, rmsnorm_init
+from repro_torch.models.ssm import ssm_cache_init, ssm_fwd, ssm_init
 
 Params = Dict[str, Any]
+KINDS = attention.KINDS + ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -40,18 +47,32 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
                device) -> Params:
     _check_kind(kind)
     d = cfg.d_model
-    return {
-        "norm1": rmsnorm_init(d, dtype, device),
-        "attn": attn_init(gen, cfg, dtype, device),
-        "norm2": rmsnorm_init(d, dtype, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, device),
-    }
+    p: Params = {"norm1": rmsnorm_init(d, dtype, device)}
+    if kind != "ssm":
+        p["attn"] = attn_init(gen, cfg, dtype, device)
+    if kind in ("ssm", "hybrid"):
+        p["ssm"] = ssm_init(gen, cfg, dtype, device)
+    if kind == "hybrid":
+        p["fuse_norm_a"] = rmsnorm_init(d, dtype, device)
+        p["fuse_norm_s"] = rmsnorm_init(d, dtype, device)
+        p["fuse_a"] = torch.full((), 0.5, dtype=torch.float32, device=device)
+        p["fuse_s"] = torch.full((), 0.5, dtype=torch.float32, device=device)
+    if kind != "ssm" or cfg.d_ff:
+        p["norm2"] = rmsnorm_init(d, dtype, device)
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, device)
+    return p
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, capacity: int,
                      dtype, device) -> Params:
     _check_kind(kind)
-    return {"attn": init_cache(cfg, kind, batch, capacity, dtype, device)}
+    cache: Params = {}
+    if kind != "ssm":
+        cache["attn"] = init_cache(cfg, "attn" if kind == "hybrid" else kind, batch,
+                                   capacity, dtype, device)
+    if kind in ("ssm", "hybrid"):
+        cache["ssm"] = ssm_cache_init(cfg, batch, dtype, device)
+    return cache
 
 
 def block_fwd(
@@ -65,10 +86,24 @@ def block_fwd(
 ) -> Tuple[torch.Tensor, Params, torch.Tensor]:
     _check_kind(kind)
     eps = cfg.norm_eps
+    cache = cache or {}
+    new_cache: Params = {}
     h = rmsnorm_fwd(p["norm1"], x, eps)
-    a, c_attn = attn_fwd(p["attn"], h, cfg=cfg, kind=kind, mode=ctx.mode,
-                         positions=ctx.positions, lengths=ctx.lengths,
-                         cache=cache["attn"] if cache else None)
-    x = x + a
-    x = x + mlp_fwd(p["mlp"], rmsnorm_fwd(p["norm2"], x, eps))
-    return x, {"attn": c_attn}, torch.zeros((), dtype=torch.float32, device=x.device)
+    if "attn" in p:
+        # the hybrid's attention heads run as an "attn" layer (cfg.window)
+        a, new_cache["attn"] = attn_fwd(
+            p["attn"], h, cfg=cfg, kind="attn" if kind == "hybrid" else kind,
+            mode=ctx.mode, positions=ctx.positions, lengths=ctx.lengths,
+            cache=cache.get("attn"))
+    if "ssm" in p:
+        s, new_cache["ssm"] = ssm_fwd(p["ssm"], h, cfg=cfg, mode=ctx.mode,
+                                      cache=cache.get("ssm"), lengths=ctx.lengths)
+    if kind == "hybrid":
+        fused = (p["fuse_a"].float() * rmsnorm_fwd(p["fuse_norm_a"], a, eps).float()
+                 + p["fuse_s"].float() * rmsnorm_fwd(p["fuse_norm_s"], s, eps).float())
+        x = x + fused.to(x.dtype)
+    else:
+        x = x + (s if kind == "ssm" else a)
+    if "mlp" in p:
+        x = x + mlp_fwd(p["mlp"], rmsnorm_fwd(p["norm2"], x, eps))
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)

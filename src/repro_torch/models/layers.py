@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import rmsnorm_plain
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -42,10 +44,9 @@ def rmsnorm_init(dim: int, dtype, device) -> torch.Tensor:
 
 
 def rmsnorm_fwd(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """In f32, cast back to x's dtype."""
-    xf = x.float()
-    ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+    """In f32, cast back to x's dtype: K8's plain version. The models call
+    it as the reference's call theirs, never the kernel."""
+    return rmsnorm_plain(x, w, eps)
 
 
 # --------------------------------------------------------------------- RoPE

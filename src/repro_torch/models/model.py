@@ -1,22 +1,24 @@
 """Top-level model: embedding -> decoder layers -> norm -> LM head.
 
 Counterpart of ``repro.models.model`` for serving (prefill and decode) of
-the dense kinds ``attn``, ``local`` and ``global``. The reference stacks
-each layer group's parameters on a leading ``reps`` axis and scans it; the
-port keeps one module per layer (``Model.layers``, in layer order) and
-loops. ``params_from_reference`` and ``caches_from_reference`` /
-``caches_to_reference`` carry weights and KV caches between the two
-layouts.
+the dense kinds ``attn``, ``local`` and ``global``, the Mamba-2 kind
+``ssm`` and the Hymba kind ``hybrid``. The reference stacks each layer
+group's parameters on a leading ``reps`` axis and scans it; the port keeps
+one module per layer (``Model.layers``, in layer order) and loops.
+``params_from_reference`` and ``caches_from_reference`` /
+``caches_to_reference`` carry weights and caches (KV caches, SSM conv
+windows and states) between the two layouts.
 
 Mixed precision as the reference's ``_cast_group``: parameters are stored
-in ``cfg.param_dtype`` (f32); in the layers every matrix (>= 2 dims)
-computes in ``cfg.dtype`` (bf16 at full size) and vectors (the norms) stay
-in f32; the LM head multiplies in f32. The bf16 copies of the matrices are
-made once and kept (``_layer_params``) until a parameter changes, where the
-reference casts them anew in every step. A float32 matrix product must not
-run in TF32 on the card: callers set
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default;
-``launch.serve`` sets it).
+in ``cfg.param_dtype`` (f32); in the layers every matrix (>= 2 dims, the
+SSM's conv taps among them) computes in ``cfg.dtype`` (bf16 at full size)
+and vectors and scalars (the norms, the SSM's A_log, D, dt_bias and conv
+bias, the hybrid's fuse scalars) stay in f32; the LM head multiplies in
+f32. The bf16 copies of the matrices are made once and kept
+(``_layer_params``) until a parameter changes, where the reference casts
+them anew in every step. A float32 matrix product must not run in TF32 on
+the card: callers set ``torch.backends.cuda.matmul.allow_tf32 = False``
+(PyTorch's default; ``launch.serve`` sets it).
 
 Forward modes return:
   prefill  (hidden, caches, aux) from ``forward``; ``prefill`` gives the
@@ -25,10 +27,9 @@ Forward modes return:
            caches, updated in place
 
 Not ported yet, each raising ``NotImplementedError`` when the model is
-built (ROADMAP Queue 1 item 12): the ``moe``, ``ssm``, ``hybrid`` and
-``xattn`` layer kinds, embedding inputs (``embed_inputs``), image tokens
-(``n_image_tokens``), the int8 KV cache (``kv_quant``) and the ``train``
-mode with its loss.
+built (ROADMAP Queue 1 item 12): the ``moe`` and ``xattn`` layer kinds,
+embedding inputs (``embed_inputs``), image tokens (``n_image_tokens``), the
+int8 KV cache (``kv_quant``) and the ``train`` mode with its loss.
 """
 from __future__ import annotations
 
@@ -39,8 +40,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KINDS
-from repro_torch.models.blocks import BlockCtx, block_cache_init, block_fwd, block_init
+from repro_torch.models.blocks import (
+    KINDS,
+    BlockCtx,
+    block_cache_init,
+    block_fwd,
+    block_init,
+)
 from repro_torch.models.layers import dtype_of, embed_init, rmsnorm_fwd, rmsnorm_init
 
 Params = Dict[str, Any]
@@ -135,8 +141,9 @@ class Model(nn.Module):
         return self
 
     def init_caches(self, batch: int, capacity: int) -> List[Params]:
-        """One zeroed {"attn": {"k", "v"}} cache per layer, (B, Hkv, capacity,
-        hd) in ``cfg.dtype``."""
+        """One zeroed cache per layer: {"attn": {"k", "v"}} of (B, Hkv,
+        capacity, hd) in ``cfg.dtype`` for an attention layer, {"ssm":
+        {"conv", "ssd"}} for an SSM layer, both for a hybrid one."""
         dtype = dtype_of(self.cfg.dtype)
         return [block_cache_init(self.cfg, kind, batch, capacity, dtype,
                                  self.embed.device) for kind in self.kinds]
@@ -249,12 +256,23 @@ def params_from_reference(cfg: ModelConfig, params: Params) -> Dict[str, torch.T
     return sd
 
 
+def _map(tree: Params, fn: Callable) -> Params:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _stack(trees: List[Params]) -> Params:
+    """Dicts of one structure -> one dict of their leaves stacked (float32
+    numpy)."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k].float().cpu().numpy() for t in trees])
+            for k, v in trees[0].items()}
+
+
 def caches_from_reference(cfg: ModelConfig, caches) -> List[Params]:
-    """The reference's per-group caches (a tuple per group, one entry per
-    sub-layer, leaves (reps, B, Hkv, S, hd)) as one cache per layer, on the
-    CPU."""
-    return [{"attn": {n: _tensor(np.asarray(caches[gi][i]["attn"][n])[r])
-                      for n in ("k", "v")}}
+    """The reference's per-group caches (a tuple per group, one dict per
+    sub-layer, each leaf with a leading ``reps`` axis) as one cache per
+    layer, on the CPU."""
+    return [_map(caches[gi][i], lambda a, r=r: _tensor(np.asarray(a)[r]))
             for _, gi, i, r in _layer_slots(cfg)]
 
 
@@ -263,11 +281,8 @@ def caches_to_reference(cfg: ModelConfig, caches: List[Params]) -> List[tuple]:
     out = []
     li = 0
     for kinds, reps in cfg.layer_plan():
-        subs = []
-        for i in range(len(kinds)):
-            layers = [caches[li + r * len(kinds) + i]["attn"] for r in range(reps)]
-            subs.append({"attn": {n: np.stack([c[n].float().cpu().numpy() for c in layers])
-                                  for n in ("k", "v")}})
-        out.append(tuple(subs))
-        li += reps * len(kinds)
+        n = len(kinds)
+        out.append(tuple(_stack([caches[li + r * n + i] for r in range(reps)])
+                         for i in range(n)))
+        li += reps * n
     return out

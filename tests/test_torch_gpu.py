@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
 plain PyTorch version, the pipelined phases and schedule against the serial
 ones bit for bit, the runtimes on the card against the CPU plain path, and
-the LM serving path (K5, K6) on the card against the same weights on the
-CPU. Every test carries the ``gpu`` marker and skips without a card.
+the LM serving paths (K5, K6; K7 for the ssm and hybrid kinds) on the card
+against the same weights on the CPU. Every test carries the ``gpu`` marker
+and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -329,3 +330,139 @@ def test_reduced_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
     counts = ops.launch_counts()
     assert counts["decode_attention"] == counts["decode_attention_combine"] == 3 * cfg.n_layers
     assert counts["flash_attention"] == 0
+
+
+def test_attention_kernels_at_hymba_shape(cuda):
+    """GQA group 5 (25 query over 5 KV heads), head dim 64, window 1024:
+    K5 over a 1100-token prompt, K6 at lengths around the window."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _normal((2, 25, 1100, 64), 10, cuda, dtype)
+        k, v = _normal((2, 5, 1100, 64), 11, cuda, dtype), _normal((2, 5, 1100, 64), 12,
+                                                                   cuda, dtype)
+        _attn_close(ops.flash_attention(q, k, v, causal=True, window=1024),
+                    ref.attention_plain(q, k, v, causal=True, window=1024))
+        lengths = torch.tensor([0, 1, 1023, 1024, 1025, 1100], dtype=torch.int32,
+                               device=cuda)
+        q6 = _normal((6, 25, 64), 13, cuda, dtype)
+        kc, vc = _normal((6, 5, 1100, 64), 14, cuda, dtype), _normal((6, 5, 1100, 64), 15,
+                                                                     cuda, dtype)
+        o, m, l = ops.decode_attention(q6, kc, vc, lengths, window=1024, return_stats=True)
+        wo, wm, wl = ref.decode_attention_plain(q6, kc, vc, lengths, window=1024,
+                                                return_stats=True)
+        _attn_close(o, wo)
+        torch.testing.assert_close(m, wm, rtol=1e-5, atol=2e-5)
+        torch.testing.assert_close(l, wl, rtol=1e-5, atol=2e-5)
+
+
+# ----------------------------------------------------------- SSD (K7), RMSNorm (K8)
+#
+# Tolerances, against the plain version on the same inputs. Both compute in
+# f32 (the kernel's FMAs from shared memory against the plain version's
+# einsums: the same sums in another order), so an output is held to 2e-5
+# of the output's scale, max(1, max |plain|); a bf16 y is rounded once from
+# those f32 sums, so it also gets one bf16 ulp of its own plain value.
+
+
+def _scaled_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    tol = 2e-5 * max(1.0, want.double().abs().max().item())
+    tol = torch.full(want.shape, tol, dtype=torch.float64, device=want.device)
+    if want.dtype == torch.bfloat16:
+        tol += torch.exp2(torch.floor(torch.log2(want.double().abs())) - 7)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+def _ssd_inputs(BC, H, G, T, N, P, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    x, b, c = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+               for s in ((BC, H, T, P), (BC, G, T, N), (BC, G, T, N)))
+    dt = rng.uniform(0.001, 0.1, (BC, H, T)).astype(np.float32)
+    dta = dt * -rng.uniform(1.0, 16.0, (1, H, 1)).astype(np.float32)
+    dta[:, :, ::7] = -35.0  # a decay that underflows: must stay finite
+    return x, b, c, torch.from_numpy(dta).to(device), torch.from_numpy(dt).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BC,H,G,T,N,P", [
+    (4, 24, 1, 128, 128, 64),  # mamba2-130m's chunk
+    (2, 50, 1, 128, 16, 64),   # hymba-1.5b's
+    (3, 4, 2, 5, 8, 8),        # a 5-token prompt, two groups
+    (2, 6, 2, 100, 16, 8),     # T not a multiple of the 64-row tile
+    (1, 2, 1, 17, 128, 64)])
+def test_ssd_chunk_kernel_matches_plain(cuda, dtype, BC, H, G, T, N, P):
+    args = _ssd_inputs(BC, H, G, T, N, P, T + N + G, cuda, dtype)
+    before = ops.launch_counts()["ssd_chunk"]
+    y, state = ops.ssd_chunk(*args)
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    wy, ws = ref.ssd_chunk_plain(*args)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    _scaled_close(y, wy)
+    _scaled_close(state, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8192, 768), (37, 1000), (5, 33)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda, dtype)
+    for w_dtype in (torch.float32, torch.bfloat16):
+        w = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(cuda, w_dtype)
+        before = ops.launch_counts()["rmsnorm"]
+        got = ops.rmsnorm(x, w, 1e-5)
+        assert ops.launch_counts()["rmsnorm"] == before + 1
+        _scaled_close(got, ref.rmsnorm_plain(x, w, 1e-5))
+
+
+def test_ssd_and_rmsnorm_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 3, 4, 8, device=cuda)
+    b = torch.zeros(1, 2, 4, 8, device=cuda)
+    d = torch.zeros(1, 3, 4, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ops.ssd_chunk(x, b, b, d, d)
+    with pytest.raises(ValueError, match="share"):
+        ops.ssd_chunk(x, b[:, :1].bfloat16(), b[:, :1], d, d)
+    with pytest.raises(RuntimeError, match="ssd_chunk failed to launch"):
+        big = torch.zeros(1, 1, 512, 512, device=cuda)  # tiles beyond shared memory
+        ops.ssd_chunk(big, big, big, torch.zeros(1, 1, 512, device=cuda),
+                      torch.zeros(1, 1, 512, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rmsnorm(torch.zeros(2, 4, device=cuda, dtype=torch.float16),
+                    torch.ones(4, device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_reduced_ssm_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
+    """One prefill (12 tokens, chunk 8: two chunks) and 3 decode steps of the
+    reduced model (f32) on the card, against the same weights on the CPU
+    plain path: K7 launches n_layers times in the prefill and never in
+    decode; hymba also K5 n_layers times, and K6 per layer and step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    hybrid = arch == "hymba-1.5b"
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompts = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))).long()
+    ops.reset_launch_counts()
+    lg, cc = card.prefill(prompts.to(cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == cfg.n_layers
+    assert counts["flash_attention"] == (cfg.n_layers if hybrid else 0)
+    want, pc = cpu.prefill(prompts)
+    torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+    cc, pc = _grow_caches(card, cc, 2, 16), _grow_caches(cpu, pc, 2, 16)
+    lengths = torch.full((2,), 12, dtype=torch.int32)
+    tok = want.argmax(-1)[:, None]
+    ops.reset_launch_counts()
+    for _ in range(3):
+        lg, cc = card.decode_step(tok.to(cuda), lengths.to(cuda), cc)
+        want, pc = cpu.decode_step(tok, lengths, pc)
+        torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok, lengths = want.argmax(-1)[:, None], lengths + 1
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == counts["flash_attention"] == 0
+    k6 = 3 * cfg.n_layers if hybrid else 0
+    assert counts["decode_attention"] == counts["decode_attention_combine"] == k6

@@ -24,6 +24,8 @@ from repro_torch.kernels.bodies import (
 )
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.taskbench_compute import taskbench_compute
 from repro_torch.kernels.taskbench_step import (
     taskbench_step,
@@ -181,10 +183,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         decode_attention(q[:, :, 0], q, q, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_chunk(q, q[:, :1], q[:, :1], q[..., 0], q[..., 0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rmsnorm(x, torch.ones(8))
     assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
                                    "taskbench_step": 0, "taskbench_blocked": 0,
                                    "flash_attention": 0, "decode_attention": 0,
-                                   "decode_attention_combine": 0}
+                                   "decode_attention_combine": 0, "ssd_chunk": 0,
+                                   "rmsnorm": 0}
 
 
 def test_ops_route_cpu_tensors_to_the_plain_versions():

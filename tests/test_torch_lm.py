@@ -253,9 +253,10 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(ARCH_NAMES) - {
-    "minitron-8b", "stablelm-3b"}))
+    "minitron-8b", "stablelm-3b", "mamba2-130m", "hymba-1.5b"}))
 def test_unported_kinds_raise_not_implemented(arch):
-    """moe, ssm, hybrid, xattn and embedding inputs name the ROADMAP item."""
+    """moe, xattn and embedding inputs name the ROADMAP item (the ssm and
+    hybrid kinds are served: tests/test_torch_ssm_lm.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         Model(get_config(arch).reduced(), device="cpu")
 
