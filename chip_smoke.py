@@ -5,11 +5,12 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build   nvcc builds the eight kernels (K1 FMA body, K2 memory sweep,
-             K3 single-step megakernel, K4 temporal-blocked megakernel, K5
-             flash attention, K6 decode attention, K7 SSD intra-chunk, K8
-             RMSNorm) from ``src/``, one nvcc process per source, all
-             started together.
+  1. build   nvcc builds the kernels (K1 FMA body, K2 memory sweep, K3
+             single-step megakernel, K4 temporal-blocked megakernel, K5
+             flash attention in two forms, bf16 on the tensor cores and
+             f32, K6 decode attention, K7 SSD intra-chunk, K8 RMSNorm)
+             from ``src/``, one nvcc process per source, all started
+             together.
   2. parity  each kernel against its plain PyTorch version on the card:
              K1-K3 at the main path's width W = 2112 and at W = 65536, K3
              also on out-of-range indices; K4 at the blocked main path's
@@ -17,8 +18,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              time-varying tables, every body, S in {2, 8}, an act mask with
              a masked tail and a frozen member; the pipelined phases
              stitched together equal to one full K4 launch, bit for bit;
-             K5 at the serving prefill (8 x 16 heads x 1024 x 128, causal)
-             and a windowed ragged case, K6 at the serving decode (q 8 x 16
+             K5 (both forms) at the serving prefill (8 x 16 heads x 1024 x
+             128, causal) and a windowed ragged case, K6 (one cluster
+             launch) at the serving decode (q 8 x 16
              x 128 over an 8 x 8 x 1088 x 128 cache, lengths 0 .. 1088,
              window 0 and 256), K5 and K6 at hymba-1.5b's (group 5, head
              dim 64, window 1024); K7 at mamba2-130m's and hymba-1.5b's
@@ -42,11 +44,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
   5. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
-             batch 8, prompt 1024, 64 tokens (launches: 24 K5, 24 x 63 K6
-             split + combine); [serve-ssm] mamba2-130m, batch 8, prompt
-             1024, 64 tokens (24 K7 in the prefill, nothing in decode);
-             [serve-hybrid] hymba-1.5b, batch 4, prompt 1024, 16 tokens
-             (32 K5 + 32 K7, 32 x 15 K6 split + combine). For each, the
+             batch 8, prompt 1024, 64 tokens (launches: 24 K5 in its
+             tensor-core form, 24 x 63 K6); [serve-ssm] mamba2-130m, batch
+             8, prompt 1024, 64 tokens (24 K7 in the prefill, nothing in
+             decode); [serve-hybrid] hymba-1.5b, batch 4, prompt 1024, 16
+             tokens (32 K5 in its tensor-core form + 32 K7, 32 x 15 K6).
+             For each, the
              launch counters, zeroed just before, must read exactly that;
              every step's logits finite; the prefill and 4 decode steps,
              teacher-forced with the served tokens, held against the same
@@ -57,11 +60,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
   6. times   each kernel and its plain version timed with CUDA events at
-             the main path's shapes, beside its bound on this card; K4 as
-             one full launch and as the pipelined phases; K5 and K6 at the
-             serving shapes beside ``scaled_dot_product_attention`` on the
-             same inputs, K8 beside ``rms_norm`` (yardsticks only: the port
-             never calls them); K7 at the mamba2 prefill's chunks.
+             the main path's shapes, beside its bound on this card (K2 also
+             beside its shared-memory bound); K4 as one full launch and as
+             the pipelined phases; K5 at internlm2's and hymba's prefill
+             shapes, and K6 at the serving decode warm and L2-cold, beside
+             ``scaled_dot_product_attention`` on the same inputs under
+             PyTorch's choice of backend and each backend pinned
+             (``repro_torch.launch.attention_times``), K8 beside
+             ``rms_norm`` (yardsticks only: the port never calls them); K7
+             at the mamba2 prefill's chunks.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
@@ -217,44 +224,6 @@ def check_scaled(name: str, got, want) -> float:
     return err
 
 
-def gpu_ms(fn, n: int, cover: bool = True) -> float:
-    """Device time of one call of ``fn``, in ms: n calls between two CUDA
-    events, queued behind a device sleep (at least ~0.1 s at the H100's
-    clocks, and twice the host time one warm call predicts for the n) so
-    that the host's enqueue time does not leave the device idle between
-    them. Fails if the host took longer to enqueue the calls than the sleep
-    lasted. ``cover=False`` drops the sleep, for a function that issues
-    more operations than the card's launch queue holds (the enqueue then
-    blocks until the sleep ends): the events then span the host's enqueue
-    gaps too."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    # one warm call's host time (the first calls may load modules)
-    t0 = time.perf_counter()
-    fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    t0 = time.perf_counter()
-    asleep.record()
-    if cover:
-        # ~2e6 sleep cycles per ms at the card's clocks
-        torch.cuda._sleep(int(max(200_000_000, 4e6 * host_ms * n)))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    if cover and enqueue_ms >= asleep.elapsed_time(start):
-        fail(f"enqueueing {n} calls took {enqueue_ms:.3f} ms, longer than the "
-             f"{asleep.elapsed_time(start):.3f} ms device sleep meant to cover it")
-    return start.elapsed_time(end) / n
-
-
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -282,6 +251,7 @@ def main() -> int:
     from repro_torch.core.patterns import halo_radius
     from repro_torch.core.runtimes import pallas_step as ps_mod
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dtype
     from repro_torch.launch.serve import _grow_caches, make_prompts, serve
     from repro_torch.models.model import Model
     from repro_torch.kernels.bodies import apply_body
@@ -289,6 +259,8 @@ def main() -> int:
         taskbench_step_blocked_plain,
         taskbench_step_plain,
     )
+    from repro_torch.launch import attention_times
+    from repro_torch.launch.attention_times import gpu_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,7 +399,8 @@ def main() -> int:
             q = normal(B, Hq, Sq, hd, dtype=dtype)
             k, v = normal(B, Hkv, Sk, hd, dtype=dtype), normal(B, Hkv, Sk, hd, dtype=dtype)
             kw = dict(causal=causal, window=window)
-            errs["flash_attention"] = max(errs["flash_attention"], check_attn(
+            form = K5_FORM[dtype]
+            errs[form] = max(errs[form], check_attn(
                 f"K5 {dtype} B={B} Sq={Sq} Sk={Sk} {kw}",
                 ops.flash_attention(q, k, v, **kw), ref.attention_plain(q, k, v, **kw)))
         lengths = torch.tensor([0, 1, 513, 1024, 1050, cap - 1, cap, cap + 1],
@@ -448,7 +421,6 @@ def main() -> int:
                     fail(f"{case} {stat}: relative error {rel} > {TOL_STATS_REL}")
             if l[0].abs().max().item() != 0.0 or o[0].abs().max().item() != 0.0:
                 fail(f"{case}: an empty cache gave l or o != 0")
-    errs["decode_attention_combine"] = errs["decode_attention"]  # K6's two launches
     # K5 and K6 at hymba's shape: GQA group 5, head dim 64, window 1024
     cfg_hyb = get_config(HYB_ARCH)
     hq, hkv, hhd, win = (cfg_hyb.n_heads, cfg_hyb.n_kv_heads, cfg_hyb.head_dim_,
@@ -457,7 +429,8 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         q = normal(HYB_B, hq, HYB_PROMPT, hhd, dtype=dtype)
         k, v = (normal(HYB_B, hkv, HYB_PROMPT, hhd, dtype=dtype) for _ in range(2))
-        errs["flash_attention"] = max(errs["flash_attention"], check_attn(
+        form = K5_FORM[dtype]
+        errs[form] = max(errs[form], check_attn(
             f"K5 hymba {dtype}", ops.flash_attention(q, k, v, causal=True, window=win),
             ref.attention_plain(q, k, v, causal=True, window=win)))
         lengths = torch.tensor([0, 1, win - 1, win, win + 1, hcap], dtype=torch.int32,
@@ -467,7 +440,6 @@ def main() -> int:
         errs["decode_attention"] = max(errs["decode_attention"], check_attn(
             f"K6 hymba {dtype}", ops.decode_attention(q, kc, vc, lengths, window=win),
             ref.decode_attention_plain(q, kc, vc, lengths, window=win)))
-    errs["decode_attention_combine"] = errs["decode_attention"]
     # K7 at the serving prefills' chunks (mamba2: BC = 8 x 8 chunks, 24
     # heads, N 128; hymba: 50 heads, N 16), at a 5-token prompt, with two
     # groups; some dtA <= -30, whose decays underflow and must stay finite
@@ -507,7 +479,7 @@ def main() -> int:
                     f"K8 ({rows}, {d}) {dtype} w {wdt}", ops.rmsnorm(x, w, 1e-5),
                     ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
-    print(f"[parity] K1-K8 agree with their plain versions, K4's phases "
+    print(f"[parity] K1-K8 (K5 in both forms) agree with their plain versions, K4's phases "
           f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
 
@@ -673,6 +645,11 @@ def main() -> int:
         want_d.update(want)
         if launches != want_d:
             fail(f"{tag} launches {launches}, expected {want_d}")
+        if want.get("flash_attention"):
+            # the counters name the form: the prefill's attention was bf16
+            print(f"{tag} K5 received {cfg.dtype} operands: "
+                  f"{launches['flash_attention']} launches of its tensor-core form, "
+                  f"{launches['flash_attention_f32']} of its f32 form", flush=True)
         if res.tokens.shape != (batch, gen) or res.poisoned_steps:
             fail(f"{tag} tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
         rep = res.report
@@ -782,10 +759,10 @@ def main() -> int:
         return cfg, res, launches, stats
 
     n_layers, steps = cfg_serve.n_layers, SERVE_GEN - 1
-    _, res, serve_launches, _ = serve_path(
+    _, res, serve_launches, serve_stats = serve_path(
         "[serve]", SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN,
-        dict(flash_attention=n_layers, decode_attention=n_layers * steps,
-             decode_attention_combine=n_layers * steps), {"max": TOL_SERVE_REL, "rms": None})
+        dict(flash_attention=n_layers, decode_attention=n_layers * steps),
+        {"max": TOL_SERVE_REL, "rms": None})
     rep = res.report
     # mamba2-130m: K7 once per layer in the prefill, no kernel in decode
     _, res_ssm, ssm_launches, ssm_stats = serve_path(
@@ -795,8 +772,7 @@ def main() -> int:
     hl, hs = cfg_hyb.n_layers, HYB_GEN - 1
     _, _, hyb_launches, hyb_stats = serve_path(
         "[serve-hybrid]", HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN,
-        dict(flash_attention=hl, ssd_chunk=hl, decode_attention=hl * hs,
-             decode_attention_combine=hl * hs), TOL_SERVE_HYB)
+        dict(flash_attention=hl, ssd_chunk=hl, decode_attention=hl * hs), TOL_SERVE_HYB)
 
     # ----------------------------------------------------------------- norm
     # K8's one entry point, ops.rmsnorm, over mamba2-130m's norm shapes: the
@@ -901,6 +877,20 @@ def main() -> int:
               f"no yardstick; no single PyTorch call computes it), bound "
               f"{max(t_bytes, t_ops) * 1e3:.3f} us by "
               f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
+    # K2 moves its bytes through shared memory: per row the tile-out writes
+    # `scratch` floats, each pass reads and writes them, the fold reads them
+    # back; against 132 SMs x 128 B per clock at the card's top SM clock
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    k2 = kernels[1]
+    k2["smem_bytes"] = W_MAIN * 4 * scratch * (2 * mem_it + 2)
+    k2["smem_bytes_per_s"] = SMS * 128 * sm_mhz * 1e6
+    k2["smem_bound_ms"] = k2["smem_bytes"] / k2["smem_bytes_per_s"] * 1e3
+    k2["binds"] = "shared memory" if k2["smem_bound_ms"] > k2["bound_ms"] else k2["bound_by"]
+    print(f"[time] K2 memory_bound: {k2['smem_bytes']} shared-memory bytes per launch at "
+          f"{SMS} SMs x 128 B x {sm_mhz:.0f} MHz: bound {k2['smem_bound_ms'] * 1e3:.3f} us "
+          f"({k2['binds']} binds), against {k2['ms'] * 1e3:.3f} us | {smi}", flush=True)
     k3_us = kernels[2]["ms"] * 1e3
     wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
     print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
@@ -953,73 +943,87 @@ def main() -> int:
               f"per timestep, K4 {k4_us / S_MAIN:.3f} us per timestep ({label}): "
               f"device busy share ~{k4_us / S_MAIN / wall_us:.4f}")
 
-    # K5 and K6 at the serving shapes, beside their bounds and PyTorch's
+    # K5 at internlm2's and hymba's prefill shapes (bf16, and its f32 form at
+    # internlm2's), K6 at the serving decode warm and L2-cold, each beside
     # scaled_dot_product_attention on the same inputs (a yardstick only)
+    t5, (got, want) = attention_times.flash_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, hd)
+    check_attn("K5 timing inputs", got, want)
+    t5h, (got, want) = attention_times.flash_case(HYB_B, hq, hkv, HYB_PROMPT, hhd, window=win)
+    check_attn("K5 hymba timing inputs", got, want)
+    t5f, (got, want) = attention_times.flash_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, hd,
+                                                  dtype=torch.float32, reps=(5, 3, 20))
+    check_attn("K5 f32 timing inputs", got, want)
+    t6, (got, want) = attention_times.decode_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, cap, hd)
+    check_attn("K6 timing inputs", got, want)
+    del got, want
+    yard = ("library_backend", "library_pinned_ms", "library_kernels")
+    k5 = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"], **{key: t5[key] for key in yard},
+        "shape_B_Hq_Hkv_S_D": t5["shape"], "dtype": "bfloat16",
+        "hymba": {key: t5h[key] for key in ("shape", "window", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", *yard)},
+        "f32_form": {"source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+                     "launches": serve_launches["flash_attention_f32"],
+                     "max_abs_err": errs["flash_attention_f32"],
+                     **{key: t5f[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", *yard)}},
+        "launches_by_path": {"serve": serve_launches["flash_attention"],
+                             "serve-hybrid": hyb_launches["flash_attention"]},
+        "launches_per_run": serve_launches["flash_attention"],
+        "prefill_share": n_layers * t5["ms"] / (res.prefill_s * 1e3),
+        "prefill_share_warm": n_layers * t5["ms"] / (serve_stats["prefill_warm_s"] * 1e3),
+        "hymba_prefill_share_warm": cfg_hyb.n_layers * t5h["ms"]
+        / (hyb_stats["prefill_warm_s"] * 1e3),
+    }
+    k6 = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:76",
+        "launches": serve_launches["decode_attention"],
+        "max_abs_err": errs["decode_attention"],
+        "timing": f"ms and library_ms L2-cold ({t6['cold_copies']} caches, "
+                  f"{t6['cold_bytes']} bytes, called in turn); warm_ms and "
+                  f"library_warm_ms one cache called back to back",
+        "ms": t6["cold_ms"], "warm_ms": t6["ms"], "plain_ms": t6["plain_ms"],
+        "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
+        "library_ms": t6["library_cold_ms"], "library_warm_ms": t6["library_ms"],
+        "library_backend": t6["library_backend"], "library_kernels": t6["library_kernels"],
+        "library_pinned_ms": t6["library_pinned_cold_ms"],
+        "library_pinned_warm_ms": t6["library_pinned_ms"],
+        "shape_B_Hq_Hkv_S_D": t6["shape"], "visible": t6["visible"], "dtype": "bfloat16",
+        "launches_by_path": {"serve": serve_launches["decode_attention"],
+                             "serve-hybrid": hyb_launches["decode_attention"]},
+        "launches_per_run": serve_launches["decode_attention"],
+        "decode_share": n_layers * t6["cold_ms"] / (rep.p50_wall * 1e3),
+    }
+    kernels += [k5, k6]
+    for tag, t, shape in (("K5", t5, "internlm2"), ("K5", t5h, "hymba"),
+                          ("K5 f32 form", t5f, "internlm2"), ("K6 warm", t6, "internlm2")):
+        print(f"[time] {tag} {shape} {t['shape']}: {t['ms'] * 1e3:.3f} us per launch "
+              f"(plain version {t['plain_ms'] * 1e3:.3f} us; scaled_dot_product_attention "
+              f"{t['library_ms'] * 1e3:.3f} us by PyTorch's choice, {t['library_backend']}; "
+              f"pinned {t['library_pinned_ms']}), bound {t['bound_ms'] * 1e3:.3f} us by "
+              f"{t['bound_by']} | {smi}", flush=True)
+    print(f"[time] K6 cold ({t6['cold_copies']} caches, {t6['cold_bytes']} bytes, in "
+          f"turn): {t6['cold_ms'] * 1e3:.3f} us per launch (scaled_dot_product_attention "
+          f"{t6['library_cold_ms'] * 1e3:.3f} us, pinned {t6['library_pinned_cold_ms']}), "
+          f"bound {t6['bound_ms'] * 1e3:.3f} us by {t6['bound_by']}; "
+          f"{serve_launches['decode_attention']} launches in the serve run | {smi}", flush=True)
+    print(f"[time] K6 (cold) x {n_layers} layers = {k6['decode_share']:.4f} of the p50 decode "
+          f"step wall; K5 x {n_layers} = {k5['prefill_share']:.4f} of the prefill wall, "
+          f"{k5['prefill_share_warm']:.4f} of the warm one; hymba's 32 K5 = "
+          f"{k5['hymba_prefill_share_warm']:.4f} of its warm prefill", flush=True)
+
     gen_t = torch.Generator(device=dev).manual_seed(1)
 
     def bf16(*shape):
         return torch.randn(shape, device=dev, generator=gen_t).to(torch.bfloat16)
-
-    B, S = SERVE_B, SERVE_PROMPT
-    q5, k5, v5 = bf16(B, Hq, S, hd), bf16(B, Hkv, S, hd), bf16(B, Hkv, S, hd)
-    nbytes5 = 2 * (2 * q5.numel() + k5.numel() + v5.numel())
-    nops5 = 4 * B * Hq * S * S * hd / 2  # q k^T and p v, causal half
-    q6, kc6, vc6 = bf16(B, Hq, hd), bf16(B, Hkv, cap, hd), bf16(B, Hkv, cap, hd)
-    len6 = torch.randint(S, cap, (B,), device=dev, generator=gen_t, dtype=torch.int32)
-    visible = int(len6.sum())
-    nbytes6 = 2 * 2 * visible * Hkv * hd + 2 * 2 * q6.numel() + 4 * B + 2 * 4 * B * Hq
-    nops6 = 4 * visible * Hq * hd
-    mask6 = (torch.arange(cap, device=dev)[None, :] < len6[:, None])[:, None, None, :]
-    attn_cases = [
-        ("flash_attention", "K5", "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:103",
-         lambda: ops.flash_attention(q5, k5, v5, causal=True),
-         lambda: ref.attention_plain(q5, k5, v5, causal=True),
-         lambda: F.scaled_dot_product_attention(q5, k5, v5, is_causal=True,
-                                                enable_gqa=True),
-         nbytes5, nops5, serve_launches["flash_attention"], (20, 3, 50)),
-        ("decode_attention", "K6",
-         "src/repro_torch/kernels/csrc/decode_attention.cu",
-         "src/repro/kernels/decode_attention.py:76",
-         lambda: ops.decode_attention(q6, kc6, vc6, len6, return_stats=True),
-         lambda: ref.decode_attention_plain(q6, kc6, vc6, len6, return_stats=True),
-         lambda: F.scaled_dot_product_attention(q6[:, :, None], kc6, vc6,
-                                                attn_mask=mask6, enable_gqa=True),
-         nbytes6, nops6, serve_launches["decode_attention"]
-         + serve_launches["decode_attention_combine"], (200, 20, 200)),
-    ]
-    for kname, tag, source, replaces, kern, plain, lib, nbytes, nops, n, reps in attn_cases:
-        got, want = kern(), plain()
-        if tag == "K6":
-            got, want = got[0], want[0]
-        check_attn(f"{tag} timing inputs", got, want)
-        ms, plain_ms, lib_ms = (gpu_ms(fn, r) for fn, r in zip((kern, plain, lib), reps))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / BF16_FLOPS_PER_S * 1e3
-        rec = {
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-        }
-        rec["launches_by_path"] = {"serve": n, "serve-hybrid": hyb_launches[kname] + (
-            hyb_launches["decode_attention_combine"] if tag == "K6" else 0)}
-        if tag == "K6":
-            rec["launches_per_run"] = {k: serve_launches[k] for k in
-                                       ("decode_attention", "decode_attention_combine")}
-            rec["decode_share"] = n_layers * ms / (rep.p50_wall * 1e3)
-        else:
-            rec["launches_per_run"] = serve_launches["flash_attention"]
-            rec["prefill_share"] = n_layers * ms / (res.prefill_s * 1e3)
-        kernels.append(rec)
-        print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {n} launches in "
-              f"the serve run (plain version {plain_ms * 1e3:.3f} us, "
-              f"scaled_dot_product_attention {lib_ms * 1e3:.3f} us), bound "
-              f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']} | {smi}", flush=True)
-    print(f"[time] K6 x {n_layers} layers = {kernels[-1]['decode_share']:.4f} of the "
-          f"p50 decode step wall; K5 x {n_layers} = {kernels[-2]['prefill_share']:.4f} "
-          f"of the prefill wall", flush=True)
 
     # K7 at the mamba2-130m serving prefill's chunks, in the f32 the path
     # gives it (and in bf16 beside), K8 at mamba2's norm shapes in bf16

@@ -38,8 +38,8 @@ Options: ``combine`` = "window" (default; shifted-row sums, no gather),
 "gather" or "onehot" (the ablations); ``steps_per_launch`` = 1 or an int
 > 1 ("auto" raises NotImplementedError until the scheduler is ported,
 ROADMAP Queue 1 item 7); ``pipeline`` = True or False. The stride plan
-(fft, tree) and the all-gather plan (all_to_all, spread) come in port
-slice 3; those patterns run on the ``fused`` backend meanwhile.
+(fft, tree) and the all-gather plan (all_to_all, spread) are ROADMAP
+Queue 1 item 5; those patterns run on the ``fused`` backend meanwhile.
 """
 from __future__ import annotations
 
@@ -329,7 +329,7 @@ class PallasStepRuntime(Runtime):
         return None, (
             f"pattern {graph.pattern} needs the stride plan (fft, tree) or "
             f"the all-gather plan (all_to_all, spread), which are not ported "
-            f"yet (port slice 3 in ROADMAP.md); the port's pallas_step runs "
+            f"yet (ROADMAP Queue 1 item 5); the port's pallas_step runs "
             f"the halo plan only — fall back to the `fused` backend, which "
             f"runs every pattern")
 

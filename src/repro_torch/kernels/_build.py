@@ -41,11 +41,11 @@ ENTRIES = {
     "taskbench_step": ("taskbench_step",
                        (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
-    "flash_attention": ("flash_attention", (_P,) * 4 + (_I,) * 8 + (_F, _I, _P)),
-    # K6 is two launches, the split pass and the combine pass, counted apart
+    # K5's two forms, counted apart: bf16 on the tensor cores, f32 FMAs
+    "flash_attention": ("flash_attention", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
+    "flash_attention_f32": ("flash_attention_f32", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
     "decode_attention": ("decode_attention",
                          (_P,) * 7 + (_I,) * 6 + (_F, _I, _I, _I, _P)),
-    "decode_attention_combine": ("decode_attention", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "ssd_chunk": ("ssd_chunk", (_P,) * 7 + (_I,) * 7 + (_P,)),
     "rmsnorm": ("rmsnorm", (_P,) * 3 + (_I, _I, _F, _I, _I, _P)),
 }

@@ -1,11 +1,13 @@
-"""K6 wrapper: single-token decode attention over a KV cache, as CUDA kernels.
+"""K6 wrapper: single-token decode attention over a KV cache, as one CUDA
+kernel launch.
 
-Counterpart of ``repro.kernels.decode_attention``. K6 is two launches
-(``csrc/decode_attention.cu``): the split pass, one CTA per (cache chunk,
-KV head, batch) holding the G query rows of that KV head, writes a partial
-(m, l, acc) per (row, chunk); the combine pass merges a row's chunks into
-o, m and l. Both are counted in ``_build.LAUNCHES`` (``decode_attention``
-and ``decode_attention_combine``). The plain version is
+Counterpart of ``repro.kernels.decode_attention``. The kernel
+(``csrc/decode_attention.cu``) cuts each (batch, KV head)'s cache into
+n_split <= 8 chunks, one CTA each holding the G query rows of that KV head;
+the chunks of a pair form one thread-block cluster, whose rank 0 merges
+their partial (m, l, acc) through distributed shared memory and writes o,
+m and l. One launch per call, counted as ``decode_attention`` in
+``_build.LAUNCHES``; no scratch. The plain version is
 ``ref.decode_attention_plain``.
 """
 from __future__ import annotations
@@ -20,23 +22,26 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8      # query rows per KV head the kernel holds in registers
 MAX_HEAD_DIM = 256
-#: Fewest cache positions per chunk: 4 warps x 4 positions per step, 4 steps.
+MAX_SPLIT = 8      # CTAs per cluster (the portable cluster size)
+#: Fewest cache positions per chunk.
 MIN_CHUNK = 64
 
 
 def split_plan(batch: int, kv_heads: int, capacity: int, sms: int) -> Tuple[int, int]:
-    """(chunk, n_split): cut the cache length into chunks so that the split
-    pass has at least ~4 CTAs per SM on a card of ``sms`` SMs (batch 8 x 8
-    KV heads are 64 pairs for an H100's 132 SMs), each chunk a multiple of
-    16 positions and at least MIN_CHUNK."""
-    want = max(1, -(-4 * sms // max(batch * kv_heads, 1)))
+    """The cluster plan (chunk, n_split): cut the cache length into n_split
+    <= MAX_SPLIT chunks, one CTA each and one cluster per (batch, KV head),
+    so that the launch has up to ~4 CTAs per SM on a card of ``sms`` SMs
+    (batch 8 x 8 KV heads are 64 clusters of 8 for an H100's 132 SMs); each
+    chunk a multiple of 16 positions and at least MIN_CHUNK, chunk x
+    n_split >= capacity."""
+    want = min(MAX_SPLIT, max(1, -(-4 * sms // max(batch * kv_heads, 1))))
     chunk = max(MIN_CHUNK, -(-capacity // want))
     chunk = -(-chunk // 16) * 16
     return chunk, max(1, -(-capacity // chunk))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    # the kernel reads a row with one 8- or 16-byte load per lane
+    # the kernel copies rows to shared memory in 16-byte pieces
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -89,17 +94,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return o, m, l
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     chunk, n_split = split_plan(B, Hkv, S, sms)
-    part_m = torch.empty((B, Hq, n_split), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hq, n_split, D), dtype=torch.float32, device=q.device)
-    code = DTYPES[q.dtype]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         _build.launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
-                      v_cache.data_ptr(), lengths.data_ptr(), part_m.data_ptr(),
-                      part_l.data_ptr(), part_acc.data_ptr(), B, Hq, Hkv, S, D,
-                      window, sm_scale, chunk, n_split, code, stream)
-        _build.launch("decode_attention_combine", part_m.data_ptr(), part_l.data_ptr(),
-                      part_acc.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                      B * Hq, D, n_split, code, stream)
+                      v_cache.data_ptr(), lengths.data_ptr(), o.data_ptr(), m.data_ptr(),
+                      l.data_ptr(), B, Hq, Hkv, S, D, window, sm_scale, chunk, n_split,
+                      DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     return o, m, l

@@ -106,7 +106,14 @@ def test_use_kernel_false_takes_the_plain_version():
 
 
 def test_split_plan_covers_the_cache():
-    for B, Hkv, S in ((8, 8, 1088), (1, 1, 5), (2, 2, 30), (64, 8, 32768)):
+    """The cluster plan: n_split <= 8 chunks (a portable cluster) that cover
+    the cache, each a multiple of 16 positions; the serving decodes take
+    clusters of 8, a short cache a cluster of one."""
+    for B, Hkv, S in ((8, 8, 1088), (1, 1, 5), (2, 2, 30), (64, 8, 32768), (4, 5, 1040)):
         chunk, n = split_plan(B, Hkv, S, 132)
         assert chunk % 16 == 0 and chunk * n >= S and (n - 1) * chunk < S
-    assert split_plan(8, 8, 1088, 132)[1] * 64 >= 4 * 132
+        assert 1 <= n <= 8
+    assert split_plan(8, 8, 1088, 132) == (144, 8)  # internlm2's serving decode
+    assert split_plan(4, 5, 1040, 132) == (144, 8)  # hymba's
+    assert split_plan(3, 2, 40, 132)[1] == 1
+    assert split_plan(64, 8, 32768, 132)[1] == 2   # 512 pairs already fill the card

@@ -2,7 +2,9 @@
 plain PyTorch version, the pipelined phases and schedule against the serial
 ones bit for bit, the runtimes on the card against the CPU plain path, and
 the LM serving paths (K5, K6; K7 for the ssm and hybrid kinds) on the card
-against the same weights on the CPU. Every test carries the ``gpu`` marker
+against the same weights on the CPU. K5 is counted per form: the bf16 form
+on the tensor cores as ``flash_attention``, the f32 form as
+``flash_attention_f32``; K6 is one launch per call. Every test carries the ``gpu`` marker
 and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
@@ -18,6 +20,7 @@ from repro_torch.core import KernelSpec, TaskGraph, get_runtime
 from repro_torch.core.runtimes import pallas_step as ps
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dtype
 from repro_torch.launch.serve import _grow_caches
 from repro_torch.models.model import Model
 from repro_torch.kernels.bodies import apply_body
@@ -245,9 +248,34 @@ def _normal(shape, seed, device, dtype):
 def test_flash_kernel_matches_plain(cuda, dtype, causal, window, group, seq, D):
     q = _normal((2, 2 * group, seq, D), 1, cuda, dtype)
     k, v = _normal((2, 2, seq, D), 2, cuda, dtype), _normal((2, 2, seq, D), 3, cuda, dtype)
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    after = ops.launch_counts()
+    for form in K5_FORM.values():
+        assert after[form] == before[form] + (form == K5_FORM[dtype])
+    _attn_close(got, ref.attention_plain(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (130, 130, True, 0),    # neither a multiple of the 64-row or the key tile
+    (200, 200, True, 64),   # the window edge on a tile edge
+    (200, 200, True, 65),   # and one past it
+    (97, 161, True, 33),    # Sq != Sk: rows past Sk see every key up to Sk
+    (161, 97, True, 0),     # Sq > Sk: rows past Sk see all of k
+    (70, 300, False, 0),    # no mask but the key length
+    (300, 70, False, 130)])
+def test_flash_tensor_core_form_at_served_widths(cuda, D, sq, sk, causal, window):
+    """The bf16 form at every head dim a served config uses, with ragged
+    lengths, causal and window edges and Sq != Sk."""
+    q = _normal((2, 4, sq, D), D + sq, cuda, torch.bfloat16)
+    k = _normal((2, 2, sk, D), D + sk + 1, cuda, torch.bfloat16)
+    v = _normal((2, 2, sk, D), D + sk + 2, cuda, torch.bfloat16)
+    before = ops.launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_f32"] == before["flash_attention_f32"]
     _attn_close(got, ref.attention_plain(q, k, v, causal=causal, window=window))
 
 
@@ -264,7 +292,8 @@ def test_flash_kernel_with_other_query_and_key_lengths(cuda, dtype, sq, sk):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 3, 300])
 @pytest.mark.parametrize("group,S,D", [(1, 24, 16), (2, 1088, 128), (4, 300, 80),
-                                       (8, 700, 64), (2, 40, 256)])
+                                       (8, 700, 64), (2, 40, 256),
+                                       (2, 50, 20), (5, 33, 6)])  # rows copied by element
 def test_decode_kernel_matches_plain(cuda, dtype, window, group, S, D):
     """o, m and l at lengths 0, 1, S - 1, S and one past S."""
     B, Hkv = 5, 2
@@ -275,7 +304,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, window, group, S, D):
     o, m, l = ops.decode_attention(q, kc, vc, lengths, window=window, return_stats=True)
     after = ops.launch_counts()
     assert after["decode_attention"] == before["decode_attention"] + 1
-    assert after["decode_attention_combine"] == before["decode_attention_combine"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1  # one launch, no combine
     wo, wm, wl = ref.decode_attention_plain(q, kc, vc, lengths, window=window,
                                             return_stats=True)
     _attn_close(o, wo)
@@ -283,6 +312,30 @@ def test_decode_kernel_matches_plain(cuda, dtype, window, group, S, D):
     torch.testing.assert_close(l, wl, rtol=1e-5, atol=2e-5)
     assert l[0].abs().max().item() == 0.0 and o[0].abs().max().item() == 0.0
     assert m[0].max().item() == np.float32(-1e30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,n_split", [(40, 1), (1088, 8)])
+def test_decode_kernel_cluster_plan(cuda, dtype, S, n_split):
+    """A cluster of one CTA (a short cache) and of eight (the serving
+    cache), at the window's edges: lengths - window at 0, 1 and past S."""
+    from repro_torch.kernels.decode_attention import split_plan
+
+    B, Hkv, G, D = 3, 2, 2, 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, n = split_plan(B, Hkv, S, sms)
+    assert n == n_split and chunk * n >= S
+    q = _normal((B, Hkv * G, D), 16, cuda, dtype)
+    kc, vc = _normal((B, Hkv, S, D), 17, cuda, dtype), _normal((B, Hkv, S, D), 18, cuda, dtype)
+    window = 30
+    lengths = torch.tensor([window, window + 1, S + 1], dtype=torch.int32, device=cuda)
+    for w in (0, window):
+        o, m, l = ops.decode_attention(q, kc, vc, lengths, window=w, return_stats=True)
+        wo, wm, wl = ref.decode_attention_plain(q, kc, vc, lengths, window=w,
+                                                return_stats=True)
+        _attn_close(o, wo)
+        torch.testing.assert_close(m, wm, rtol=1e-5, atol=2e-5)
+        torch.testing.assert_close(l, wl, rtol=1e-5, atol=2e-5)
 
 
 def test_attention_wrappers_raise_on_what_they_do_not_take(cuda):
@@ -303,8 +356,7 @@ def test_attention_wrappers_raise_on_what_they_do_not_take(cuda):
 def test_reduced_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
     """One prefill and 3 decode steps of the reduced model (f32) on the card
     through K5 and K6, against the same weights on the CPU plain path: K5
-    launches n_layers times, K6 n_layers times per step (split pass and
-    combine pass each)."""
+    (its f32 form) launches n_layers times, K6 n_layers times per step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch).reduced()
     cpu = Model(cfg, device="cpu", seed=3)
@@ -315,7 +367,7 @@ def test_reduced_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
     ops.reset_launch_counts()
     lg, cc = card.prefill(prompts.to(cuda))
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert ops.launch_counts()["flash_attention_f32"] == cfg.n_layers
     want, pc = cpu.prefill(prompts)
     torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
     cc, pc = _grow_caches(card, cc, 2, 16), _grow_caches(cpu, pc, 2, 16)
@@ -328,13 +380,14 @@ def test_reduced_serving_on_card_matches_cpu_and_counts_launches(cuda, arch):
         torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
         tok, lengths = want.argmax(-1)[:, None], lengths + 1
     counts = ops.launch_counts()
-    assert counts["decode_attention"] == counts["decode_attention_combine"] == 3 * cfg.n_layers
-    assert counts["flash_attention"] == 0
+    assert counts["decode_attention"] == 3 * cfg.n_layers
+    assert counts["flash_attention"] == counts["flash_attention_f32"] == 0
 
 
 def test_attention_kernels_at_hymba_shape(cuda):
     """GQA group 5 (25 query over 5 KV heads), head dim 64, window 1024:
-    K5 over a 1100-token prompt, K6 at lengths around the window."""
+    K5 over a 1100-token prompt, K6 at lengths around the window (one
+    cluster of 8 CTAs per (batch, KV head))."""
     for dtype in (torch.float32, torch.bfloat16):
         q = _normal((2, 25, 1100, 64), 10, cuda, dtype)
         k, v = _normal((2, 5, 1100, 64), 11, cuda, dtype), _normal((2, 5, 1100, 64), 12,
@@ -450,7 +503,7 @@ def test_reduced_ssm_serving_on_card_matches_cpu_and_counts_launches(cuda, arch)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["ssd_chunk"] == cfg.n_layers
-    assert counts["flash_attention"] == (cfg.n_layers if hybrid else 0)
+    assert counts["flash_attention_f32"] == (cfg.n_layers if hybrid else 0)
     want, pc = cpu.prefill(prompts)
     torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
     cc, pc = _grow_caches(card, cc, 2, 16), _grow_caches(cpu, pc, 2, 16)
@@ -463,6 +516,6 @@ def test_reduced_ssm_serving_on_card_matches_cpu_and_counts_launches(cuda, arch)
         torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
         tok, lengths = want.argmax(-1)[:, None], lengths + 1
     counts = ops.launch_counts()
-    assert counts["ssd_chunk"] == counts["flash_attention"] == 0
+    assert counts["ssd_chunk"] == counts["flash_attention_f32"] == 0
     k6 = 3 * cfg.n_layers if hybrid else 0
-    assert counts["decode_attention"] == counts["decode_attention_combine"] == k6
+    assert counts["decode_attention"] == k6

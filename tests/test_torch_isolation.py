@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_reference_module():
             "repro_torch.launch.serve", "repro_torch.models.model",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention", "repro_torch.kernels.ssd_scan",
-            "repro_torch.kernels.rmsnorm", "repro_torch.models.ssm"} <= set(got["modules"])
+            "repro_torch.kernels.rmsnorm", "repro_torch.models.ssm",
+            "repro_torch.launch.attention_times"} <= set(got["modules"])
 
 
 def _imported_roots(path: Path):

@@ -182,6 +182,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(*(q.bfloat16(),) * 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         decode_attention(q[:, :, 0], q, q, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_chunk(q, q[:, :1], q[:, :1], q[..., 0], q[..., 0])
@@ -189,8 +191,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
         rmsnorm(x, torch.ones(8))
     assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
                                    "taskbench_step": 0, "taskbench_blocked": 0,
-                                   "flash_attention": 0, "decode_attention": 0,
-                                   "decode_attention_combine": 0, "ssd_chunk": 0,
+                                   "flash_attention": 0, "flash_attention_f32": 0,
+                                   "decode_attention": 0, "ssd_chunk": 0,
                                    "rmsnorm": 0}
 
 
