@@ -24,8 +24,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              x 128 over an 8 x 8 x 1088 x 128 cache, lengths 0 .. 1088,
              window 0 and 256), K5 and K6 at hymba-1.5b's (group 5, head
              dim 64, window 1024); K7 at mamba2-130m's and hymba-1.5b's
-             prefill chunks, at T = 5 and at G = 2, with some dtA <= -30;
-             K8 at mamba2's norm shapes and (37, 1000); each in bf16 and f32.
+             prefill chunks, at T = 5, at G = 2 and at P = 12, with some
+             dtA <= -30; K8 at mamba2's norm shapes, (37, 1000), (5, 33)
+             and x at an odd offset (the scalar path); each in bf16 and
+             f32.
   3. main    the Task Bench main path: the 7 halo patterns through ``pallas_step``
              and ``fused(use_kernels=True)`` at W = 2112, T = 1000,
              payload 64, compute_bound grain 64, checked against each
@@ -66,9 +68,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
              shapes, and K6 at the serving decode warm and L2-cold, beside
              ``scaled_dot_product_attention`` on the same inputs under
              PyTorch's choice of backend and each backend pinned
-             (``repro_torch.launch.attention_times``), K8 beside
-             ``rms_norm`` (yardsticks only: the port never calls them); K7
-             at the mamba2 prefill's chunks.
+             (``repro_torch.launch.attention_times``); K7 at the mamba2
+             and hymba prefills' chunks in f32 and bf16, beside its bound
+             on the units it uses and the f32 FMA bound, with how many
+             times it forms each (chunk, group)'s C B^T and its and its
+             plain version's error against f64; K8 at mamba2's norm
+             shapes warm and L2-cold beside ``rms_norm`` warm and cold
+             (``repro_torch.launch.kernel_times``; the yardsticks only:
+             the port never calls them).
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. With no card, or without
@@ -109,8 +116,6 @@ TOL_MEMORY_RUN = T_MAIN * 1.2e-7
 S_MAIN = 8  # the blocked main path's steps per launch
 TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
                      "taskbench_blocked")
-# Published H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet, 700 W).
-BF16_FLOPS_PER_S = 989e12
 # The serving cell: internlm2-1.8b at full width, batch 8, prompt 1024,
 # 64 generated tokens (63 decode steps), greedy.
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "internlm2-1.8b", 8, 1024, 64
@@ -151,11 +156,14 @@ HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN = "hymba-1.5b", 4, 1024, 16
 # 3.22-5.64% at every step. Each limit lies between the two.
 TOL_SERVE_SSM = {"max": 0.025, "rms": 0.015}
 TOL_SERVE_HYB = {"max": 0.035, "rms": 0.031}
-# K7 and K8 against their plain versions: both compute in f32 (FMAs from
-# shared memory against einsums and reductions: the same sums in another
-# order), so an output is held to TOL_F32_SCALED of the output's scale,
-# max(1, max |plain|); a bf16 output is rounded once from those sums, so it
-# also gets one bf16 ulp of its own plain value.
+# K7 and K8 against their plain versions: both compute in f32 precision
+# (K7's TF32 tensor-core products with each f32 operand split into TF32
+# parts, its C B^T and K8 in f32 FMAs, against einsums and reductions:
+# the same sums in another order), so an output is held to TOL_F32_SCALED
+# of the output's scale, max(1, max |plain|); a bf16 output is rounded once
+# from those sums, so it also gets one bf16 ulp of its own plain value. A
+# K7 that rounds each operand to TF32 once (no residual products) fails it
+# (PERF.md §6).
 TOL_F32_SCALED = 2e-5
 BLOCKED_RUNS = (("pipelined", {}), ("serial", {"pipeline": False}))
 
@@ -244,8 +252,6 @@ def main() -> int:
 
     import dataclasses
 
-    import torch.nn.functional as F
-
     from repro_torch.configs.registry import get_config
     from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
     from repro_torch.core.patterns import halo_radius
@@ -259,7 +265,7 @@ def main() -> int:
         taskbench_step_blocked_plain,
         taskbench_step_plain,
     )
-    from repro_torch.launch import attention_times
+    from repro_torch.launch import attention_times, kernel_times
     from repro_torch.launch.attention_times import gpu_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -459,7 +465,8 @@ def main() -> int:
         ("hymba", HYB_B * HYB_PROMPT // cfg_hyb.ssm_chunk, cfg_hyb.ssm_heads,
          cfg_hyb.ssm_groups, cfg_hyb.ssm_chunk, cfg_hyb.ssm_state, cfg_hyb.ssm_head_dim),
         ("T=5", 8, 24, 1, 5, 128, 64),
-        ("G=2", 16, 8, 2, 128, 16, 64))
+        ("G=2", 16, 8, 2, 128, 16, 64),
+        ("P=12", 4, 6, 2, 100, 16, 12))
     for dtype in (torch.float32, torch.bfloat16):
         for label, *shape in ssd_cases:
             args = ssd_inputs(*shape, dtype=dtype)
@@ -467,17 +474,19 @@ def main() -> int:
             case = f"K7 {label} {dtype} (BC, H, G, T, N, P) = {tuple(shape)}"
             errs["ssd_chunk"] = max(errs["ssd_chunk"], check_scaled(f"{case} y", y, wy),
                                     check_scaled(f"{case} state", st, wst))
-    # K8 at mamba2's norm shapes (d_model, and the gated norm over ssm_inner)
-    # and a ragged one, weights in f32 (the model's) and in x's dtype
-    for rows, d in ((SSM_B * SSM_PROMPT, cfg_ssm.d_model),
-                    (SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner), (37, 1000)):
+    # K8 at mamba2's norm shapes (d_model, and the gated norm over ssm_inner),
+    # a row of 125 vectors, a ragged d (the scalar path) and x at an odd
+    # offset (the scalar path), weights in f32 (the model's) and x's dtype
+    for rows, d, offset in ((SSM_B * SSM_PROMPT, cfg_ssm.d_model, 0),
+                            (SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner, 0), (37, 1000, 0),
+                            (5, 33, 0), (64, cfg_ssm.d_model, 1)):
         for dtype in (torch.bfloat16, torch.float32):
-            x = normal(rows, d, dtype=dtype) * 3.0
+            x = (normal(rows * d + offset, dtype=dtype) * 3.0)[offset:].view(rows, d)
             for wdt in (torch.float32, dtype):
                 w = normal(d, dtype=wdt)
                 errs["rmsnorm"] = max(errs["rmsnorm"], check_scaled(
-                    f"K8 ({rows}, {d}) {dtype} w {wdt}", ops.rmsnorm(x, w, 1e-5),
-                    ref.rmsnorm_plain(x, w, 1e-5)))
+                    f"K8 ({rows}, {d}) offset {offset} {dtype} w {wdt}",
+                    ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
     print(f"[parity] K1-K8 (K5 in both forms) agree with their plain versions, K4's phases "
           f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
@@ -1020,95 +1029,102 @@ def main() -> int:
           f"{k5['prefill_share_warm']:.4f} of the warm one; hymba's 32 K5 = "
           f"{k5['hymba_prefill_share_warm']:.4f} of its warm prefill", flush=True)
 
-    gen_t = torch.Generator(device=dev).manual_seed(1)
-
-    def bf16(*shape):
-        return torch.randn(shape, device=dev, generator=gen_t).to(torch.bfloat16)
-
-    # K7 at the mamba2-130m serving prefill's chunks, in the f32 the path
-    # gives it (and in bf16 beside), K8 at mamba2's norm shapes in bf16
-    # beside torch.nn.functional.rms_norm (a yardstick only)
-    def ssd_cost(BC, H, G, T, N, P, item):
-        """(bytes, operations) of one K7 launch: x, B, C, dtA and dt read
-        once, y and the state written once; C B^T once per (chunk, group)
-        over the causal half, then per head the decay mask, the two
-        products (the causal half of Y) and the scalings."""
-        tri = T * (T + 1) // 2
-        nbytes = item * (2 * BC * H * T * P + 2 * BC * G * T * N) + 4 * (
-            2 * BC * H * T + BC * H * N * P)
-        nops = 2 * BC * G * tri * N + BC * H * (tri + 2 * tri * P + 2 * T * N * P
-                                                + T * P + T * N)
-        return nbytes, nops
-
-    shape7 = ssd_cases[0][1:]
-    x7 = ssd_inputs(*shape7, dtype=torch.float32)
-    x7b = tuple(t.to(torch.bfloat16) if i < 3 else t for i, t in enumerate(x7))
-    got, want = ops.ssd_chunk(*x7), ref.ssd_chunk_plain(*x7)
-    check_scaled("K7 timing inputs y", got[0], want[0])
-    check_scaled("K7 timing inputs state", got[1], want[1])
-    ms7 = gpu_ms(lambda: ops.ssd_chunk(*x7), 50)
-    # the plain version issues ~140 operations per call (its cumsum is a
-    # loop over T): its time spans the host's enqueue gaps, as K4's plain
-    plain7 = gpu_ms(lambda: ref.ssd_chunk_plain(*x7), 3, cover=False)
-    ms7b = gpu_ms(lambda: ops.ssd_chunk(*x7b), 50)
-    nbytes, nops = ssd_cost(*shape7, 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
-    nb_b, no_b = ssd_cost(*shape7, 2)
-    bound_b = max(nb_b / HBM_BYTES_PER_S, no_b / BF16_FLOPS_PER_S) * 1e3
+    # K7 at the mamba2-130m and hymba-1.5b serving prefills' chunks, in the
+    # f32 the path gives it (and in bf16 beside), against its bound on the
+    # units it uses (C B^T on f32 FMAs, the head products on the TF32
+    # tensor cores) with the all-f32-FMA bound beside; K8 at mamba2's norm shapes in bf16, warm and L2-cold,
+    # beside torch.nn.functional.rms_norm (a yardstick only), through
+    # repro_torch.launch.kernel_times
+    t7 = {}
+    for (label, *shape), arch in zip(ssd_cases[:2], (SSM_ARCH, HYB_ARCH)):
+        if tuple(shape) != kernel_times.SSD_SHAPES[arch]:
+            fail(f"K7 {label}: the serving chunk {tuple(shape)} is not kernel_times' "
+                 f"{kernel_times.SSD_SHAPES[arch]}")
+        for dtype in (torch.float32, torch.bfloat16):
+            rec, (got, want) = kernel_times.ssd_case(shape, dtype,
+                                                     plain=dtype == torch.float32)
+            check_scaled(f"K7 {label} {dtype} timing inputs y", got[0], want[0])
+            check_scaled(f"K7 {label} {dtype} timing inputs state", got[1], want[1])
+            t7[label, dtype] = rec
+            plain = ("not timed" if rec["plain_ms"] is None
+                     else f"{rec['plain_ms'] * 1e3:.3f} us")
+            print(f"[time] K7 ssd_chunk {label} {tuple(shape)} {dtype}: "
+                  f"{rec['ms'] * 1e3:.3f} us per launch (plain version {plain}, no "
+                  f"yardstick: no single PyTorch call computes it), bound "
+                  f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']} (bytes "
+                  f"{rec['bytes_ms'] * 1e3:.3f} us; operations {rec['operations_ms'] * 1e3:.3f} "
+                  f"us, C B^T on f32 FMAs, the head products on TF32; f32 FMA bound "
+                  f"{rec['f32_fma_bound_ms'] * 1e3:.3f} us); C B^T formed "
+                  f"{rec['cbt_per_chunk_group']} times per (chunk, group) of "
+                  f"{rec['heads_per_group']} heads | {smi}", flush=True)
+            if dtype == torch.float32:
+                print(f"[time] K7 {label} f32 against f64, max and mean |error| / scale: "
+                      + "; ".join(f"{key[8:]} {rec[key]}" for key in rec
+                                  if key.startswith("f64_err_")), flush=True)
+    del got, want
+    m7, h7 = t7["mamba2", torch.float32], t7["hymba", torch.float32]
     warm_s = ssm_stats["prefill_warm_s"]
     rec7 = {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:68",
         "launches": ssm_launches["ssd_chunk"], "max_abs_err": errs["ssd_chunk"],
-        "ms": ms7, "plain_ms": plain7, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-        "shape_BC_H_G_T_N_P": list(shape7), "dtype": "float32",
-        "ms_bf16": ms7b, "bound_ms_bf16": bound_b,
+        "ms": m7["ms"], "plain_ms": m7["plain_ms"], "bound_ms": m7["bound_ms"],
+        "bound_by": m7["bound_by"], "library_ms": None,
+        "bound_route": "C B^T at the f32 FMA peak; the head products on the TF32 "
+                       "tensor cores, 6 (Y) and 3 (state) TF32 products per f32 product",
+        "f32_fma_bound_ms": m7["f32_fma_bound_ms"],
+        "shape_BC_H_G_T_N_P": m7["shape_BC_H_G_T_N_P"], "dtype": "float32",
+        "cbt_per_chunk_group": m7["cbt_per_chunk_group"],
+        "f64_err": {key[8:]: m7[key] for key in m7 if key.startswith("f64_err_")},
+        "ms_bf16": t7["mamba2", torch.bfloat16]["ms"],
+        "bound_ms_bf16": t7["mamba2", torch.bfloat16]["bound_ms"],
+        "hymba": {key: h7[key] for key in (
+            "shape_BC_H_G_T_N_P", "ms", "plain_ms", "bound_ms", "bound_by",
+            "f32_fma_bound_ms", "cbt_per_chunk_group")}
+        | {"ms_bf16": t7["hymba", torch.bfloat16]["ms"],
+           "bound_ms_bf16": t7["hymba", torch.bfloat16]["bound_ms"]},
         "launches_by_path": {"serve-ssm": ssm_launches["ssd_chunk"],
                              "serve-hybrid": hyb_launches["ssd_chunk"]},
-        "prefill_share_warm": cfg_ssm.n_layers * ms7 / (warm_s * 1e3),
-        "prefill_share_cold": cfg_ssm.n_layers * ms7 / (res_ssm.prefill_s * 1e3),
+        "prefill_share_warm": cfg_ssm.n_layers * m7["ms"] / (warm_s * 1e3),
+        "prefill_share_cold": cfg_ssm.n_layers * m7["ms"] / (res_ssm.prefill_s * 1e3),
+        "hymba_prefill_share_warm": cfg_hyb.n_layers * h7["ms"]
+        / (hyb_stats["prefill_warm_s"] * 1e3),
     }
     kernels.append(rec7)
-    print(f"[time] K7 ssd_chunk: {ms7 * 1e3:.3f} us per launch at (BC, H, G, T, N, P) = "
-          f"{shape7} f32 ({ms7b * 1e3:.3f} us in bf16, bound {bound_b * 1e3:.3f} us), "
-          f"{rec7['launches']} launches in the serve-ssm run (plain version "
-          f"{plain7 * 1e3:.3f} us, no yardstick; no single PyTorch call computes it), "
-          f"bound {rec7['bound_ms'] * 1e3:.3f} us by {rec7['bound_by']} | {smi}", flush=True)
     print(f"[time] K7 x {cfg_ssm.n_layers} layers = {rec7['prefill_share_warm']:.4f} of "
           f"the warm mamba2 prefill wall ({warm_s * 1e3:.3f} ms), "
-          f"{rec7['prefill_share_cold']:.4f} of the cold one", flush=True)
-    rec8 = None
-    for rows, d in ((SSM_B * SSM_PROMPT, cfg_ssm.d_model),
-                    (SSM_B * SSM_PROMPT, cfg_ssm.ssm_inner)):
-        x8 = bf16(rows, d)
-        w8 = bf16(d)
-        check_scaled("K8 timing inputs", ops.rmsnorm(x8, w8, 1e-5),
-                     ref.rmsnorm_plain(x8, w8, 1e-5))
-        ms8 = gpu_ms(lambda: ops.rmsnorm(x8, w8, 1e-5), 200)
-        plain8 = gpu_ms(lambda: ref.rmsnorm_plain(x8, w8, 1e-5), 50)
-        lib8 = gpu_ms(lambda: F.rms_norm(x8, (d,), w8, 1e-5), 200)
-        t_bytes = 2 * (2 * rows * d + d) / HBM_BYTES_PER_S * 1e3
-        t_ops = 4 * rows * d / BF16_FLOPS_PER_S * 1e3
-        print(f"[time] K8 rmsnorm ({rows}, {d}) bf16: {ms8 * 1e3:.3f} us per launch "
-              f"(plain version {plain8 * 1e3:.3f} us, rms_norm {lib8 * 1e3:.3f} us), "
-              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us by "
-              f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
-        if rec8 is None:
-            rec8 = {
-                "name": "rmsnorm", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-                "replaces": "src/repro/kernels/rmsnorm.py:31",
-                "launches": norm_launches["rmsnorm"], "max_abs_err": errs["rmsnorm"],
-                "ms": ms8, "plain_ms": plain8, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib8, "shape": [rows, d], "dtype": "bfloat16",
-                "launches_by_path": {"norm": norm_launches["rmsnorm"]}}
-        else:
-            rec8["gated_shape"] = [rows, d]
-            rec8.update(gated_ms=ms8, gated_plain_ms=plain8, gated_library_ms=lib8,
-                        gated_bound_ms=max(t_bytes, t_ops))
+          f"{rec7['prefill_share_cold']:.4f} of the cold one; hymba's {cfg_hyb.n_layers} "
+          f"K7 = {rec7['hymba_prefill_share_warm']:.4f} of its warm prefill", flush=True)
+    t8 = []
+    for rows, d in kernel_times.NORM_SHAPES:
+        rec, (got, want) = kernel_times.rmsnorm_case(rows, d)
+        check_scaled(f"K8 ({rows}, {d}) timing inputs", got, want)
+        t8.append(rec)
+        print(f"[time] K8 rmsnorm ({rows}, {d}) bf16: warm {rec['warm_ms'] * 1e3:.3f} us, "
+              f"cold {rec['cold_ms'] * 1e3:.3f} us ({rec['cold_copies']} inputs, "
+              f"{rec['cold_bytes']} bytes, in turn) per launch; rms_norm warm "
+              f"{rec['library_warm_ms'] * 1e3:.3f} us, cold "
+              f"{rec['library_cold_ms'] * 1e3:.3f} us; plain version "
+              f"{rec['plain_ms'] * 1e3:.3f} us; bound {rec['bound_ms'] * 1e3:.3f} us by "
+              f"{rec['bound_by']} | {smi}", flush=True)
+    del got, want
+    r8, g8 = t8
+    rec8 = {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:31",
+        "launches": norm_launches["rmsnorm"], "max_abs_err": errs["rmsnorm"],
+        "timing": f"ms and library_ms L2-cold ({r8['cold_copies']} inputs called in "
+                  f"turn); warm_ms and library_warm_ms one input back to back",
+        "ms": r8["cold_ms"], "warm_ms": r8["warm_ms"], "plain_ms": r8["plain_ms"],
+        "bound_ms": r8["bound_ms"], "bound_by": r8["bound_by"],
+        "library_ms": r8["library_cold_ms"], "library_warm_ms": r8["library_warm_ms"],
+        "shape": r8["shape"], "dtype": "bfloat16",
+        "gated": {key: g8[key] for key in (
+            "shape", "cold_copies", "warm_ms", "cold_ms", "library_warm_ms",
+            "library_cold_ms", "plain_ms", "bound_ms", "bound_by")},
+        "launches_by_path": {"norm": norm_launches["rmsnorm"]}}
     kernels.append(rec8)
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -47,7 +47,12 @@ ENTRIES = {
     "decode_attention": ("decode_attention",
                          (_P,) * 7 + (_I,) * 6 + (_F, _I, _I, _I, _P)),
     "ssd_chunk": ("ssd_chunk", (_P,) * 7 + (_I,) * 7 + (_P,)),
-    "rmsnorm": ("rmsnorm", (_P,) * 3 + (_I, _I, _F, _I, _I, _P)),
+    "rmsnorm": ("rmsnorm", (_P,) * 3 + (_I, _I, _F, _I, _I, _I, _P)),
+}
+#: C entries that launch nothing and answer a question about a launch
+#: (`query`): K7's head blocks per (chunk, group) at a shape.
+QUERIES = {
+    "ssd_chunk_plan": ("ssd_chunk", (_I,) * 7),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.
@@ -124,7 +129,7 @@ def build_all() -> Dict[str, str]:
 def _library(name: str) -> ctypes.CDLL:
     build_all()
     lib = ctypes.CDLL(str(library_path(name)))
-    for entry, (owner, argtypes) in ENTRIES.items():
+    for entry, (owner, argtypes) in {**ENTRIES, **QUERIES}.items():
         if owner == name:
             fn = getattr(lib, entry)
             fn.argtypes = list(argtypes)
@@ -142,3 +147,9 @@ def launch(entry: str, *args) -> None:
         msg = lib.tb_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: {msg} ({err})")
     LAUNCHES[entry] += 1
+
+
+def query(entry: str, *args) -> int:
+    """Call C entry ``entry`` of QUERIES and return its answer (counts no
+    launch)."""
+    return getattr(_library(QUERIES[entry][0]), entry)(*args)

@@ -1,15 +1,18 @@
 """K7 wrapper: the Mamba-2 SSD intra-chunk terms as a CUDA kernel.
 
 Counterpart of ``repro.kernels.ssd_scan``. The kernel
-(``csrc/ssd_chunk.cu``) runs one CTA per (batch * chunk, head) and computes,
-with a = cumsum(dtA) over the chunk's T tokens,
+(``csrc/ssd_chunk.cu``) computes, with a = cumsum(dtA) over the chunk's T
+tokens,
 
   Y     = ((C B^T) * L) (X * dt),  L_ij = exp(a_i - a_j) for j <= i, else 0
   state = (B * exp(a_T - a) * dt)^T X
 
-in f32 from shared memory; B and C come from group h // (H / G). Y is
-stored in x's dtype and the state in f32, as the TPU kernel's. The plain
-version is ``ref.ssd_chunk_plain``.
+one CTA per (batch * chunk, group, block of the group's heads), forming
+C B^T once per block (`cbt_per_chunk_group`) in f32; B and C come from
+group h // (H / G). The two head products run on the TF32 tensor cores
+with each f32 operand split into TF32 parts, so the sums keep f32's
+precision. Y is stored in x's dtype and the state in f32, as the TPU
+kernel's. The plain version is ``ref.ssd_chunk_plain``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dta: torch.Tens
     (y (BC, H, T, P) in x's dtype, state (BC, H, N, P) float32).
 
     Raises on anything the kernel does not take: a CPU tensor, other or
-    mixed dtypes, wrong ranks or shapes, H not a multiple of G, or a shape
-    whose tiles do not fit in one SM's shared memory.
+    mixed dtypes, wrong ranks or shapes, H not a multiple of G, T > 128,
+    P > 64, or a shape whose tiles do not fit in one SM's shared memory.
     """
     for name, t, ndim in (("x", x, 4), ("b", b, 4), ("c", c, 4), ("dta", dta, 3),
                           ("dt", dt, 3)):
@@ -65,3 +68,15 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dta: torch.Tens
                           BC, H, G, T, N, P, DTYPES[x.dtype],
                           torch.cuda.current_stream().cuda_stream)
     return y, state
+
+
+def cbt_per_chunk_group(BC: int, H: int, G: int, T: int, N: int, P: int,
+                        dtype: torch.dtype) -> int:
+    """How many times a launch at this shape forms each (chunk, group)'s
+    C B^T: the head blocks the kernel splits a group into (on the card;
+    the kernel library must be buildable). Raises on a shape it refuses."""
+    n = _build.query("ssd_chunk_plan", BC, H, G, T, N, P, DTYPES[dtype])
+    if n <= 0:
+        raise ValueError(f"ssd_chunk refuses (BC, H, G, T, N, P) = "
+                         f"{(BC, H, G, T, N, P)} in {dtype} (CUDA error {-n})")
+    return n

@@ -1,0 +1,249 @@
+"""K7 and K8 on the card, timed beside their yardsticks.
+
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--only k7|k8]
+
+K8 (``ops.rmsnorm``) at mamba2-130m's norm shapes, (8192, 768) and (8192,
+1536) in bf16 with bf16 weights, beside ``torch.nn.functional.rms_norm`` on
+the same inputs, a yardstick the port never calls. Each is timed twice:
+warm (one input, called back to back; at d = 768 its 12.6 MB fits the 50
+MB L2, so the HBM bound is no floor there) and cold (enough distinct
+inputs, called in turn, that together they exceed twice the L2, so that
+each call finds its input evicted). The bound is the HBM bytes of x read
+once, the output written once and w, in both.
+
+K7 (``ops.ssd_chunk``) at the serving prefills' chunks, mamba2-130m's (BC
+64, H 24, G 1, T = N = 128, P 64) and hymba-1.5b's (32, 50, 1, 128, 16,
+64), in f32 (the path's dtype) and bf16, beside its plain version (no
+single PyTorch call computes it); in f32 both are also held to the same
+function in f64 (``ssd_f64``), max and mean error over the output's scale. Its inputs and outputs (~160 MB at
+mamba2's shape in f32) exceed the L2 whatever the order. Its bound is the
+larger of the HBM bytes and the operations at the rates of the units the
+kernel runs them on: C B^T at the f32 FMA peak, the two head products on
+the TF32 tensor cores with each f32 product taken as six TF32 products in
+Y (three parts of each operand) and three in the state (two parts; with a
+bf16 x, exact in TF32: three and two). The f32 FMA figure, the bound of a
+kernel without tensor cores, is reported beside it.
+
+``main`` prints one JSON line per case. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import subprocess
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
+from repro_torch.launch.attention_times import gpu_ms
+
+# Published H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS_PER_S = 495e12
+F32_FLOPS_PER_S = 67e12
+
+#: (BC, H, G, T, N, P) of one K7 launch at each serving prefill: batch x
+#: prompt / chunk chunks (mamba2-130m batch 8, hymba-1.5b batch 4, prompt
+#: 1024, chunk 128), the model's SSD heads, groups, state and head size.
+SSD_SHAPES = {"mamba2-130m": (64, 24, 1, 128, 128, 64),
+              "hymba-1.5b": (32, 50, 1, 128, 16, 64)}
+#: (rows, d) of mamba2-130m's norms at the serving prefill (8 x 1024
+#: tokens): d_model, and the gated norm over ssm_inner.
+NORM_SHAPES = ((8192, 768), (8192, 1536))
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _bound(nbytes: float, t_ops_ms: float) -> Dict[str, object]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops_ms),
+            "bound_by": "bytes" if t_bytes >= t_ops_ms else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops_ms}
+
+
+def ssd_cost(BC: int, H: int, G: int, T: int, N: int, P: int,
+             item: int) -> Tuple[int, int, int, int]:
+    """(bytes, C B^T operations, Y operations, state operations) of one K7
+    launch: x, B, C, dtA and dt read once, y and the state written once;
+    C B^T once per (chunk, group) over the causal half, then per head the
+    decay mask and Y's product over the causal half, and the state's
+    product with its scalings."""
+    tri = T * (T + 1) // 2
+    nbytes = item * (2 * BC * H * T * P + 2 * BC * G * T * N) + 4 * (
+        2 * BC * H * T + BC * H * N * P)
+    cbt = 2 * BC * G * tri * N
+    y = BC * H * (tri + 2 * tri * P + T * P)
+    state = BC * H * (2 * T * N * P + T * N)
+    return nbytes, cbt, y, state
+
+
+def ssd_bound(shape, dtype) -> Dict[str, object]:
+    """K7's bound at ``shape`` (BC, H, G, T, N, P): bytes against the
+    operations at the rates of the units the kernel runs them on, C B^T at
+    the f32 FMA peak and the head products on the TF32 tensor cores as the
+    kernel splits them (an f32 product: 6 TF32 products in Y, 3 in the
+    state; with a bf16 x, exact in TF32: 3 and 2); and beside it the bound
+    of a kernel that runs everything at the f32 FMA peak."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes, cbt, y, state = ssd_cost(*shape, item)
+    tf32_ops = (6 * y + 3 * state) if dtype == torch.float32 else (3 * y + 2 * state)
+    rec = _bound(nbytes, (cbt / F32_FLOPS_PER_S + tf32_ops / TF32_FLOPS_PER_S) * 1e3)
+    rec.update(bytes=nbytes, operations=cbt + y + state, tf32_operations=tf32_ops,
+               f32_fma_bound_ms=max(rec["bytes_ms"],
+                                    (cbt + y + state) / F32_FLOPS_PER_S * 1e3))
+    return rec
+
+
+def cbt_formations(shape, dtype) -> int:
+    """How many times one K7 launch forms each (chunk, group)'s C B^T: the
+    kernel's head blocks per group (``ssd_scan.cbt_per_chunk_group``); a
+    kernel without that entry forms it once per head."""
+    from repro_torch.kernels import ssd_scan
+
+    plan = getattr(ssd_scan, "cbt_per_chunk_group", None)
+    BC, H, G, T, N, P = shape
+    return plan(BC, H, G, T, N, P, dtype) if plan else H // G
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max(1, max |want|), the scale K7's and K8's
+    checks hold to."""
+    err = (got.double() - want.double()).abs().max().item()
+    return err / max(1.0, want.double().abs().max().item())
+
+
+def ssd_inputs(BC, H, G, T, N, P, dtype, seed: int = 1):
+    """K7's inputs as chip_smoke.py draws them: normal x, B, C; dt in
+    [0.001, 0.101); dtA = dt * A with A from -1 to -16 over the heads, and
+    every 7th token's dtA = -35 (a decay that underflows)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*s):
+        return torch.randn(s, device="cuda", generator=gen).to(dtype)
+
+    x, b, c = normal(BC, H, T, P), normal(BC, G, T, N), normal(BC, G, T, N)
+    dt = torch.rand((BC, H, T), device="cuda", generator=gen) * 0.1 + 0.001
+    dta = dt * -torch.linspace(1.0, 16.0, H, device="cuda")[None, :, None]
+    dta[:, :, ::7] = -35.0
+    return x, b, c, dta, dt
+
+
+def ssd_f64(x, b, c, dta, dt):
+    """K7's function in f64 from the same a = cumsum(dtA) (in f32, token
+    order, as the kernel and its plain version take it): the reference
+    that both are measured against."""
+    T = x.shape[2]
+    ratio = x.shape[1] // b.shape[1]
+    a = torch.empty_like(dta)
+    run = torch.zeros_like(dta[..., 0])
+    for t in range(T):
+        run = run + dta[..., t]
+        a[..., t] = run
+    a = a.double()
+    bh, ch = (v.repeat_interleave(ratio, 1).double() for v in (b, c))
+    causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(causal, a[..., :, None] - a[..., None, :], float("-inf")))
+    scores = torch.einsum("bhin,bhjn->bhij", ch, bh) * decay
+    y = torch.einsum("bhij,bhjp->bhip", scores, x.double() * dt.double()[..., None])
+    w = torch.exp(a[..., -1:] - a) * dt.double()
+    return y, torch.einsum("bhtn,bhtp->bhnp", bh * w[..., None], x.double())
+
+
+def ssd_case(shape, dtype=torch.float32, plain: bool = True, reps: int = 50):
+    """K7 at ``shape`` (BC, H, G, T, N, P). Returns the record and the
+    kernel's and plain version's (y, state) for the caller to check. With
+    ``plain``, the record also holds the max and mean |error| / scale of
+    the kernel's and the plain version's y and state against `ssd_f64`."""
+    args = ssd_inputs(*shape, dtype)
+    got, want = ops.ssd_chunk(*args), ref.ssd_chunk_plain(*args)
+    rec = {"shape_BC_H_G_T_N_P": list(shape), "dtype": str(dtype).split(".")[-1],
+           "ms": gpu_ms(lambda: ops.ssd_chunk(*args), reps),
+           "cbt_per_chunk_group": cbt_formations(shape, dtype),
+           "heads_per_group": shape[1] // shape[2],
+           "scaled_err": max(scaled_err(got[0], want[0]), scaled_err(got[1], want[1]))}
+    if plain:
+        exact = ssd_f64(*args)
+        for who, outs in (("kernel", got), ("plain", want)):
+            for part, o, e in zip(("y", "state"), outs, exact):
+                d = (o.double() - e).abs() / max(1.0, e.abs().max().item())
+                rec[f"f64_err_{who}_{part}"] = [d.max().item(), d.mean().item()]
+    # the plain version issues ~140 operations per call (its cumsum is a
+    # loop over T): its time spans the host's enqueue gaps
+    rec["plain_ms"] = (gpu_ms(lambda: ref.ssd_chunk_plain(*args), 3, cover=False)
+                       if plain else None)
+    rec.update(ssd_bound(shape, dtype))
+    return rec, (got, want)
+
+
+def rmsnorm_case(rows: int, d: int, dtype=torch.bfloat16, eps: float = 1e-5,
+                 seed: int = 1, reps: int = 200):
+    """K8 and ``rms_norm`` at (rows, d), warm and cold. Returns the record
+    and the kernel's and plain version's outputs on the first input."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.randn((rows, d), device="cuda", generator=gen).to(dtype)
+    w = torch.randn((d,), device="cuda", generator=gen).to(dtype)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    copies = 2 * l2 // (x0.numel() * x0.element_size()) + 1
+    xs = [x0] + [torch.randn((rows, d), device="cuda", generator=gen).to(dtype)
+                 for _ in range(copies - 1)]
+    turn = itertools.count()
+
+    def kern(x):
+        return ops.rmsnorm(x, w, eps)
+
+    def lib(x):
+        return F.rms_norm(x, (d,), w, eps)
+
+    def warm(fn):
+        return lambda: fn(x0)
+
+    def cold(fn):
+        return lambda: fn(xs[next(turn) % copies])
+
+    got, want = kern(x0), ref.rmsnorm_plain(x0, w, eps)
+    item = x0.element_size()
+    rec = {"shape": [rows, d], "dtype": str(dtype).split(".")[-1],
+           "cold_copies": copies, "cold_bytes": copies * x0.numel() * item,
+           "warm_ms": gpu_ms(warm(kern), reps), "cold_ms": gpu_ms(cold(kern), reps),
+           "library_warm_ms": gpu_ms(warm(lib), reps),
+           "library_cold_ms": gpu_ms(cold(lib), reps),
+           "plain_ms": gpu_ms(lambda: ref.rmsnorm_plain(x0, w, eps), 50),
+           "scaled_err": scaled_err(got, want)}
+    rec.update(_bound(item * (2 * rows * d + d), 4 * rows * d / F32_FLOPS_PER_S * 1e3))
+    return rec, (got, want)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("k7", "k8"), default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = card()
+    cases = []
+    if args.only in (None, "k8"):
+        cases += [(f"K8 {rows}x{d} bfloat16", lambda r=rows, d=d: rmsnorm_case(r, d))
+                  for rows, d in NORM_SHAPES]
+    if args.only in (None, "k7"):
+        for arch, shape in SSD_SHAPES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append((f"K7 {arch} {str(dtype).split('.')[-1]}",
+                              lambda s=shape, t=dtype: ssd_case(
+                                  s, t, plain=t == torch.float32)))
+    for label, case in cases:
+        rec, _ = case()
+        rec["card"] = smi
+        print(json.dumps({label: rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -410,7 +410,8 @@ def test_attention_kernels_at_hymba_shape(cuda):
 # ----------------------------------------------------------- SSD (K7), RMSNorm (K8)
 #
 # Tolerances, against the plain version on the same inputs. Both compute in
-# f32 (the kernel's FMAs from shared memory against the plain version's
+# f32 precision (K7's TF32 products with each f32 operand split into a TF32
+# high part and residual, K8's f32 FMAs, against the plain version's
 # einsums: the same sums in another order), so an output is held to 2e-5
 # of the output's scale, max(1, max |plain|); a bf16 y is rounded once from
 # those f32 sums, so it also gets one bf16 ulp of its own plain value.
@@ -439,10 +440,14 @@ def _ssd_inputs(BC, H, G, T, N, P, seed, device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BC,H,G,T,N,P", [
     (4, 24, 1, 128, 128, 64),  # mamba2-130m's chunk
-    (2, 50, 1, 128, 16, 64),   # hymba-1.5b's
+    (2, 50, 1, 128, 16, 64),   # hymba-1.5b's: head blocks that do not divide H
     (3, 4, 2, 5, 8, 8),        # a 5-token prompt, two groups
-    (2, 6, 2, 100, 16, 8),     # T not a multiple of the 64-row tile
-    (1, 2, 1, 17, 128, 64)])
+    (2, 6, 2, 100, 16, 8),     # T not a multiple of the 16-row block
+    (1, 2, 1, 17, 128, 64),
+    (64, 24, 1, 128, 128, 64),  # mamba2's serving prefill: blocks of 12 heads
+    (3, 12, 2, 128, 128, 64),  # two groups of 6 heads, N = 128
+    (2, 6, 2, 100, 16, 12),    # P not a multiple of 8 (a multiple of 4)
+    (2, 3, 1, 33, 20, 5)])     # odd P and N: the element-wise staging
 def test_ssd_chunk_kernel_matches_plain(cuda, dtype, BC, H, G, T, N, P):
     args = _ssd_inputs(BC, H, G, T, N, P, T + N + G, cuda, dtype)
     before = ops.launch_counts()["ssd_chunk"]
@@ -454,8 +459,19 @@ def test_ssd_chunk_kernel_matches_plain(cuda, dtype, BC, H, G, T, N, P):
     _scaled_close(state, ws)
 
 
+def test_ssd_chunk_forms_cbt_once_per_head_block(cuda):
+    """At the serving prefills' chunks the kernel forms each (chunk,
+    group)'s C B^T fewer times than the group has heads."""
+    from repro_torch.kernels.ssd_scan import cbt_per_chunk_group
+
+    for shape in ((64, 24, 1, 128, 128, 64), (32, 50, 1, 128, 16, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert 1 <= cbt_per_chunk_group(*shape, dtype) < shape[1] // shape[2]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(8192, 768), (37, 1000), (5, 33)])
+@pytest.mark.parametrize("rows,d", [(8192, 768), (37, 1000), (5, 33), (8192, 1536),
+                                    (16, 8192)])  # 8192: wider than 16 vectors a lane
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
     rng = np.random.default_rng(rows + d)
     x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda, dtype)
@@ -467,6 +483,27 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
         _scaled_close(got, ref.rmsnorm_plain(x, w, 1e-5))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_the_scalar_path_off_alignment(cuda, dtype):
+    """A contiguous x whose data_ptr is not 16-byte aligned (a view one
+    element into its storage) goes through the scalar path of the same
+    launch and agrees with the plain version."""
+    from repro_torch.kernels.rmsnorm import vector_width
+
+    rows, d = 64, 768
+    rng = np.random.default_rng(7)
+    base = torch.from_numpy(rng.standard_normal(rows * d + 1).astype(np.float32))
+    x = base.to(cuda, dtype)[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(cuda)
+    assert vector_width(x, w) == 1
+    assert vector_width(x.clone(), w) == 16 // x.element_size()
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, w, 1e-5)
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    _scaled_close(got, ref.rmsnorm_plain(x, w, 1e-5))
+
+
 def test_ssd_and_rmsnorm_wrappers_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros(1, 3, 4, 8, device=cuda)
     b = torch.zeros(1, 2, 4, 8, device=cuda)
@@ -476,9 +513,14 @@ def test_ssd_and_rmsnorm_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="share"):
         ops.ssd_chunk(x, b[:, :1].bfloat16(), b[:, :1], d, d)
     with pytest.raises(RuntimeError, match="ssd_chunk failed to launch"):
-        big = torch.zeros(1, 1, 512, 512, device=cuda)  # tiles beyond shared memory
+        big = torch.zeros(1, 1, 512, 512, device=cuda)  # T = 512: beyond 8 row blocks
         ops.ssd_chunk(big, big, big, torch.zeros(1, 1, 512, device=cuda),
                       torch.zeros(1, 1, 512, device=cuda))
+    with pytest.raises(RuntimeError, match="ssd_chunk failed to launch"):
+        wide = torch.zeros(1, 1, 128, 128, device=cuda)  # P = 128: beyond 2 x 4 tiles
+        b128 = torch.zeros(1, 1, 128, 16, device=cuda)
+        ops.ssd_chunk(wide, b128, b128, torch.zeros(1, 1, 128, device=cuda),
+                      torch.zeros(1, 1, 128, device=cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.rmsnorm(torch.zeros(2, 4, device=cuda, dtype=torch.float16),
                     torch.ones(4, device=cuda))
