@@ -6,18 +6,23 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
   1. build   nvcc builds the kernels (K1 FMA body, K2 memory sweep, K3
-             single-step megakernel, K4 temporal-blocked megakernel, K5
-             flash attention in two forms, bf16 on the tensor cores and
-             f32, K6 decode attention, K7 SSD intra-chunk, K8 RMSNorm)
-             from ``src/``, one nvcc process per source, all started
-             together.
+             single-step megakernel, K4 temporal-blocked megakernel in two
+             forms, tiled and cooperative, K5 flash attention in two
+             forms, bf16 on the tensor cores and f32, K6 decode attention,
+             K7 SSD intra-chunk, K8 RMSNorm) from ``src/``, one nvcc
+             process per source, all started together.
   2. parity  each kernel against its plain PyTorch version on the card:
-             K1-K3 at the main path's width W = 2112 and at W = 65536, K3
-             also on out-of-range indices; K4 at the blocked main path's
-             buffer (M = 2144 rows) for every combine, fixed and
-             time-varying tables, every body, S in {2, 8}, an act mask with
-             a masked tail and a frozen member; the pipelined phases
-             stitched together equal to one full K4 launch, bit for bit;
+             K1-K3 at the main path's width W = 2112 and at W = 65536, K2
+             also at ragged payloads and scratches (its 16-byte and scalar
+             paths), K3 also on out-of-range indices; K4's cooperative form
+             at the blocked main path's buffer (M = 2144 rows) for every
+             combine, random fixed and time-varying tables, every body, S
+             in {2, 8}, an act mask with a masked tail and a frozen member;
+             K4's tiled form on tables of reach <= 2 (window, gather,
+             onehot), compute and empty bodies, S in {2, 8}, M = 2144 and
+             301, held to the plain version and equal to the cooperative
+             form bit for bit; the pipelined phases stitched together equal
+             to one full K4 launch, bit for bit, in both forms;
              K5 (both forms) at the serving prefill (8 x 16 heads x 1024 x
              128, causal) and a windowed ragged case, K6 (one cluster
              launch) at the serving decode (q 8 x 16
@@ -63,8 +68,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              shapes, 2 launches.
   6. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes, beside its bound on this card (K2 also
-             beside its shared-memory bound); K4 as one full launch and as
-             the pipelined phases; K5 at internlm2's and hymba's prefill
+             beside its shared-memory bound); K4 in both forms as one full
+             launch at S = 2 and S = 8 and as the pipelined phases; K5 at internlm2's and hymba's prefill
              shapes, and K6 at the serving decode warm and L2-cold, beside
              ``scaled_dot_product_attention`` on the same inputs under
              PyTorch's choice of backend and each backend pinned
@@ -84,6 +89,7 @@ no result. It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -115,7 +121,15 @@ TOL = 1e-5
 TOL_MEMORY_RUN = T_MAIN * 1.2e-7
 S_MAIN = 8  # the blocked main path's steps per launch
 TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
-                     "taskbench_blocked")
+                     "taskbench_blocked", "taskbench_blocked_tiled")
+# K4's launch counters by form: the main path's fixed-table compute runs
+# take the tiled form, its memory_bound run the cooperative one.
+K4_TILED, K4_COOP = "taskbench_blocked_tiled", "taskbench_blocked"
+# K2 at ragged shapes, (rows, payload, scratch): a payload of 3 and of 40
+# 16-byte words, a scratch not a multiple of the payload, and the scalar
+# path (a payload or a scratch not a multiple of 4).
+K2_RAGGED = ((W_MAIN, 12, 2048), (37, 160, 2048), (50, 64, 100), (37, 13, 1001),
+             (W_MAIN, 64, 2046))
 # The serving cell: internlm2-1.8b at full width, batch 8, prompt 1024,
 # 64 generated tokens (63 decode steps), greedy.
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "internlm2-1.8b", 8, 1024, 64
@@ -179,9 +193,12 @@ def check_close(name: str, got, want, tol: float) -> float:
 
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite values")
-    err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item() if got.numel() else 0.0
     if not err <= tol:
-        fail(f"{name}: max abs error {err} > {tol}")
+        i = int(diff.flatten().argmax())
+        fail(f"{name}: max abs error {err} > {tol} at flat index {i} "
+             f"({got.flatten()[i].item()} vs {want.flatten()[i].item()})")
     return err
 
 
@@ -281,7 +298,7 @@ def main() -> int:
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    libs = sorted({lib for lib, _ in _build.ENTRIES.values()})
+    libs = sorted({lib for lib, _ in (*_build.ENTRIES.values(), *_build.PROBES.values())})
     missing = [lib for lib in libs if not _build.library_path(lib).exists()]
     if missing:
         fail(f"[build] libraries missing after the build: {missing}")
@@ -312,6 +329,13 @@ def main() -> int:
                              apply_body(x, "memory_bound", it, 2048), TOL)
             errs["taskbench_compute"] = max(errs["taskbench_compute"], e1)
             errs["memory_bound"] = max(errs["memory_bound"], e2)
+    for rows, p, scratch in K2_RAGGED:
+        x = rand(rows, p)
+        for it in (0, 1, 16, 1024):
+            errs["memory_bound"] = max(errs["memory_bound"], check_close(
+                f"K2 rows={rows} P={p} scratch={scratch} it={it}",
+                ops.taskbench_memory(x, it, scratch),
+                apply_body(x, "memory_bound", it, scratch), TOL))
     kinds = (("compute_bound", GRAIN), ("memory_bound", 4), ("empty", 0))
     for W in (W_MAIN, W_WIDE):
         for K in (1, 3):
@@ -362,6 +386,45 @@ def main() -> int:
                     TOL))
                 if not torch.equal(got[K - 1], src[K - 1]):
                     fail(f"{case}: the frozen member changed")
+    # K4's tiled form on tables of reach <= 2: against the plain version and
+    # bit for bit the cooperative form, at the main path's buffer and at one
+    # that is not a multiple of the tile
+    for M, S, tail in itertools.product((W_MAIN + 2 * S_MAIN * 2, 301), (2, S_MAIN),
+                                        (False, True)):
+        act = torch.ones((K, S), device=dev)  # every depth active ...
+        if tail:  # ... or a masked tail and a frozen member
+            act[:, S - 1] = 0.0
+            act[K - 1] = 0.0
+        src = rand(K, M, PAYLOAD)
+        own = torch.arange(M, device=dev)[None, :, None]
+        for combine in ("window", "gather", "onehot"):
+            Dt = 5 if combine == "window" else 3
+            wgt = torch.rand((K, M, Dt), device=dev, generator=gen) / Dt
+            off = torch.randint(-2, 3, (K, M, Dt), device=dev, generator=gen)
+            idx = (own + off).clamp(0, M - 1).to(torch.int32)
+            idx[..., ::2, 1] = idx[..., ::2, 0]
+            # the empty body first: grain 64 contracts any difference
+            # in its input toward the FMA's fixed point
+            for kind, it in (("empty", 0), ("compute_bound", GRAIN)):
+                kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
+                before = ops.launch_counts()
+                tiled = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S,
+                                           radius=2, **kw)
+                coop = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw)
+                after = ops.launch_counts()
+                case = (f"K4 tiled M={M} S={S} {combine} {kind}"
+                        f"{' masked tail' if tail else ''}")
+                if (after[K4_TILED] - before[K4_TILED],
+                        after[K4_COOP] - before[K4_COOP]) != (1, 1):
+                    fail(f"{case}: launches {after} after {before}")
+                errs[K4_TILED] = max(errs[K4_TILED], check_close(
+                    case, tiled, taskbench_step_blocked_plain(src, idx, wgt, act, **kw),
+                    TOL))
+                if not torch.equal(tiled, coop):
+                    d = (tiled - coop).abs()
+                    i = int(d.flatten().argmax())
+                    fail(f"{case}: tiled != cooperative at flat index {i} "
+                         f"({tiled.flatten()[i].item()} vs {coop.flatten()[i].item()})")
     # the pipelined phases, stitched, against one full launch (bit for bit)
     g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="random_nearest",
                   payload=PAYLOAD, kernel=KernelSpec("compute_bound", 1), radius=2)
@@ -377,19 +440,24 @@ def main() -> int:
             rt = get_runtime("pallas_step", combine=combine, steps_per_launch=S_MAIN)
             idx, wgt, _, _ = (torch.from_numpy(a)[None].to(dev)
                               for a in rt._blocked_operands(g, 2))
-            kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine,
-                      steps_per_launch=S_MAIN)
             iext, wext = ps_mod._extend_tables(idx, wgt, depth, combine, row_axis=1)
-            full = ops.taskbench_step(state.index_select(1, rows), iext, wext, act,
-                                      **kw)[:, depth:depth + W_MAIN]
             ph = ps_mod._phase_tables(idx, wgt, depth, combine)
-            for stream in (None, side):
-                stitched, _, _ = ps_mod._pipelined_launch(
-                    state, hl, hr, act, ph, depth, kw, stream)
-                torch.cuda.synchronize()
-                if not torch.equal(stitched, full):
-                    fail(f"K4 phases ({combine} {kind}, side stream "
-                         f"{stream is not None}): stitched != full launch")
+            fulls = []
+            for radius in (None, 2):  # the cooperative form, then the tiled one
+                kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine,
+                          steps_per_launch=S_MAIN, radius=radius)
+                full = ops.taskbench_step(state.index_select(1, rows), iext, wext, act,
+                                          **kw)[:, depth:depth + W_MAIN]
+                fulls.append(full)
+                for stream in (None, side):
+                    stitched, _, _ = ps_mod._pipelined_launch(
+                        state, hl, hr, act, ph, depth, kw, stream)
+                    torch.cuda.synchronize()
+                    if not torch.equal(stitched, full):
+                        fail(f"K4 phases ({combine} {kind}, radius {radius}, side "
+                             f"stream {stream is not None}): stitched != full launch")
+            if not torch.equal(*fulls):
+                fail(f"K4 phases ({combine} {kind}): tiled != cooperative full launch")
     # K5 at the serving prefill and a windowed ragged case; K6 at the
     # serving decode, lengths from empty to past the capacity
     def normal(*shape, dtype):
@@ -488,8 +556,9 @@ def main() -> int:
                     f"K8 ({rows}, {d}) offset {offset} {dtype} w {wdt}",
                     ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
-    print(f"[parity] K1-K8 (K5 in both forms) agree with their plain versions, K4's phases "
-          f"stitched equal one launch, in {time.perf_counter() - t0:.3f} s; "
+    print(f"[parity] K1-K8 (K4 and K5 in both forms) agree with their plain versions, "
+          f"K4's tiled form equals its cooperative form and its phases stitched equal "
+          f"one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
 
     # ------------------------------------------------------------ main path
@@ -524,9 +593,11 @@ def main() -> int:
     def run_blocked(g: TaskGraph, init, want, tol: float, combine: str = "window"):
         """pallas_step(steps_per_launch=S_MAIN), pipelined and serial: each
         held to the S = 1 run ``want``, its launches to 1 K3 plus one (serial)
-        or two (pipelined) K4 per blocked launch and to dispatches_per_run,
-        and pipelined equal to serial bit for bit."""
+        or two (pipelined) K4 per blocked launch, all on K4's tiled form
+        (the cooperative one for the memory body), and to
+        dispatches_per_run, and pipelined equal to serial bit for bit."""
         outs = {}
+        form = K4_COOP if g.kernel.kind == "memory_bound" else K4_TILED
         for label, opts in BLOCKED_RUNS:
             rt = get_runtime("pallas_step", combine=combine,
                              steps_per_launch=S_MAIN, **opts)
@@ -534,12 +605,12 @@ def main() -> int:
             split = rt._pipeline_active(g.width, S_MAIN, halo_radius(g))
             want_d = dict.fromkeys(_build.ENTRIES, 0)
             want_d["taskbench_step"] = 1
-            want_d["taskbench_blocked"] = -(-(g.steps - 1) // S_MAIN) * (1 + split)
+            want_d[form] = -(-(g.steps - 1) // S_MAIN) * (1 + split)
             if d != want_d or sum(d.values()) != rt.dispatches_per_run(g):
                 fail(f"{g.describe()} {combine} S={S_MAIN} {label}: launches {d}, "
                      f"expected {want_d}, dispatches_per_run "
                      f"{rt.dispatches_per_run(g)}")
-            blocked_launches[label] = d["taskbench_blocked"]
+            blocked_launches.setdefault(form, {})[label] = d[form]
             outs[label] = torch.from_numpy(out)
             check_close(f"{g.pattern} {combine} S={S_MAIN} {label} vs S=1",
                         outs[label], want, tol)
@@ -858,22 +929,27 @@ def main() -> int:
         return ((2 * rows * PAYLOAD + rows * Db + S_MAIN) * 4,
                 S_MAIN * rows * PAYLOAD * (2 * Db + 2 * GRAIN))
 
-    cases.append(
-        ("taskbench_blocked", "K4", "src/repro_torch/kernels/csrc/taskbench_blocked.cu",
-         "src/repro/kernels/taskbench_step.py:275",
-         lambda: ops.taskbench_step(srcb, None, wext, actb, **blk_kw),
-         lambda: taskbench_step_blocked_plain(srcb, None, wext, actb, **step_kw),
-         *k4_cost(M)))
+    # K4's two forms: the tiled one (the main path's, radius 2 declared) and
+    # the cooperative one (no radius)
+    k4_kw = {K4_TILED: dict(blk_kw, radius=Hb), K4_COOP: blk_kw}
+    for kname, tag in ((K4_TILED, "K4 tiled"), (K4_COOP, "K4 cooperative")):
+        cases.append(
+            (kname, tag, "src/repro_torch/kernels/csrc/taskbench_blocked.cu",
+             "src/repro/kernels/taskbench_step.py:275",
+             lambda kw=k4_kw[kname]: ops.taskbench_step(srcb, None, wext, actb, **kw),
+             lambda: taskbench_step_blocked_plain(srcb, None, wext, actb, **step_kw),
+             *k4_cost(M)))
     kernels = []
     for kname, tag, source, replaces, kern, plain, nbytes, nops in cases:
         check_close(f"{tag} timing inputs", kern(), plain(), TOL)
         ms = gpu_ms(kern, 200)
         # K4's plain version issues ~1100 operations per call, more than
         # the launch queue holds: its time spans the host's enqueue gaps
-        plain_ms = gpu_ms(plain, 2, cover=False) if tag == "K4" else gpu_ms(plain, 4)
+        k4_case = tag.startswith("K4")
+        plain_ms = gpu_ms(plain, 2, cover=False) if k4_case else gpu_ms(plain, 4)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
-        per_run = dict(blocked_launches) if tag == "K4" else T_MAIN
+        per_run = blocked_launches.get(kname, {}) if k4_case else T_MAIN
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": errs[kname],
@@ -904,42 +980,46 @@ def main() -> int:
     wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
     print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
           f"K3 {k3_us:.3f} us: device busy share ~{k3_us / wall_us:.4f}")
-    # K4's pipelined phases at their shapes: the boundary buffer (6 * depth
-    # rows) and the interior (the owned W rows)
+    # K4's pipelined phases at their shapes, the boundary buffer (6 * depth
+    # rows) and the interior (the owned W rows), and its cost per depth (the
+    # full buffer at S = 2 beside S = S_MAIN), in both forms
     ph = ps_mod._phase_tables(None, wb, depth, "window")
     state = rand(1, W_MAIN, PAYLOAD)
     bl, br = rand(1, 3 * depth, PAYLOAD), rand(1, 3 * depth, PAYLOAD)
-    k4 = kernels[3]
-    for phase, fn, rows in (
-            ("boundary", lambda: ops.taskbench_boundary(
-                bl, br, ph.i_bnd, ph.w_bnd, actb, depth=depth, **blk_kw), 6 * depth),
-            ("interior", lambda: ops.taskbench_interior(
-                state, ph.i_int, ph.w_int, actb, depth=depth, **blk_kw), W_MAIN)):
-        ms = gpu_ms(fn, 200)
-        nbytes, nops = k4_cost(rows)
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3
-        k4[f"{phase}_ms"], k4[f"{phase}_bound_ms"] = ms, bound
-        print(f"[time] K4 {phase} launch ({rows} rows, S={S_MAIN}): {ms * 1e3:.3f} us, "
-              f"bound {bound * 1e3:.3f} us | {smi}", flush=True)
-    # K4's cost per depth: the full buffer at S = 2 beside S = S_MAIN
     act2 = torch.ones((1, 2), device=dev)
-    k4["ms_at_S2"] = ms2 = gpu_ms(lambda: ops.taskbench_step(
-        srcb, None, wext, act2, **dict(step_kw, steps_per_launch=2)), 200)
-    per_depth = (k4["ms"] - ms2) / (S_MAIN - 2)
-    print(f"[time] K4 full buffer: S=2 {ms2 * 1e3:.3f} us, S={S_MAIN} "
-          f"{k4['ms'] * 1e3:.3f} us: {per_depth * 1e3:.3f} us per depth, "
-          f"{(ms2 - 2 * per_depth) * 1e3:.3f} us per launch besides | {smi}",
-          flush=True)
+    k4s = {K4_TILED: kernels[3], K4_COOP: kernels[4]}
+    for kname, k4 in k4s.items():
+        kw = k4_kw[kname]
+        for phase, fn, rows in (
+                ("boundary", lambda: ops.taskbench_boundary(
+                    bl, br, ph.i_bnd, ph.w_bnd, actb, depth=depth, **kw), 6 * depth),
+                ("interior", lambda: ops.taskbench_interior(
+                    state, ph.i_int, ph.w_int, actb, depth=depth, **kw), W_MAIN)):
+            ms = gpu_ms(fn, 200)
+            nbytes, nops = k4_cost(rows)
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3
+            k4[f"{phase}_ms"], k4[f"{phase}_bound_ms"] = ms, bound
+            print(f"[time] {kname} {phase} launch ({rows} rows, S={S_MAIN}): "
+                  f"{ms * 1e3:.3f} us, bound {bound * 1e3:.3f} us | {smi}", flush=True)
+        k4["ms_at_S2"] = ms2 = gpu_ms(lambda: ops.taskbench_step(
+            srcb, None, wext, act2, **dict(kw, steps_per_launch=2)), 200)
+        k4["per_depth_ms"] = per_depth = (k4["ms"] - ms2) / (S_MAIN - 2)
+        k4["per_launch_besides_ms"] = ms2 - 2 * per_depth
+        print(f"[time] {kname} full buffer: S=2 {ms2 * 1e3:.3f} us, S={S_MAIN} "
+              f"{k4['ms'] * 1e3:.3f} us: {per_depth * 1e3:.3f} us per depth, "
+              f"{k4['per_launch_besides_ms'] * 1e3:.3f} us per launch besides | {smi}",
+              flush=True)
+    k4 = k4s[K4_TILED]
     # one whole pipelined launch (two concatenations, the two phases, the
-    # stitching concatenation), its interior on the same stream or on a
-    # second one: how far the two K4 launches overlap on the card
+    # stitching concatenation) as the main path runs it, its interior on the
+    # same stream or on a second one: how far the two K4 launches overlap
     hl, hr = ps_mod._prologue_exchange(state, depth)
     side = torch.cuda.Stream()
     for label, stream in (("one stream", None), ("two streams", side)):
         # ~9 operations per call: 50 calls stay within the launch queue
         k4[f"pipelined_launch_ms_{label.replace(' ', '_')}"] = ms = gpu_ms(
             lambda: ps_mod._pipelined_launch(state, hl, hr, actb, ph, depth,
-                                             blk_kw, stream), 50)
+                                             k4_kw[K4_TILED], stream), 50)
         print(f"[time] pipelined launch, interior on {label}: {ms * 1e3:.3f} us "
               f"(boundary {k4['boundary_ms'] * 1e3:.3f} + interior "
               f"{k4['interior_ms'] * 1e3:.3f} us alone) | {smi}", flush=True)

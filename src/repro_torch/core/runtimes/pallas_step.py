@@ -20,7 +20,8 @@ Temporal blocking (``steps_per_launch=S > 1``, an int): after the t = 0
 body-only K3 launch, the loop makes ceil((T-1)/S) launches of the blocked
 megakernel K4, each S timesteps on a buffer wrapped S*H rows deep per side,
 whose valid span shrinks by H rows per side per depth; the owned rows are
-sliced out after each launch. Per-row weight tables (and, for gather /
+sliced out after each launch. Every K4 launch declares ``radius=H``, the
+tables' reach, so the fixed-table launches take K4's tiled form. Per-row weight tables (and, for gather /
 onehot, signed offsets rebased onto the buffer) are wrapped once per run.
 The final launch carries a masked tail (the (L, S) act schedule). S is
 clamped to T - 1, as the reference clamps an explicit depth.
@@ -436,7 +437,10 @@ class PallasStepRuntime(Runtime):
         B, T = graph.width, graph.steps
         mode = self._combine_mode()
         kw0 = self._kernel_kw(graph)
-        kwb = dict(kw0, steps_per_launch=S)
+        # the tables reach at most H rows (window: D = 2H + 1; gather/onehot:
+        # offsets in [-H, H], which `_rebase_rows`' clamp only moves toward
+        # the row itself), so K4 may take its tiled form
+        kwb = dict(kw0, steps_per_launch=S, radius=H)
         idx, wgt, idx0, wgt0 = (
             torch.from_numpy(a)[None].to(self.device)
             for a in self._blocked_operands(graph, H))

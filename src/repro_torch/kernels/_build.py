@@ -40,7 +40,10 @@ ENTRIES = {
     "memory_bound": ("memory_bound", (_P, _P, _I, _I, _I, _I, _P)),
     "taskbench_step": ("taskbench_step",
                        (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+    # K4's two forms, counted apart: cooperative (any table, the memory
+    # body) and tiled (fixed tables of a known reach)
     "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
+    "taskbench_blocked_tiled": ("taskbench_blocked", (_P,) * 5 + (_I,) * 10 + (_P,)),
     # K5's two forms, counted apart: bf16 on the tensor cores, f32 FMAs
     "flash_attention": ("flash_attention", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
     "flash_attention_f32": ("flash_attention_f32", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
@@ -53,6 +56,11 @@ ENTRIES = {
 #: (`query`): K7's head blocks per (chunk, group) at a shape.
 QUERIES = {
     "ssd_chunk_plan": ("ssd_chunk", (_I,) * 7),
+}
+#: C entries that launch a kernel of no work (`probe`): the launch floor the
+#: yardsticks time. Not kernels of the port; their launches are not counted.
+PROBES = {
+    "launch_floor": ("launch_floor", (_I, _I, _P)),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.
@@ -93,7 +101,7 @@ def build_all() -> Dict[str, str]:
     there); an already built library is absent from the result. Raises
     with nvcc's output if any build fails.
     """
-    names = sorted({lib for lib, _ in ENTRIES.values()})
+    names = sorted({lib for lib, _ in (*ENTRIES.values(), *PROBES.values())})
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -129,7 +137,7 @@ def build_all() -> Dict[str, str]:
 def _library(name: str) -> ctypes.CDLL:
     build_all()
     lib = ctypes.CDLL(str(library_path(name)))
-    for entry, (owner, argtypes) in {**ENTRIES, **QUERIES}.items():
+    for entry, (owner, argtypes) in {**ENTRIES, **QUERIES, **PROBES}.items():
         if owner == name:
             fn = getattr(lib, entry)
             fn.argtypes = list(argtypes)
@@ -147,6 +155,16 @@ def launch(entry: str, *args) -> None:
         msg = lib.tb_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: {msg} ({err})")
     LAUNCHES[entry] += 1
+
+
+def probe(entry: str, *args) -> None:
+    """Call C entry ``entry`` of PROBES; raise if the launch was refused
+    (counts no launch)."""
+    lib = _library(PROBES[entry][0])
+    err = getattr(lib, entry)(*args)
+    if err != 0:
+        msg = lib.tb_error_string(err).decode()
+        raise RuntimeError(f"CUDA probe {entry} failed to launch: {msg} ({err})")
 
 
 def query(entry: str, *args) -> int:

@@ -68,9 +68,17 @@ def apply_body(x: torch.Tensor, kind: str, iterations: int, scratch: int) -> tor
     raise ValueError(f"unknown kernel kind {kind!r}")
 
 
+def sweep_floats(payload: int, scratch: int) -> int:
+    """Floats of shared memory one warp's sweep takes (``bodies.cuh``'s
+    ``sweep_floats``): the payload row and the two scratch buffers, each
+    rounded up to 16 bytes."""
+    return -(-payload // 4) * 4 + 2 * (-(-scratch // 4) * 4)
+
+
 def check_scratch(scratch: int, extra_floats: int = 0) -> None:
-    """Raise if the sweep's buffers do not fit one CTA's shared memory."""
-    need = 4 * (2 * scratch + extra_floats)
+    """Raise if one row's sweep (a row of ``extra_floats`` and the two
+    buffers) does not fit one CTA's shared memory."""
+    need = 4 * sweep_floats(extra_floats, scratch)
     if scratch < 1 or need > SMEM_LIMIT:
         raise ValueError(
             f"scratch {scratch} needs {need} bytes of shared memory per row; "
@@ -80,8 +88,8 @@ def check_scratch(scratch: int, extra_floats: int = 0) -> None:
 def memory_bound(x: torch.Tensor, iterations: int, scratch: int) -> torch.Tensor:
     """K2: the scratch sweep over x: (rows, payload) f32 on the card.
 
-    Launches ``csrc/memory_bound.cu`` (one CTA per row, the working set in
-    shared memory). Same shape and dtype out; iterations 0 is the identity.
+    Launches ``csrc/memory_bound.cu`` (a warp per row, the working set in
+    shared memory, the next row staged beside it). Same shape and dtype out; iterations 0 is the identity.
     Raises on anything but a contiguous 2-D float32 CUDA tensor.
     """
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.ndim != 2:
@@ -90,7 +98,7 @@ def memory_bound(x: torch.Tensor, iterations: int, scratch: int) -> torch.Tensor
             f"{tuple(x.shape)} {x.dtype} on {x.device}")
     if iterations < 0:
         raise ValueError("iterations must be >= 0")
-    check_scratch(scratch)
+    check_scratch(scratch, extra_floats=2 * sweep_floats(x.shape[1], 0))
     x = x.contiguous()
     out = torch.empty_like(x)
     rows, payload = x.shape

@@ -20,18 +20,19 @@ __device__ __forceinline__ int gather_row(int r, int S) {
   return r < 0 ? 0 : (r >= S ? S - 1 : r);
 }
 
-// Weighted sum over the D slots (ir, wr) of one output row, at column c of
-// an S-row, P-column source.
-template <bool ONEHOT>
-__device__ __forceinline__ float combine_slots(const float* __restrict__ src,
-                                               const int* __restrict__ ir,
-                                               const float* __restrict__ wr,
-                                               int S, int P, int D, int c) {
+// Weighted sum over the D slots (ir, wr) of one output row, on an S-row
+// source read through `read(row)`: the value at the caller's column of
+// source row `row` (always in [0, S)).
+template <bool ONEHOT, class Read>
+__device__ __forceinline__ float combine_slots_by(Read read,
+                                                  const int* __restrict__ ir,
+                                                  const float* __restrict__ wr,
+                                                  int S, int D) {
   float acc = 0.f;
   for (int j = 0; j < D; ++j) {
     const int r = ir[j];
     if constexpr (!ONEHOT) {
-      acc = fmaf(src[static_cast<size_t>(gather_row(r, S)) * P + c], wr[j], acc);
+      acc = fmaf(read(gather_row(r, S)), wr[j], acc);
     } else {
       // slot j contributes once per distinct in-range row, carrying the
       // summed weight of every slot that names that row
@@ -42,10 +43,20 @@ __device__ __forceinline__ float combine_slots(const float* __restrict__ src,
       float ws = 0.f;
       for (int i = j; i < D; ++i)
         if (ir[i] == r) ws += wr[i];
-      acc = fmaf(src[static_cast<size_t>(r) * P + c], ws, acc);
+      acc = fmaf(read(r), ws, acc);
     }
   }
   return acc;
+}
+
+// combine_slots_by at column c of an S-row, P-column source in memory.
+template <bool ONEHOT>
+__device__ __forceinline__ float combine_slots(const float* __restrict__ src,
+                                               const int* __restrict__ ir,
+                                               const float* __restrict__ wr,
+                                               int S, int P, int D, int c) {
+  return combine_slots_by<ONEHOT>(
+      [=](int r) { return src[static_cast<size_t>(r) * P + c]; }, ir, wr, S, D);
 }
 
 }  // namespace tb

@@ -26,22 +26,45 @@
 // once and writes M*P floats; the compute body adds 2*iterations f32
 // operations per element per depth, the memory body a shared-memory sweep
 // of `scratch` floats per pass per row. At the main path's shape (M = 2144,
-// P = 64, S = 8, grain 64) the bound is the FMA work, ~2 us.
+// P = 64, S = 8, grain 64) the bound is the FMA work, ~2.3 us; the tiled
+// form adds the halo rows it recomputes (~10% there).
 //
-// Design: a row at depth d + 1 may read any row of depth d (time-varying
-// tables address the whole buffer), so depths are separated by a grid-wide
-// barrier. The launch is cooperative and persistent: the grid holds as many
-// CTAs as can be resident at once (occupancy x SMs), capped by the work of
-// one depth, and grid-strides over (member, tile) work items; depths
-// ping-pong through global memory (L2 at these sizes) with
-// cooperative_groups' grid.sync() between them. The reference keeps a
-// member's whole buffer in one program, which does not fit a CTA's shared
-// memory at the main path's M and would leave all SMs but K idle. Compute
-// and empty bodies run as K3's: 1024 consecutive elements per work item, 4
-// register chains per thread. The memory body runs one row per work item:
-// the combined row to shared memory, then tb::memory_sweep_row. A row's
-// arithmetic depends only on its own inputs, never on M, its tile or the
-// grid, so the pipelined runtime's phases give the same bits as one launch.
+// Two forms, each with its own C entry and launch counter:
+//
+// Tiled (taskbench_blocked_tiled): tables fixed across depths whose reach,
+// the farthest row a row's taps read, is at most r (the window's
+// D - 1 - (D - 1) / 2, or the `reach` the caller declares for gather and
+// onehot), with the compute or empty body. An ordinary launch, no grid
+// barrier: each CTA of 512 threads owns output rows [t0, t1) of one member
+// and a slice of the payload columns, copies rows [t0 - S*r, t1 + S*r) of
+// `src` (clipped to [0, M)) with their weights and indices into shared
+// memory once (cp.async, all in flight together), and runs all S depths
+// there, depth d computing rows [t0 - (S-1-d)*r, t1 + (S-1-d)*r), the span
+// whose taps the span before it holds; two shared buffers ping-pong, a
+// __syncthreads() between depths; only [t0, t1) is written out. A warp
+// runs as many register chains as hold its elements of a depth. The
+// combine never mixes columns and the bodies are elementwise, so a column
+// slice is free; the host (taskbench_step.plan_tiles) picks the tile rows
+// and the slice width from the SM count, the shared-memory budget and the
+// halo's recomputation (2144 rows, S = 8, r = 2: 16 tiles of 134 rows x 8
+// slices of 8 columns, 128 CTAs). A tap outside the declared reach reads
+// NaN, so a table that breaks its promise gives no silently wrong rows.
+//
+// Cooperative (taskbench_blocked): any table (time-varying ones address the
+// whole buffer at every depth), and the memory body, whose sweep mixes a
+// row's columns and costs too much per row to recompute halos. A
+// persistent cooperative launch, as many CTAs as the card holds at once,
+// grid-striding over (member, tile) work items; depths ping-pong through
+// global memory (L2 at these sizes) with cooperative_groups' grid.sync()
+// between them. Compute and empty bodies run as K3's: 1024 consecutive
+// elements per work item, 4 register chains per thread; the memory body
+// runs a row per warp: the combined row to shared memory, then
+// tb::memory_sweep_warp.
+//
+// In both forms a row's arithmetic depends only on its own inputs (taps in
+// the same order, fmaf, the same body), never on M, its tile or the grid:
+// the two forms give the same bits, and so do the pipelined runtime's
+// phases and one launch.
 #include <cooperative_groups.h>
 
 #include "bodies.cuh"
@@ -58,6 +81,9 @@ constexpr int ONEHOT = 2;
 constexpr int THREADS = 256;
 constexpr int CHAINS = 4;
 constexpr int TILE = THREADS * CHAINS;  // elements per compute work item
+constexpr int MEM_WARPS = 4;            // rows in flight per memory CTA, at most
+constexpr int TILED_THREADS = 512;      // threads of a tiled CTA
+constexpr int MAX_CHAINS = 8;           // register chains per tiled thread
 
 struct Args {
   const float* src;
@@ -143,32 +169,36 @@ __global__ void __launch_bounds__(THREADS) blocked_compute_kernel(Args a) {
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) blocked_memory_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* row = smem;            // the combined row, P floats
-  float* buf0 = smem + a.P;     // the sweep's two buffers
-  float* buf1 = buf0 + a.scratch;
+__global__ void __launch_bounds__(MEM_WARPS * 32) blocked_memory_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* row = reinterpret_cast<float*>(smem4) + warp * tb::sweep_floats(a.P, a.scratch);
+  float* buf0 = row + tb::round4(a.P);  // the sweep's two buffers
+  float* buf1 = buf0 + tb::round4(a.scratch);
   cg::grid_group grid = cg::this_grid();
   const long long n = static_cast<long long>(a.M) * a.P;
   const long long items = static_cast<long long>(a.K) * a.M;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
   for (int d = 0; d < a.S; ++d) {
     const float* cur = depth_src(a, d);
     float* nxt = depth_dst(a, d);
-    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    for (long long it = static_cast<long long>(warp) * gridDim.x + blockIdx.x;
+         it < items; it += warps) {
       const int k = static_cast<int>(it / a.M);
       const int i = static_cast<int>(it % a.M);
       const float* curk = cur + k * n;
       float* out_row = nxt + k * n + static_cast<size_t>(i) * a.P;
       if (a.act[static_cast<size_t>(k) * a.S + d] <= 0.5f) {
-        for (int c = threadIdx.x; c < a.P; c += THREADS)
+        for (int c = lane; c < a.P; c += 32)
           out_row[c] = curk[static_cast<size_t>(i) * a.P + c];
-        continue;  // uniform across the CTA
+        continue;  // uniform across the warp
       }
-      for (int c = threadIdx.x; c < a.P; c += THREADS)
+      for (int c = lane; c < a.P; c += 32)
         row[c] = combine_at<MODE>(a, curk, k, d, i, c);
-      __syncthreads();
-      tb::memory_sweep_row(row, out_row, a.P, a.iterations, a.scratch, buf0,
-                           buf1);
+      __syncwarp();
+      tb::memory_sweep_warp(row, out_row, a.P, a.iterations, a.scratch, buf0,
+                            buf1);
     }
     if (d + 1 < a.S) grid.sync();
   }
@@ -177,8 +207,14 @@ __global__ void __launch_bounds__(THREADS) blocked_memory_kernel(Args a) {
 // Cooperative launch of `kernel` over `items` work items per depth: as many
 // CTAs as the card holds at once, and no more than there are items.
 cudaError_t launch_cooperative(const void* kernel, Args a, long long items,
-                               size_t smem, cudaStream_t stream) {
+                               int threads, size_t smem, cudaStream_t stream) {
   cudaError_t err;
+  if (smem > 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -191,14 +227,14 @@ cudaError_t launch_cooperative(const void* kernel, Args a, long long items,
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, THREADS, smem)) != cudaSuccess)
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   long long grid = static_cast<long long>(per_sm) * sms;
   if (items < grid) grid = items < 1 ? 1 : items;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)),
-                                    dim3(THREADS), args, smem, stream);
+                                    dim3(threads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -210,14 +246,246 @@ cudaError_t launch(const Args& a, int memory, cudaStream_t stream) {
     const long long items = (n + TILE - 1) / TILE * a.K;
     return launch_cooperative(
         reinterpret_cast<const void*>(blocked_compute_kernel<MODE>), a, items,
-        0, stream);
+        THREADS, 0, stream);
   }
-  const size_t smem =
-      (static_cast<size_t>(a.P) + 2 * static_cast<size_t>(a.scratch)) *
-      sizeof(float);
+  // as many rows a CTA as fit its shared memory, up to MEM_WARPS
+  const size_t row_bytes = tb::sweep_floats(a.P, a.scratch) * sizeof(float);
+  int dev = 0, smem_max = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int per_cta = static_cast<int>(
+      row_bytes * MEM_WARPS <= static_cast<size_t>(smem_max) ? MEM_WARPS
+                                                             : smem_max / row_bytes);
+  if (per_cta < 1) return cudaErrorInvalidValue;  // one row's sweep does not fit
+  const long long rows = static_cast<long long>(a.K) * a.M;
   return launch_cooperative(
       reinterpret_cast<const void*>(blocked_memory_kernel<MODE>), a,
-      static_cast<long long>(a.K) * a.M, smem, stream);
+      (rows + per_cta - 1) / per_cta, per_cta * 32, per_cta * row_bytes, stream);
+}
+
+// ------------------------------------------------------------ tiled form
+
+struct TiledArgs {
+  const float* src;
+  const int* idx;
+  const float* wgt;
+  const float* act;
+  float* out;
+  int K, M, P, D, S;
+  int reach;       // the farthest row a tap reads, in rows
+  int iterations;  // the FMA body's (0: the empty body)
+  int tile_rows;   // output rows per CTA
+  int col_shift;   // log2 of the column slice's width
+  int n_slices;    // column slices per member
+};
+
+// Rows [lo, lo + L) of one member's buffer, columns [c0, c0 + cw), held in
+// shared memory row by row at a stride of 1 << col_shift floats.
+struct Tile {
+  int t0, t1;  // the output rows
+  int lo;      // the first loaded row
+  int c0, cw;  // the column slice
+  int sh;      // col_shift
+};
+
+// Shared-memory floats of a tile of L loaded rows: two buffers of L rows of
+// 1 << col_shift floats, the rows' weights and (gather/onehot) indices.
+__host__ __device__ inline size_t tiled_smem_floats(int L, int col_shift, int D,
+                                                    bool uses_idx) {
+  return (2 * (static_cast<size_t>(L) << col_shift) +
+          static_cast<size_t>(L) * D * (uses_idx ? 2 : 1));
+}
+
+// The combined value of row i, column c (tile-local) at one depth; `cur`
+// holds the previous depth's rows, ws/is the rows' weights and indices. DW
+// is the window's D when it is known at compile time (0: a.D at run time);
+// its taps are read together and summed in order, as the loop sums them.
+template <int MODE, int DW>
+__device__ __forceinline__ float tiled_combine(const TiledArgs& a,
+                                               const Tile& t,
+                                               const float* __restrict__ cur,
+                                               const float* __restrict__ ws,
+                                               const int* __restrict__ is,
+                                               int i, int c) {
+  const float* wr = ws + (i - t.lo) * a.D;
+  if constexpr (MODE == WINDOW) {
+    float acc = 0.f;
+    if constexpr (DW > 0) {
+      constexpr int h = (DW - 1) / 2;
+      float x[DW];
+      if (i >= h && i - h + DW <= a.M) {  // every tap inside the buffer
+        const float* p = cur + ((i - h - t.lo) << t.sh) + c;
+        const int stride = 1 << t.sh;
+#pragma unroll
+        for (int j = 0; j < DW; ++j) x[j] = p[j * stride];
+#pragma unroll
+        for (int j = 0; j < DW; ++j) acc = fmaf(x[j], wr[j], acc);
+        return acc;
+      }
+#pragma unroll
+      for (int j = 0; j < DW; ++j) {
+        const int r = i - h + j;
+        x[j] = (r >= 0 && r < a.M) ? cur[((r - t.lo) << t.sh) + c] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < DW; ++j) {
+        const int r = i - h + j;
+        if (r >= 0 && r < a.M) acc = fmaf(x[j], wr[j], acc);
+      }
+    } else {
+      const int h = (a.D - 1) / 2;
+      for (int j = 0; j < a.D; ++j) {
+        const int r = i - h + j;
+        if (r >= 0 && r < a.M)
+          acc = fmaf(cur[((r - t.lo) << t.sh) + c], wr[j], acc);
+      }
+    }
+    return acc;
+  } else {
+    const int reach = a.reach;
+    return tb::combine_slots_by<MODE == ONEHOT>(
+        [=](int r) {
+          return (r < i - reach || r > i + reach)
+                     ? __int_as_float(0x7fffffff)  // outside the promise: NaN
+                     : cur[((r - t.lo) << t.sh) + c];
+        },
+        is + (i - t.lo) * a.D, wr, a.M, a.D);
+  }
+}
+
+// The NC chains of one warp in a group of a depth's span: chain j takes
+// element e = e0 + j * TILED_THREADS + threadIdx.x, row r0 + (e >> sh),
+// column e & (width - 1) of the slice.
+template <int MODE, int DW, int NC>
+__device__ __forceinline__ void tiled_chains(const TiledArgs& a, const Tile& t,
+                                             const float* __restrict__ cur,
+                                             float* __restrict__ nxt,
+                                             const float* __restrict__ ws,
+                                             const int* __restrict__ is,
+                                             int r0, int e0, int n) {
+  const int mask = (1 << t.sh) - 1;
+  float v[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int e = e0 + j * TILED_THREADS + threadIdx.x;
+    const int c = e & mask;
+    v[j] = (e < n && c < t.cw)
+               ? tiled_combine<MODE, DW>(a, t, cur, ws, is, r0 + (e >> t.sh), c)
+               : 0.f;
+  }
+  tb::fma_body(v, a.iterations);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int e = e0 + j * TILED_THREADS + threadIdx.x;
+    if (e < n && (e & mask) < t.cw)
+      nxt[((r0 - t.lo) << t.sh) + e] = v[j];
+  }
+}
+
+template <int MODE, int DW>
+__global__ void __launch_bounds__(TILED_THREADS)
+    blocked_tiled_kernel(TiledArgs a) {
+  extern __shared__ float4 smem4[];
+  const int k = blockIdx.y;
+  const int tile = blockIdx.x / a.n_slices;
+  const int slice = blockIdx.x - tile * a.n_slices;
+  Tile t;
+  t.sh = a.col_shift;
+  t.t0 = tile * a.tile_rows;
+  t.t1 = min(a.M, t.t0 + a.tile_rows);
+  t.c0 = slice << t.sh;
+  t.cw = min(1 << t.sh, a.P - t.c0);
+  const int halo = a.S * a.reach;
+  t.lo = max(0, t.t0 - halo);
+  const int L = min(a.M, t.t1 + halo) - t.lo;
+  const int width = 1 << t.sh;
+  float* buf0 = reinterpret_cast<float*>(smem4);
+  float* buf1 = buf0 + (L << t.sh);
+  float* ws = buf1 + (L << t.sh);
+  int* is = reinterpret_cast<int*>(ws + L * a.D);
+  const size_t row0 = static_cast<size_t>(k) * a.M + t.lo;
+  // the loaded span: src rows with their columns of the slice, weights and
+  // (gather/onehot) indices, once, all copies in flight together
+  for (int e = threadIdx.x; e < (L << t.sh); e += TILED_THREADS) {
+    const int c = e & (width - 1);
+    if (c < t.cw)
+      tb::copy_async4(buf0 + e, a.src + (row0 + (e >> t.sh)) * a.P + t.c0 + c);
+    else
+      buf0[e] = 0.f;
+  }
+  for (int e = threadIdx.x; e < L * a.D; e += TILED_THREADS) {
+    tb::copy_async4(ws + e, a.wgt + row0 * a.D + e);
+    if constexpr (MODE != WINDOW)
+      tb::copy_async4(reinterpret_cast<float*>(is + e),
+                      reinterpret_cast<const float*>(a.idx + row0 * a.D + e));
+  }
+  tb::commit_async();
+  tb::wait_async<0>();
+  __syncthreads();
+  float* cur = buf0;
+  float* nxt = buf1;
+  const int warp0 = threadIdx.x & ~31;  // this warp's first thread
+  const float* act = a.act + static_cast<size_t>(k) * a.S;
+  float on = act[0];
+  for (int d = 0; d < a.S; ++d) {
+    const float on_d = on;
+    if (d + 1 < a.S) on = act[d + 1];  // the next depth's, read ahead
+    // an inactive depth carries the buffer through: keep `cur`
+    if (on_d <= 0.5f) continue;
+    const int ext = (a.S - 1 - d) * a.reach;
+    const int r0 = max(0, t.t0 - ext);
+    const int n = (min(a.M, t.t1 + ext) - r0) << t.sh;
+    for (int e0 = 0; e0 < n; e0 += TILED_THREADS * MAX_CHAINS) {
+      // a warp runs as many chains as hold an element of its
+      const int left = n - e0 - warp0;
+      const int nc =
+          left <= 0 ? 0 : min(MAX_CHAINS, (left + TILED_THREADS - 1) / TILED_THREADS);
+      switch (nc) {
+        case 0: break;
+        case 1: tiled_chains<MODE, DW, 1>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 2: tiled_chains<MODE, DW, 2>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 3: tiled_chains<MODE, DW, 3>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 4: tiled_chains<MODE, DW, 4>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 5: tiled_chains<MODE, DW, 5>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 6: tiled_chains<MODE, DW, 6>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        case 7: tiled_chains<MODE, DW, 7>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+        default: tiled_chains<MODE, DW, 8>(a, t, cur, nxt, ws, is, r0, e0, n); break;
+      }
+    }
+    // the next depth reads what this one wrote, and writes what it read
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ((t.t1 - t.t0) << t.sh); e += TILED_THREADS) {
+    const int c = e & (width - 1);
+    if (c < t.cw)
+      a.out[(static_cast<size_t>(k) * a.M + t.t0 + (e >> t.sh)) * a.P + t.c0 + c] =
+          cur[((t.t0 - t.lo) << t.sh) + e];
+  }
+}
+
+template <int MODE, int DW>
+cudaError_t launch_tiled(const TiledArgs& a, cudaStream_t stream) {
+  const int n_tiles = (a.M + a.tile_rows - 1) / a.tile_rows;
+  const int L = min(a.M, a.tile_rows + 2 * a.S * a.reach);
+  const size_t smem =
+      tiled_smem_floats(L, a.col_shift, a.D, MODE != WINDOW) * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(blocked_tiled_kernel<MODE, DW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(static_cast<unsigned>(n_tiles) * a.n_slices, a.K);
+  blocked_tiled_kernel<MODE, DW><<<grid, TILED_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -243,6 +511,40 @@ extern "C" int taskbench_blocked(const float* src, const int* idx,
       break;
     case ONEHOT:
       err = launch<ONEHOT>(a, memory, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The tiled form (see the header): fixed (K, M, D) tables whose taps reach
+// at most `reach` rows, the FMA body with `iterations` (0 for the empty
+// body). tile_rows output rows and 1 << col_shift columns per CTA.
+extern "C" int taskbench_blocked_tiled(const float* src, const int* idx,
+                                       const float* wgt, const float* act,
+                                       float* out, int K, int M, int P, int D,
+                                       int S, int mode, int reach,
+                                       int iterations, int tile_rows,
+                                       int col_shift, void* stream) {
+  if (tile_rows < 1 || col_shift < 0 || col_shift > 30 || reach < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TiledArgs a{src, idx, wgt, act, out, K, M, P, D, S, reach, iterations,
+              tile_rows, col_shift,
+              (P + (1 << col_shift) - 1) >> col_shift};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (mode) {
+    case WINDOW:  // the halo patterns' windows at radius 1 and 2 unrolled
+      err = D == 3   ? launch_tiled<WINDOW, 3>(a, s)
+            : D == 5 ? launch_tiled<WINDOW, 5>(a, s)
+                     : launch_tiled<WINDOW, 0>(a, s);
+      break;
+    case GATHER:
+      err = launch_tiled<GATHER, 0>(a, s);
+      break;
+    case ONEHOT:
+      err = launch_tiled<ONEHOT, 0>(a, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -31,9 +31,10 @@
 // elements of a member (grid x: element tiles, grid y: member); each thread
 // combines 4 elements a CTA-width apart (coalesced loads of src, weights
 // broadcast from L1 within a row) and runs the FMA body on them as 4
-// independent register chains. The memory body runs one CTA per output row:
-// the combined row goes to shared memory, then tb::memory_sweep_row sweeps
-// the true payload in shared memory, as K2 does. Gather and onehot follow
+// independent register chains. The memory body runs one warp (a CTA) per
+// output row: the combined row goes to shared memory, then
+// tb::memory_sweep_warp sweeps the true payload in shared memory, as K2
+// does. Gather and onehot follow
 // the reference's index rule (combine.cuh: negative gather indices count
 // from the end, then clamp; out-of-range onehot slots add nothing), so a
 // bad table cannot read outside src.
@@ -106,26 +107,26 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32)
     step_memory_kernel(const float* __restrict__ src,
                        const int* __restrict__ idx,
                        const float* __restrict__ wgt, float* __restrict__ out,
                        int S, int W, int P, int D, int iterations,
                        int scratch) {
-  extern __shared__ float smem[];
-  float* row = smem;             // the combined row, P floats
-  float* buf0 = smem + P;        // the sweep's two buffers
-  float* buf1 = buf0 + scratch;
+  extern __shared__ float4 smem4[];
+  float* row = reinterpret_cast<float*>(smem4);  // the combined row
+  float* buf0 = row + tb::round4(P);             // the sweep's two buffers
+  float* buf1 = buf0 + tb::round4(scratch);
   const int k = blockIdx.y;
   const int w = blockIdx.x;
   const float* srck = src + static_cast<size_t>(k) * S * P;
   const int* idxk = idx == nullptr ? nullptr : idx + static_cast<size_t>(k) * W * D;
   const float* wgtk = wgt + static_cast<size_t>(k) * W * D;
-  for (int c = threadIdx.x; c < P; c += THREADS)
+  for (int c = threadIdx.x; c < P; c += 32)
     row[c] = combine_elem<MODE>(srck, idxk, wgtk, S, W, P, D, w, c);
-  __syncthreads();
-  tb::memory_sweep_row(row, out + (static_cast<size_t>(k) * W + w) * P, P,
-                       iterations, scratch, buf0, buf1);
+  __syncwarp();
+  tb::memory_sweep_warp(row, out + (static_cast<size_t>(k) * W + w) * P, P,
+                        iterations, scratch, buf0, buf1);
 }
 
 template <int MODE>
@@ -139,16 +140,19 @@ cudaError_t launch(const float* src, const int* idx, const float* wgt,
         src, idx, wgt, out, S, W, P, D, iterations);
     return cudaGetLastError();
   }
-  const size_t smem =
-      (static_cast<size_t>(P) + 2 * static_cast<size_t>(scratch)) * sizeof(float);
+  const size_t smem = tb::sweep_floats(P, scratch) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      step_memory_kernel<MODE>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        step_memory_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    err = cudaFuncSetAttribute(step_memory_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   dim3 grid(W, K);
-  step_memory_kernel<MODE><<<grid, THREADS, smem, stream>>>(
+  step_memory_kernel<MODE><<<grid, 32, smem, stream>>>(
       src, idx, wgt, out, S, W, P, D, iterations, scratch);
   return cudaGetLastError();
 }

@@ -38,8 +38,21 @@ Gather/onehot idx address the buffer itself, and may carry a depth axis,
 rows still valid after S depths (each depth's valid span shrinks by the
 pattern's radius per side); ``taskbench_step_interior`` and
 ``taskbench_step_boundary`` are the pipelined runtime's two phases.
+
+K4's two forms. ``radius=r`` declares that the tables reach at most r
+rows: row i's taps read rows in [i - r, i + r] only (the window's reach is
+D - 1 - (D - 1) // 2, and must not exceed r). With fixed tables and the
+compute or empty body, a declared radius takes the tiled form
+(``taskbench_blocked_tiled``, rows tiled over CTAs by `plan_tiles`, each
+tile carrying its own S * r halo); without one, with time-varying tables,
+or with the memory body, the cooperative form (``taskbench_blocked``).
+Both give the same bits. A table that reaches past its declared radius
+raises on the CPU; on the card the tiled form reads NaN for such a tap.
 """
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bodies import apply_body, check_scratch
+from repro_torch.kernels.bodies import SMEM_LIMIT, apply_body, check_scratch
 
 COMBINE_MODES = ("window", "gather", "onehot", "pair")
 #: Task body kinds (``core.task_kernels.KernelSpec.kind``).
@@ -94,14 +107,17 @@ def prepare_step_operands(dep_lists, width: int, self_pos) -> tuple:
 
 def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
                         iterations: int, scratch: int,
-                        steps_per_launch: int = 1) -> None:
+                        steps_per_launch: int = 1,
+                        radius: Optional[int] = None) -> None:
     """The reference's operand checks; raises ValueError.
 
     Same messages as ``repro.kernels.taskbench_step.taskbench_step_pallas``
     (and, at ``steps_per_launch > 1``, its ``_blocked_call``) for an unknown
     mode, operand rank, K mismatch, pair (S == 2W), window (S >= W + D - 1)
     and gather/onehot (idx.shape == wgt.shape); blocked: the act mask,
-    square operands, time-varying tables and pair.
+    square operands, time-varying tables and pair. The port's own: a
+    ``radius`` only with ``steps_per_launch > 1``, non-negative, and no
+    smaller than a window's reach.
     """
     if combine not in COMBINE_MODES:
         raise ValueError(f"unknown combine mode {combine!r}; known {COMBINE_MODES}")
@@ -130,6 +146,15 @@ def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
         raise ValueError("iterations must be >= 0")
     if kind == "memory_bound" and iterations > 0:
         check_scratch(scratch, extra_floats=src.shape[2])
+    if radius is not None:
+        if steps_per_launch <= 1:
+            raise ValueError("radius is K4's (steps_per_launch > 1)")
+        if radius < 0:
+            raise ValueError(f"radius must be >= 0, got {radius}")
+        if combine == "window" and window_reach(wgt.shape[-1]) > radius:
+            raise ValueError(
+                f"a window of D = {wgt.shape[-1]} reaches "
+                f"{window_reach(wgt.shape[-1])} rows, beyond radius {radius}")
 
 
 def _check_single_step_operands(src, idx, wgt, combine: str) -> None:
@@ -246,6 +271,118 @@ def taskbench_step_blocked_plain(src, idx, wgt, act, *,
     return buf.to(src.dtype)
 
 
+def window_reach(D: int) -> int:
+    """Rows a D-tap window reaches: taps i - h .. i - h + D - 1, h = (D-1)//2."""
+    return D - 1 - (D - 1) // 2
+
+
+def table_reach(idx, wgt, combine: str) -> int:
+    """The farthest row any row's taps read, |row read - row|, over a (.., M,
+    D) table under the index rule (a gather index wrapped and clamped, an
+    onehot slot outside [0, M) read by none)."""
+    if combine == "window":
+        return window_reach(wgt.shape[-1])
+    M = wgt.shape[-2]
+    raw = idx.long()
+    own = torch.arange(M, device=raw.device)[:, None]
+    if combine == "gather":
+        rows = torch.where(raw < 0, raw + M, raw).clamp(0, M - 1)
+        off = (rows - own).abs()
+    else:
+        off = torch.where((raw >= 0) & (raw < M), (raw - own).abs(),
+                          torch.zeros_like(raw))
+    return int(off.max()) if off.numel() else 0
+
+
+#: Elements an SM keeps in flight to hide the FMA's latency: 128 f32 lanes
+#: x 4 cycles. A depth with fewer costs as much as one with this many.
+LATENCY_ELEMS = 512
+#: The narrowest column slice `plan_tiles` takes: 8 floats, one 32-byte
+#: sector of a row (unless the payload is narrower).
+MIN_SLICE = 8
+
+
+class TilePlan(NamedTuple):
+    """How the tiled K4 form cuts a (K, M, P) buffer: CTA (member k, tile,
+    slice) owns rows [tile * tile_rows, ...) and columns [slice << col_shift,
+    ...), and loads up to ``loaded_rows`` rows (its own and the S * reach
+    halo each side) into ``smem_bytes`` of shared memory."""
+
+    tile_rows: int
+    col_shift: int
+    n_tiles: int
+    n_slices: int
+    loaded_rows: int
+    smem_bytes: int
+    ctas: int
+
+
+def tiled_smem_bytes(loaded_rows: int, col_shift: int, D: int,
+                     uses_idx: bool) -> int:
+    """Shared memory of a tiled CTA (the kernel's ``tiled_smem_floats``):
+    two buffers of the loaded rows' slice, their weights and indices."""
+    return 4 * (2 * (loaded_rows << col_shift)
+                + loaded_rows * D * (2 if uses_idx else 1))
+
+
+@lru_cache(maxsize=256)
+def plan_tiles(K: int, M: int, P: int, S: int, reach: int, D: int,
+               uses_idx: bool, sms: int = 132,
+               smem_limit: int = SMEM_LIMIT) -> Optional[TilePlan]:
+    """The tiled form's cut of a (K, M, P) buffer, or None if no tile fits.
+
+    Over column slices of 2^j floats (at least MIN_SLICE, at most the
+    payload rounded up to a power of two) and tile heights ceil(M / n), it
+    takes the cut that minimises the modelled time: waves of one CTA an SM,
+    ceil(CTAs / sms), times a CTA's work, the elements of its S depths
+    (depth d computes its rows and (S-1-d) * reach halo rows each side), a
+    depth counted as at least LATENCY_ELEMS; ties go to fewer CTAs.
+    """
+    if min(K, M, P, S) < 1 or reach < 0:
+        return None
+    top = max(0, (P - 1).bit_length())  # the payload rounded up to 2^top
+    low = min(top, (MIN_SLICE - 1).bit_length())
+    best, best_key = None, None
+    for sh in range(low, top + 1):
+        width = 1 << sh
+        n_slices = -(-P // width)
+        seen = set()
+        for n in range(1, min(M, 4 * sms) + 1):
+            rows = -(-M // n)
+            if rows in seen:
+                continue
+            seen.add(rows)
+            loaded = min(M, rows + 2 * S * reach)
+            smem = tiled_smem_bytes(loaded, sh, D, uses_idx)
+            if smem > smem_limit:
+                continue
+            n_tiles = -(-M // rows)
+            ctas = K * n_tiles * n_slices
+            work = sum(max(min(M, rows + 2 * (S - 1 - d) * reach) * width,
+                           LATENCY_ELEMS) for d in range(S))
+            key = (-(-ctas // sms) * work, ctas)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = TilePlan(rows, sh, n_tiles, n_slices, loaded, smem, ctas)
+    return best
+
+
+def tile_spans(plan: TilePlan, M: int, S: int, reach: int):
+    """Each tile's (t0, t1, lo, hi): its output rows [t0, t1) and the rows
+    [lo, hi) it loads, as the kernel computes them."""
+    spans = []
+    for tile in range(plan.n_tiles):
+        t0 = tile * plan.tile_rows
+        t1 = min(M, t0 + plan.tile_rows)
+        spans.append((t0, t1, max(0, t0 - S * reach), min(M, t1 + S * reach)))
+    return spans
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _MODE_CODE = {"window": 0, "gather": 1, "onehot": 2, "pair": 3}
 
 
@@ -261,24 +398,26 @@ def _require_card(tensors, dtypes) -> None:
 def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    iterations: int = 16, scratch: int = 2048,
                    combine: str = "gather",
-                   steps_per_launch: int = 1) -> torch.Tensor:
+                   steps_per_launch: int = 1,
+                   radius: Optional[int] = None) -> torch.Tensor:
     """K3 (one timestep) or K4 (``steps_per_launch > 1``) on the card.
 
     Checks the operands as the reference does, then launches
     ``csrc/taskbench_step.cu`` and returns (K, W, payload), or
-    ``csrc/taskbench_blocked.cu`` and returns (K, M, payload). Raises on
-    tensors that are not on the card, not float32 (int32 idx), or not on
-    one device.
+    ``csrc/taskbench_blocked.cu`` (its tiled form when ``radius`` declares
+    the tables' reach and the form applies, see the module docstring) and
+    returns (K, M, payload). Raises on tensors that are not on the card,
+    not float32 (int32 idx), or not on one device.
     """
     check_step_operands(src, idx, wgt, act, combine=combine, kind=kind,
                         iterations=iterations, scratch=scratch,
-                        steps_per_launch=steps_per_launch)
+                        steps_per_launch=steps_per_launch, radius=radius)
     uses_idx = combine in ("gather", "onehot")
     memory = kind == "memory_bound" and iterations > 0
     body_iters = iterations if memory or kind == "compute_bound" else 0
     if steps_per_launch > 1:
         return _launch_blocked(src, idx if uses_idx else None, wgt, act, combine,
-                               memory, body_iters, scratch)
+                               memory, body_iters, scratch, radius)
     tensors = (src, wgt, idx) if uses_idx else (src, wgt)
     _require_card(tensors, (torch.float32, torch.float32, torch.int32))
     K, S, P = src.shape
@@ -298,7 +437,21 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
     return out
 
 
-def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch):
+def blocked_plan(src_shape, wgt_shape, S: int, combine: str, memory: bool,
+                 radius: Optional[int], sms: int = 132) -> Optional[TilePlan]:
+    """K4's form rule: the tiled form's plan when a radius is declared, the
+    (K, M, D) tables are fixed, the body is not the memory sweep and a tile
+    fits in shared memory; None for the cooperative form."""
+    if radius is None or len(wgt_shape) != 3 or memory:
+        return None
+    K, M, P = src_shape
+    D = wgt_shape[-1]
+    reach = window_reach(D) if combine == "window" else radius
+    return plan_tiles(K, M, P, S, reach, D, combine != "window", sms)
+
+
+def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch,
+                    radius=None):
     """One K4 launch on checked operands; idx is None for window."""
     tensors = (src, wgt, act) if idx is None else (src, wgt, act, idx)
     _require_card(tensors, (torch.float32,) * 3 + (torch.int32,))
@@ -307,29 +460,52 @@ def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch):
     src, wgt, act = src.contiguous(), wgt.contiguous(), act.contiguous()
     idx = None if idx is None else idx.contiguous()
     out = torch.empty_like(src)
-    if out.numel():
-        tmp = torch.empty_like(src)  # the depths' ping-pong partner of out
-        with torch.cuda.device(src.device):
-            _build.launch("taskbench_blocked", src.data_ptr(),
+    if not out.numel():
+        return out
+    plan = blocked_plan(src.shape, wgt.shape, S, combine, memory, radius,
+                        _sm_count(src.device.index or 0))
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
+        if plan is not None:
+            if K > 65535:
+                raise ValueError(f"K = {K} members exceed the kernel's grid (65535)")
+            _build.launch("taskbench_blocked_tiled", src.data_ptr(),
                           None if idx is None else idx.data_ptr(),
                           wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
-                          tmp.data_ptr(), K, M, P, D, S, _MODE_CODE[combine],
-                          int(wgt.ndim == 4), int(memory), iterations, scratch,
-                          torch.cuda.current_stream().cuda_stream)
+                          K, M, P, D, S, _MODE_CODE[combine],
+                          window_reach(D) if combine == "window" else radius,
+                          iterations, plan.tile_rows, plan.col_shift, stream)
+            return out
+        tmp = torch.empty_like(src)  # the depths' ping-pong partner of out
+        _build.launch("taskbench_blocked", src.data_ptr(),
+                      None if idx is None else idx.data_ptr(),
+                      wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                      tmp.data_ptr(), K, M, P, D, S, _MODE_CODE[combine],
+                      int(wgt.ndim == 4), int(memory), iterations, scratch,
+                      stream)
     return out
 
 
 def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    iterations: int = 16, scratch: int = 2048,
                    combine: str = "gather",
-                   steps_per_launch: int = 1) -> torch.Tensor:
+                   steps_per_launch: int = 1,
+                   radius: Optional[int] = None) -> torch.Tensor:
     """The step on the tensors' device: K3/K4 on a CUDA tensor (launch or
-    raise); on a CPU tensor the plain version, after the same checks."""
+    raise); on a CPU tensor the plain version, after the same checks and a
+    check that the tables reach no farther than a declared ``radius``."""
     kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
     if src.device.type == "cuda":
-        return taskbench_step(src, idx, wgt, act,
-                              steps_per_launch=steps_per_launch, **kw)
-    check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch, **kw)
+        return taskbench_step(src, idx, wgt, act, steps_per_launch=steps_per_launch,
+                              radius=radius, **kw)
+    check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch,
+                        radius=radius, **kw)
+    if radius is not None and combine != "window":
+        reach = table_reach(idx, wgt, combine)
+        if reach > radius:
+            raise ValueError(
+                f"the {combine} table reaches {reach} rows, beyond the declared "
+                f"radius {radius}")
     if steps_per_launch > 1:
         return taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
     return taskbench_step_plain(src, idx, wgt, **kw)

@@ -1,6 +1,27 @@
-"""K7 and K8 on the card, timed beside their yardsticks.
+"""K2, K4, K7 and K8 on the card, timed beside their yardsticks.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--only k7|k8]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--only floor,k4,k2,k8,k7]
+
+The launch floor: a kernel that does nothing (``csrc/launch_floor.cu``, one
+CTA of 32 threads), timed with the same method as every case below; no
+kernel's time at launch size can go under it.
+
+K4 (``ops.taskbench_step`` at ``steps_per_launch=S``) at the blocked main
+path's shape: ``nearest`` at radius 2 (window D = 5), W = 2112, payload
+64, compute_bound grain 64, a buffer of M = W + 2 * 8 * 2 = 2144 rows, at
+S = 2 and S = 8 (the difference over 6 depths is the time per depth, the
+rest the time per launch besides); and the pipelined runtime's two phases
+at S = 8, the boundary buffer (96 rows) and the interior (2112 rows). Each
+in every form the checkout's K4 has: the cooperative form (no ``radius``)
+and, where the wrapper takes a ``radius``, the tiled form (radius 2). The
+bound is the larger of the HBM bytes (src, weights and act read once, the
+buffer written once) and the f32 operations (per depth a D-tap combine
+and the grain's FMA chain per element) at the f32 FMA peak.
+
+K2 (``ops.taskbench_memory``) at (2112, 64), scratch 2048, iterations 1,
+4 and 16, beside its shared-memory bound: per row the tile-out writes
+``scratch`` floats, each pass reads and writes them and the fold reads them
+back, over 132 SMs x 128 B per clock at the card's top SM clock.
 
 K8 (``ops.rmsnorm``) at mamba2-130m's norm shapes, (8192, 768) and (8192,
 1536) in bf16 with bf16 weights, beside ``torch.nn.functional.rms_norm`` on
@@ -29,6 +50,7 @@ kernel without tensor cores, is reported beside it.
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import subprocess
@@ -37,7 +59,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import taskbench_step as _k34
+from repro_torch.kernels.bodies import apply_body
 from repro_torch.launch.attention_times import gpu_ms
 
 # Published H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit).
@@ -53,6 +77,12 @@ SSD_SHAPES = {"mamba2-130m": (64, 24, 1, 128, 128, 64),
 #: (rows, d) of mamba2-130m's norms at the serving prefill (8 x 1024
 #: tokens): d_model, and the gated norm over ssm_inner.
 NORM_SHAPES = ((8192, 768), (8192, 1536))
+
+
+#: K4's and K2's shapes on the Task Bench main path (chip_smoke.py's).
+TB_W, TB_PAYLOAD, TB_GRAIN, TB_RADIUS, TB_S = 2112, 64, 64, 2, 8
+K2_ITERATIONS, K2_SCRATCH = (1, 4, 16), 2048
+SMS = 132
 
 
 def card() -> str:
@@ -220,28 +250,150 @@ def rmsnorm_case(rows: int, d: int, dtype=torch.bfloat16, eps: float = 1e-5,
     return rec, (got, want)
 
 
+def floor_case(reps: int = 500) -> Dict[str, object]:
+    """The launch floor: one empty CTA of 32 threads a launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"ms": gpu_ms(lambda: _build.probe("launch_floor", 1, 32, stream), reps)}
+
+
+def k4_forms() -> Tuple[str, ...]:
+    """K4's forms in this checkout: the tiled one where the wrapper takes a
+    ``radius``, and the cooperative one."""
+    params = inspect.signature(_k34.taskbench_step).parameters
+    return ("tiled", "cooperative") if "radius" in params else ("cooperative",)
+
+
+def k4_cost(rows: int, S: int, D: int = 2 * TB_RADIUS + 1) -> Tuple[int, int]:
+    """(bytes, f32 operations) of one K4 launch on a ``rows``-row buffer:
+    src, weights and act read once, the buffer written once; per depth a
+    D-tap combine and the grain's FMA chain per element."""
+    return ((2 * rows * TB_PAYLOAD + rows * D + S) * 4,
+            S * rows * TB_PAYLOAD * (2 * D + 2 * TB_GRAIN))
+
+
+def k4_cases(reps: int = 200, seed: int = 1):
+    """K4 at the blocked main path's shape, each form: the full buffer
+    (2144 rows) at S = 2 and S = 8, and the pipelined phases at S = 8.
+    Yields (label, record)."""
+    from repro_torch.core import KernelSpec, TaskGraph
+    from repro_torch.core.runtimes import pallas_step as ps
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, device="cuda", generator=gen) * 0.9 + 0.1
+
+    g = TaskGraph(steps=1000, width=TB_W, pattern="nearest", payload=TB_PAYLOAD,
+                  kernel=KernelSpec("compute_bound", TB_GRAIN), radius=TB_RADIUS)
+    wb = torch.from_numpy(ps._window_operands(g, TB_RADIUS)[1])[None].cuda()
+    depth = TB_S * TB_RADIUS
+    M = TB_W + 2 * depth
+    wext = ps._wrap(wb, depth, 1)
+    src = rand(1, M, TB_PAYLOAD)
+    ph = ps._phase_tables(None, wb, depth, "window")
+    state = rand(1, TB_W, TB_PAYLOAD)
+    bl, br = rand(1, 3 * depth, TB_PAYLOAD), rand(1, 3 * depth, TB_PAYLOAD)
+    kw = dict(kind="compute_bound", iterations=TB_GRAIN, scratch=2048, combine="window")
+    for form in k4_forms():
+        fkw = dict(kw, radius=TB_RADIUS) if form == "tiled" else dict(kw)
+        times = {}
+        for S in (2, TB_S):
+            act = torch.ones((1, S), device="cuda")
+            call = (lambda a=act, S=S: ops.taskbench_step(
+                src, None, wext, a, steps_per_launch=S, **fkw))
+            err = (call() - _k34.taskbench_step_blocked_plain(src, None, wext, act, **kw)
+                   ).abs().max().item()
+            times[S] = gpu_ms(call, reps)
+            nbytes, nops = k4_cost(M, S)
+            yield f"K4 {form} full {M} rows S={S}", {
+                "form": form, "rows": M, "S": S, "ms": times[S], "max_abs_err": err,
+                **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
+        per_depth = (times[TB_S] - times[2]) / (TB_S - 2)
+        yield f"K4 {form} per depth", {
+            "form": form, "per_depth_ms": per_depth,
+            "per_launch_besides_ms": times[2] - 2 * per_depth,
+            "per_depth_bound_ms": M * TB_PAYLOAD * (4 * TB_RADIUS + 2 + 2 * TB_GRAIN)
+            / F32_FLOPS_PER_S * 1e3}
+        act = torch.ones((1, TB_S), device="cuda")
+        bkw = dict(fkw, steps_per_launch=TB_S)
+        for phase, fn, rows in (
+                ("boundary", lambda: ops.taskbench_boundary(
+                    bl, br, ph.i_bnd, ph.w_bnd, act, depth=depth, **bkw), 6 * depth),
+                ("interior", lambda: ops.taskbench_interior(
+                    state, ph.i_int, ph.w_int, act, depth=depth, **bkw), TB_W)):
+            nbytes, nops = k4_cost(rows, TB_S)
+            yield f"K4 {form} {phase} {rows} rows S={TB_S}", {
+                "form": form, "rows": rows, "S": TB_S, "ms": gpu_ms(fn, reps),
+                **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
+
+
+def smem_bytes_per_s() -> float:
+    """132 SMs x 128 B of shared memory per clock at the card's top SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return SMS * 128 * mhz * 1e6
+
+
+def k2_smem_bytes(rows: int, iterations: int, scratch: int) -> int:
+    """Shared-memory bytes of one K2 launch: per row the tile-out writes
+    ``scratch`` floats, each pass reads and writes them, the fold reads
+    them back."""
+    return rows * 4 * scratch * (2 * iterations + 2)
+
+
+def k2_case(iterations: int, rows: int = TB_W, payload: int = TB_PAYLOAD,
+            scratch: int = K2_SCRATCH, reps: int = 200, seed: int = 1,
+            plain: bool = True) -> Dict[str, object]:
+    """K2 at (rows, payload), beside its bytes-or-operations bound and its
+    shared-memory bound."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((rows, payload), device="cuda", generator=gen) * 0.9 + 0.1
+    got = ops.taskbench_memory(x, iterations, scratch)
+    want = apply_body(x, "memory_bound", iterations, scratch)
+    smem = k2_smem_bytes(rows, iterations, scratch)
+    rate = smem_bytes_per_s()
+    rec = {"shape": [rows, payload], "iterations": iterations, "scratch": scratch,
+           "ms": gpu_ms(lambda: ops.taskbench_memory(x, iterations, scratch), reps),
+           "plain_ms": gpu_ms(lambda: apply_body(x, "memory_bound", iterations, scratch),
+                              4) if plain else None,
+           "max_abs_err": (got - want).abs().max().item(),
+           "smem_bytes": smem, "smem_bytes_per_s": rate,
+           "smem_bound_ms": smem / rate * 1e3}
+    rec.update(_bound(2 * rows * payload * 4,
+                      rows * (scratch * (iterations + 1) + payload)
+                      / F32_FLOPS_PER_S * 1e3))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("k7", "k8"), default=None)
+    ap.add_argument("--only", default="floor,k4,k2,k8,k7",
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = card()
-    cases = []
-    if args.only in (None, "k8"):
-        cases += [(f"K8 {rows}x{d} bfloat16", lambda r=rows, d=d: rmsnorm_case(r, d))
-                  for rows, d in NORM_SHAPES]
-    if args.only in (None, "k7"):
-        for arch, shape in SSD_SHAPES.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                cases.append((f"K7 {arch} {str(dtype).split('.')[-1]}",
-                              lambda s=shape, t=dtype: ssd_case(
-                                  s, t, plain=t == torch.float32)))
-    for label, case in cases:
-        rec, _ = case()
-        rec["card"] = smi
-        print(json.dumps({label: rec}), flush=True)
+    groups = []  # (kernel, thunk yielding (label, record)); run in this order
+    groups.append(("floor", lambda: [("launch floor", floor_case())]))
+    groups.append(("k4", k4_cases))
+    groups.append(("k2", lambda: ((f"K2 {TB_W}x{TB_PAYLOAD} iterations {it}",
+                                    k2_case(it, plain=it == 4)) for it in K2_ITERATIONS)))
+    groups.append(("k8", lambda: ((f"K8 {rows}x{d} bfloat16", rmsnorm_case(rows, d)[0])
+                                  for rows, d in NORM_SHAPES)))
+    groups.append(("k7", lambda: (
+        (f"K7 {arch} {str(dtype).split('.')[-1]}",
+         ssd_case(shape, dtype, plain=dtype == torch.float32)[0])
+        for arch, shape in SSD_SHAPES.items()
+        for dtype in (torch.float32, torch.bfloat16))))
+    only = args.only.split(",")
+    for kernel, cases in groups:
+        if kernel not in only:
+            continue
+        for label, rec in cases():
+            rec["card"] = smi
+            print(json.dumps({label: rec}), flush=True)
     return 0
 
 

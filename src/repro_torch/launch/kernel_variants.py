@@ -1,12 +1,20 @@
-"""Diagnostic builds of K7 on the card: where its time goes.
+"""Diagnostic builds of K7, K4 and K2 on the card: where their time goes.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--only base,noY]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--kernel k7|k4|k2] [--only base,noY] [--clock]
 
-Each variant is ``csrc/ssd_chunk.cu`` with one edit, built with nvcc (the
-port's flags) into ``build/kernel_variants/<name>/`` beside the checkout's
-other builds, and called through ctypes at the serving prefills' chunks
-(``kernel_times.SSD_SHAPES``) in f32 and bf16. The variants are timed in
-turns, in order and again in reverse, on the same inputs:
+Each variant is the kernel's source (with the headers of ``csrc/``) with
+one edit, built with nvcc (the port's flags) into
+``build/kernel_variants/<kernel>-<name>/`` beside the checkout's other
+builds, and called through ctypes on the same inputs. The variants are
+timed in turns, in order and again in reverse. The time a part takes is
+the base's less that of the variant without it (the parts overlap, so the
+differences need not add up). A variant that leaves a part out computes
+wrong outputs by design; the error columns say by how much (nan where a
+part is skipped). Prints one line per case, variant and turn. Needs a CUDA
+card and nvcc.
+
+K7 (``csrc/ssd_chunk.cu``) at the serving prefills' chunks
+(``kernel_times.SSD_SHAPES``) in f32 and bf16:
 
   base     the kernel as it is
   cvt      TF32 rounding by ``cvt.rna.tf32.f32`` instead of integer ops
@@ -18,12 +26,35 @@ turns, in order and again in reverse, on the same inputs:
   nosplit  the per-head split of an f32 X into TF32 parts left out
   noheads  the per-head loop left out: loads, cumsum and C B^T only
 
-The time a part takes is the base's less that of the variant without it
-(the parts overlap, so the differences need not add up). Every variant
-but the base and cvt computes wrong outputs by design; ``scaled_err_y``
-and ``scaled_err_state`` report by how much (nan where a part is
-skipped). Prints one line per (shape, dtype, variant) and turn.
-Needs a CUDA card and nvcc.
+K4's tiled form (``csrc/taskbench_blocked.cu``, entry
+``taskbench_blocked_tiled``) at the blocked main path's shape (2144 rows,
+payload 64, window D = 5, S = 8, grain 64, `plan_tiles`' cut):
+
+  base      the kernel as it is
+  nobody    the FMA body left out (loads, combines, barriers, stores)
+  nocombine each element takes its own row's value instead of the D taps
+  nodepth   the depth loop left out: the loads and the store only
+  nosync    no barrier between depths
+  onepersm  120 KB of shared memory asked for each CTA, so no two share an SM
+  noact     every depth takes depth 0's act flag (no act load per depth)
+  t256      256 threads a CTA (512 in the base); t1024: 1024
+
+With ``--clock`` a K4 variant (one that keeps the depth barrier) is built
+with clock64() marks (CTA 0's warps
+write theirs to a device array) and run at grain 0 and 64: per depth, the
+cycles warps 0 and 15 spend from the depth's start to its end of work
+("work") and to the next depth's start ("depth"), and for depth 2 the
+cycles before its first element, in that element's combine and in its
+body ("element").
+
+K2 (``csrc/memory_bound.cu``) at (2112, 64), scratch 2048, iterations 4:
+
+  base      the kernel as it is
+  nopass    the passes left out: the staging, tile-out and fold only
+  noshfl    the roll's carry from the lane itself, not its neighbour
+  u4        4 words a lane in flight per pass step (8 in the base)
+  notile    the tile-out left out
+  nofold    the fold left out (nothing written)
 """
 from __future__ import annotations
 
@@ -39,7 +70,6 @@ from repro_torch.kernels import _build, ref
 from repro_torch.launch.attention_times import gpu_ms
 from repro_torch.launch.kernel_times import SSD_SHAPES, card, scaled_err, ssd_inputs
 
-SOURCE = _build.CSRC / "ssd_chunk.cu"
 OUT = _build.BUILD_ROOT.parent / "kernel_variants"
 TF32_INT = """__device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
@@ -49,91 +79,308 @@ TF32_CVT = """__device__ __forceinline__ uint32_t tf32(float x) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
 }"""
-#: variant -> [(text of the source, its replacement)]
-VARIANTS = {
-    "base": [],
-    "cvt": [(TF32_INT, TF32_CVT)],
-    "nolo": [("constexpr bool kLoTerms = true;", "constexpr bool kLoTerms = false;")],
-    "noexp": [("__expf(j0", "(j0"), ("-INFINITY", "0.f")],
-    "noY": [("    {\n      float acc[8][4] = {};", "    if (false) {\n      float acc[8][4] = {};")],
-    "nostate": [("for (int it = warp; it < mchunks * nchunks; it += WARPS) {",
-                 "for (int it = warp; it < 0; it += WARPS) {")],
-    "nosplit": [("      const int c4 = PP / 4;", "      const int c4 = 0;")],
-    "noheads": [("  for (int hl = 0; hl < nh; ++hl) {", "  for (int hl = 0; hl < 0; ++hl) {")],
+K4_BODY = "  tb::fma_body(v, a.iterations);\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {"
+#: kernel -> (source, C entry, {variant: [(file, text, its replacement)]})
+KERNELS = {
+    "k7": ("ssd_chunk.cu", "ssd_chunk", {
+        "base": [],
+        "cvt": [("ssd_chunk.cu", TF32_INT, TF32_CVT)],
+        "nolo": [("ssd_chunk.cu", "constexpr bool kLoTerms = true;",
+                  "constexpr bool kLoTerms = false;")],
+        "noexp": [("ssd_chunk.cu", "__expf(j0", "(j0"), ("ssd_chunk.cu", "-INFINITY", "0.f")],
+        "noY": [("ssd_chunk.cu", "    {\n      float acc[8][4] = {};",
+                 "    if (false) {\n      float acc[8][4] = {};")],
+        "nostate": [("ssd_chunk.cu",
+                     "for (int it = warp; it < mchunks * nchunks; it += WARPS) {",
+                     "for (int it = warp; it < 0; it += WARPS) {")],
+        "nosplit": [("ssd_chunk.cu", "      const int c4 = PP / 4;", "      const int c4 = 0;")],
+        "noheads": [("ssd_chunk.cu", "  for (int hl = 0; hl < nh; ++hl) {",
+                     "  for (int hl = 0; hl < 0; ++hl) {")],
+    }),
+    "k4": ("taskbench_blocked.cu", "taskbench_blocked_tiled", {
+        "base": [],
+        "nobody": [("taskbench_blocked.cu", K4_BODY, K4_BODY.replace("  tb::fma_body", "  // "))],
+        "nocombine": [("taskbench_blocked.cu",
+                       "  const float* wr = ws + (i - t.lo) * a.D;\n  if constexpr (MODE == WINDOW) {",
+                       "  const float* wr = ws + (i - t.lo) * a.D;\n"
+                       "  if (wr) return cur[((i - t.lo) << t.sh) + c];\n"
+                       "  if constexpr (MODE == WINDOW) {")],
+        "nodepth": [("taskbench_blocked.cu", "  for (int d = 0; d < a.S; ++d) {\n    const float on_d",
+                     "  for (int d = 0; d < 0; ++d) {\n    const float on_d")],
+        "nosync": [("taskbench_blocked.cu",
+                    "    // the next depth reads what this one wrote, and writes what it read\n"
+                    "    __syncthreads();", "")],
+        "noact": [("taskbench_blocked.cu", "    if (d + 1 < a.S) on = act[d + 1];", "")],
+        "onepersm": [("taskbench_blocked.cu",
+                      "  blocked_tiled_kernel<MODE, DW><<<grid, TILED_THREADS, smem, stream>>>(a);",
+                      "  cudaFuncSetAttribute(blocked_tiled_kernel<MODE, DW>,\n"
+                      "                       cudaFuncAttributeMaxDynamicSharedMemorySize, 120 << 10);\n"
+                      "  blocked_tiled_kernel<MODE, DW><<<grid, TILED_THREADS, 120 << 10, stream>>>(a);")],
+        "t256": [("taskbench_blocked.cu", "constexpr int TILED_THREADS = 512;",
+                  "constexpr int TILED_THREADS = 256;")],
+        "t1024": [("taskbench_blocked.cu", "constexpr int TILED_THREADS = 512;",
+                   "constexpr int TILED_THREADS = 1024;")],
+    }),
+    "k2": ("memory_bound.cu", "memory_bound", {
+        "base": [],
+        "nopass": [("bodies.cuh", "for (int it = 0; it < iterations; ++it) {\n    float carry",
+                    "for (int it = 0; it < 0; ++it) {\n    float carry")],
+        "noshfl": [("bodies.cuh", "__shfl_sync(FULL, x[u][V - 1], (lane + 31) & 31)",
+                    "x[u][V - 1]")],
+        "u4": [("bodies.cuh", "constexpr int UNROLL = 8;", "constexpr int UNROLL = 4;")],
+        "notile": [("bodies.cuh", "    int i = lane;\n    for (; i + 3 * 32 < n; i += 4 * 32) {",
+                    "    int i = n;\n    for (; i + 3 * 32 < n; i += 4 * 32) {")],
+        "nofold": [("bodies.cuh", "  if (pw <= 32) {\n    const int lpg",
+                    "  if (iterations > 0) return;\n  if (pw <= 32) {\n    const int lpg")],
+    }),
 }
 
 
-def build(names) -> dict:
-    """Build each variant (nvcc processes started together); returns
-    {name: ctypes library}. Raises if an edit does not apply or nvcc fails."""
-    src = SOURCE.read_text()
+# K4's clock marks (--clock): slot 0 at the kernel's start, 1 after the
+# loads, per depth d 2 + 3d at its start, 3 + 3d after its work, 4 + 3d
+# after its barrier; 30-32 around depth 2's first element of a thread.
+_MARK = ("if (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 31) == 0) "
+         "tb_clocks[(threadIdx.x >> 5) * 40 + (%s)] = clock64();")
+_FIRST = "if (d == 2 && e0 + j * TILED_THREADS + threadIdx.x < TILED_THREADS) { %s }"
+CLOCK_MARKS = [
+    ("taskbench_blocked.cu", '#include "combine.cuh"',
+     '#include "combine.cuh"\n__device__ long long tb_clocks[16 * 40];'),
+    ("taskbench_blocked.cu", "  const int k = blockIdx.y;\n  const int tile = blockIdx.x / a.n_slices;",
+     "  " + _MARK % "0" + "\n  const int k = blockIdx.y;\n  const int tile = blockIdx.x / a.n_slices;"),
+    ("taskbench_blocked.cu", "  tb::wait_async<0>();\n  __syncthreads();",
+     "  tb::wait_async<0>();\n  __syncthreads();\n  " + _MARK % "1"),
+    ("taskbench_blocked.cu", "    const float on_d = on;",
+     "    " + _MARK % "2 + 3 * d" + "\n    const float on_d = on;"),
+    ("taskbench_blocked.cu",
+     "    // the next depth reads what this one wrote, and writes what it read\n"
+     "    __syncthreads();",
+     "    " + _MARK % "3 + 3 * d" + "\n    __syncthreads();\n    " + _MARK % "4 + 3 * d"),
+    ("taskbench_blocked.cu", "                 int r0, int e0, int n) {\n  const int mask",
+     "                 int r0, int e0, int n, int d) {\n  const int mask"),
+    ("taskbench_blocked.cu", "  float v[NC];\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * TILED_THREADS + threadIdx.x;\n    const int c = e & mask;",
+     "  float v[NC];\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * TILED_THREADS + threadIdx.x;\n    const int c = e & mask;\n"
+     "    " + _FIRST % (_MARK % "30")),
+    ("taskbench_blocked.cu", "               : 0.f;\n  }\n",
+     "               : 0.f;\n  }\n  {const int j = 0; "
+     + _FIRST % ("if (v[0] == 12345.f) v[0] = 1.f; " + _MARK % "31") + "}\n"),
+    ("taskbench_blocked.cu", "#pragma unroll\n  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * TILED_THREADS + threadIdx.x;\n    if (e < n &&",
+     "  {const int j = 0; " + _FIRST % ("if (v[0] == 12345.f) v[0] = 1.f; " + _MARK % "32")
+     + "}\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * TILED_THREADS + threadIdx.x;\n    if (e < n &&"),
+    ("taskbench_blocked.cu", "(a, t, cur, nxt, ws, is, r0, e0, n); break;",
+     "(a, t, cur, nxt, ws, is, r0, e0, n, d); break;"),
+]
+CLOCK_READ = """
+extern "C" int tb_read_clocks(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, tb_clocks, sizeof(long long) * 16 * 40);
+}
+"""
+
+
+def build(kernel: str, names, clock: bool = False) -> dict:
+    """Build each variant of ``kernel`` (nvcc processes started together),
+    with K4's clock marks if ``clock``; returns {name: ctypes library}.
+    Raises if an edit does not apply or nvcc fails."""
+    source, entry, variants = KERNELS[kernel]
+    files = {f.name: f.read_text() for f in _build.CSRC.iterdir()
+             if f.name == source or f.suffix == ".cuh"}
     procs = {}
     for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in {SOURCE.name}")
-            text = text.replace(old, new)
-        d = OUT / name
+        texts = dict(files)
+        edits = variants[name] + (CLOCK_MARKS if clock else [])
+        if clock:
+            texts[source] += CLOCK_READ
+        for fname, old, new in edits:
+            if old not in texts[fname]:
+                raise RuntimeError(f"variant {name}: {old!r} is not in {fname}")
+            texts[fname] = texts[fname].replace(old, new)  # every occurrence
+        d = OUT / f"{kernel}-{name}"
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        (d / SOURCE.name).write_text(text)
-        shutil.copy(_build.CSRC / "error.cuh", d)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / SOURCE.name)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.ssd_chunk.argtypes = list(_build.ENTRIES["ssd_chunk"][1])
-        lib.ssd_chunk.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(OUT / f"{kernel}-{name}" / "lib.so"))
+        fn = getattr(lib, entry)
+        fn.argtypes = list(_build.ENTRIES[entry][1])
+        fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default=",".join(VARIANTS),
-                    help="comma-separated variants (default: all)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_variants: no CUDA device is available")
-    names = args.only.split(",")
-    libs = build(names)
-    smi = card()
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def k7_cases():
+    """(label, inputs-making thunk, call(lib, inputs), outputs(inputs),
+    errors(outputs, inputs)) per K7 case."""
     for arch, shape in SSD_SHAPES.items():
         BC, H, G, T, N, P = shape
         for dtype in (torch.float32, torch.bfloat16):
-            x, b, c, dta, dt = ssd_inputs(*shape, dtype)
-            want = ref.ssd_chunk_plain(x, b, c, dta, dt)
-            y = torch.empty_like(x)
-            st = torch.empty((BC, H, N, P), device="cuda")
-            for turn, name in enumerate(names + names[::-1]):
-                lib = libs[name]
+            def make(shape=shape, dtype=dtype):
+                x, b, c, dta, dt = ssd_inputs(*shape, dtype)
+                want = ref.ssd_chunk_plain(x, b, c, dta, dt)
+                y = torch.empty_like(x)
+                st = torch.empty((BC, H, N, P), device="cuda")
+                return (x, b, c, dta, dt, y, st, want)
 
-                def call():
-                    err = lib.ssd_chunk(
-                        x.data_ptr(), b.data_ptr(), c.data_ptr(), dta.data_ptr(),
-                        dt.data_ptr(), y.data_ptr(), st.data_ptr(), BC, H, G, T, N, P,
-                        0 if dtype == torch.float32 else 1,
-                        torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"variant {name}: launch failed ({err})")
+            def call(lib, a, shape=shape, dtype=dtype):
+                x, b, c, dta, dt, y, st, _ = a
+                return lib.ssd_chunk(x.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                     dta.data_ptr(), dt.data_ptr(), y.data_ptr(),
+                                     st.data_ptr(), *shape,
+                                     0 if dtype == torch.float32 else 1, _stream())
 
-                y.fill_(float("nan"))  # a part a variant skips reads as nan
-                st.fill_(float("nan"))
-                call()
-                torch.cuda.synchronize()
-                rec = {"arch": arch, "shape_BC_H_G_T_N_P": list(shape),
-                       "dtype": str(dtype).split(".")[-1], "variant": name, "turn": turn,
-                       "ms": gpu_ms(call, 30),
-                       "scaled_err_y": scaled_err(y, want[0]),
-                       "scaled_err_state": scaled_err(st, want[1]),
-                       "card": smi}
-                print(json.dumps(rec), flush=True)
+            def errors(a):
+                return {"scaled_err_y": scaled_err(a[5], a[7][0]),
+                        "scaled_err_state": scaled_err(a[6], a[7][1])}
+
+            yield ({"arch": arch, "shape_BC_H_G_T_N_P": list(shape),
+                    "dtype": str(dtype).split(".")[-1]}, make, call,
+                   lambda a: (a[5], a[6]), errors)
+
+
+def k4_cases():
+    from repro_torch.kernels.taskbench_step import (
+        plan_tiles, taskbench_step_blocked_plain, window_reach)
+    from repro_torch.launch.kernel_times import TB_GRAIN, TB_PAYLOAD, TB_RADIUS, TB_S, TB_W
+
+    M, P, S, D = TB_W + 2 * TB_S * TB_RADIUS, TB_PAYLOAD, TB_S, 2 * TB_RADIUS + 1
+    plan = plan_tiles(1, M, P, S, window_reach(D), D, False,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    # the planner's cut, then other cuts: (tile rows, log2 of the slice)
+    cuts = [(plan.tile_rows, plan.col_shift)] + [
+        c for c in ((67, 3), (34, 3), (268, 2), (134, 4), (90, 3))
+        if c != (plan.tile_rows, plan.col_shift)]
+
+    def make():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        src = torch.rand((1, M, P), device="cuda", generator=gen) * 0.9 + 0.1
+        wgt = torch.rand((1, M, D), device="cuda", generator=gen) / D
+        act = torch.ones((1, S), device="cuda")
+        want = taskbench_step_blocked_plain(src, None, wgt, act, kind="compute_bound",
+                                            iterations=TB_GRAIN, combine="window")
+        return src, wgt, act, torch.empty_like(src), want
+
+    # the planner's cut also with the empty body (grain 0)
+    for rows, sh, grain in [(*cuts[0], 0)] + [(*c, TB_GRAIN) for c in cuts]:
+        def call(lib, a, rows=rows, sh=sh, grain=grain):
+            src, wgt, act, out, _ = a
+            return lib.taskbench_blocked_tiled(
+                src.data_ptr(), None, wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                1, M, P, D, S, 0, window_reach(D), grain, rows, sh, _stream())
+
+        yield ({"shape_K_M_P_D_S": [1, M, P, D, S], "grain": grain, "tile_rows": rows,
+                "col_shift": sh, "ctas": -(-M // rows) * -(-P // (1 << sh)),
+                "planned": (rows, sh) == cuts[0]},
+               make, call, lambda a: (a[3],),
+               lambda a, g=grain: {"max_abs_err": (a[3] - a[4]).abs().max().item()
+                                   if g == TB_GRAIN else None})
+
+
+def k2_cases():
+    from repro_torch.kernels.bodies import apply_body
+    from repro_torch.launch.kernel_times import K2_SCRATCH, TB_PAYLOAD, TB_W
+
+    it = 4
+
+    def make():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.rand((TB_W, TB_PAYLOAD), device="cuda", generator=gen) * 0.9 + 0.1
+        return x, torch.empty_like(x), apply_body(x, "memory_bound", it, K2_SCRATCH)
+
+    def call(lib, a):
+        return lib.memory_bound(a[0].data_ptr(), a[1].data_ptr(), TB_W, TB_PAYLOAD, it,
+                                K2_SCRATCH, _stream())
+
+    yield ({"shape": [TB_W, TB_PAYLOAD], "iterations": it, "scratch": K2_SCRATCH},
+           make, call, lambda a: (a[1],),
+           lambda a: {"max_abs_err": (a[1] - a[2]).abs().max().item()})
+
+
+CASES = {"k7": k7_cases, "k4": k4_cases, "k2": k2_cases}
+
+
+def k4_clocks(name: str, lib) -> None:
+    """K4's variant ``name`` built with clock marks: prints, at grain 0 and
+    64, the marks' cycles for warps 0 and 15 of CTA 0 (see --clock)."""
+    from repro_torch.kernels.taskbench_step import plan_tiles
+    from repro_torch.launch.kernel_times import TB_PAYLOAD, TB_RADIUS, TB_S, TB_W
+
+    M, P, S, D = TB_W + 2 * TB_S * TB_RADIUS, TB_PAYLOAD, TB_S, 2 * TB_RADIUS + 1
+    plan = plan_tiles(1, M, P, S, TB_RADIUS, D, False,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    src = torch.rand((1, M, P), device="cuda", generator=gen)
+    wgt = torch.rand((1, M, D), device="cuda", generator=gen) / D
+    act, out = torch.ones((1, S), device="cuda"), torch.empty_like(src)
+    lib.tb_read_clocks.argtypes = [ctypes.c_void_p]
+    marks = (ctypes.c_longlong * (16 * 40))()
+    for grain in (0, 64):
+        for _ in range(5):  # the last run's marks are read
+            lib.taskbench_blocked_tiled(
+                src.data_ptr(), None, wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                1, M, P, D, S, 0, TB_RADIUS, grain, plan.tile_rows, plan.col_shift,
+                _stream())
+        torch.cuda.synchronize()
+        if lib.tb_read_clocks(ctypes.addressof(marks)):
+            raise RuntimeError("reading the clock marks failed")
+        for w in (0, 15):
+            t = marks[w * 40:(w + 1) * 40]
+            print(json.dumps({
+                "variant": name, "grain": grain, "warp": w, "load": t[1] - t[0],
+                "work": [t[3 + 3 * d] - t[2 + 3 * d] for d in range(S)],
+                "depth": [t[5 + 3 * d] - t[2 + 3 * d] for d in range(S - 1)],
+                "element": [t[30] - t[8], t[31] - t[30], t[32] - t[31]]}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="k7")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants (default: all of the kernel's)")
+    ap.add_argument("--clock", action="store_true",
+                    help="K4 only: clock marks per depth instead of times")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA device is available")
+    if args.clock and args.kernel != "k4":
+        raise SystemExit("kernel_variants: --clock marks K4's tiled kernel only")
+    names = (args.only or ",".join(KERNELS[args.kernel][2])).split(",")
+    libs = build(args.kernel, names, clock=args.clock)
+    if args.clock:
+        for name in names:
+            k4_clocks(name, libs[name])
+        return 0
+    smi = card()
+    for case, make, call, outputs, errors in CASES[args.kernel]():
+        a = make()
+        for turn, name in enumerate(names + names[::-1]):
+            lib = libs[name]
+
+            def run():
+                err = call(lib, a)
+                if err:
+                    raise RuntimeError(f"variant {name}: launch failed ({err})")
+
+            for o in outputs(a):
+                o.fill_(float("nan"))  # a part a variant skips reads as nan
+            run()
+            torch.cuda.synchronize()
+            rec = {**case, "variant": name, "turn": turn, "ms": gpu_ms(run, 30),
+                   **errors(a), "card": smi}
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -210,12 +210,147 @@ def test_pipelined_pallas_step_equals_serial_on_card(cuda, pattern, S):
                            steps_per_launch=S)
         got = pipe.execute(g)
         counts = ops.launch_counts()
-        assert counts["taskbench_step"] + counts["taskbench_blocked"] == \
+        assert counts["taskbench_step"] + counts["taskbench_blocked_tiled"] == \
             pipe.dispatches_per_run(g)
+        assert counts["taskbench_blocked"] == 0  # fixed tables: the tiled form
         serial = get_runtime("pallas_step", device=cuda, combine=combine,
                              steps_per_launch=S, pipeline=False).execute(g)
         assert np.array_equal(got, serial)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _reach_tables(combine, K, M, r, seed, device):
+    """(idx, wgt) of reach <= r: a window of D = 2r + 1, or D = 3 gather /
+    onehot slots at offsets in [-r, r] clamped into the buffer, every other
+    row's first two slots equal."""
+    rng = np.random.default_rng(seed)
+    D = 2 * r + 1 if combine == "window" else 3
+    wgt = torch.from_numpy(rng.uniform(0, 1, (K, M, D)).astype(np.float32) / D)
+    if combine == "window":
+        return None, wgt.to(device)
+    off = rng.integers(-r, r + 1, (K, M, D))
+    idx = np.clip(np.arange(M)[:, None] + off, 0, M - 1).astype(np.int32)
+    idx[:, ::2, 1] = idx[:, ::2, 0]
+    return torch.from_numpy(idx).to(device), wgt.to(device)
+
+
+def _act(K, S, device):
+    act = torch.ones((K, S), device=device)
+    act[:, S - 1] = 0.0  # the masked tail
+    act[K - 1] = 0.0     # a frozen member
+    return act
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 16), ("empty", 0)])
+@pytest.mark.parametrize("S", [2, 8])
+@pytest.mark.parametrize("M,P", [(70, 13), (2144, 64), (301, 64)])
+@pytest.mark.parametrize("tail", [False, True])
+def test_tiled_blocked_kernel_equals_cooperative(cuda, combine, kind, iterations, S,
+                                                 M, P, tail):
+    """K4's tiled form, bit for bit the cooperative form, and within TOL of
+    the plain version, on buffers that are and are not a multiple of the
+    tile, with every depth active (the whole halo read) or a masked tail
+    and a frozen member."""
+    K, r = 3, 2
+    src = _rand((K, M, P), S + M, cuda)
+    idx, wgt = _reach_tables(combine, K, M, r, S, cuda)
+    act = _act(K, S, cuda) if tail else torch.ones((K, S), device=cuda)
+    kw = dict(kind=kind, iterations=iterations, scratch=40, combine=combine,
+              steps_per_launch=S)
+    ops.reset_launch_counts()
+    tiled = ops.taskbench_step(src, idx, wgt, act, radius=r, **kw)
+    coop = ops.taskbench_step(src, idx, wgt, act, **kw)
+    counts = ops.launch_counts()
+    assert counts["taskbench_blocked_tiled"] == 1 and counts["taskbench_blocked"] == 1
+    assert torch.equal(tiled, coop)
+    kw.pop("steps_per_launch")
+    want = taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
+    assert (tiled - want).abs().max().item() <= TOL
+    if tail:
+        assert torch.equal(tiled[K - 1], src[K - 1])  # the frozen member
+
+
+def test_blocked_form_rule_and_its_counters(cuda):
+    """The tiled form takes fixed tables with a declared radius and the
+    compute or empty body; no radius, time-varying tables and the memory
+    body take the cooperative form; a window wider than the radius is
+    refused."""
+    K, M, P, S, r = 2, 50, 16, 3, 2
+    src = _rand((K, M, P), 7, cuda)
+    act = torch.ones((K, S), device=cuda)
+    idx, wgt = _reach_tables("gather", K, M, r, 7, cuda)
+    tv_idx, tv_wgt = (t[:, None].expand(K, S, M, 3).contiguous() for t in (idx, wgt))
+    base = dict(combine="gather", scratch=40, steps_per_launch=S)
+    cases = [  # (operands, kind, iterations, radius, form)
+        ((idx, wgt), "compute_bound", 4, r, "taskbench_blocked_tiled"),
+        ((idx, wgt), "empty", 0, r, "taskbench_blocked_tiled"),
+        ((idx, wgt), "compute_bound", 4, None, "taskbench_blocked"),
+        ((idx, wgt), "memory_bound", 2, r, "taskbench_blocked"),
+        ((tv_idx, tv_wgt), "compute_bound", 4, r, "taskbench_blocked"),
+    ]
+    for (i, w), kind, it, radius, form in cases:
+        ops.reset_launch_counts()
+        ops.taskbench_step(src, i, w, act, kind=kind, iterations=it, radius=radius,
+                           **base)
+        counts = ops.launch_counts()
+        assert counts[form] == 1 and sum(counts.values()) == 1, (kind, radius, counts)
+    _, wide = _reach_tables("window", K, M, r + 1, 7, cuda)
+    with pytest.raises(ValueError, match="beyond radius"):
+        ops.taskbench_step(src, None, wide, act, combine="window", steps_per_launch=S,
+                           radius=r)
+
+
+@pytest.mark.parametrize("combine", ["gather", "onehot"])
+def test_tiled_kernel_reads_nan_past_the_declared_radius(cuda, combine):
+    """A table that reaches farther than its declared radius gives NaN rows
+    on the tiled form, not silently wrong ones."""
+    K, M, P, S, r = 1, 60, 8, 2, 1
+    src = _rand((K, M, P), 3, cuda)
+    idx, wgt = _reach_tables(combine, K, M, r, 3, cuda)
+    idx[0, 30, 0] = 30 + 4 * r  # one tap far past the radius
+    act = torch.ones((K, S), device=cuda)
+    out = ops.taskbench_step(src, idx, wgt, act, kind="compute_bound", iterations=1,
+                             combine=combine, steps_per_launch=S, radius=r)
+    assert ops.launch_counts()["taskbench_blocked_tiled"] >= 1
+    assert bool(torch.isnan(out[0, 30]).all())
+
+
+@pytest.mark.parametrize("rows,payload,scratch", [
+    (2112, 64, 2048),  # the main path's: 16-byte passes, 2 lanes a payload word
+    (50, 12, 2048),    # 16-byte passes, payload 3 words: 10 lanes a word
+    (20, 160, 2048),   # 16-byte passes, payload 40 words (> 32 lanes)
+    (30, 64, 100),     # 16-byte passes, a ragged last repeat
+    (37, 13, 2048),    # the scalar path: payload not a multiple of 4
+    (40, 64, 2046),    # the scalar path: scratch not a multiple of 4
+])
+@pytest.mark.parametrize("iterations", [0, 1, 16, 1024])
+def test_memory_kernel_vector_and_scalar_paths(cuda, rows, payload, scratch, iterations):
+    x = _rand((rows, payload), rows + payload, cuda)
+    before = ops.launch_counts()["memory_bound"]
+    got = ops.taskbench_memory(x, iterations, scratch)
+    assert ops.launch_counts()["memory_bound"] == before + 1
+    want = apply_body(x, "memory_bound", iterations, scratch)
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_memory_sweeps_at_a_scratch_of_one_row_a_cta(cuda):
+    """K2, K3's and K4's memory modes at a scratch whose sweep (160 KB) fills
+    a CTA's shared memory alone: each launches with one row a CTA."""
+    scratch, P, W, K, S = 20000, 16, 12, 2, 2
+    x = _rand((W, P), 11, cuda)
+    assert (ops.taskbench_memory(x, 2, scratch)
+            - apply_body(x, "memory_bound", 2, scratch)).abs().max().item() <= TOL
+    src = _rand((K, W + 2, P), 12, cuda)
+    wgt = _rand((K, W, 3), 13, cuda) / 3
+    kw = dict(kind="memory_bound", iterations=2, scratch=scratch, combine="window")
+    got = ops.taskbench_step(src, None, wgt, **kw)
+    assert (got - taskbench_step_plain(src, None, wgt, **kw)).abs().max().item() <= TOL
+    src, wgt = src[:, :W], wgt[:, :, :3]
+    act = torch.ones((K, S), device=cuda)
+    got = ops.taskbench_step(src, None, wgt, act, steps_per_launch=S, radius=1, **kw)
+    want = taskbench_step_blocked_plain(src, None, wgt, act, **kw)
+    assert (got - want).abs().max().item() <= TOL
 
 
 # ------------------------------------------------------ attention (K5, K6)

@@ -178,6 +178,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
     act = torch.ones(1, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         taskbench_step(src[:, :4], idx, wgt, act, combine="gather", steps_per_launch=3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        taskbench_step(src[:, :4], idx, wgt, act, combine="gather", steps_per_launch=3,
+                       radius=2)
     q = torch.zeros(1, 2, 4, 16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, q, q)
@@ -191,7 +194,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
         rmsnorm(x, torch.ones(8))
     assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
                                    "taskbench_step": 0, "taskbench_blocked": 0,
-                                   "flash_attention": 0, "flash_attention_f32": 0,
+                                   "taskbench_blocked_tiled": 0, "flash_attention": 0, "flash_attention_f32": 0,
                                    "decode_attention": 0, "ssd_chunk": 0,
                                    "rmsnorm": 0}
 
@@ -219,7 +222,7 @@ def test_library_paths_follow_the_sources():
     p = _build.library_path("taskbench_step")
     assert p.name == "libtaskbench_step.so"
     assert p.parent.parent == _build.BUILD_ROOT
-    assert {lib for lib, _ in _build.ENTRIES.values()} == {
+    assert {lib for lib, _ in (*_build.ENTRIES.values(), *_build.PROBES.values())} == {
         f.stem for f in _build.CSRC.glob("*.cu")}
     jax.block_until_ready(jnp.zeros(1))  # JAX stays on the CPU here
     assert jax.default_backend() == "cpu"
