@@ -12,9 +12,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
              K7 SSD intra-chunk, K8 RMSNorm) from ``src/``, one nvcc
              process per source, all started together.
   2. parity  each kernel against its plain PyTorch version on the card:
-             K1-K3 at the main path's width W = 2112 and at W = 65536, K2
-             also at ragged payloads and scratches (its 16-byte and scalar
-             paths), K3 also on out-of-range indices; K4's cooperative form
+             K1-K3 at the main path's width W = 2112, at W = 65536 and at
+             W = 132 (one task an SM; one chain a thread), K1 also at
+             n % 4 != 0 (with 4 chains a thread: the scalar tail) and on an
+             input at a 4-byte offset (its scalar path), K2 also at ragged
+             payloads and scratches (its 16-byte and scalar paths), K3 also
+             at a ragged payload (its scalar path), at 9 slots (onehot's
+             merge from memory, not registers) and on out-of-range
+             indices; K3 with the one-device halo wrap folded in (``wrap``)
+             equal bit for bit to K3 on the row-gathered halo extension,
+             every combine and body, H in {1, 2}, W in {2112, 132, 1, 2,
+             3}, gather and onehot indices past both ends of the extended
+             length; K4's cooperative form
              at the blocked main path's buffer (M = 2144 rows) for every
              combine, random fixed and time-varying tables, every body, S
              in {2, 8}, an act mask with a masked tail and a frozen member;
@@ -43,7 +52,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              memory_bound run of each; small-input checks against the CPU
              plain path. The launch counters are zeroed just before and
              read just after, and each run's launches must equal the
-             runtime's ``dispatches_per_run``.
+             runtime's ``dispatches_per_run``. A short S = 1 run under
+             ``torch.profiler`` shows one device kernel a timestep, K3, and
+             no row gather (the halo wrap is folded into K3).
   4. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
@@ -67,8 +78,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
   6. times   each kernel and its plain version timed with CUDA events at
-             the main path's shapes, beside its bound on this card (K2 also
-             beside its shared-memory bound); K4 in both forms as one full
+             the main path's shapes and in the main path's form (K3 on the
+             W-row state with the halo wrap folded in), beside its bound on
+             this card (K2 also beside its shared-memory bound); K1 and K3
+             also at W = 132 and at grain 16384 (K3 also on the
+             row-gathered source, the t = 0 launch's form), with the CTAs
+             each launch ran (the plan its wrapper handed the launch),
+             beside the launch floor and the bound's latency term (the
+             FMA's dependent latency, read by a clock-mark probe, x each
+             element's chain; derived, under "bounds" in the JSON);
+             K4 in both forms as one full
              launch at S = 2 and S = 8 and as the pipelined phases; K5 at internlm2's and hymba's prefill
              shapes, and K6 at the serving decode warm and L2-cold, beside
              ``scaled_dot_product_attention`` on the same inputs under
@@ -120,6 +139,7 @@ TOL = 1e-5
 # away as the FMA body does; allow ~2 ulp of 0.5 per step.
 TOL_MEMORY_RUN = T_MAIN * 1.2e-7
 S_MAIN = 8  # the blocked main path's steps per launch
+T_PROFILED = 6  # steps of the S = 1 run traced in [main]
 TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
                      "taskbench_blocked", "taskbench_blocked_tiled")
 # K4's launch counters by form: the main path's fixed-table compute runs
@@ -281,6 +301,7 @@ def main() -> int:
     from repro_torch.kernels.taskbench_step import (
         taskbench_step_blocked_plain,
         taskbench_step_plain,
+        wrap_rows,
     )
     from repro_torch.launch import attention_times, kernel_times
     from repro_torch.launch.attention_times import gpu_ms
@@ -318,7 +339,7 @@ def main() -> int:
     def rand(*shape):
         return torch.rand(shape, device=dev, generator=gen) * 0.9 + 0.1
 
-    for rows, p in ((37, 13), (W_MAIN, PAYLOAD), (W_WIDE, PAYLOAD)):
+    for rows, p in ((37, 13), (SMS, PAYLOAD), (W_MAIN, PAYLOAD), (W_WIDE, PAYLOAD)):
         x = rand(rows, p)
         for it in (0, 1, 16, 1024):
             e1 = check_close(f"K1 rows={rows} P={p} it={it}",
@@ -329,6 +350,16 @@ def main() -> int:
                              apply_body(x, "memory_bound", it, 2048), TOL)
             errs["taskbench_compute"] = max(errs["taskbench_compute"], e1)
             errs["memory_bound"] = max(errs["memory_bound"], e2)
+    # K1 with 4 chains a thread and n % 4 != 0 (the last thread's scalar
+    # tail), and its scalar path: x at a 4-byte offset (no 16-byte access
+    # lines up)
+    for rows, p, offset in ((W_WIDE + 1, 13, 0), (W_MAIN, PAYLOAD, 1), (37, 13, 1)):
+        x = rand(rows * p + offset)[offset:].view(rows, p)
+        for it in (0, 1, 16, 1024):
+            errs["taskbench_compute"] = max(errs["taskbench_compute"], check_close(
+                f"K1 rows={rows} P={p} it={it} at a {4 * offset}-byte offset",
+                ops.taskbench_compute(x, it), apply_body(x, "compute_bound", it, 0),
+                TOL_K1))
     for rows, p, scratch in K2_RAGGED:
         x = rand(rows, p)
         for it in (0, 1, 16, 1024):
@@ -337,21 +368,50 @@ def main() -> int:
                 ops.taskbench_memory(x, it, scratch),
                 apply_body(x, "memory_bound", it, scratch), TOL))
     kinds = (("compute_bound", GRAIN), ("memory_bound", 4), ("empty", 0))
-    for W in (W_MAIN, W_WIDE):
+    # K3 at the main path's width, a wide state, one task an SM (one column
+    # a thread), and a ragged payload (4 columns a thread on the scalar
+    # path); D = 9 slots: more than onehot's merge keeps in registers
+    for W, P, D in ((W_MAIN, PAYLOAD, 3), (W_WIDE, PAYLOAD, 3), (SMS, PAYLOAD, 3),
+                    (SMS, 13, 3), (W_WIDE, 13, 3), (W_MAIN, PAYLOAD, 9), (SMS, 13, 9)):
         for K in (1, 3):
-            D = 3
             wgt = torch.rand((K, W, D), device=dev, generator=gen) / D
             idx = torch.randint(0, W + D - 1, (K, W, D), device=dev,
                                 generator=gen, dtype=torch.int32)
             idx[:, ::2, 1] = idx[:, ::2, 0]  # duplicate slots: onehot merges them
             for combine in ("window", "gather", "onehot", "pair"):
-                src = rand(K, 2 * W if combine == "pair" else W + D - 1, PAYLOAD)
+                src = rand(K, 2 * W if combine == "pair" else W + D - 1, P)
                 for kind, it in kinds:
                     kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
-                    e3 = check_close(f"K3 W={W} K={K} {combine} {kind}",
+                    e3 = check_close(f"K3 W={W} P={P} D={D} K={K} {combine} {kind}",
                                      ops.taskbench_step(src, idx, wgt, **kw),
                                      taskbench_step_plain(src, idx, wgt, **kw), TOL)
                     errs["taskbench_step"] = max(errs["taskbench_step"], e3)
+    # K3 with the halo wrap folded in: bit for bit K3 on the row-gathered
+    # extension, out-of-range indices on the extended length, W <= 2H
+    wrap_cases = 0
+    for W, H in itertools.product((W_MAIN, SMS, 1, 2, 3), (1, 2)):
+        K, D, ext = 2, 2 * H + 1, W + 2 * H
+        state = rand(K, W, PAYLOAD)
+        wgt = torch.rand((K, W, D), device=dev, generator=gen) / D
+        idx = torch.randint(-ext - 2, ext + 3, (K, W, D), device=dev, generator=gen,
+                            dtype=torch.int32)
+        idx[:, ::2, 1] = idx[:, ::2, 0]
+        for combine in ("window", "gather", "onehot"):
+            for kind, it in kinds:
+                kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
+                case = f"K3 wrap={H} W={W} {combine} {kind}"
+                folded = ops.taskbench_step(state, idx, wgt, wrap=H, **kw)
+                gathered = ops.taskbench_step(wrap_rows(state, H), idx, wgt, **kw)
+                if not torch.equal(folded, gathered):
+                    d = (folded - gathered).abs()
+                    i = int(d.flatten().argmax())
+                    fail(f"{case}: folded != row gather + K3 at flat index {i} "
+                         f"({folded.flatten()[i].item()} vs {gathered.flatten()[i].item()}, "
+                         f"max |difference| {d.max().item()})")
+                errs["taskbench_step"] = max(errs["taskbench_step"], check_close(
+                    case, folded,
+                    taskbench_step_plain(state, idx, wgt, wrap=H, **kw), TOL))
+                wrap_cases += 1
     # K3 on out-of-range indices: gather wraps a negative index once and
     # clamps; an onehot slot outside the source adds nothing
     src = rand(1, 6, PAYLOAD)
@@ -432,7 +492,6 @@ def main() -> int:
     state = rand(1, W_MAIN, PAYLOAD)
     act = torch.ones((1, S_MAIN), device=dev)
     act[0, -3:] = 0.0
-    rows = torch.from_numpy(ps_mod._extend_rows(W_MAIN, depth)).to(dev)
     hl, hr = ps_mod._prologue_exchange(state, depth)
     side = torch.cuda.Stream()
     for combine in ("window", "gather", "onehot"):
@@ -446,7 +505,7 @@ def main() -> int:
             for radius in (None, 2):  # the cooperative form, then the tiled one
                 kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine,
                           steps_per_launch=S_MAIN, radius=radius)
-                full = ops.taskbench_step(state.index_select(1, rows), iext, wext, act,
+                full = ops.taskbench_step(wrap_rows(state, depth), iext, wext, act,
                                           **kw)[:, depth:depth + W_MAIN]
                 fulls.append(full)
                 for stream in (None, side):
@@ -557,6 +616,7 @@ def main() -> int:
                     ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
     print(f"[parity] K1-K8 (K4 and K5 in both forms) agree with their plain versions, "
+          f"K3 with the wrap folded in equals the row gather + K3 in {wrap_cases} cases, "
           f"K4's tiled form equals its cooperative form and its phases stitched equal "
           f"one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
@@ -657,6 +717,31 @@ def main() -> int:
                    get_runtime("pallas_step", steps_per_launch=3, combine="gather")):
             check_close(f"small {pattern} {rt.name} {rt.options}",
                         torch.from_numpy(rt.execute(g, init)), want, TOL)
+    # a short S = 1 run under torch.profiler: one device kernel a timestep,
+    # K3, and no row gather before it (the one-device halo wrap is folded
+    # into K3's row index)
+    from torch.profiler import ProfilerActivity, profile
+
+    gp = TaskGraph(steps=T_PROFILED, width=W_MAIN, pattern="nearest", payload=PAYLOAD,
+                   kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+    run = get_runtime("pallas_step").build(gp)
+    init = rand(W_MAIN, PAYLOAD)
+    run(init)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, d = counted(lambda: run(init))
+    seen = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    k3_seen = sum("step_compute_kernel" in n for n in seen)
+    if d["taskbench_step"] != T_PROFILED or sum(d.values()) != T_PROFILED \
+            or k3_seen != T_PROFILED or len(seen) != T_PROFILED:
+        fail(f"S = 1 profiled run of {T_PROFILED} steps: launch counters {d}, "
+             f"device kernels {len(seen)} ({k3_seen} K3): {sorted(set(seen))[:6]}")
+    print(f"[main] S = 1 run of {T_PROFILED} steps (nearest, W={W_MAIN}): launch "
+          f"counter {d['taskbench_step']} K3 and no other kernel of the port; "
+          f"torch.profiler: {len(seen)} device kernels, {k3_seen} of them K3 "
+          f"({sorted(set(n[:48] for n in seen))}), no row gather", flush=True)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     for k, n in launches.items():
@@ -887,7 +972,7 @@ def main() -> int:
 
     _, w_np = _window_operands(g, H)
     wgt = torch.from_numpy(w_np)[None].to(dev)
-    src = rand(1, W_MAIN + 2 * H, PAYLOAD)
+    k3_state = rand(1, W_MAIN, PAYLOAD)  # K3 reads it with the halo wrap folded in
     n_el = W_MAIN * PAYLOAD
     mem_it, scratch = 4, 2048
     step_kw = dict(kind="compute_bound", iterations=GRAIN, scratch=scratch,
@@ -905,9 +990,9 @@ def main() -> int:
          2 * n_el * 4, W_MAIN * (scratch * (mem_it + 1) + PAYLOAD)),
         ("taskbench_step", "K3", "src/repro_torch/kernels/csrc/taskbench_step.cu",
          "src/repro/kernels/taskbench_step.py:368",
-         lambda: ops.taskbench_step(src, None, wgt, **step_kw),
-         lambda: taskbench_step_plain(src, None, wgt, **step_kw),
-         (src.numel() + wgt.numel() + n_el) * 4, n_el * (2 * D + 2 * GRAIN)),
+         lambda: ops.taskbench_step(k3_state, None, wgt, wrap=H, **step_kw),
+         lambda: taskbench_step_plain(k3_state, None, wgt, wrap=H, **step_kw),
+         (k3_state.numel() + wgt.numel() + n_el) * 4, n_el * (2 * D + 2 * GRAIN)),
     ]
     # K4 at the blocked main path's shape: nearest (r = 2, window D = 5),
     # S = 8, a buffer of M = W + 2 * S * r = 2144 rows
@@ -917,7 +1002,7 @@ def main() -> int:
     depth = S_MAIN * Hb
     M = W_MAIN + 2 * depth
     wb = torch.from_numpy(_window_operands(gb, Hb)[1])[None].to(dev)
-    wext = ps_mod._wrap(wb, depth, 1)
+    wext = wrap_rows(wb, depth)
     srcb = rand(1, M, PAYLOAD)
     actb = torch.ones((1, S_MAIN), device=dev)
     blk_kw = dict(step_kw, steps_per_launch=S_MAIN)
@@ -957,6 +1042,9 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_run": per_run,
         })
+        if kname in ("taskbench_compute", "taskbench_step"):
+            # the grid its wrapper launched in the timing above
+            kernels[-1]["ctas"] = _build.LAST_CTAS[kname]
         print(f"[time] {tag} {kname}: {ms * 1e3:.3f} us per launch, {per_run} "
               f"launches per main-path run (plain version {plain_ms * 1e3:.3f} us, "
               f"no yardstick; no single PyTorch call computes it), bound "
@@ -976,10 +1064,57 @@ def main() -> int:
     print(f"[time] K2 memory_bound: {k2['smem_bytes']} shared-memory bytes per launch at "
           f"{SMS} SMs x 128 B x {sm_mhz:.0f} MHz: bound {k2['smem_bound_ms'] * 1e3:.3f} us "
           f"({k2['binds']} binds), against {k2['ms'] * 1e3:.3f} us | {smi}", flush=True)
+    # K1 and K3 (window D = 3, stencil_1d's; K3 as the S = 1 steps launch
+    # it, the halo wrap folded in, and on the row-gathered source beside it)
+    # at one task an SM and at the main path's width, grain 64 and 16384:
+    # the CTAs each launch ran, beside the launch floor and the bound's
+    # latency term (the FMA's dependent latency from a clock-mark probe, x
+    # each element's chain of FMAs). The derived bounds sit under "bounds".
+    floor = kernel_times.floor_case()
+    latency = (floor["fma_latency_cycles"], floor["sm_max_mhz"])
+    print(f"[time] launch floor (an empty kernel) {floor['ms'] * 1e3:.3f} us; the body's "
+          f"FMA {latency[0]:.3f} cycles dependent latency at {latency[1]:.0f} MHz | {smi}",
+          flush=True)
+    for k, (tag, tol) in enumerate((("K1", TOL_K1), ("K3", TOL))):
+        rec = kernels[2 * k]  # K1, then K3
+        rec["launch_floor_ms"] = floor["ms"]
+        rec["fma_latency_cycles"] = latency[0]
+        rec["shapes"] = {}
+        for W, grain in itertools.product((SMS, W_MAIN), (GRAIN, 16384)):
+            if tag == "K1":
+                t = kernel_times.k1_case(W, grain, latency)
+            else:
+                t = kernel_times.k3_case(W, "window", 3, grain, latency, step=True)
+                if not t["equal_to_gather_then_k3"]:
+                    fail(f"[time] K3 W={W} grain {grain}: folded != row gather + K3")
+                unfolded = kernel_times.k3_case(W, "window", 3, grain, latency)
+                t["unfolded_ms"] = unfolded["ms"]
+            if not t["max_abs_err"] <= tol:
+                fail(f"[time] {tag} W={W} grain {grain}: max abs error {t['max_abs_err']}")
+            bounds = {key: t[key] for key in (
+                "bound_ms", "bound_by", "latency_ms", "bound_with_latency_ms",
+                "bound_with_latency_by")}
+            shape = {"ctas": t["ctas"], "ms": t["ms"], "bounds": bounds}
+            extra = ""
+            if tag == "K3":
+                shape["unfolded_ms"] = t["unfolded_ms"]
+                extra = (f" (folded; on the row-gathered source, the t = 0 launch's "
+                         f"form, {t['unfolded_ms'] * 1e3:.3f} us)")
+            rec["shapes"][f"W={W} grain {grain}"] = shape
+            if (W, grain) == (W_MAIN, GRAIN):
+                rec["bounds"] = {key: bounds[key] for key in (
+                    "latency_ms", "bound_with_latency_ms", "bound_with_latency_by")}
+            print(f"[time] {tag} W={W} P={PAYLOAD} grain {grain}: {t['ms'] * 1e3:.3f} us"
+                  f"{extra}, {t['ctas']} CTAs; bound "
+                  f"{t['bound_with_latency_ms'] * 1e3:.3f} us by "
+                  f"{t['bound_with_latency_by']} (bytes or operations "
+                  f"{t['bound_ms'] * 1e3:.3f} us, latency {t['latency_ms'] * 1e3:.3f} us); "
+                  f"launch floor {floor['ms'] * 1e3:.3f} us | {smi}", flush=True)
     k3_us = kernels[2]["ms"] * 1e3
     wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
     print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
-          f"K3 {k3_us:.3f} us: device busy share ~{k3_us / wall_us:.4f}")
+          f"K3 (folded, the step's one launch) {k3_us:.3f} us: device busy share "
+          f"~{k3_us / wall_us:.4f}")
     # K4's pipelined phases at their shapes, the boundary buffer (6 * depth
     # rows) and the interior (the owned W rows), and its cost per depth (the
     # full buffer at S = 2 beside S = S_MAIN), in both forms

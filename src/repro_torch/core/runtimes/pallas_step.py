@@ -12,9 +12,11 @@ Dataflow: with one device the whole width is one block, and the reference's
 ring halo exchange becomes a wrap of the state onto itself: the extended
 source holds global rows [-H, W + H) mod W (H = the pattern's halo
 radius), which also keeps ``nearest`` with W <= 2r (dependencies more than
-one ring away) exact. The megakernel combines from that extended source
-through host-built (idx, wgt) operands, weights pre-normalized to 1 / live
-count and zero-dependency rows self-padded.
+one ring away) exact. K3 folds that wrap into its row index (``wrap=H``):
+it reads the extended source from the state itself, so a timestep is one
+launch. It combines through host-built (idx, wgt) operands addressing the
+extended source, weights pre-normalized to 1 / live count and
+zero-dependency rows self-padded.
 
 Temporal blocking (``steps_per_launch=S > 1``, an int): after the t = 0
 body-only K3 launch, the loop makes ceil((T-1)/S) launches of the blocked
@@ -57,7 +59,9 @@ from repro_torch.kernels import ops as _kops
 from repro_torch.kernels.taskbench_step import (
     WEIGHT_ACCUM_DTYPE,
     finalize_weights,
+    halo_rows,
     prepare_step_operands,
+    wrap_rows,
 )
 
 PLAN_HALO = "halo"
@@ -167,21 +171,13 @@ def _window_operands(
 
 
 def _extend_rows(width: int, halo: int) -> np.ndarray:
-    """Global rows of the halo-extended source, [-halo, width + halo) mod
-    width: the one-device ring exchange, exact at any depth."""
-    return np.arange(-halo, width + halo) % width
+    """Global rows of the halo-extended source (`halo_rows`) as an array."""
+    return halo_rows(width, halo).numpy()
 
 
 def _extend_state(s: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
     """Halo-extend a stacked (K, W, payload) state; identity at halo 0."""
     return s if rows is None else s.index_select(1, rows)
-
-
-def _wrap(x: torch.Tensor, depth: int, row_axis: int) -> torch.Tensor:
-    """x extended by ``depth`` rows per side along ``row_axis``, wrapped
-    (the one-device ring exchange, multi-hop included)."""
-    rows = torch.from_numpy(_extend_rows(x.shape[row_axis], depth))
-    return x.index_select(row_axis, rows.to(x.device))
 
 
 def _rebase_rows(rel: torch.Tensor, *, row_axis: int = 0) -> torch.Tensor:
@@ -204,10 +200,10 @@ def _extend_tables(idx: torch.Tensor, wgt: torch.Tensor, depth: int,
     absolute working-buffer rows (`_rebase_rows`). Window mode returns idx
     untouched (the kernel reads no idx).
     """
-    wext = _wrap(wgt, depth, row_axis)
+    wext = wrap_rows(wgt, depth, row_axis)
     if mode == "window":
         return idx, wext
-    return _rebase_rows(_wrap(idx, depth, row_axis), row_axis=row_axis), wext
+    return _rebase_rows(wrap_rows(idx, depth, row_axis), row_axis=row_axis), wext
 
 
 class _PhaseTables(NamedTuple):
@@ -244,12 +240,12 @@ def _phase_tables(idx: torch.Tensor, wgt: torch.Tensor, depth: int,
                              dim=1)
         return interior.contiguous(), boundary
 
-    w_int, w_bnd = phases(_wrap(wgt, depth, 1))
+    w_int, w_bnd = phases(wrap_rows(wgt, depth))
     if mode == "window":  # the kernel reads no idx
         i_int = torch.zeros((K, 1, 1), dtype=torch.int32, device=wgt.device)
         i_bnd = i_int
     else:
-        rel_int, rel_bnd = phases(_wrap(idx, depth, 1))
+        rel_int, rel_bnd = phases(wrap_rows(idx, depth))
         i_int = _rebase_rows(rel_int, row_axis=1)
         i_bnd = _rebase_rows(rel_bnd, row_axis=1)
     return _PhaseTables(i_int, w_int, i_bnd, w_bnd)
@@ -414,15 +410,12 @@ class PallasStepRuntime(Runtime):
         idx, wgt, idx0, wgt0 = (
             torch.from_numpy(a)[None].to(self.device)
             for a in self._operands(graph, H))
-        rows = (torch.from_numpy(_extend_rows(graph.width, H)).to(self.device)
-                if H else None)
         steps = graph.steps
 
         def run(init):
             state = _kops.taskbench_step(init[None], idx0, wgt0, **kw)  # t=0
             for _ in range(steps - 1):
-                state = _kops.taskbench_step(
-                    _extend_state(state, rows), idx, wgt, **kw)
+                state = _kops.taskbench_step(state, idx, wgt, wrap=H, **kw)
             return state[0]
 
         return run
@@ -453,8 +446,7 @@ class PallasStepRuntime(Runtime):
                     if self.device.type == "cuda" else None)
         else:
             iext, wext = _extend_tables(idx, wgt, depth, mode, row_axis=1)
-            rows = (torch.from_numpy(_extend_rows(B, depth)).to(self.device)
-                    if depth else None)
+            rows = halo_rows(B, depth, self.device) if depth else None
 
         def run(init):
             state = _kops.taskbench_step(init[None], idx0, wgt0, **kw0)  # t=0
@@ -476,11 +468,12 @@ class PallasStepRuntime(Runtime):
 
     def dispatches_per_run(self, graph: TaskGraph) -> int:
         """Kernel launches: the t=0 body-only launch plus ceil((T-1)/S)
-        blocked launches (S=1: T in all). The pipelined schedule splits
+        blocked launches (S=1: T in all, each one K3 launch and nothing
+        else, the halo wrap folded into it). The pipelined schedule splits
         every blocked launch into a boundary and an interior launch. (At
-        halo > 0 each serial launch after t=0 also issues the one-device
-        halo wrap, a row gather of the state, and each pipelined launch
-        three concatenations.)"""
+        halo > 0 each serial blocked launch also issues the deep halo wrap,
+        a row gather of the state, and each pipelined launch three
+        concatenations.)"""
         S = self._steps_per_launch(graph.steps)
         L = self._launches(graph.steps, S)
         if self._pipeline_active(graph.width, S, _patterns.halo_radius(graph)):

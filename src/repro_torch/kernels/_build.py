@@ -10,7 +10,8 @@ imported, so the CPU tests import it freely.
 
 Every C entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; `launch` raises on a non-zero code
-and only then counts the launch.
+and only then counts the launch (and records the CTAs a wrapper says it
+launched, `LAST_CTAS`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import tempfile
 from collections import Counter
 from functools import cache
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -36,10 +37,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: C entry -> (library, argument types). The entry is named after the
 #: Python wrapper that calls it.
 ENTRIES = {
-    "taskbench_compute": ("taskbench_compute", (_P, _P, _L, _I, _P)),
+    "taskbench_compute": ("taskbench_compute", (_P, _P, _L) + (_I,) * 4 + (_P,)),
     "memory_bound": ("memory_bound", (_P, _P, _I, _I, _I, _I, _P)),
     "taskbench_step": ("taskbench_step",
-                       (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
+                       (_P, _P, _P, _P) + (_I,) * 12 + (_P,)),
     # K4's two forms, counted apart: cooperative (any table, the memory
     # body) and tiled (fixed tables of a known reach)
     "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
@@ -57,15 +58,20 @@ ENTRIES = {
 QUERIES = {
     "ssd_chunk_plan": ("ssd_chunk", (_I,) * 7),
 }
-#: C entries that launch a kernel of no work (`probe`): the launch floor the
-#: yardsticks time. Not kernels of the port; their launches are not counted.
+#: C entries that launch a probe (`probe`): a kernel of no work, the launch
+#: floor the yardsticks time, and the FMA's dependent latency in cycles. Not
+#: kernels of the port; their launches are not counted.
 PROBES = {
     "launch_floor": ("launch_floor", (_I, _I, _P)),
+    "fma_latency": ("launch_floor", (_P, _P, _I, _P)),
 }
 
 #: Successful kernel launches per C entry, the wrappers' launch counters.
 #: `reset_launches` sets them to 0; nothing else writes them but `launch`.
 LAUNCHES: Counter = Counter()
+#: The CTAs of each C entry's last launch, where its wrapper passes them
+#: (K1, K3: the launch plan it handed the entry).
+LAST_CTAS: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
@@ -147,14 +153,17 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(entry: str, *args) -> None:
-    """Call C entry ``entry``; raise if the launch was refused, else count it."""
+def launch(entry: str, *args, ctas: Optional[int] = None) -> None:
+    """Call C entry ``entry``; raise if the launch was refused, else count it
+    (and record ``ctas``, the grid the wrapper planned, in `LAST_CTAS`)."""
     lib = _library(ENTRIES[entry][0])
     err = getattr(lib, entry)(*args)
     if err != 0:
         msg = lib.tb_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: {msg} ({err})")
     LAUNCHES[entry] += 1
+    if ctas is not None:
+        LAST_CTAS[entry] = ctas
 
 
 def probe(entry: str, *args) -> None:

@@ -20,6 +20,61 @@ __device__ __forceinline__ int gather_row(int r, int S) {
   return r < 0 ? 0 : (r >= S ? S - 1 : r);
 }
 
+// Slots onehot's merge keeps in registers: a row of up to MERGE_REGS slots
+// reads its indices and weights once; a row of more merges from memory.
+constexpr int MERGE_REGS = 8;
+
+// The D slots (ir, wr) of one output row under the index rule, in slot
+// order: fn(row, weight) once per slot that contributes, with its source
+// row (always in [0, S)) and its weight (onehot: the summed weight of every
+// slot naming that row, at the first of them, summed in slot order).
+// Depends on the row alone, so a caller that combines several columns of a
+// row walks the slots once.
+template <bool ONEHOT, class Fn>
+__device__ __forceinline__ void for_each_slot(const int* __restrict__ ir,
+                                              const float* __restrict__ wr,
+                                              int S, int D, Fn fn) {
+  if constexpr (!ONEHOT) {
+    for (int j = 0; j < D; ++j) fn(gather_row(ir[j], S), wr[j]);
+  } else if (D <= MERGE_REGS) {
+    // padding slots name row -1, which no in-range slot matches
+    int r[MERGE_REGS];
+    float w[MERGE_REGS];
+#pragma unroll
+    for (int j = 0; j < MERGE_REGS; ++j) {
+      r[j] = j < D ? ir[j] : -1;
+      w[j] = j < D ? wr[j] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < MERGE_REGS; ++j) {
+      if (r[j] < 0 || r[j] >= S) continue;
+      bool seen = false;
+#pragma unroll
+      for (int i = 0; i < j; ++i) seen |= r[i] == r[j];
+      if (seen) continue;
+      float ws = 0.f;
+#pragma unroll
+      for (int i = j; i < MERGE_REGS; ++i)
+        if (r[i] == r[j]) ws += w[i];
+      fn(r[j], ws);
+    }
+  } else {
+    // slot j contributes once per distinct in-range row, carrying the
+    // summed weight of every slot that names that row
+    for (int j = 0; j < D; ++j) {
+      const int r = ir[j];
+      if (r < 0 || r >= S) continue;
+      bool seen = false;
+      for (int i = 0; i < j; ++i) seen |= ir[i] == r;
+      if (seen) continue;
+      float ws = 0.f;
+      for (int i = j; i < D; ++i)
+        if (ir[i] == r) ws += wr[i];
+      fn(r, ws);
+    }
+  }
+}
+
 // Weighted sum over the D slots (ir, wr) of one output row, on an S-row
 // source read through `read(row)`: the value at the caller's column of
 // source row `row` (always in [0, S)).
@@ -29,23 +84,8 @@ __device__ __forceinline__ float combine_slots_by(Read read,
                                                   const float* __restrict__ wr,
                                                   int S, int D) {
   float acc = 0.f;
-  for (int j = 0; j < D; ++j) {
-    const int r = ir[j];
-    if constexpr (!ONEHOT) {
-      acc = fmaf(read(gather_row(r, S)), wr[j], acc);
-    } else {
-      // slot j contributes once per distinct in-range row, carrying the
-      // summed weight of every slot that names that row
-      if (r < 0 || r >= S) continue;
-      bool seen = false;
-      for (int i = 0; i < j; ++i) seen |= ir[i] == r;
-      if (seen) continue;
-      float ws = 0.f;
-      for (int i = j; i < D; ++i)
-        if (ir[i] == r) ws += wr[i];
-      acc = fmaf(read(r), ws, acc);
-    }
-  }
+  for_each_slot<ONEHOT>(ir, wr, S, D,
+                        [&](int r, float w) { acc = fmaf(read(r), w, acc); });
   return acc;
 }
 

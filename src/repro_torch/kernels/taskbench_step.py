@@ -27,6 +27,13 @@ reference's: a negative gather index counts once from the end (i + S), then
 the row is clamped to [0, S - 1]; an onehot slot outside [0, S) adds
 nothing.
 
+One-device halo wrap (``wrap=H``, K3 only): src is the un-extended (K, W,
+payload) state, read as the halo-extended source of W + 2H rows whose
+position p is state row (p - H) mod W (a true modulo: exact at W <= 2H,
+dependencies more than one ring away). The index rule applies to that
+extended length. The result equals the same call on
+``wrap_rows(src, H)`` bit for bit, in one launch.
+
 Temporal blocking (``steps_per_launch=S > 1``, K4): square operands, src
 (K, M, payload) and wgt (K, M, D) (every working row carries its own
 weights), a required (K, S) ``act`` mask (member k runs depth d iff
@@ -61,6 +68,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bodies import SMEM_LIMIT, apply_body, check_scratch
+from repro_torch.kernels.launch_plan import (
+    LaunchPlan,
+    chains_for,
+    cut_ctas,
+    sm_count,
+)
 
 COMBINE_MODES = ("window", "gather", "onehot", "pair")
 #: Task body kinds (``core.task_kernels.KernelSpec.kind``).
@@ -108,7 +121,8 @@ def prepare_step_operands(dep_lists, width: int, self_pos) -> tuple:
 def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
                         iterations: int, scratch: int,
                         steps_per_launch: int = 1,
-                        radius: Optional[int] = None) -> None:
+                        radius: Optional[int] = None,
+                        wrap: Optional[int] = None) -> None:
     """The reference's operand checks; raises ValueError.
 
     Same messages as ``repro.kernels.taskbench_step.taskbench_step_pallas``
@@ -117,10 +131,19 @@ def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
     and gather/onehot (idx.shape == wgt.shape); blocked: the act mask,
     square operands, time-varying tables and pair. The port's own: a
     ``radius`` only with ``steps_per_launch > 1``, non-negative, and no
-    smaller than a window's reach.
+    smaller than a window's reach; a ``wrap`` only with
+    ``steps_per_launch = 1``, non-negative, not with pair, and on a src of
+    the tables' W rows (the window check then reads W + 2 * wrap rows).
     """
     if combine not in COMBINE_MODES:
         raise ValueError(f"unknown combine mode {combine!r}; known {COMBINE_MODES}")
+    if wrap is not None:
+        if steps_per_launch != 1:
+            raise ValueError("wrap is K3's (steps_per_launch = 1)")
+        if wrap < 0:
+            raise ValueError(f"wrap must be >= 0, got {wrap}")
+        if combine == "pair":
+            raise ValueError("pair combine takes no wrap (it reads [x | partner] halves)")
     if src.ndim != 3 or wgt.ndim not in (3, 4):
         raise ValueError(
             f"expected (K, S, payload)/(K, W, D) operands, got "
@@ -139,7 +162,7 @@ def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
                 f"act must be (K, {steps_per_launch}), got {tuple(act.shape)}")
         _check_blocked_operands(src, idx, wgt, act, combine)
     else:
-        _check_single_step_operands(src, idx, wgt, combine)
+        _check_single_step_operands(src, idx, wgt, combine, wrap)
     if kind not in KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
     if iterations < 0:
@@ -157,11 +180,18 @@ def check_step_operands(src, idx, wgt, act=None, *, combine: str, kind: str,
                 f"{window_reach(wgt.shape[-1])} rows, beyond radius {radius}")
 
 
-def _check_single_step_operands(src, idx, wgt, combine: str) -> None:
+def _check_single_step_operands(src, idx, wgt, combine: str,
+                                wrap: Optional[int] = None) -> None:
     K, S, _ = src.shape
     _, W, D = wgt.shape
     if wgt.shape[0] != K:
         raise ValueError(f"operand K mismatch: {tuple(src.shape)}/{tuple(wgt.shape)}")
+    if wrap is not None:
+        if S != W:
+            raise ValueError(
+                f"wrap reads src as the (K, W, payload) state: src rows {S} != "
+                f"table rows W = {W}")
+        S = W + 2 * wrap
     if combine == "pair" and S != 2 * W:
         raise ValueError(
             f"pair combine needs src rows == 2 * W (the [x | partner] "
@@ -229,10 +259,29 @@ def _slot_combine(srcf, idx, wgt, onehot: bool) -> torch.Tensor:
     return (srcf[members, rows] * w[..., None]).sum(dim=2)
 
 
+def halo_rows(width: int, halo: int, device=None) -> torch.Tensor:
+    """Rows of the halo-extended source, [-halo, width + halo) mod width:
+    the one-device ring exchange, exact at any depth (a true modulo)."""
+    return torch.arange(-halo, width + halo, device=device) % width
+
+
+def wrap_rows(x: torch.Tensor, wrap: int, row_axis: int = 1) -> torch.Tensor:
+    """x halo-extended by ``wrap`` rows a side along ``row_axis`` (the (K, W,
+    payload) state by default): rows `halo_rows` (p - wrap) mod W."""
+    W = x.shape[row_axis]
+    if W == 0:
+        return x
+    return x.index_select(row_axis, halo_rows(W, wrap, x.device))
+
+
 def taskbench_step_plain(src, idx, wgt, *, kind: str = "compute_bound",
                          iterations: int = 16, scratch: int = 2048,
-                         combine: str = "gather") -> torch.Tensor:
-    """Plain PyTorch version of K3 (operands checked by the caller)."""
+                         combine: str = "gather",
+                         wrap: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 (operands checked by the caller); with
+    ``wrap``, `wrap_rows` and then the same."""
+    if wrap is not None:
+        src = wrap_rows(src, wrap)
     K, S, _ = src.shape
     W, D = wgt.shape[1], wgt.shape[2]
     srcf = src.float()
@@ -378,11 +427,6 @@ def tile_spans(plan: TilePlan, M: int, S: int, reach: int):
     return spans
 
 
-@lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _MODE_CODE = {"window": 0, "gather": 1, "onehot": 2, "pair": 3}
 
 
@@ -399,11 +443,13 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    iterations: int = 16, scratch: int = 2048,
                    combine: str = "gather",
                    steps_per_launch: int = 1,
-                   radius: Optional[int] = None) -> torch.Tensor:
+                   radius: Optional[int] = None,
+                   wrap: Optional[int] = None) -> torch.Tensor:
     """K3 (one timestep) or K4 (``steps_per_launch > 1``) on the card.
 
     Checks the operands as the reference does, then launches
-    ``csrc/taskbench_step.cu`` and returns (K, W, payload), or
+    ``csrc/taskbench_step.cu`` (with ``wrap``, on the un-extended state, see
+    the module docstring) and returns (K, W, payload), or
     ``csrc/taskbench_blocked.cu`` (its tiled form when ``radius`` declares
     the tables' reach and the form applies, see the module docstring) and
     returns (K, M, payload). Raises on tensors that are not on the card,
@@ -411,7 +457,8 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
     """
     check_step_operands(src, idx, wgt, act, combine=combine, kind=kind,
                         iterations=iterations, scratch=scratch,
-                        steps_per_launch=steps_per_launch, radius=radius)
+                        steps_per_launch=steps_per_launch, radius=radius,
+                        wrap=wrap)
     uses_idx = combine in ("gather", "onehot")
     memory = kind == "memory_bound" and iterations > 0
     body_iters = iterations if memory or kind == "compute_bound" else 0
@@ -424,17 +471,34 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
     W, D = wgt.shape[1], wgt.shape[2]
     if K > 65535:
         raise ValueError(f"K = {K} members exceed the kernel's grid (65535)")
+    if W * P >= 2**31:
+        raise ValueError(f"W = {W} rows of {P} columns exceed the kernel's 32-bit index")
     src, wgt = src.contiguous(), wgt.contiguous()
     idx = idx.contiguous() if uses_idx else None
     out = torch.empty((K, W, P), dtype=src.dtype, device=src.device)
     if out.numel():
+        plan = step_plan(K, W, P, sm_count(src.device.index or 0))
+        # the memory body runs a warp per (member, row), not the plan
+        ctas = K * W if memory else plan.ctas
         with torch.cuda.device(src.device):
             _build.launch("taskbench_step", src.data_ptr(),
                           idx.data_ptr() if uses_idx else None,
-                          wgt.data_ptr(), out.data_ptr(), K, S, W, P, D,
+                          wgt.data_ptr(), out.data_ptr(), K,
+                          S if wrap is None else W + 2 * wrap, W, P, D,
                           _MODE_CODE[combine], int(memory), body_iters,
-                          scratch, torch.cuda.current_stream().cuda_stream)
+                          scratch, -1 if wrap is None else wrap, plan.chains,
+                          plan.threads, torch.cuda.current_stream().cuda_stream,
+                          ctas=ctas)
     return out
+
+
+def step_plan(K: int, W: int, P: int, sms: int = 132) -> LaunchPlan:
+    """K3's compute launch: a thread per (member, row, ``chains`` columns),
+    4 columns where K * W * P gives every SM `FILL` elements, else 1, cut
+    by `cut_ctas` (a grid row per member). The memory body runs a warp per
+    (member, row) instead."""
+    chains = chains_for(K * W * P, sms)
+    return LaunchPlan(chains, *cut_ctas(W * -(-P // chains), sms, K))
 
 
 def blocked_plan(src_shape, wgt_shape, S: int, combine: str, memory: bool,
@@ -463,7 +527,7 @@ def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch,
     if not out.numel():
         return out
     plan = blocked_plan(src.shape, wgt.shape, S, combine, memory, radius,
-                        _sm_count(src.device.index or 0))
+                        sm_count(src.device.index or 0))
     stream = torch.cuda.current_stream(src.device).cuda_stream
     with torch.cuda.device(src.device):
         if plan is not None:
@@ -490,16 +554,17 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    iterations: int = 16, scratch: int = 2048,
                    combine: str = "gather",
                    steps_per_launch: int = 1,
-                   radius: Optional[int] = None) -> torch.Tensor:
+                   radius: Optional[int] = None,
+                   wrap: Optional[int] = None) -> torch.Tensor:
     """The step on the tensors' device: K3/K4 on a CUDA tensor (launch or
     raise); on a CPU tensor the plain version, after the same checks and a
     check that the tables reach no farther than a declared ``radius``."""
     kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
     if src.device.type == "cuda":
         return taskbench_step(src, idx, wgt, act, steps_per_launch=steps_per_launch,
-                              radius=radius, **kw)
+                              radius=radius, wrap=wrap, **kw)
     check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch,
-                        radius=radius, **kw)
+                        radius=radius, wrap=wrap, **kw)
     if radius is not None and combine != "window":
         reach = table_reach(idx, wgt, combine)
         if reach > radius:
@@ -508,7 +573,7 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                 f"radius {radius}")
     if steps_per_launch > 1:
         return taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
-    return taskbench_step_plain(src, idx, wgt, **kw)
+    return taskbench_step_plain(src, idx, wgt, wrap=wrap, **kw)
 
 
 def taskbench_step_interior(src, idx, wgt, act, *, depth: int,

@@ -1,10 +1,32 @@
-"""K2, K4, K7 and K8 on the card, timed beside their yardsticks.
+"""K1-K4, K7 and K8 on the card, timed beside their yardsticks.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--only floor,k4,k2,k8,k7]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times [--only floor,k1,k3,k4,k2,k8,k7,step]
 
 The launch floor: a kernel that does nothing (``csrc/launch_floor.cu``, one
 CTA of 32 threads), timed with the same method as every case below; no
-kernel's time at launch size can go under it.
+kernel's time at launch size can go under it. Beside it, the FMA's
+dependent latency in SM cycles (clock64 marks around chains of n and 2n
+``fmaf(v, 0.5f, 0.1f)`` in one thread).
+
+K1 (``ops.taskbench_compute``) at rows 132, 2112 and 65536 x payload 64
+(the METG sweep's two widths and a 16 MiB state), grains 1, 64, 1024 and
+16384; K3 (``ops.taskbench_step``) at W = 132 and 2112, payload 64, in
+window D = 3 (stencil_1d) and D = 5 (nearest), gather D = 5 (nearest's
+tables) and onehot D = 5 (the same with duplicate slots in every other
+row), at grain 64, 16384 and the empty body, on the halo-extended source;
+and the S = 1 step of ``pallas_step`` as it issues it, at grain 64 and
+the empty body: the one K3 launch with the halo wrap folded in (``wrap``)
+on the W-row state. Each case prints the CTAs its launch ran (the plan
+its wrapper handed the launch, ``_build.LAST_CTAS``). Their bound is the
+largest of the HBM bytes (each input read once, the output written once),
+the f32 operations at the FMA peak, and each element's chain of dependent
+FMAs (K1: grain; K3: D taps and grain) times the FMA's latency at the
+card's top SM clock: a launch whose chains cannot fill the card's FMA
+pipes is bound by that chain.
+
+``--only step``: the S = 1 ``pallas_step`` run's step wall on the host
+clock (stencil_1d and nearest, W = 132 and 2112, grain 64, T = 1000, 5
+timed runs each, through the runtime's ``measure``).
 
 K4 (``ops.taskbench_step`` at ``steps_per_launch=S``) at the blocked main
 path's shape: ``nearest`` at radius 2 (window D = 5), W = 2112, payload
@@ -12,8 +34,8 @@ path's shape: ``nearest`` at radius 2 (window D = 5), W = 2112, payload
 S = 2 and S = 8 (the difference over 6 depths is the time per depth, the
 rest the time per launch besides); and the pipelined runtime's two phases
 at S = 8, the boundary buffer (96 rows) and the interior (2112 rows). Each
-in every form the checkout's K4 has: the cooperative form (no ``radius``)
-and, where the wrapper takes a ``radius``, the tiled form (radius 2). The
+in both of K4's forms: the tiled form (radius 2) and the cooperative form
+(no ``radius``). The
 bound is the larger of the HBM bytes (src, weights and act read once, the
 buffer written once) and the f32 operations (per depth a D-tap combine
 and the grain's FMA chain per element) at the f32 FMA peak.
@@ -50,7 +72,6 @@ kernel without tensor cores, is reported beside it.
 from __future__ import annotations
 
 import argparse
-import inspect
 import itertools
 import json
 import subprocess
@@ -83,6 +104,12 @@ NORM_SHAPES = ((8192, 768), (8192, 1536))
 TB_W, TB_PAYLOAD, TB_GRAIN, TB_RADIUS, TB_S = 2112, 64, 64, 2, 8
 K2_ITERATIONS, K2_SCRATCH = (1, 4, 16), 2048
 SMS = 132
+#: K1's and K3's cases: rows (widths) x payload TB_PAYLOAD, and grains (0:
+#: the empty body); K3's combines as (label, combine, D).
+K1_ROWS, K1_GRAINS = (132, 2112, 65536), (1, 64, 1024, 16384)
+K3_WIDTHS, K3_GRAINS = (132, 2112), (64, 16384, 0)
+K3_COMBINES = (("window D=3", "window", 3), ("window D=5", "window", 5),
+               ("gather D=5", "gather", 5), ("onehot D=5 duplicates", "onehot", 5))
 
 
 def card() -> str:
@@ -133,13 +160,10 @@ def ssd_bound(shape, dtype) -> Dict[str, object]:
 
 def cbt_formations(shape, dtype) -> int:
     """How many times one K7 launch forms each (chunk, group)'s C B^T: the
-    kernel's head blocks per group (``ssd_scan.cbt_per_chunk_group``); a
-    kernel without that entry forms it once per head."""
+    kernel's head blocks per group (``ssd_scan.cbt_per_chunk_group``)."""
     from repro_torch.kernels import ssd_scan
 
-    plan = getattr(ssd_scan, "cbt_per_chunk_group", None)
-    BC, H, G, T, N, P = shape
-    return plan(BC, H, G, T, N, P, dtype) if plan else H // G
+    return ssd_scan.cbt_per_chunk_group(*shape, dtype)
 
 
 def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -251,16 +275,131 @@ def rmsnorm_case(rows: int, d: int, dtype=torch.bfloat16, eps: float = 1e-5,
 
 
 def floor_case(reps: int = 500) -> Dict[str, object]:
-    """The launch floor: one empty CTA of 32 threads a launch."""
+    """The launch floor: one empty CTA of 32 threads a launch; and the FMA's
+    dependent latency in cycles at the card's top SM clock."""
     stream = torch.cuda.current_stream().cuda_stream
-    return {"ms": gpu_ms(lambda: _build.probe("launch_floor", 1, 32, stream), reps)}
+    return {"ms": gpu_ms(lambda: _build.probe("launch_floor", 1, 32, stream), reps),
+            "fma_latency_cycles": fma_latency_cycles(), "sm_max_mhz": sm_max_mhz()}
 
 
-def k4_forms() -> Tuple[str, ...]:
-    """K4's forms in this checkout: the tiled one where the wrapper takes a
-    ``radius``, and the cooperative one."""
-    params = inspect.signature(_k34.taskbench_step).parameters
-    return ("tiled", "cooperative") if "radius" in params else ("cooperative",)
+def fma_latency_cycles(n: int = 8192, tries: int = 5) -> float:
+    """The dependent latency of the body's FMA, in SM cycles: the least
+    over ``tries`` of (cycles of a 2n chain - cycles of an n chain) / n."""
+    sink = torch.full((2,), 0.3, device="cuda")
+    cycles = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    best = float("inf")
+    for _ in range(tries):
+        _build.probe("fma_latency", sink.data_ptr(), cycles.data_ptr(), n, stream)
+        c0, c1 = cycles.tolist()
+        best = min(best, (c1 - c0) / n)
+    return best
+
+
+def sm_max_mhz() -> float:
+    """The card's top SM clock, from nvidia-smi."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def chain_bound(nbytes: float, nops: float, chain: int,
+                latency: Tuple[float, float]) -> Dict[str, object]:
+    """`_bound` (bytes or f32 operations) and the latency term beside it:
+    ``chain`` dependent FMAs x ``latency`` = (cycles, SM MHz); the bound
+    with the term is the largest of the three (``bound_with_latency_ms``,
+    ``bound_with_latency_by``)."""
+    rec = _bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)
+    cycles, mhz = latency
+    lat_ms = chain * cycles / (mhz * 1e3)
+    rec["latency_ms"] = lat_ms
+    rec["bound_with_latency_ms"] = max(rec["bound_ms"], lat_ms)
+    rec["bound_with_latency_by"] = ("latency" if lat_ms > rec["bound_ms"]
+                                    else rec["bound_by"])
+    return rec
+
+
+def k1_case(rows: int, grain: int, latency, payload: int = TB_PAYLOAD,
+            seed: int = 1, plain: bool = False) -> Dict[str, object]:
+    """K1 at (rows, payload) and ``grain``, beside its bound; ``ctas``: the
+    grid its wrapper launched."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((rows, payload), device="cuda", generator=gen) * 0.9 + 0.1
+    n = rows * payload
+    reps = 200 if n * grain < 2**28 else 20
+    err = (ops.taskbench_compute(x, grain)
+           - apply_body(x, "compute_bound", grain, 0)).abs().max().item()
+    rec = {"shape": [rows, payload], "grain": grain,
+           "ctas": _build.LAST_CTAS["taskbench_compute"],
+           "ms": gpu_ms(lambda: ops.taskbench_compute(x, grain), reps),
+           "plain_ms": gpu_ms(lambda: apply_body(x, "compute_bound", grain, 0), 4)
+           if plain else None, "max_abs_err": err}
+    rec.update(chain_bound(8 * n, 2 * n * grain, grain, latency))
+    return rec
+
+
+def k3_operands(W: int, combine: str, D: int, seed: int = 1):
+    """(state (1, W, P), idx, wgt, H) of one S = 1 step at width W: the
+    pattern's tables as ``pallas_step`` builds them (window D = 3:
+    stencil_1d; D = 5: nearest at radius 2; gather: nearest's; onehot:
+    nearest's with slot 1 set to slot 0 in every other row, duplicates the
+    combine merges), addressing the W + 2H rows of the extended source."""
+    from repro_torch.core import KernelSpec, TaskGraph
+    from repro_torch.core.runtimes import pallas_step as ps
+
+    pattern, H = ("stencil_1d", 1) if D == 3 else ("nearest", 2)
+    g = TaskGraph(steps=2, width=W, pattern=pattern, payload=TB_PAYLOAD,
+                  kernel=KernelSpec("compute_bound", 1), radius=H)
+    if combine == "window":
+        idx, wgt = ps._window_operands(g, H)
+    else:
+        idx, wgt = ps._ext_dep_operands(g, W, H)
+        if combine == "onehot":
+            idx[::2, 1] = idx[::2, 0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = torch.rand((1, W, TB_PAYLOAD), device="cuda", generator=gen) * 0.9 + 0.1
+    idx, wgt = (torch.from_numpy(a)[None].cuda() for a in (idx, wgt))
+    return state, idx, wgt, H
+
+
+def k3_case(W: int, combine: str, D: int, grain: int, latency,
+            step: bool = False, reps: int = 200) -> Dict[str, object]:
+    """K3 at width W, payload TB_PAYLOAD, ``grain`` (0: the empty body): alone
+    on the halo-extended source or, with ``step``, the S = 1 step as the
+    runtime issues it (one launch on the W-row state, the halo wrap folded
+    in), beside its bound; ``ctas``: the grid its wrapper launched."""
+    state, idx, wgt, H = k3_operands(W, combine, D)
+    ext = _k34.wrap_rows(state, H)
+    P, n = TB_PAYLOAD, W * TB_PAYLOAD
+    tables = wgt.numel() * (2 if combine != "window" else 1)
+    kind = "compute_bound" if grain else "empty"
+    kw = dict(kind=kind, iterations=grain, scratch=2048, combine=combine)
+    alone = lambda: ops.taskbench_step(ext, idx, wgt, **kw)  # noqa: E731
+    want = _k34.taskbench_step_plain(ext, idx, wgt, **kw)
+    rec = {"W": W, "P": P, "combine": combine, "D": D, "grain": grain}
+    fn, src_floats = alone, ext.numel()
+    if step:
+        fn = lambda: ops.taskbench_step(state, idx, wgt, wrap=H, **kw)  # noqa: E731
+        src_floats = state.numel()
+        rec.update(halo=H, equal_to_gather_then_k3=bool(torch.equal(fn(), alone())))
+    rec["max_abs_err"] = (fn() - want).abs().max().item()
+    rec["ctas"] = _build.LAST_CTAS["taskbench_step"]
+    rec["ms"] = gpu_ms(fn, reps if grain < 16384 else 50)
+    rec.update(chain_bound(4 * (src_floats + tables + n), n * (2 * D + 2 * grain),
+                           D + grain, latency))
+    return rec
+
+
+def k3_cases(latency):
+    """K3 alone at each width, combine and grain, and the S = 1 step as the
+    runtime issues it at grain 64 and the empty body. Yields (label, record)."""
+    for W, (label, combine, D) in itertools.product(K3_WIDTHS, K3_COMBINES):
+        for grain in K3_GRAINS:
+            tag = f"W={W} grain {grain or 'empty'}"
+            yield f"K3 {label} {tag}", k3_case(W, combine, D, grain, latency)
+            if grain != 16384:
+                yield f"K3 S=1 step {label} {tag}", k3_case(W, combine, D, grain,
+                                                            latency, step=True)
 
 
 def k4_cost(rows: int, S: int, D: int = 2 * TB_RADIUS + 1) -> Tuple[int, int]:
@@ -294,7 +433,7 @@ def k4_cases(reps: int = 200, seed: int = 1):
     state = rand(1, TB_W, TB_PAYLOAD)
     bl, br = rand(1, 3 * depth, TB_PAYLOAD), rand(1, 3 * depth, TB_PAYLOAD)
     kw = dict(kind="compute_bound", iterations=TB_GRAIN, scratch=2048, combine="window")
-    for form in k4_forms():
+    for form in ("tiled", "cooperative"):
         fkw = dict(kw, radius=TB_RADIUS) if form == "tiled" else dict(kw)
         times = {}
         for S in (2, TB_S):
@@ -325,6 +464,22 @@ def k4_cases(reps: int = 200, seed: int = 1):
             yield f"K4 {form} {phase} {rows} rows S={TB_S}", {
                 "form": form, "rows": rows, "S": TB_S, "ms": gpu_ms(fn, reps),
                 **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
+
+
+def step_wall_case(pattern: str, W: int, grain: int = TB_GRAIN, steps: int = 1000,
+                   reps: int = 5) -> Dict[str, object]:
+    """The S = 1 ``pallas_step`` run on the host clock: µs per step of each
+    of ``reps`` runs (``Runtime.measure``, each ending in a synchronize)."""
+    from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+
+    g = TaskGraph(steps=steps, width=W, pattern=pattern, payload=TB_PAYLOAD,
+                  kernel=KernelSpec("compute_bound", grain), radius=2)
+    rt = get_runtime("pallas_step")
+    _, st = rt.measure(g, reps=reps, warmup=1)
+    return {"pattern": pattern, "W": W, "grain": grain, "steps": steps,
+            "dispatches_per_run": st.dispatches,
+            "us_per_step": [w / steps * 1e6 for w in st.walls],
+            "best_us_per_step": st.best / steps * 1e6}
 
 
 def smem_bytes_per_s() -> float:
@@ -368,7 +523,7 @@ def k2_case(iterations: int, rows: int = TB_W, payload: int = TB_PAYLOAD,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="floor,k4,k2,k8,k7",
+    ap.add_argument("--only", default="floor,k1,k3,k4,k2,k8,k7",
                     help="comma-separated kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -376,7 +531,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = card()
     groups = []  # (kernel, thunk yielding (label, record)); run in this order
-    groups.append(("floor", lambda: [("launch floor", floor_case())]))
+    floor = floor_case()
+    latency = (floor["fma_latency_cycles"], floor["sm_max_mhz"])
+    groups.append(("floor", lambda: [("launch floor", floor)]))
+    groups.append(("k1", lambda: ((f"K1 {rows}x{TB_PAYLOAD} grain {grain}",
+                                    k1_case(rows, grain, latency))
+                                   for rows in K1_ROWS for grain in K1_GRAINS)))
+    groups.append(("k3", lambda: k3_cases(latency)))
+    groups.append(("step", lambda: ((f"S=1 step wall {pattern} W={W}",
+                                      step_wall_case(pattern, W))
+                                     for pattern in ("stencil_1d", "nearest")
+                                     for W in K3_WIDTHS)))
     groups.append(("k4", k4_cases))
     groups.append(("k2", lambda: ((f"K2 {TB_W}x{TB_PAYLOAD} iterations {it}",
                                     k2_case(it, plain=it == 4)) for it in K2_ITERATIONS)))

@@ -1,6 +1,6 @@
-"""Diagnostic builds of K7, K4 and K2 on the card: where their time goes.
+"""Diagnostic builds of K7, K4, K2, K1 and K3 on the card: where their time goes.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--kernel k7|k4|k2] [--only base,noY] [--clock]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--kernel k7|k4|k2|k1|k3] [--only base,noY] [--clock]
 
 Each variant is the kernel's source (with the headers of ``csrc/``) with
 one edit, built with nvcc (the port's flags) into
@@ -55,11 +55,32 @@ K2 (``csrc/memory_bound.cu``) at (2112, 64), scratch 2048, iterations 4:
   u4        4 words a lane in flight per pass step (8 in the base)
   notile    the tile-out left out
   nofold    the fold left out (nothing written)
+
+K1 (``csrc/taskbench_compute.cu``) at 132, 528, 1056, 1584 and 2112 rows
+x payload 64 (128 to 1024 elements an SM between the second and the last:
+where `launch_plan.FILL` switches to 4 elements a thread), and K3
+(``csrc/taskbench_step.cu``, window D = 3 on the halo-extended source) at
+the same widths, payload 64, each at grain 64 and 16384, each with 4
+elements (columns) a thread and with 1, whichever the wrappers' plans
+take (CTAs cut as they cut them); K3 also in onehot D = 5 with duplicate
+slots (nearest's tables, kernel_times' case) at grain 64 on the plans'
+launch; with the FMA body's iteration loop (``bodies.cuh``) unrolled as
+the compiler chooses or by a given count:
+
+  base      the kernel as it is
+  u1        the iteration loop not unrolled
+  u4, u8, u16  unrolled 4, 8 or 16 iterations
+  onetap    K3 only: the window's first tap alone (what its other taps'
+            loads and FMAs cost: the most that staging the source rows in
+            shared memory could save)
+  mergemem  K3 only: onehot's merge from memory at every D, not from
+            registers (``combine.cuh``'s MERGE_REGS path left out)
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import shutil
 import subprocess
@@ -80,6 +101,16 @@ TF32_CVT = """__device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }"""
 K4_BODY = "  tb::fma_body(v, a.iterations);\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {"
+FMA_LOOP = "  for (int i = 0; i < iterations; ++i) {\n#pragma unroll\n    for (int j = 0; j < N; ++j)"
+
+
+def _unrolled(n: int):
+    """The FMA body's iteration loop with ``#pragma unroll n`` (its edit)."""
+    return [("bodies.cuh", FMA_LOOP, f"#pragma unroll {n}\n" + FMA_LOOP)]
+
+
+_UNROLLS = {"base": [], "u1": _unrolled(1), "u4": _unrolled(4), "u8": _unrolled(8),
+            "u16": _unrolled(16)}
 #: kernel -> (source, C entry, {variant: [(file, text, its replacement)]})
 KERNELS = {
     "k7": ("ssd_chunk.cu", "ssd_chunk", {
@@ -133,6 +164,13 @@ KERNELS = {
         "nofold": [("bodies.cuh", "  if (pw <= 32) {\n    const int lpg",
                     "  if (iterations > 0) return;\n  if (pw <= 32) {\n    const int lpg")],
     }),
+    "k1": ("taskbench_compute.cu", "taskbench_compute", _UNROLLS),
+    "k3": ("taskbench_step.cu", "taskbench_step", {
+        **_UNROLLS,
+        "onetap": [("taskbench_step.cu", "for (int j = 0; j < D; ++j) tap(w + j, wr[j]);",
+                    "for (int j = 0; j < 1; ++j) tap(w + j, wr[j]);")],
+        "mergemem": [("combine.cuh", "} else if (D <= MERGE_REGS) {",
+                      "} else if (false) {")]}),
 }
 
 
@@ -309,7 +347,67 @@ def k2_cases():
            lambda a: {"max_abs_err": (a[1] - a[2]).abs().max().item()})
 
 
-CASES = {"k7": k7_cases, "k4": k4_cases, "k2": k2_cases}
+#: K1's and K3's widths (rows): the METG sweep's two and three between.
+K13_WIDTHS = (132, 528, 1056, 1584, 2112)
+
+
+def k1_cases():
+    from repro_torch.kernels.bodies import apply_body
+    from repro_torch.kernels.launch_plan import LaunchPlan, cut_ctas
+    from repro_torch.kernels.taskbench_compute import compute_plan
+    from repro_torch.launch.kernel_times import SMS, TB_PAYLOAD
+
+    for rows, grain, chains in itertools.product(K13_WIDTHS, (64, 16384), (4, 1)):
+        n = rows * TB_PAYLOAD
+        plan = LaunchPlan(chains, *cut_ctas(-(-n // chains), SMS))
+
+        def make(rows=rows, grain=grain):
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            x = torch.rand((rows, TB_PAYLOAD), device="cuda", generator=gen) * 0.9 + 0.1
+            return x, torch.empty_like(x), apply_body(x, "compute_bound", grain, 0)
+
+        def call(lib, a, n=n, grain=grain, plan=plan):
+            return lib.taskbench_compute(a[0].data_ptr(), a[1].data_ptr(), n, grain,
+                                         plan.chains, plan.threads, 1, _stream())
+
+        yield ({"shape": [rows, TB_PAYLOAD], "grain": grain, "chains": chains,
+                "ctas": plan.ctas, "planned": plan == compute_plan(n, SMS)},
+               make, call, lambda a: (a[1],),
+               lambda a: {"max_abs_err": (a[1] - a[2]).abs().max().item()})
+
+
+def k3_cases():
+    from repro_torch.kernels.launch_plan import LaunchPlan, cut_ctas
+    from repro_torch.kernels.taskbench_step import step_plan, taskbench_step_plain, wrap_rows
+    from repro_torch.launch.kernel_times import SMS, TB_PAYLOAD, k3_operands
+
+    P = TB_PAYLOAD
+    planned = {W: step_plan(1, W, P, SMS) for W in K13_WIDTHS}
+    cases = [(W, "window", 3, grain, LaunchPlan(c, *cut_ctas(W * -(-P // c), SMS)))
+             for W, grain, c in itertools.product(K13_WIDTHS, (64, 16384), (4, 1))]
+    cases += [(W, "onehot", 5, 64, planned[W]) for W in (132, 2112)]
+    for W, combine, D, grain, plan in cases:
+        def make(W=W, combine=combine, D=D, grain=grain):
+            state, idx, wgt, H = k3_operands(W, combine, D)
+            ext = wrap_rows(state, H)
+            want = taskbench_step_plain(ext, idx, wgt, kind="compute_bound",
+                                        iterations=grain, combine=combine)
+            return ext, idx, wgt, torch.empty_like(state), want
+
+        def call(lib, a, W=W, combine=combine, D=D, grain=grain, plan=plan):
+            ext, idx, wgt, out, _ = a
+            return lib.taskbench_step(ext.data_ptr(), idx.data_ptr(), wgt.data_ptr(),
+                                      out.data_ptr(), 1, ext.shape[1], W, P, D,
+                                      0 if combine == "window" else 2, 0, grain, 2048,
+                                      -1, plan.chains, plan.threads, _stream())
+
+        yield ({"W": W, "P": P, "combine": combine, "D": D, "grain": grain,
+                "chains": plan.chains, "ctas": plan.ctas, "planned": plan == planned[W]},
+               make, call, lambda a: (a[3],),
+               lambda a: {"max_abs_err": (a[3] - a[4]).abs().max().item()})
+
+
+CASES = {"k7": k7_cases, "k4": k4_cases, "k2": k2_cases, "k1": k1_cases, "k3": k3_cases}
 
 
 def k4_clocks(name: str, lib) -> None:

@@ -24,7 +24,11 @@ from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dty
 from repro_torch.launch.serve import _grow_caches
 from repro_torch.models.model import Model
 from repro_torch.kernels.bodies import apply_body
+from repro_torch.kernels import _build
+from repro_torch.kernels.launch_plan import sm_count
+from repro_torch.kernels.taskbench_compute import compute_plan
 from repro_torch.kernels.taskbench_step import (
+    step_plan,
     taskbench_step_blocked_plain,
     taskbench_step_plain,
 )
@@ -80,6 +84,82 @@ def test_step_kernel_matches_plain(cuda, combine, kind, iterations, K):
     want = taskbench_step_plain(src, idx, wgt, **kw)
     assert got.shape == (K, W, P)
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("rows,payload,offset", [
+    (132, 64, 0),    # 8448 elements over every SM: one chain a thread
+    (37, 13, 0),     # one chain a thread, fewer threads than SMs
+    (65537, 13, 0),  # 4 chains a thread, n % 4 != 0: the last thread's scalar tail
+    (2112, 64, 1),   # 4 chains, x at a 4-byte offset: the scalar path throughout
+    (5, 3, 0),       # fewer elements than one vector
+])
+@pytest.mark.parametrize("iterations", [0, 1, 16, 1024])
+def test_fma_kernel_ragged_and_unaligned(cuda, rows, payload, offset, iterations):
+    n = rows * payload
+    x = _rand((n + offset,), rows + offset, cuda)[offset:].view(rows, payload)
+    before = ops.launch_counts()["taskbench_compute"]
+    got = ops.taskbench_compute(x, iterations)
+    assert ops.launch_counts()["taskbench_compute"] == before + 1
+    assert _build.LAST_CTAS["taskbench_compute"] == compute_plan(n, sm_count(0)).ctas
+    want = apply_body(x, "compute_bound", iterations, 0)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_K1
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot", "pair"])
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 64),
+                                             ("memory_bound", 3), ("empty", 0)])
+@pytest.mark.parametrize("W,P", [(132, 64), (132, 13), (2112, 64), (5281, 13)])
+@pytest.mark.parametrize("D", [5, 9])
+def test_step_kernel_launch_shapes(cuda, combine, kind, iterations, W, P, D):
+    """K3 at W = 132 (one task an SM; one column a thread, P = 64 and 13),
+    and with 4 columns a thread on its 16-byte path (P = 64) and its scalar
+    path (P = 13), each combine and body, with 5 slots and with 9 (onehot's
+    merge from memory, past the 8 it keeps in registers), against the plain
+    version; the recorded grid is the plan's (a warp per row for the memory
+    body), a CTA or more an SM."""
+    rng = np.random.default_rng(W + P)
+    S = 2 * W if combine == "pair" else W + D - 1
+    src = _rand((1, S, P), 6, cuda)
+    idx = torch.from_numpy(rng.integers(0, S, (1, W, D), dtype=np.int32)).to(cuda)
+    idx[:, ::2, 1] = idx[:, ::2, 0]  # duplicate slots
+    wgt = _rand((1, W, D), 7, cuda) / D
+    kw = dict(kind=kind, iterations=iterations, scratch=40, combine=combine)
+    got = ops.taskbench_step(src, idx, wgt, **kw)
+    ctas = _build.LAST_CTAS["taskbench_step"]
+    assert ctas == (W if kind == "memory_bound" else step_plan(1, W, P, sm_count(0)).ctas)
+    assert ctas >= sm_count(0)
+    want = taskbench_step_plain(src, idx, wgt, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 16),
+                                             ("memory_bound", 3), ("empty", 0)])
+@pytest.mark.parametrize("W,H,P", [(40, 1, 64), (40, 2, 13), (3, 2, 64), (2, 2, 16),
+                                   (1, 2, 8), (132, 2, 64)])
+def test_folded_wrap_equals_row_gather_then_step(cuda, combine, kind, iterations, W, H, P):
+    """K3 with ``wrap=H`` on the state equals K3 on the state's halo
+    extension, bit for bit, with out-of-range gather and onehot indices on
+    the extended length and W <= 2H (dependencies more than one ring away)."""
+    K, D = 2, 2 * H + 1
+    rng = np.random.default_rng(W * 10 + H)
+    state = _rand((K, W, P), W + H, cuda)
+    ext_rows = W + 2 * H
+    idx = torch.from_numpy(rng.integers(-ext_rows - 2, ext_rows + 3, (K, W, D),
+                                        dtype=np.int32)).to(cuda)
+    idx[:, ::2, 1] = idx[:, ::2, 0]
+    wgt = _rand((K, W, D), 8, cuda) / D
+    kw = dict(kind=kind, iterations=iterations, scratch=40, combine=combine)
+    rows = torch.from_numpy(ps._extend_rows(W, H)).to(cuda)
+    ops.reset_launch_counts()
+    folded = ops.taskbench_step(state, idx, wgt, wrap=H, **kw)
+    assert ops.launch_counts()["taskbench_step"] == 1
+    want = ops.taskbench_step(state.index_select(1, rows), idx, wgt, **kw)
+    assert torch.equal(folded, want)
+    plain = taskbench_step_plain(state, idx, wgt, wrap=H, **kw)
+    assert (folded - plain).abs().max().item() <= TOL
 
 
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):

@@ -26,10 +26,14 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_chunk
-from repro_torch.kernels.taskbench_compute import taskbench_compute
+from repro_torch.core.runtimes.pallas_step import _extend_rows, _extend_state
+from repro_torch.kernels.launch_plan import FILL, VEC, cut_ctas
+from repro_torch.kernels.taskbench_compute import compute_plan, taskbench_compute
 from repro_torch.kernels.taskbench_step import (
+    step_plan,
     taskbench_step,
     taskbench_step_plain,
+    wrap_rows,
 )
 
 COMPUTE_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -115,6 +119,129 @@ def test_step_plain_matches_reference_megakernel(combine, kind, iters, K):
             jnp.asarray(src), jnp.asarray(idx), jnp.asarray(wgt), kind=kind,
             iterations=iters, scratch=20)), **tol)
         np.testing.assert_allclose(got, oracle, **tol)
+
+
+def _wrap_operands(combine, K, W, H, seed):
+    """(state (K, W, 6), idx, wgt) for a step on the state's halo extension
+    of W + 2H rows: a window of D = 2H + 1, or D = 2H + 1 slots drawn from
+    past both ends of the extended length (the index rule's wrap, clamp and
+    drop), every third row's first two slots equal."""
+    rng = np.random.default_rng(seed)
+    D, S = 2 * H + 1, W + 2 * H
+    state = _x((K, W, 6), seed)
+    idx = rng.integers(-S - 2, S + 3, (K, W, D)).astype(np.int32)
+    idx[:, ::3, 1] = idx[:, ::3, 0]
+    wgt = (rng.uniform(0, 1, (K, W, D)) / D).astype(np.float32)
+    return state, idx, wgt
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("kind,iters", [("compute_bound", 5), ("memory_bound", 3),
+                                        ("empty", 0)])
+@pytest.mark.parametrize("W,H", [(9, 1), (7, 2), (4, 2), (3, 2), (2, 2), (1, 2), (1, 1)])
+def test_step_with_wrap_equals_extend_then_step(combine, kind, iters, W, H):
+    """The plain K3 with ``wrap=H`` on the state is `_extend_state` and the
+    plain K3, bit for bit, also at W <= 2H and on out-of-range indices; and
+    both match the reference's step on the extended source."""
+    state, idx, wgt = _wrap_operands(combine, 2, W, H, W + H)
+    kw = dict(kind=kind, iterations=iters, scratch=20, combine=combine)
+    rows = torch.from_numpy(_extend_rows(W, H))
+    ext = _extend_state(_t(state), rows)
+    want = taskbench_step_plain(ext, _t(idx), _t(wgt), **kw)
+    assert torch.equal(taskbench_step_plain(_t(state), _t(idx), _t(wgt), wrap=H, **kw),
+                       want)
+    assert torch.equal(ops.taskbench_step(_t(state), _t(idx), _t(wgt), wrap=H, **kw),
+                       want)
+    ref_out = np.asarray(ref_ops.taskbench_step(
+        jnp.asarray(ext.numpy()), jnp.asarray(idx), jnp.asarray(wgt), **kw))
+    tol = MEMORY_TOL if kind == "memory_bound" else COMPUTE_TOL
+    np.testing.assert_allclose(want.numpy(), ref_out, **tol)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(steps_per_launch=3), "steps_per_launch = 1"),
+    (dict(wrap=-1), "wrap must be >= 0"),
+    (dict(combine="pair"), "pair combine takes no wrap"),
+    (dict(width=5), "src rows 5 != table rows W = 4"),
+    (dict(D=5), "window combine needs src rows >= W \\+ D - 1 = 8"),
+])
+def test_step_wrap_refusals(case, match):
+    """``wrap`` is K3's: refused at steps_per_launch > 1, below 0, with
+    pair, on a src whose rows are not the tables' W, and where the window
+    reaches past the W + 2 * wrap extended rows."""
+    W, D = 4, case.pop("D", 3)
+    src = torch.ones((1, case.pop("width", W), 6))
+    idx = torch.zeros((1, W, D), dtype=torch.int32)
+    wgt = torch.ones((1, W, D))
+    kw = dict(dict(combine="window", wrap=1), **case)
+    act = torch.ones((1, 3)) if kw.get("steps_per_launch", 1) > 1 else None
+    with pytest.raises(ValueError, match=match):
+        ops.taskbench_step(src, idx, wgt, act, **kw)
+
+
+@pytest.mark.parametrize("W,H,axis", [(5, 1, 1), (5, 1, 0), (3, 4, 1), (1, 2, 0),
+                                    (6, 0, 1)])
+def test_wrap_rows_extends_along_either_axis(W, H, axis):
+    """`wrap_rows`: position p of the W + 2H extended rows is row (p - H) mod
+    W, along the state's row axis (1) or a table's (0), past one ring too."""
+    x = _x((W, W, 3), W + H)
+    want = np.take(x, [(p - H) % W for p in range(W + 2 * H)], axis=axis)
+    assert torch.equal(wrap_rows(_t(x), H, axis), _t(want))
+
+
+@pytest.mark.parametrize("items,groups", [(2112, 1), (33792, 1), (1048576, 1), (121, 1),
+                                          (2112, 3), (1, 1), (131, 1), (2200, 1),
+                                          (40000, 2)])
+def test_cut_covers_every_thread_once_and_fills_the_sms(items, groups):
+    """`cut_ctas`: each group's threads cut into CTAs that cover [0, items)
+    exactly once; at least one CTA an SM whenever there are threads for
+    every SM; at most 256 threads a CTA."""
+    sms = 132
+    threads, ctas = cut_ctas(items, sms, groups)
+    per_group = ctas // groups
+    assert ctas == groups * per_group and 1 <= threads <= 256
+    ids = (np.arange(per_group)[:, None] * threads + np.arange(threads)[None, :]).ravel()
+    assert np.array_equal(np.sort(ids[ids < items]), np.arange(items))
+    assert (per_group - 1) * threads < items  # no CTA without work
+    if items * groups >= sms:
+        assert ctas >= sms
+
+
+@pytest.mark.parametrize("n", [132 * 64, 2112 * 64, 65536 * 64, 481, 132 * FILL - 1,
+                               132 * FILL, 65537 * 13])
+def test_compute_plan_takes_four_chains_only_where_they_fill_the_card(n):
+    """K1: 4 elements a thread (16-byte accesses) where every SM gets FILL
+    elements, 1 below that; its threads cover the elements once; at 132 x
+    64 every SM gets a CTA."""
+    plan = compute_plan(n, 132)
+    assert plan.chains == (VEC if n >= 132 * FILL else 1)
+    items = -(-n // plan.chains)
+    assert (plan.threads, plan.ctas) == cut_ctas(items, 132)
+    assert plan.ctas * plan.threads * plan.chains >= n
+    if n == 132 * 64:
+        assert plan.ctas >= 132 and plan.chains == 1
+
+
+@pytest.mark.parametrize("W,P", [(132, 64), (2112, 64), (45, 13), (132, 13), (7, 1),
+                                 (5281, 13)])
+def test_step_plan_covers_every_element_once(W, P):
+    """K3's compute launch: thread t owns row t // Q and columns C (t % Q)
+    .. + C - 1 (C the plan's chains, Q = ceil(P / C)), the columns past P
+    masked, so the plan's threads cover each (row, column) exactly once;
+    at W = 132 every SM gets a CTA."""
+    plan = step_plan(1, W, P, 132)
+    C = plan.chains
+    assert C == (VEC if W * P >= 132 * FILL else 1)
+    Q = -(-P // C)
+    t = np.arange(plan.ctas * plan.threads)
+    t = t[t < W * Q]
+    rows = np.repeat(t // Q, C)
+    cols = (np.repeat(t % Q, C) * C + np.tile(np.arange(C), len(t)))
+    keep = cols < P
+    flat = np.sort(rows[keep] * P + cols[keep])
+    assert np.array_equal(flat, np.arange(W * P))
+    if W == 132:
+        assert plan.ctas >= 132
 
 
 def _error(fn):

@@ -83,7 +83,10 @@ def test_pallas_step_combine_modes_match_reference(pattern, combine):
 
 @pytest.mark.parametrize("pattern,width,radius", [("nearest", 3, 2), ("nearest", 4, 3),
                                                   ("random_nearest", 5, 3),
-                                                  ("stencil_1d", 1, 1)])
+                                                  ("stencil_1d", 1, 1), ("nearest", 1, 2),
+                                                  ("nearest", 2, 2),
+                                                  ("stencil_1d_periodic", 2, 1),
+                                                  ("dom", 2, 1)])
 def test_narrow_widths_wrap_like_the_reference(pattern, width, radius):
     """W <= 2r: dependencies reach past one ring; W = 1 degenerates."""
     g, r, init = _pair(pattern, iters=1, width=width, radius=radius)
@@ -92,6 +95,34 @@ def test_narrow_widths_wrap_like_the_reference(pattern, width, radius):
                                want, **COMPUTE_TOL)
     for name, out in _port_outputs(g, init).items():
         np.testing.assert_allclose(out, want, err_msg=name, **COMPUTE_TOL)
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("pattern", HALO)
+def test_s1_pallas_step_folds_the_wrap_into_each_step(monkeypatch, pattern, combine):
+    """At S = 1 each timestep is one step call on the (1, W, payload) state
+    itself with ``wrap=H`` (the kernel reads the halo extension from it, no
+    row gather before it); only the t = 0 body-only call takes no wrap. The
+    result is the unpatched run's."""
+    from repro_torch.core.patterns import halo_radius
+    from repro_torch.core.runtimes import pallas_step as ps
+
+    g, _, init = _pair(pattern, iters=1, width=9, steps=5)
+    rt = get_runtime("pallas_step", device="cpu", combine=combine)
+    want = rt.execute(g, init)
+    calls = []
+    step = ps._kops.taskbench_step
+
+    def spy(src, idx, wgt, act=None, **kw):
+        calls.append((tuple(src.shape), kw.get("wrap")))
+        return step(src, idx, wgt, act, **kw)
+
+    monkeypatch.setattr(ps._kops, "taskbench_step", spy)
+    got = rt.execute(g, init)
+    H = halo_radius(g)
+    assert calls == [((1, 9, 5), None)] + [((1, 9, 5), H)] * (g.steps - 1)
+    assert rt.dispatches_per_run(g) == len(calls)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("pattern,width", [("fft", 8), ("tree", 8), ("all_to_all", 6),
