@@ -1,0 +1,212 @@
+"""METG of the PyTorch/CUDA port on one card, with repeated sweeps.
+
+    PYTHONPATH=src python -m benchmarks.torch_metg [--repeats 5] [--out PATH]
+    PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu
+
+The port's counterpart of ``benchmarks/table2_metg.py`` (METG(50%) per
+backend and overdecomposition) and of ``benchmarks/pallas_floor.py``'s
+measurements 1-3 on one device. Every run is one CUDA graph replay
+(``Runtime.build``). Protocol: ``configs/taskbench.py``'s ``PAPER`` preset
+(stencil_1d, T = 1000, payload 64, grains 1..16384 in x4 steps, 5 timed
+reps a point, best of them), widths W = SMs x overdecomposition {1, 8, 16},
+on four schedules: ``fused(use_kernels=True)``, ``pallas_step`` (S = 1)
+and ``pallas_step(steps_per_launch=8)`` pipelined and serial. Each
+(schedule, W) sweep runs ``--repeats`` times; a record gives the METG(50%)
+of each repeat, their median and their spread.
+
+At grain 1, the finest, where the runtime's per-step cost sets the wall,
+for each W:
+  1. the wall per step of ``pallas_step`` at S in {1, 2, 4, 8, 16},
+     pipelined against serial, in interleaved rounds (pipelined, serial,
+     pipelined, ...; best of each);
+  2. the eager loop (``Runtime._build_eager``) beside the graph at S = 1
+     and S = 8 (both schedules), in interleaved rounds: what capture
+     removes.
+
+Every record carries the card's name and power limit (``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader``). Records print as
+JSON lines and are written to ``--out`` (one JSON object per line).
+``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats)
+that also runs with ``--device cpu``, where the runtimes run their eager
+loops. The script imports nothing of JAX, of the JAX package ``repro`` or
+of ``benchmarks/common.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.taskbench import PAPER, TaskBenchConfig
+from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
+from repro_torch.core.runtimes._capture import time_runs
+
+ROOT = Path(__file__).resolve().parents[1]
+DEFAULT_OUT = ROOT / "artifacts" / "bench_torch" / "metg.json"
+#: (label, backend, options): the schedules swept
+SCHEDULES = (
+    ("fused[kernels]", "fused", {"use_kernels": True}),
+    ("pallas_step", "pallas_step", {}),
+    ("pallas_step[S=8]", "pallas_step", {"steps_per_launch": 8}),
+    ("pallas_step[S=8,serial]", "pallas_step", {"steps_per_launch": 8, "pipeline": False}),
+)
+SWEEP_S = (1, 2, 4, 8, 16)
+EAGER_S = (1, 8)
+ROUNDS = 3
+SMOKE = dataclasses.replace(PAPER, name="smoke", steps=6, grains=(1, 16), reps=2,
+                            overdecomposition=(1, 8))
+
+
+def card(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi reads them ("cpu" on the
+    CPU)."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _graph(cfg: TaskBenchConfig, width: int, grain: int) -> TaskGraph:
+    return TaskGraph(steps=cfg.steps, width=width, pattern=cfg.pattern,
+                     payload=cfg.payload, kernel=KernelSpec("compute_bound", grain))
+
+
+def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
+                od: int, repeats: int, device: torch.device) -> Dict[str, object]:
+    """``repeats`` grain sweeps of one schedule at W = cores x od."""
+    rt = get_runtime(backend, device=device, **options)
+    width = rt.cores * od
+    metgs: List[Optional[float]] = []
+    peaks: List[float] = []
+    walls: Dict[int, List[float]] = {grain: [] for grain in cfg.grains}
+    capture: List[float] = []
+    nodes = dispatches = None
+    for _ in range(repeats):
+        samples = []
+        for grain in cfg.grains:
+            sample, st = rt.measure(_graph(cfg, width, grain), reps=cfg.reps, warmup=1)
+            samples.append(sample)
+            walls[grain].append(sample.wall_time / cfg.steps * 1e6)
+            dispatches = st.dispatches
+            if st.capture_s is not None:
+                capture.append(st.capture_s)
+                nodes = st.graph_nodes
+        m = compute_metg(samples)
+        metgs.append(m.metg_us)
+        peaks.append(m.peak_flops_per_second)
+    reached = [m for m in metgs if m is not None]
+    med = statistics.median(reached) if reached else None
+    return {
+        "kind": "metg", "runtime": label, "options": options, "W": width, "od": od,
+        "steps": cfg.steps, "payload": cfg.payload, "pattern": cfg.pattern,
+        "grains": list(cfg.grains), "reps": cfg.reps, "repeats": repeats,
+        "metg_us": metgs, "metg_us_median": med,
+        "metg_us_min": min(reached) if reached else None,
+        "metg_us_max": max(reached) if reached else None,
+        "spread": (max(reached) - min(reached)) / med if reached and med else None,
+        "unreached": len(metgs) - len(reached),
+        "peak_gflops_median": statistics.median(peaks) / 1e9,
+        "us_per_step_median": {g: statistics.median(w) for g, w in walls.items()},
+        "dispatches_per_run": dispatches, "graph_nodes": nodes,
+        "capture_s_median": statistics.median(capture) if capture else None,
+    }
+
+
+def _step_us(cfg: TaskBenchConfig, run, x: torch.Tensor) -> float:
+    """Best host wall per step over ``cfg.reps`` runs of ``run`` on fresh
+    copies of ``x``."""
+    return min(time_runs(run, x, reps=cfg.reps, warmup=1)) / cfg.steps * 1e6
+
+
+def _schedules_at(S: int) -> Dict[str, dict]:
+    """pallas_step's schedules at depth S: the one at S = 1, else pipelined
+    and serial."""
+    return {"S=1": {}} if S == 1 else {"pipelined": {}, "serial": {"pipeline": False}}
+
+
+def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
+                   device: torch.device):
+    """At grain 1 and W = cores x od: the S sweep (pipelined against serial)
+    and the eager loop beside the graph, each pair in interleaved rounds."""
+    probe = get_runtime("pallas_step", device=device)
+    width = probe.cores * od
+    g = _graph(cfg, width, 1)
+    x = probe._init(g, None)
+    for S in sweep_s:
+        rts = {key: get_runtime("pallas_step", device=device, steps_per_launch=S, **opts)
+               for key, opts in _schedules_at(S).items()}
+        best = {key: float("inf") for key in rts}
+        for _ in range(rounds):
+            for key, rt in rts.items():
+                best[key] = min(best[key], _step_us(cfg, rt.build(g), x))
+        yield {"kind": "steps_per_launch", "W": width, "od": od, "S": S, "grain": 1,
+               "steps": cfg.steps, "rounds": rounds, "us_per_step": best,
+               "launches_per_run": {k: rt.dispatches_per_run(g) for k, rt in rts.items()}}
+    for S in eager_s:
+        for sched, opts in _schedules_at(S).items():
+            rt = get_runtime("pallas_step", device=device, steps_per_launch=S, **opts)
+            runs = {"graph": rt.build(g), "eager": rt._build_eager(g)}
+            best = {key: float("inf") for key in runs}
+            for _ in range(rounds):
+                for key, fn in runs.items():
+                    best[key] = min(best[key], _step_us(cfg, fn, x))
+            yield {"kind": "graph_vs_eager", "W": width, "od": od, "S": S,
+                   "schedule": sched, "grain": 1, "steps": cfg.steps, "rounds": rounds,
+                   "us_per_step": best, "launches_per_run": rt.dispatches_per_run(g)}
+
+
+def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
+        sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS) -> List[dict]:
+    t0 = time.perf_counter()
+    smi = card(device)
+    records: List[dict] = []
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with out.open("w") as f:
+        def emit(rec):
+            rec["card"] = smi
+            records.append(rec)
+            line = json.dumps(rec)
+            print(line, flush=True)
+            f.write(line + "\n")
+            f.flush()
+
+        for od in cfg.overdecomposition:
+            for label, backend, options in SCHEDULES:
+                emit(metg_record(cfg, label, backend, options, od, repeats, device))
+            for rec in grain1_records(cfg, od, sweep_s, eager_s, rounds, device):
+                emit(rec)
+        emit({"kind": "summary", "preset": cfg.name, "repeats": repeats,
+              "device": str(device), "seconds": time.perf_counter() - t0})
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("torch_metg: no CUDA device is available; pass --device cpu")
+    if args.smoke:
+        out = args.out or DEFAULT_OUT.with_name("metg_smoke.json")
+        run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
+            rounds=1)
+    else:
+        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -50,15 +50,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
              every pattern (window; gather and onehot on two), held to the
              S = 1 run and pipelined equal to serial bit for bit; one
              memory_bound run of each; small-input checks against the CPU
-             plain path. The launch counters are zeroed just before and
-             read just after, and each run's launches must equal the
-             runtime's ``dispatches_per_run``. A short S = 1 run under
-             ``torch.profiler`` shows one device kernel a timestep, K3, and
-             no row gather (the halo wrap is folded into K3).
+             plain path. Every run is its runtime's ``build``: the eager
+             loop captured as one CUDA graph (its warm-up and capture
+             counted apart from the run's launches), replayed once; each
+             schedule (S = 1 window, gather and onehot, S = 8 pipelined and
+             serial, ``fused`` with the kernels, the memory_bound runs)
+             equals its eager loop bit for bit and launches the same
+             kernels; capture times and node counts are printed (the plain
+             ``fused`` run at grain 64: ~136k nodes). The launch counters
+             are zeroed just before and read just after, and each replay's
+             launches must equal the runtime's ``dispatches_per_run``. One
+             replay of a short S = 1 run's graph under ``torch.profiler``
+             shows one device kernel a timestep, K3, and nothing else (the
+             halo wrap is folded into K3).
   4. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
-             pipelined and serial.
+             pipelined and serial, each run one graph replay; at grains 1
+             and 64 the eager loop's step wall beside the graph's.
   5. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
@@ -67,13 +76,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
              8, prompt 1024, 64 tokens (24 K7 in the prefill, nothing in
              decode); [serve-hybrid] hymba-1.5b, batch 4, prompt 1024, 16
              tokens (32 K5 in its tensor-core form + 32 K7, 32 x 15 K6).
+             Each decode step after the first is one CUDA graph replay.
              For each, the
              launch counters, zeroed just before, must read exactly that;
-             every step's logits finite; the prefill and 4 decode steps,
+             every step's logits finite; the same run with every decode
+             step eager gives the same tokens and the same logits bit for
+             bit (the p50 step wall both ways); the prefill and 4 decode steps,
              teacher-forced with the served tokens, held against the same
              model on its plain path on the card; 3 more decode steps
              under ``torch.profiler`` (device kernels, and host operators
-             by self CPU time); the prefill again, warm. Then [norm]:
+             by self CPU time), then 3 as replays of the step's graph
+             (device kernels); the prefill again, warm. Then [norm]:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
@@ -88,7 +101,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              FMA's dependent latency, read by a clock-mark probe, x each
              element's chain; derived, under "bounds" in the JSON);
              K4 in both forms as one full
-             launch at S = 2 and S = 8 and as the pipelined phases; K5 at internlm2's and hymba's prefill
+             launch at S = 2 and S = 8 and as the pipelined phases, and one
+             whole pipelined launch with its interior on the same stream
+             or a second one, queued and as graph nodes; K5 at internlm2's and hymba's prefill
              shapes, and K6 at the serving decode warm and L2-cold, beside
              ``scaled_dot_product_attention`` on the same inputs under
              PyTorch's choice of backend and each backend pinned
@@ -289,10 +304,13 @@ def main() -> int:
 
     import dataclasses
 
+    import numpy as np
+
     from repro_torch.configs.registry import get_config
     from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
     from repro_torch.core.patterns import halo_radius
     from repro_torch.core.runtimes import pallas_step as ps_mod
+    from repro_torch.core.runtimes._capture import Graphed, GraphRun, time_runs
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dtype
     from repro_torch.launch.serve import _grow_caches, make_prompts, serve
@@ -624,6 +642,9 @@ def main() -> int:
     # ------------------------------------------------------------ main path
     t0 = time.perf_counter()
     ops.reset_launch_counts()
+    # launches of the eager loops the graphs are held to: not the main path's
+    check_launches = dict.fromkeys(_build.ENTRIES, 0)
+    captures = []  # (run, capture seconds, graph nodes)
 
     def counted(fn):
         before = ops.launch_counts()
@@ -632,10 +653,35 @@ def main() -> int:
         after = ops.launch_counts()
         return out, {k: after[k] - before[k] for k in after}
 
+    def graphed(label: str, rt, g: TaskGraph, init, eager: bool = True):
+        """``rt``'s run of ``g`` on ``init``: built (a CUDA graph, its
+        warm-up and capture counted apart), replayed once with the launch
+        counters read around the replay; with ``eager``, its eager loop on
+        the same init, equal to the replay bit for bit and launching the
+        same kernels. Returns (final state on the host, the replay's
+        launches)."""
+        run = rt.build(g)
+        if not isinstance(run, GraphRun):
+            fail(f"{label}: build gave {type(run).__name__}, not a CUDA graph")
+        out, d = counted(lambda: run(init))
+        captures.append((label, run.capture_s, run.nodes))
+        if eager:
+            want, d_eager = counted(lambda: run.eager(init.clone()))
+            if not torch.equal(out, want):
+                fail(f"{label}: the graph's replay differs from its eager loop, max "
+                     f"|difference| {(out - want).abs().max().item()}")
+            if d_eager != d:
+                fail(f"{label}: the eager loop launched {d_eager}, the replay {d}")
+            for k, n in d_eager.items():
+                check_launches[k] += n
+        return out.cpu(), d
+
     def run_all(g: TaskGraph, init):
-        ps, d_ps = counted(lambda: get_runtime("pallas_step").execute(g, init))
-        fk, d_fk = counted(lambda: get_runtime("fused", use_kernels=True).execute(g, init))
-        fp, d_fp = counted(lambda: get_runtime("fused").execute(g, init))
+        ps, d_ps = graphed(f"{g.pattern} pallas_step", get_runtime("pallas_step"), g, init)
+        fk, d_fk = graphed(f"{g.pattern} fused kernels",
+                           get_runtime("fused", use_kernels=True), g, init)
+        fp, d_fp = graphed(f"{g.pattern} fused plain", get_runtime("fused"), g, init,
+                           eager=False)
         body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
         want_ps = dict.fromkeys(_build.ENTRIES, 0)
         want_ps["taskbench_step"] = g.steps
@@ -646,7 +692,7 @@ def main() -> int:
                  f"kernels {d_fk}, fused plain {d_fp}")
         if get_runtime("pallas_step").dispatches_per_run(g) != d_ps["taskbench_step"]:
             fail("pallas_step.dispatches_per_run disagrees with its launches")
-        return [torch.from_numpy(a) for a in (ps, fk, fp)]
+        return ps, fk, fp
 
     blocked_launches = {}
 
@@ -661,7 +707,7 @@ def main() -> int:
         for label, opts in BLOCKED_RUNS:
             rt = get_runtime("pallas_step", combine=combine,
                              steps_per_launch=S_MAIN, **opts)
-            out, d = counted(lambda: rt.execute(g, init))
+            out, d = graphed(f"{g.pattern} {combine} S={S_MAIN} {label}", rt, g, init)
             split = rt._pipeline_active(g.width, S_MAIN, halo_radius(g))
             want_d = dict.fromkeys(_build.ENTRIES, 0)
             want_d["taskbench_step"] = 1
@@ -671,7 +717,7 @@ def main() -> int:
                      f"expected {want_d}, dispatches_per_run "
                      f"{rt.dispatches_per_run(g)}")
             blocked_launches.setdefault(form, {})[label] = d[form]
-            outs[label] = torch.from_numpy(out)
+            outs[label] = out
             check_close(f"{g.pattern} {combine} S={S_MAIN} {label} vs S=1",
                         outs[label], want, tol)
         if not torch.equal(outs["pipelined"], outs["serial"]):
@@ -689,12 +735,11 @@ def main() -> int:
         check_close(f"{pattern}: pallas_step vs fused(kernels)", ps, fk, TOL)
         check_close(f"{pattern}: fused(kernels) vs fused(plain)", fk, fp, TOL)
         for combine in ("gather", "onehot"):
-            out, d = counted(lambda: get_runtime(
-                "pallas_step", combine=combine).execute(g, init))
-            if d["taskbench_step"] != T_MAIN:
+            out, d = graphed(f"{pattern} pallas_step {combine}",
+                             get_runtime("pallas_step", combine=combine), g, init)
+            if d["taskbench_step"] != T_MAIN or sum(d.values()) != T_MAIN:
                 fail(f"{pattern} {combine}: launches {d}")
-            check_close(f"{pattern}: pallas_step {combine} vs window",
-                        torch.from_numpy(out), ps, TOL)
+            check_close(f"{pattern}: pallas_step {combine} vs window", out, ps, TOL)
     g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
                   kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
     init = rand(W_MAIN, PAYLOAD)
@@ -717,9 +762,10 @@ def main() -> int:
                    get_runtime("pallas_step", steps_per_launch=3, combine="gather")):
             check_close(f"small {pattern} {rt.name} {rt.options}",
                         torch.from_numpy(rt.execute(g, init)), want, TOL)
-    # a short S = 1 run under torch.profiler: one device kernel a timestep,
-    # K3, and no row gather before it (the one-device halo wrap is folded
-    # into K3's row index)
+    # one replay of a short S = 1 run's graph under torch.profiler (its
+    # input staged before): one device kernel a timestep, K3, and nothing
+    # else; no row gather (the one-device halo wrap is folded into K3's row
+    # index)
     from torch.profiler import ProfilerActivity, profile
 
     gp = TaskGraph(steps=T_PROFILED, width=W_MAIN, pattern="nearest", payload=PAYLOAD,
@@ -727,23 +773,25 @@ def main() -> int:
     run = get_runtime("pallas_step").build(gp)
     init = rand(W_MAIN, PAYLOAD)
     run(init)
+    run.stage(init)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, d = counted(lambda: run(init))
+        _, d = counted(run.graphed.replay)
     seen = [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     k3_seen = sum("step_compute_kernel" in n for n in seen)
     if d["taskbench_step"] != T_PROFILED or sum(d.values()) != T_PROFILED \
             or k3_seen != T_PROFILED or len(seen) != T_PROFILED:
-        fail(f"S = 1 profiled run of {T_PROFILED} steps: launch counters {d}, "
-             f"device kernels {len(seen)} ({k3_seen} K3): {sorted(set(seen))[:6]}")
-    print(f"[main] S = 1 run of {T_PROFILED} steps (nearest, W={W_MAIN}): launch "
-          f"counter {d['taskbench_step']} K3 and no other kernel of the port; "
-          f"torch.profiler: {len(seen)} device kernels, {k3_seen} of them K3 "
-          f"({sorted(set(n[:48] for n in seen))}), no row gather", flush=True)
+        fail(f"S = 1 profiled replay of {T_PROFILED} steps: launch counters {d}, "
+             f"device events {len(seen)} ({k3_seen} K3): {sorted(set(seen))[:6]}")
+    print(f"[main] one replay of the S = 1 graph of {T_PROFILED} steps (nearest, "
+          f"W={W_MAIN}): launch counter {d['taskbench_step']} K3 and no other kernel "
+          f"of the port; torch.profiler: {len(seen)} device events, {k3_seen} of them "
+          f"K3 ({sorted(set(n[:48] for n in seen))}), nothing else", flush=True)
+    del run
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    total = ops.launch_counts()
+    launches = {k: n - check_launches[k] for k, n in total.items()}
     for k, n in launches.items():
         if (n == 0) == (k in TASKBENCH_KERNELS):
             fail(f"kernel {k}: {n} launches on the Task Bench main path")
@@ -752,11 +800,20 @@ def main() -> int:
           f"fused(kernels) and fused(plain) agree; pallas_step(steps_per_launch="
           f"{S_MAIN}) pipelined and serial agree with S=1 and with each other bit "
           f"for bit, K4 launches per run {blocked_launches} (+1 K3); launches "
-          f"{launches}; {time.perf_counter() - t0:.3f} s", flush=True)
+          f"{launches} (and {check_launches} by the eager loops each graph was held "
+          f"to); {time.perf_counter() - t0:.3f} s", flush=True)
+    plain = [c for c in captures if c[0].endswith("fused plain")]
+    print(f"[main] every run replayed one CUDA graph ({len(captures)} captured; "
+          f"each schedule equal to its eager loop bit for bit): capture seconds and "
+          f"nodes {[(lbl, round(sec, 6), n) for lbl, sec, n in captures[:9]]} ...; "
+          f"fused plain (grain {GRAIN}, T={T_MAIN}): "
+          f"{[(round(sec, 6), n) for _, sec, n in plain]}", flush=True)
+    print(json.dumps({"captures": [{"run": lbl, "capture_s": sec, "nodes": n}
+                                   for lbl, sec, n in captures]}), flush=True)
 
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
-    step_wall = {}
+    step_wall, step_wall_eager = {}, {}
     for od in (1, 16):
         W = SMS * od
         for rt_name, opts in (
@@ -773,29 +830,41 @@ def main() -> int:
                 s, st = rt.measure(g, reps=5, warmup=1)
                 samples.append(s)
                 step_wall[(rt_name, W, grain)] = s.wall_time / T_MAIN
+                eager = ""
+                if grain in (1, GRAIN):
+                    # the same run's eager loop, timed alike: what capture removes
+                    walls = time_runs(rt._build_eager(g), rand(W, PAYLOAD), reps=5)
+                    step_wall_eager[(rt_name, W, grain)] = min(walls) / T_MAIN
+                    eager = f"; eager loop {min(walls) / T_MAIN * 1e6:.3f} us/step"
                 print(f"  {rt_name} W={W} grain={grain}: wall {s.wall_time:.6f} s "
-                      f"({s.wall_time / T_MAIN * 1e6:.3f} us/step, "
+                      f"({s.wall_time / T_MAIN * 1e6:.3f} us/step as one graph{eager}, "
                       f"{s.flops_per_second / 1e9:.3f} GFLOP/s, "
                       f"granularity {s.granularity_us:.4f} us, "
-                      f"{st.dispatches} launches)")
+                      f"{st.dispatches} launches, captured in {st.capture_s:.6f} s, "
+                      f"{st.graph_nodes} nodes)")
             m = compute_metg(samples)
             metg = "unreached" if m.metg_us is None else f"{m.metg_us:.4f} us"
             print(f"METG(50%) {rt_name} W={W} (od {od}, T={T_MAIN}, 5 reps): "
                   f"{metg}, peak {m.peak_flops_per_second / 1e9:.3f} GFLOP/s "
                   f"| {smi}", flush=True)
-    print(f"[metg] {time.perf_counter() - t0:.3f} s", flush=True)
+    print(json.dumps({"metg_step_us": [
+        {"runtime": k[0], "W": k[1], "grain": k[2], "graph": step_wall[k] * 1e6,
+         "eager": step_wall_eager[k] * 1e6} for k in step_wall_eager]}), flush=True)
+    print(f"[metg] {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
 
     # ---------------------------------------------------------------- serve
     def serve_path(tag: str, arch: str, batch: int, prompt: int, gen: int,
                    want: dict, tol: float):
         """Serve ``arch`` at full width and depth through ``serve`` (random
-        weights from seed 0, greedy), the launch counters zeroed just before
-        and held to ``want`` just after; then the same model through the
+        weights from seed 0, greedy; each decode step after the first a
+        graph replay), the launch counters zeroed just before and held to
+        ``want`` just after, and again with every decode step eager (the
+        same tokens and logits); then the same model through the
         kernels and through the plain path, teacher-forced with the served
         tokens (the prefill and 4 decode steps held to ``tol``: limits on
         max |diff| / max |logit| and ||diff|| / ||logits||, None where a
-        metric is only printed), 3 more
-        decode steps under torch.profiler, and the prefill again, warm.
+        metric is only printed), 3 more eager decode steps and 3 graph
+        replays under torch.profiler, and the prefill again, warm.
         Returns (cfg, serve result, launches, stats)."""
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -803,9 +872,26 @@ def main() -> int:
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, verbose=True,
-                    device="cuda")
+                    device="cuda", keep_logits=True)
         torch.cuda.synchronize()
         launches = ops.launch_counts()
+        # the same run with every decode step eager: the same tokens and the
+        # same logits, bit for bit (the graph replays the same kernels on the
+        # same buffers)
+        res_eager = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
+                          verbose=False, device="cuda", graph=False, keep_logits=True)
+        if not np.array_equal(res.tokens, res_eager.tokens):
+            fail(f"{tag} the graph's greedy tokens differ from the eager loop's")
+        if not torch.equal(res.logits, res_eager.logits):
+            fail(f"{tag} the graph's decode logits differ from the eager loop's, max "
+                 f"|difference| {(res.logits - res_eager.logits).abs().max().item()}")
+        rep_eager = res_eager.report
+        print(f"{tag} decode as one CUDA graph a step (captured in "
+              f"{res.capture_s:.6f} s, {res.graph_nodes} nodes): tokens and logits of "
+              f"{gen - 1} steps equal the eager loop's bit for bit; p50 step wall "
+              f"{res.report.p50_wall * 1e3:.3f} ms, eager {rep_eager.p50_wall * 1e3:.3f} ms "
+              f"| {smi}", flush=True)
+        res.logits = res_eager.logits = None
         want_d = dict.fromkeys(_build.ENTRIES, 0)
         want_d.update(want)
         if launches != want_d:
@@ -826,6 +912,10 @@ def main() -> int:
             "decode_tok_per_s_steady": rep.tokens_per_s,
             "step_wall_p50_ms": rep.p50_wall * 1e3,
             "step_wall_mean_ms": rep.mean_wall * 1e3,
+            "eager_step_wall_p50_ms": rep_eager.p50_wall * 1e3,
+            "eager_step_wall_mean_ms": rep_eager.mean_wall * 1e3,
+            "eager_decode_tok_per_s_steady": rep_eager.tokens_per_s,
+            "capture_s": res.capture_s, "graph_nodes": res.graph_nodes,
             "flagged_steps": len(res.flagged_steps),
             "peak_gib_serve": torch.cuda.max_memory_allocated() / 2**30,
         }
@@ -877,11 +967,42 @@ def main() -> int:
                 lengths = lengths + 1
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t1) * 1e3
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        def device_ms(prof):
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            return by_name
+
+        by_name = device_ms(prof)
         busy_ms = sum(by_name.values())
+        # and as graph replays: step 7 eagerly on the capture stream (the
+        # warm-up), the step captured, then steps 8-10 replayed
+        tokb = served[:, 7:8].clone()
+
+        def tf_step():
+            lg, _ = km.decode_step(tokb, lengths, c)
+            lengths.add_(1)
+            return lg
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            tf_step()
+            step_graph = Graphed(tf_step, stream)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+                t1 = time.perf_counter()
+                for i in range(8, 11):
+                    tokb.copy_(served[:, i:i + 1])
+                    step_graph.replay()
+                torch.cuda.synchronize()
+                graph_window_ms = (time.perf_counter() - t1) * 1e3
+        torch.cuda.current_stream().wait_stream(stream)
+        step_graph.close()
+        g_by_name = device_ms(gprof)
+        graph_busy_ms = sum(g_by_name.values())
+        g_top = sorted(g_by_name.items(), key=lambda kv: -kv[1])[:8]
         # and where its host time goes: the operators by self CPU time
         cpu_avg = prof.key_averages()
         cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
@@ -899,6 +1020,10 @@ def main() -> int:
             "cpu_ops_self_ms": cpu_ops_ms,
             "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
                                 for a in cpu_top}}
+        stats["profile_3_replays"] = {
+            "window_ms": graph_window_ms, "device_busy_ms": graph_busy_ms,
+            "busy_share": graph_busy_ms / graph_window_ms,
+            "top_kernels_ms": {name[:80]: ms for name, ms in g_top}}
         stats.update(kernel_vs_plain_rel=rel, kernel_vs_plain_rms=rms,
                      argmax_agreement=agree,
                      peak_gib_with_two_models=torch.cuda.max_memory_allocated() / 2**30)
@@ -907,7 +1032,11 @@ def main() -> int:
         print(f"{tag} 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
               f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
               f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
-        print(f"{tag} the same 3 steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
+        print(f"{tag} 3 decode steps as graph replays under torch.profiler: "
+              f"{graph_window_ms:.3f} ms, device busy {graph_busy_ms:.3f} ms "
+              f"({graph_busy_ms / graph_window_ms:.4f}); top kernels "
+              f"{[(n[:60], round(ms, 3)) for n, ms in g_top]}", flush=True)
+        print(f"{tag} the 3 eager steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
               f"in all; the top by self CPU time (ms, calls): "
               f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
               flush=True)
@@ -916,7 +1045,8 @@ def main() -> int:
               f"{stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
               f"warm {stats['prefill_warm_s'] * 1e3:.3f} ms), "
               f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
-              f"p50 step wall {rep.p50_wall * 1e3:.3f} ms; launches {launches}; "
+              f"p50 step wall {rep.p50_wall * 1e3:.3f} ms (eager "
+              f"{rep_eager.p50_wall * 1e3:.3f} ms); launches {launches}; "
               f"kernel vs plain path, max |diff| / max |logit|: {rel}, ||diff|| / "
               f"||logits||: {rms} (argmax agreement {agree}); "
               f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
@@ -1112,9 +1242,11 @@ def main() -> int:
                   f"launch floor {floor['ms'] * 1e3:.3f} us | {smi}", flush=True)
     k3_us = kernels[2]["ms"] * 1e3
     wall_us = step_wall[("pallas_step", W_MAIN, GRAIN)] * 1e6
-    print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us, "
-          f"K3 (folded, the step's one launch) {k3_us:.3f} us: device busy share "
-          f"~{k3_us / wall_us:.4f}")
+    # K3's time above is per launch queued on a stream, launch gaps in it;
+    # the graph's nodes launch closer together, so the ratio may pass 1
+    print(f"[time] pallas_step W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us as "
+          f"a graph replay, K3 (folded, the step's one launch) {k3_us:.3f} us per launch "
+          f"on a stream: ratio {k3_us / wall_us:.4f}")
     # K4's pipelined phases at their shapes, the boundary buffer (6 * depth
     # rows) and the interior (the owned W rows), and its cost per depth (the
     # full buffer at S = 2 beside S = S_MAIN), in both forms
@@ -1155,17 +1287,35 @@ def main() -> int:
         k4[f"pipelined_launch_ms_{label.replace(' ', '_')}"] = ms = gpu_ms(
             lambda: ps_mod._pipelined_launch(state, hl, hr, actb, ph, depth,
                                              k4_kw[K4_TILED], stream), 50)
-        print(f"[time] pipelined launch, interior on {label}: {ms * 1e3:.3f} us "
-              f"(boundary {k4['boundary_ms'] * 1e3:.3f} + interior "
-              f"{k4['interior_ms'] * 1e3:.3f} us alone) | {smi}", flush=True)
+        # the same launches captured as one graph, 20 a graph: with the
+        # interior on the second stream its phases are parallel branches
+        cs = torch.cuda.Stream()
+        cs.wait_stream(torch.cuda.current_stream())
+
+        def twenty(stream=stream):
+            for _ in range(20):
+                ps_mod._pipelined_launch(state, hl, hr, actb, ph, depth,
+                                         k4_kw[K4_TILED], stream)
+
+        with torch.cuda.stream(cs):
+            twenty()  # the warm-up
+            pg = Graphed(twenty, cs)
+        torch.cuda.current_stream().wait_stream(cs)
+        k4[f"pipelined_launch_graph_ms_{label.replace(' ', '_')}"] = gms = \
+            gpu_ms(pg.replay, 20) / 20
+        pg.close()
+        print(f"[time] pipelined launch, interior on {label}: {ms * 1e3:.3f} us queued "
+              f"on the stream(s), {gms * 1e3:.3f} us as graph nodes (boundary "
+              f"{k4['boundary_ms'] * 1e3:.3f} + interior {k4['interior_ms'] * 1e3:.3f} us "
+              f"alone) | {smi}", flush=True)
     for label, key, k4_us in (
             ("serial", f"pallas_step[S={S_MAIN},serial]", k4["ms"] * 1e3),
             ("pipelined", f"pallas_step[S={S_MAIN}]",
              (k4["boundary_ms"] + k4["interior_ms"]) * 1e3)):
         wall_us = step_wall[(key, W_MAIN, GRAIN)] * 1e6
         print(f"[time] {key} W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us "
-              f"per timestep, K4 {k4_us / S_MAIN:.3f} us per timestep ({label}): "
-              f"device busy share ~{k4_us / S_MAIN / wall_us:.4f}")
+              f"per timestep as a graph replay, K4 {k4_us / S_MAIN:.3f} us per timestep "
+              f"on a stream ({label}): ratio {k4_us / S_MAIN / wall_us:.4f}")
 
     # K5 at internlm2's and hymba's prefill shapes (bf16, and its f32 form at
     # internlm2's), K6 at the serving decode warm and L2-cold, each beside

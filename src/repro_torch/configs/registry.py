@@ -1,8 +1,7 @@
 """Architecture registry: --arch <id> resolution for launchers/tests/benches.
 
-A copy of ``repro.configs.registry`` (the Task Bench grid,
-``repro.configs.taskbench``, is not an arch and is left out). Every arch is
-listed; ``models.model.Model`` raises ``NotImplementedError`` for the
+A copy of ``repro.configs.registry`` (the Task Bench grid is not an arch:
+its presets are in ``configs/taskbench.py``). Every arch is listed; ``models.model.Model`` raises ``NotImplementedError`` for the
 kinds the port cannot run yet.
 """
 from __future__ import annotations

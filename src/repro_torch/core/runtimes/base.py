@@ -5,8 +5,14 @@ TaskGraph; each backend models one way of scheduling the same dataflow, and
 all must produce the same final states (tests enforce cross-backend
 allclose). The port has two backends so far:
 
-  fused        eager timestep loop: combine + body per step
-  pallas_step  one megakernel launch per timestep
+  fused        timestep loop: combine + body per step
+  pallas_step  one megakernel launch per timestep (or per S timesteps)
+
+Each backend writes its run as an eager loop (``_build_eager``). On the
+card ``build`` captures that loop as one CUDA graph (``_capture.GraphRun``,
+the counterpart of the reference's ``jax.jit`` of a whole run), so a run is
+one host call; on the CPU it returns the eager loop. A capture that fails
+raises: nothing falls back to the eager loop on the card.
 
 Runtimes run on the card (``device="cuda"``, the default) unless the caller
 asks for the CPU; with no card they raise rather than run on the CPU. Not
@@ -17,14 +23,14 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import TaskGraph
 from repro_torch.core.metg import GrainSample
+from repro_torch.core.runtimes._capture import GraphRun, time_runs
 from repro_torch.core.task_kernels import initial_state, state_from_reference
 
 
@@ -34,6 +40,10 @@ class TimingStats:
     mean: float
     walls: Tuple[float, ...]
     dispatches: int  # device launches for one graph execution
+    #: seconds to capture and instantiate the run's graph (one replay a
+    #: run), and its node count; None for the eager loop on the CPU
+    capture_s: Optional[float] = None
+    graph_nodes: Optional[int] = None
 
 
 class Runtime(abc.ABC):
@@ -60,10 +70,6 @@ class Runtime(abc.ABC):
                 f"{list(self.known_options)}")
         self.options = options
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     @property
     def cores(self) -> int:
         """Parallel workers METG's granularity is taken over: the card's
@@ -86,8 +92,21 @@ class Runtime(abc.ABC):
     # -- execution ---------------------------------------------------------
 
     @abc.abstractmethod
+    def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The run as an eager loop: initial (W, payload) state on the
+        device -> final state, every operation issued from the host."""
+
     def build(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
-        """An executor: initial (W, payload) state on the device -> final state."""
+        """An executor: initial (W, payload) state on the device -> final
+        state. On the card, the eager loop captured as one CUDA graph
+        (`GraphRun`: ``stage(x)`` then ``replay()``, or a call); on the
+        CPU, the eager loop."""
+        self._require_support(graph)
+        eager = self._build_eager(graph)
+        if self.device.type != "cuda":
+            return eager
+        return GraphRun(eager, torch.zeros((graph.width, graph.payload),
+                                           dtype=torch.float32, device=self.device))
 
     def dispatches_per_run(self, graph: TaskGraph) -> int:
         """Device launches for one execution (overhead model)."""
@@ -101,7 +120,8 @@ class Runtime(abc.ABC):
         return state_from_reference(init, self.device)
 
     def execute(self, graph: TaskGraph, init=None) -> np.ndarray:
-        """Run the graph once, returning the final (width, payload) state.
+        """Build the run (on the card, capture its CUDA graph) and run it
+        once, returning the final (width, payload) state.
 
         ``init`` may be a tensor or a numpy array (e.g. the reference's
         initial state); by default the port's own `initial_state`.
@@ -117,29 +137,23 @@ class Runtime(abc.ABC):
                 init=None) -> Tuple[GrainSample, TimingStats]:
         """Timed execution -> a GrainSample for the METG machinery.
 
-        Host clock around each run, which ends in a device synchronize; the
-        warmup and each run's fresh input copy stay outside the timed region.
+        Host clock around each run (on the card one graph replay), which
+        ends in a device synchronize; the build, the warmup and each run's
+        fresh input copy, staged as the reference's ``_fresh``, stay outside
+        the timed region.
         """
         self._require_support(graph)
         x = self._init(graph, init)
         fn = self.build(graph)
-        for _ in range(max(warmup, 1)):
-            fn(x.clone())
-        self._sync()
-        walls: List[float] = []
-        for _ in range(reps):
-            arg = x.clone()
-            self._sync()
-            t0 = time.perf_counter()
-            fn(arg)
-            self._sync()
-            walls.append(time.perf_counter() - t0)
-
+        walls = time_runs(fn, x, reps=reps, warmup=warmup)
+        graphed = isinstance(fn, GraphRun)
         stats = TimingStats(
             best=min(walls),
             mean=sum(walls) / len(walls),
             walls=tuple(walls),
             dispatches=self.dispatches_per_run(graph),
+            capture_s=fn.capture_s if graphed else None,
+            graph_nodes=fn.nodes if graphed else None,
         )
         sample = GrainSample(
             iterations=graph.kernel.iterations,

@@ -1,11 +1,11 @@
-"""`fused` runtime — the whole graph as one eager loop on one device.
+"""`fused` runtime — the whole graph as one program on one device.
 
 Counterpart of ``repro.core.runtimes.fused`` for single graphs. The
-reference lowers the T-step loop into one jitted ``lax.scan``; here it is a
-plain Python loop issuing device operations eagerly: the t=0 body, then
-T-1 steps of combine + body. Capturing the loop in a CUDA graph, the
-analogue of "one jit", is a later port slice (ROADMAP.md), and so are
-ensembles.
+reference lowers the T-step loop into one jitted ``lax.scan``; here the
+loop is written eagerly (`_build_eager`: the t=0 body, then T-1 steps of
+combine + body) and, on the card, captured as one CUDA graph, the analogue
+of "one jit" (``Runtime.build``). Ensembles are a later port slice
+(ROADMAP.md).
 
 Option: ``use_kernels`` (the reference's ``use_pallas``) runs the body
 through the CUDA kernels K1 (compute_bound) / K2 (memory_bound) instead of
@@ -79,8 +79,7 @@ class FusedRuntime(Runtime):
 
         return combine
 
-    def build(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
-        self._require_support(graph)
+    def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         spec = graph.kernel
         use_kernels = self._use_kernels()
         combine = self._make_combine(graph)
@@ -97,8 +96,9 @@ class FusedRuntime(Runtime):
     def dispatches_per_run(self, graph: TaskGraph) -> int:
         """Device operations one run issues: T bodies and T-1 combines.
 
-        Unlike the reference's single jitted program, every operation of
-        the eager loop is its own launch, so this counts them all.
+        Unlike the reference's single jitted program, whose compiler fuses
+        them, every operation of the loop is its own kernel (a node of the
+        captured graph), so this counts them all.
         """
         combine = _ALL_TO_ALL_OPS if graph.pattern == "all_to_all" else _COMBINE_OPS
         body = _body_ops(graph.kernel, self._use_kernels())

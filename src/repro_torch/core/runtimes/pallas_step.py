@@ -6,7 +6,7 @@ device. At the default schedule (``steps_per_launch`` unset or 1) each
 timestep is one launch of the single-step megakernel K3
 (``kernels/taskbench_step.py``): gather the dependency rows of the
 previous state, take their masked mean and run the grain body, in one
-kernel. The loop is an eager Python loop on the device.
+kernel.
 
 Dataflow: with one device the whole width is one block, and the reference's
 ring halo exchange becomes a wrap of the state onto itself: the extended
@@ -17,6 +17,10 @@ it reads the extended source from the state itself, so a timestep is one
 launch. It combines through host-built (idx, wgt) operands addressing the
 extended source, weights pre-normalized to 1 / live count and
 zero-dependency rows self-padded.
+
+Each schedule is written as an eager loop (`_build_eager`); on the card
+``Runtime.build`` captures the whole run as one CUDA graph, as the
+reference jits it.
 
 Temporal blocking (``steps_per_launch=S > 1``, an int): after the t = 0
 body-only K3 launch, the loop makes ceil((T-1)/S) launches of the blocked
@@ -34,7 +38,9 @@ an interior: W > 2*S*H): each blocked launch splits into a boundary phase
 phase (the owned block, one K4 launch). On one device the next launch's
 edge exchange is a self-wrap of the boundary outputs, so what can overlap
 is the two phases themselves: the interior runs on a second CUDA stream,
-ordered by events. ``pipeline=False`` is the serial ablation; both give the
+ordered by events; the capture forks that stream from the capturing one
+and joins it back at every launch, so the graph holds the two phases as
+parallel branches. ``pipeline=False`` is the serial ablation; both give the
 same bits.
 
 Options: ``combine`` = "window" (default; shifted-row sums, no gather),
@@ -400,8 +406,7 @@ class PallasStepRuntime(Runtime):
         return dict(kind=spec.kind, iterations=spec.iterations,
                     scratch=spec.scratch, combine=self._combine_mode())
 
-    def build(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
-        self._require_support(graph)
+    def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         S = self._steps_per_launch(graph.steps)
         if S > 1:
             return self._build_blocked(graph, S)

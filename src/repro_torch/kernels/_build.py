@@ -12,9 +12,19 @@ Every C entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; `launch` raises on a non-zero code
 and only then counts the launch (and records the CTAs a wrapper says it
 launched, `LAST_CTAS`).
+
+Launch accounting under CUDA-graph replay. A replayed graph calls no
+wrapper, so a run's launches are counted in two steps. While a graph is
+built (`building`: the warm-up run before capture, and the capture itself)
+`launch` counts into `BUILD_LAUNCHES` and into the build's own record, not
+into `LAUNCHES`; each replay then adds the capture's record to `LAUNCHES`
+(`replayed`). So a run's delta of `LAUNCHES` is the same whether its loop
+was issued eagerly or replayed from a graph. `CAPTURES` counts the graphs
+captured (the counterpart of the reference's ``compile_counter``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +34,7 @@ import tempfile
 from collections import Counter
 from functools import cache
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,16 +76,49 @@ PROBES = {
     "fma_latency": ("launch_floor", (_P, _P, _I, _P)),
 }
 
-#: Successful kernel launches per C entry, the wrappers' launch counters.
-#: `reset_launches` sets them to 0; nothing else writes them but `launch`.
+#: Kernel launches per C entry, the wrappers' launch counters: each
+#: successful launch outside a graph build, and each replay's captured ones.
+#: `reset_launches` sets them to 0; nothing else writes them but `launch`
+#: and `replayed`.
 LAUNCHES: Counter = Counter()
+#: Launches made while building a graph (its warm-up run and its capture),
+#: per C entry; kept out of `LAUNCHES`.
+BUILD_LAUNCHES: Counter = Counter()
+#: Graphs captured, under the key "graphs".
+CAPTURES: Counter = Counter()
 #: The CTAs of each C entry's last launch, where its wrapper passes them
 #: (K1, K3: the launch plan it handed the entry).
 LAST_CTAS: Dict[str, int] = {}
+#: The records of the builds under way, innermost last.
+_BUILDS: List[Counter] = []
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    BUILD_LAUNCHES.clear()
+    CAPTURES.clear()
+
+
+@contextlib.contextmanager
+def building() -> Iterator[Counter]:
+    """Count the launches made inside into `BUILD_LAUNCHES` and into the
+    yielded record (per C entry), not into `LAUNCHES`."""
+    rec: Counter = Counter()
+    _BUILDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _BUILDS.pop()
+
+
+def captured() -> None:
+    """Count one captured graph."""
+    CAPTURES["graphs"] += 1
+
+
+def replayed(record: Counter) -> None:
+    """Add one replay of a graph whose capture launched ``record``."""
+    LAUNCHES.update(record)
 
 
 def _digest() -> str:
@@ -161,7 +204,11 @@ def launch(entry: str, *args, ctas: Optional[int] = None) -> None:
     if err != 0:
         msg = lib.tb_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: {msg} ({err})")
-    LAUNCHES[entry] += 1
+    if _BUILDS:
+        _BUILDS[-1][entry] += 1
+        BUILD_LAUNCHES[entry] += 1
+    else:
+        LAUNCHES[entry] += 1
     if ctas is not None:
         LAST_CTAS[entry] = ctas
 

@@ -24,9 +24,11 @@ FMAs (K1: grain; K3: D taps and grain) times the FMA's latency at the
 card's top SM clock: a launch whose chains cannot fill the card's FMA
 pipes is bound by that chain.
 
-``--only step``: the S = 1 ``pallas_step`` run's step wall on the host
-clock (stencil_1d and nearest, W = 132 and 2112, grain 64, T = 1000, 5
-timed runs each, through the runtime's ``measure``).
+``--only step``: ``pallas_step``'s step wall on the host clock at S = 1
+and at S = 8 pipelined and serial (stencil_1d and nearest, W = 132 and
+2112, grain 64, T = 1000), each run as one CUDA graph replay and as its
+eager loop, 10 timed runs each, in two turns of 5 (``_capture.time_runs``:
+each input staged outside the timed region, as ``measure`` does).
 
 K4 (``ops.taskbench_step`` at ``steps_per_launch=S``) at the blocked main
 path's shape: ``nearest`` at radius 2 (window D = 5), W = 2112, payload
@@ -466,20 +468,36 @@ def k4_cases(reps: int = 200, seed: int = 1):
                 **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
 
 
-def step_wall_case(pattern: str, W: int, grain: int = TB_GRAIN, steps: int = 1000,
-                   reps: int = 5) -> Dict[str, object]:
-    """The S = 1 ``pallas_step`` run on the host clock: µs per step of each
-    of ``reps`` runs (``Runtime.measure``, each ending in a synchronize)."""
+#: The step-wall cases: (label, pallas_step options)
+STEP_SCHEDULES = (("S=1", {}), (f"S={TB_S}", {"steps_per_launch": TB_S}),
+                  (f"S={TB_S},serial", {"steps_per_launch": TB_S, "pipeline": False}))
+
+
+def step_wall_case(pattern: str, W: int, options: dict, grain: int = TB_GRAIN,
+                   steps: int = 1000, reps: int = 5) -> Dict[str, object]:
+    """A ``pallas_step`` run on the host clock, µs per step of each of
+    ``reps`` runs (each ending in a synchronize, its input staged before):
+    as the runtime runs it, one CUDA graph replay (``build``), and its eager
+    loop (``_build_eager``), the two timed in turns."""
     from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes._capture import time_runs
 
     g = TaskGraph(steps=steps, width=W, pattern=pattern, payload=TB_PAYLOAD,
                   kernel=KernelSpec("compute_bound", grain), radius=2)
-    rt = get_runtime("pallas_step")
-    _, st = rt.measure(g, reps=reps, warmup=1)
-    return {"pattern": pattern, "W": W, "grain": grain, "steps": steps,
-            "dispatches_per_run": st.dispatches,
-            "us_per_step": [w / steps * 1e6 for w in st.walls],
-            "best_us_per_step": st.best / steps * 1e6}
+    rt = get_runtime("pallas_step", **options)
+    x = rt._init(g, None)
+    runs = {"graph": rt.build(g), "eager": rt._build_eager(g)}
+    walls = {key: [] for key in runs}
+    for _ in range(2):
+        for key, run in runs.items():
+            walls[key] += time_runs(run, x, reps=reps)
+    rec = {"pattern": pattern, "W": W, "grain": grain, "steps": steps,
+           "options": options, "dispatches_per_run": rt.dispatches_per_run(g),
+           "capture_s": runs["graph"].capture_s, "graph_nodes": runs["graph"].nodes}
+    for key, w in walls.items():
+        rec[f"{key}_us_per_step"] = [t / steps * 1e6 for t in w]
+        rec[f"{key}_best_us_per_step"] = min(w) / steps * 1e6
+    return rec
 
 
 def smem_bytes_per_s() -> float:
@@ -538,10 +556,11 @@ def main(argv=None) -> int:
                                     k1_case(rows, grain, latency))
                                    for rows in K1_ROWS for grain in K1_GRAINS)))
     groups.append(("k3", lambda: k3_cases(latency)))
-    groups.append(("step", lambda: ((f"S=1 step wall {pattern} W={W}",
-                                      step_wall_case(pattern, W))
+    groups.append(("step", lambda: ((f"{label} step wall {pattern} W={W}",
+                                      step_wall_case(pattern, W, options))
                                      for pattern in ("stencil_1d", "nearest")
-                                     for W in K3_WIDTHS)))
+                                     for W in K3_WIDTHS
+                                     for label, options in STEP_SCHEDULES)))
     groups.append(("k4", k4_cases))
     groups.append(("k2", lambda: ((f"K2 {TB_W}x{TB_PAYLOAD} iterations {it}",
                                     k2_case(it, plain=it == 4)) for it in K2_ITERATIONS)))

@@ -14,6 +14,16 @@ are random, drawn from ``seed``; prompts from ``seed + 1``; sampling (when
 not greedy) from ``seed + 2``. The reference's ``mesh`` option is not
 ported yet (ROADMAP Queue 1 item 8).
 
+On the card each decode step after the first is one CUDA graph replay, the
+counterpart of the reference's jitted decode step: the step reads and
+writes static buffers (the token ``tok``, ``lengths``, incremented in
+place, the health flag, and the capacity-sized caches, updated in place).
+Step 0 runs eagerly on the capture stream: it is a real step and the
+warm-up; the step is captured after it (a capture runs nothing) and
+replayed once for each later step. Sampled decoding registers its
+generator with the graph. ``graph=False`` runs every step eagerly (the
+ablation: what the graph removes); on the CPU every step is eager.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --reduced --device cpu
@@ -25,6 +35,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -36,6 +47,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.instrumentation import OverheadProfiler
+from repro_torch.core.runtimes._capture import Graphed
 from repro_torch.models.model import Model
 from repro_torch.resilience import DEFAULT_DEADLINE_FACTOR, DeadlineDetector
 
@@ -53,6 +65,12 @@ class ServeResult:
     flagged_steps: List[dict] = dataclasses.field(default_factory=list)
     #: decode steps whose logits carried NaN/Inf (poisoned output)
     poisoned_steps: List[int] = dataclasses.field(default_factory=list)
+    #: the decode step's graph: capture and instantiation seconds, nodes
+    #: (None where every step ran eagerly)
+    capture_s: Optional[float] = None
+    graph_nodes: Optional[int] = None
+    #: with ``keep_logits``: each decode step's logits, (gen - 1, B, V) f32
+    logits: Optional[torch.Tensor] = None
 
     @property
     def healthy(self) -> bool:
@@ -84,11 +102,15 @@ def serve(
     verbose: bool = True,
     deadline_factor: Optional[float] = None,
     device: str = "cuda",
+    graph: bool = True,
+    keep_logits: bool = False,
 ) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``gen - 1`` more tokens per sequence (the first comes from the prefill's
     logits). Runs on the card unless ``device="cpu"``; raises when asked
-    for the card and none is present."""
+    for the card and none is present. On the card each decode step after
+    the first replays one CUDA graph unless ``graph=False``; a capture that
+    fails raises."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -116,40 +138,63 @@ def serve(
     # deadline detector around each decode step: no cost model prices a
     # decode step, so it self-calibrates from the run's own clean walls.
     # Step 0 carries the first launches (and, on the card, the kernels'
-    # first load): its wall is excluded from the calibration median.
+    # first load), the first replay the graph's first launch: their walls
+    # are excluded from the calibration median.
     detector = DeadlineDetector(factor=deadline_factor or DEFAULT_DEADLINE_FACTOR)
     detector.note_recompile_boundary()
     flagged: List[dict] = []
     poisoned: List[int] = []
+    # the decode step's static buffers
     lengths = torch.full((batch,), prompt_len, dtype=torch.int32, device=dev)
     tok = logits.argmax(dim=-1)[:, None]
-    out: List[torch.Tensor] = [tok]
-    t0 = time.perf_counter()
-    for i in range(gen - 1):
-        t1 = time.perf_counter()
-        lg, caches = model.decode_step(tok, lengths, caches)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    out: List[torch.Tensor] = [tok.clone()]
+    kept: List[torch.Tensor] = []
+
+    def step() -> torch.Tensor:
+        """One decode step on the static buffers; returns its logits."""
+        lg, _ = model.decode_step(tok, lengths, caches)  # caches in place
         # argmax of poisoned logits still yields a legal token id, so
         # health is read off the logits
-        bad = ~torch.isfinite(lg).all()
+        torch.logical_not(torch.isfinite(lg).all(), out=bad)
         if greedy:
-            tok = lg.argmax(dim=-1)[:, None]
+            tok.copy_(lg.argmax(dim=-1, keepdim=True))
         else:
-            tok = torch.multinomial(torch.softmax(lg / temperature, dim=-1), 1,
-                                    generator=sampler)
-        _sync(dev)
-        wall = time.perf_counter() - t1
-        profiler.record(wall)
-        det = detector.observe(wall * 1e6)
-        if det is not None:
-            flagged.append({"step": i, "wall_us": det.wall_us,
-                            "deadline_us": det.deadline_us,
-                            "overshoot_us": det.overshoot_us})
-            profiler.flagged.append(i)
-        if bool(bad):
-            poisoned.append(i)
-            profiler.poisoned.append(i)
-        lengths = lengths + 1
-        out.append(tok)
+            tok.copy_(torch.multinomial(torch.softmax(lg / temperature, dim=-1), 1,
+                                        generator=sampler))
+        lengths.add_(1)
+        return lg
+
+    use_graph = graph and dev.type == "cuda"
+    stream = torch.cuda.Stream(dev) if use_graph else None
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    graphed: Optional[Graphed] = None
+    t0 = time.perf_counter()
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        for i in range(gen - 1):
+            if use_graph and i == 1:
+                graphed = Graphed(step, stream, () if greedy else (sampler,))
+                detector.note_recompile_boundary()
+            t1 = time.perf_counter()
+            lg = step() if graphed is None else graphed.replay()
+            _sync(dev)
+            wall = time.perf_counter() - t1
+            profiler.record(wall)
+            det = detector.observe(wall * 1e6)
+            if det is not None:
+                flagged.append({"step": i, "wall_us": det.wall_us,
+                                "deadline_us": det.deadline_us,
+                                "overshoot_us": det.overshoot_us})
+                profiler.flagged.append(i)
+            if bool(bad):
+                poisoned.append(i)
+                profiler.poisoned.append(i)
+            out.append(tok.clone())
+            if keep_logits:
+                kept.append(lg.clone())
+    if stream is not None:
+        torch.cuda.current_stream(dev).wait_stream(stream)
     decode_s = time.perf_counter() - t0
     tokens = torch.cat(out, dim=1).cpu().numpy()
 
@@ -162,6 +207,10 @@ def serve(
               f"({batch*prompt_len/max(prefill_s,1e-9):.0f} tok/s)")
         print(f"decode : {decode_s*1e3:.1f} ms for {batch}x{gen-1} "
               f"({tps:.0f} tok/s)")
+        if graphed is not None:
+            print(f"decode step graph: captured after step 0 in "
+                  f"{graphed.capture_s*1e3:.1f} ms (inside the decode time), "
+                  f"{graphed.nodes} nodes, replayed {gen - 2} times")
         if report:
             print("\n-- per-token overhead (paper methodology, §3) --")
             for line in report.lines():
@@ -171,9 +220,14 @@ def serve(
                   f"{f['wall_us']:.0f}us > {f['deadline_us']:.0f}us")
         for i in poisoned:
             print(f"WARNING: decode step {i} produced non-finite logits")
+    if graphed is not None:
+        graphed.close()
     return ServeResult(tokens=tokens, prefill_s=prefill_s, decode_s=decode_s,
                        tokens_per_s=tps, report=report, flagged_steps=flagged,
-                       poisoned_steps=poisoned)
+                       poisoned_steps=poisoned,
+                       capture_s=None if graphed is None else graphed.capture_s,
+                       graph_nodes=None if graphed is None else graphed.nodes,
+                       logits=torch.stack(kept) if kept else None)
 
 
 def _grow_caches(model: Model, caches, batch: int, capacity: int):

@@ -4,7 +4,11 @@ ones bit for bit, the runtimes on the card against the CPU plain path, and
 the LM serving paths (K5, K6; K7 for the ssm and hybrid kinds) on the card
 against the same weights on the CPU. K5 is counted per form: the bf16 form
 on the tensor cores as ``flash_attention``, the f32 form as
-``flash_attention_f32``; K6 is one launch per call. Every test carries the ``gpu`` marker
+``flash_attention_f32``; K6 is one launch per call. The runs as CUDA graphs:
+every schedule's graph equal to its eager loop bit for bit, with its
+launches counted per replay; two replays' outputs apart; a capture that
+fails raises, and ``build`` never falls back to the eager loop; the decode
+step's graph equal to the eager step. Every test carries the ``gpu`` marker
 and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
@@ -17,10 +21,12 @@ import pytest
 import torch
 
 from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+from repro_torch.core.runtimes import _capture
 from repro_torch.core.runtimes import pallas_step as ps
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dtype
+from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.serve import _grow_caches
 from repro_torch.models.model import Model
 from repro_torch.kernels.bodies import apply_body
@@ -776,3 +782,117 @@ def test_reduced_ssm_serving_on_card_matches_cpu_and_counts_launches(cuda, arch)
     assert counts["ssd_chunk"] == counts["flash_attention_f32"] == 0
     k6 = 3 * cfg.n_layers if hybrid else 0
     assert counts["decode_attention"] == k6
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+GRAPH_SCHEDULES = [{}, {"steps_per_launch": 3}, {"steps_per_launch": 3, "pipeline": False}]
+
+
+def _graph_vs_eager(rt, g, x):
+    """``rt``'s run of ``g`` on ``x`` as a graph replay (its launches
+    counted) and as its eager loop."""
+    run = rt.build(g)
+    assert isinstance(run, _capture.GraphRun)
+    ops.reset_launch_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = run.eager(x.clone())
+    torch.cuda.synchronize()
+    return got, want, counts
+
+
+@pytest.mark.parametrize("pattern", ["stencil_1d", "nearest", "random_nearest", "dom"])
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("opts", GRAPH_SCHEDULES, ids=["S1", "S3", "S3serial"])
+def test_pallas_step_graph_equals_its_eager_loop(cuda, pattern, combine, opts):
+    g = TaskGraph(steps=11, width=64, pattern=pattern, payload=16,
+                  kernel=KernelSpec("compute_bound", 4), radius=2, seed=2)
+    rt = get_runtime("pallas_step", device=cuda, combine=combine, **opts)
+    got, want, counts = _graph_vs_eager(rt, g, _rand((64, 16), 6, cuda))
+    assert torch.equal(got, want)
+    assert sum(counts.values()) == rt.dispatches_per_run(g)
+
+
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 4), ("memory_bound", 2),
+                                             ("empty", 0)])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_fused_graph_equals_its_eager_loop(cuda, kind, iterations, use_kernels):
+    g = TaskGraph(steps=7, width=40, pattern="nearest", payload=16,
+                  kernel=KernelSpec(kind, iterations, scratch=40), radius=2)
+    rt = get_runtime("fused", device=cuda, use_kernels=use_kernels)
+    got, want, counts = _graph_vs_eager(rt, g, _rand((40, 16), 7, cuda))
+    assert torch.equal(got, want)
+    body = {"compute_bound": "taskbench_compute", "memory_bound": "memory_bound"}
+    launched = g.steps if use_kernels and kind in body else 0
+    assert sum(counts.values()) == launched
+
+
+@pytest.mark.parametrize("opts", GRAPH_SCHEDULES[1:], ids=["pipelined", "serial"])
+def test_memory_bound_blocked_graph_takes_the_cooperative_form(cuda, opts):
+    """K4's cooperative launch (the memory body) inside a captured graph."""
+    g = TaskGraph(steps=9, width=64, pattern="stencil_1d", payload=16,
+                  kernel=KernelSpec("memory_bound", 2, scratch=40))
+    rt = get_runtime("pallas_step", device=cuda, **opts)
+    got, want, counts = _graph_vs_eager(rt, g, _rand((64, 16), 8, cuda))
+    assert torch.equal(got, want)
+    assert counts["taskbench_blocked"] > 0 and counts["taskbench_blocked_tiled"] == 0
+    assert sum(counts.values()) == rt.dispatches_per_run(g)
+
+
+def test_two_replays_do_not_alias(cuda):
+    g = TaskGraph(steps=5, width=40, pattern="stencil_1d", payload=16,
+                  kernel=KernelSpec("compute_bound", 2))
+    run = get_runtime("pallas_step", device=cuda).build(g)
+    x, y = _rand((40, 16), 9, cuda), _rand((40, 16), 10, cuda)
+    a = run(x)
+    b = run(y)
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, run.eager(x)) and torch.equal(b, run.eager(y))
+    assert not torch.equal(a, b)
+
+
+def test_a_failed_capture_raises(cuda):
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(Exception, match="capture"):
+        _capture.Graphed(lambda: x.sum().item(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    assert (x * 2).sum().item() == 8.0  # the card still runs
+
+
+def test_build_on_the_card_never_falls_back_to_the_eager_loop(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(_capture, "Graphed", refuse)
+    g = TaskGraph(steps=3, width=8, pattern="stencil_1d", payload=4,
+                  kernel=KernelSpec("compute_bound", 1))
+    for rt in (get_runtime("pallas_step", device=cuda), get_runtime("fused", device=cuda)):
+        with pytest.raises(RuntimeError, match="capture refused"):
+            rt.build(g)
+        with pytest.raises(RuntimeError, match="capture refused"):
+            rt.execute(g)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m", "hymba-1.5b"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_decode_graph_equals_the_eager_step(cuda, arch, greedy):
+    """The reduced model served with each decode step a graph replay and
+    with every step eager: the same tokens and logits; K6 launches once per
+    layer and step either way."""
+    cfg = get_config(arch).reduced()
+    runs = {}
+    for graph in (True, False):
+        ops.reset_launch_counts()
+        runs[graph] = serve_mod.serve(cfg, batch=2, prompt_len=12, gen=7, greedy=greedy,
+                                      verbose=False, graph=graph, keep_logits=True)
+        runs[graph].counts = ops.launch_counts()
+    a, b = runs[True], runs[False]
+    assert a.capture_s is not None and a.graph_nodes > 0 and b.capture_s is None
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert torch.equal(a.logits, b.logits)
+    assert a.counts == b.counts and a.healthy
+    attn = sum(k != "ssm" for k in cfg.layer_plan_flat())
+    assert a.counts["decode_attention"] == 6 * attn

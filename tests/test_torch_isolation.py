@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
-loads no JAX and no module of the JAX package ``repro``, and the chip smoke
-script imports neither.
+loads no JAX and no module of the JAX package ``repro``, the chip smoke
+script imports neither, and the port's benchmark scripts (``benchmarks/torch_*.py``)
+import neither, nor ``benchmarks/common.py`` (which imports both).
 """
 import ast
 import json
@@ -67,3 +68,24 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_port_benchmarks_import_no_jax_reference_or_common_module():
+    scripts = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    assert scripts
+    for f in scripts:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "repro"}, f
+        assert "benchmarks.common" not in Path(f).read_text(), f
+    child = (
+        "import importlib, json, sys\n"
+        f"names = {[f'benchmarks.{f.stem}' for f in scripts]!r}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'repro', "
+        "'benchmarks.common') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", child], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -1,0 +1,74 @@
+"""The port's METG sweep (``benchmarks/torch_metg.py``) on the CPU: its
+``--smoke`` sweep runs with ``--device cpu`` and writes one readable JSON
+record per line, every schedule and width of the sweep present; its METG
+medians and spreads follow from the repeats it records. The script imports
+no JAX, no module of the JAX package and not ``benchmarks/common.py``
+(``tests/test_torch_isolation.py``).
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke(tmp_path_factory):
+    out = tmp_path_factory.mktemp("metg") / "metg.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "benchmarks.torch_metg", "--smoke", "--device", "cpu",
+         "--out", str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300, check=True)
+    return proc.stdout, [json.loads(line) for line in out.read_text().splitlines()]
+
+
+def test_smoke_writes_one_json_record_per_line(smoke):
+    stdout, records = smoke
+    assert [json.loads(line) for line in stdout.splitlines()] == records
+    assert records[-1]["kind"] == "summary" and records[-1]["device"] == "cpu"
+    assert all(r["card"] == "cpu" for r in records)
+
+
+def test_smoke_sweeps_every_schedule_at_every_width(smoke):
+    from benchmarks.torch_metg import SCHEDULES, SMOKE
+
+    _, records = smoke
+    metg = [r for r in records if r["kind"] == "metg"]
+    assert {(r["runtime"], r["od"]) for r in metg} == {
+        (label, od) for label, _, _ in SCHEDULES for od in SMOKE.overdecomposition}
+    for r in metg:
+        assert r["W"] == r["od"]  # one core on the CPU
+        assert r["repeats"] == len(r["metg_us"]) == 2
+        assert set(r["us_per_step_median"]) == {str(g) for g in SMOKE.grains}
+        assert r["capture_s_median"] is None  # the eager loop on the CPU
+
+
+def test_metg_median_and_spread_follow_from_the_repeats(smoke):
+    _, records = smoke
+    for r in (r for r in records if r["kind"] == "metg"):
+        reached = [m for m in r["metg_us"] if m is not None]
+        assert r["unreached"] == len(r["metg_us"]) - len(reached)
+        if reached:
+            med = statistics.median(reached)
+            assert r["metg_us_median"] == pytest.approx(med)
+            assert r["spread"] == pytest.approx((max(reached) - min(reached)) / med)
+
+
+def test_smoke_times_the_depths_and_the_eager_loop_at_grain_1(smoke):
+    _, records = smoke
+    depths = [r for r in records if r["kind"] == "steps_per_launch"]
+    assert {(r["od"], r["S"]) for r in depths} == {(od, S) for od in (1, 8) for S in (1, 2)}
+    for r in depths:
+        want = {"S=1"} if r["S"] == 1 else {"pipelined", "serial"}
+        assert set(r["us_per_step"]) == want and min(r["us_per_step"].values()) > 0
+    eager = [r for r in records if r["kind"] == "graph_vs_eager"]
+    assert {(r["od"], r["S"], r["schedule"]) for r in eager} == {
+        (od, S, sched) for od in (1, 8)
+        for S, sched in ((1, "S=1"), (2, "pipelined"), (2, "serial"))}
+    assert all(set(r["us_per_step"]) == {"graph", "eager"} for r in eager)
