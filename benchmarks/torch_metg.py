@@ -23,11 +23,24 @@ for each W:
      and S = 8 (both schedules), in interleaved rounds: what capture
      removes.
 
+The butterfly floor (``benchmarks/pallas_floor.py``'s measurement 4, on
+the non-halo plans): at grain 1 and T = 1000, the wall per step of
+``fused[kernels]`` against ``pallas_step`` in interleaved rounds (best of
+each), on fft and tree at W in {128, 1024, 2048} (the stride plan) and on
+spread and all_to_all at W in {128, 512} (the all-gather plan), with
+``pallas_step(steps_per_launch=8)`` beside S = 1 where it re-routes to the
+blocked all-gather plan (butterfly under the 512-row gather cap) or blocks
+it (the global patterns); each record names the plan each schedule ran.
+Then the METG(50%) of fft at W = 2048 for ``fused[kernels]`` and
+``pallas_step``, the PAPER preset otherwise, each sweep ``--repeats``
+times.
+
 Every record carries the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``). Records print as
 JSON lines and are written to ``--out`` (one JSON object per line).
-``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats)
-that also runs with ``--device cpu``, where the runtimes run their eager
+``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats;
+the floor at W in {8, 16}, fft's METG at W = 16) that also runs with
+``--device cpu``, where the runtimes run their eager
 loops. The script imports nothing of JAX, of the JAX package ``repro`` or
 of ``benchmarks/common.py``.
 """
@@ -60,8 +73,17 @@ SCHEDULES = (
 SWEEP_S = (1, 2, 4, 8, 16)
 EAGER_S = (1, 8)
 ROUNDS = 3
+#: the butterfly floor: (pattern, widths); fft's METG at FLOOR_METG_W
+FLOOR_CASES = (("fft", (128, 1024, 2048)), ("tree", (128, 1024, 2048)),
+               ("spread", (128, 512)), ("all_to_all", (128, 512)))
+FLOOR_S = 8
+FLOOR_METG_W = 2048
+#: the schedules of the floor and of fft's METG
+FLOOR_SCHEDULES = SCHEDULES[:2]
 SMOKE = dataclasses.replace(PAPER, name="smoke", steps=6, grains=(1, 16), reps=2,
                             overdecomposition=(1, 8))
+SMOKE_FLOOR = (("fft", (8, 16)), ("tree", (8,)), ("spread", (8,)), ("all_to_all", (8,)))
+SMOKE_FLOOR_METG_W = 16
 
 
 def card(device: torch.device) -> str:
@@ -74,16 +96,19 @@ def card(device: torch.device) -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def _graph(cfg: TaskBenchConfig, width: int, grain: int) -> TaskGraph:
-    return TaskGraph(steps=cfg.steps, width=width, pattern=cfg.pattern,
+def _graph(cfg: TaskBenchConfig, width: int, grain: int,
+           pattern: Optional[str] = None) -> TaskGraph:
+    return TaskGraph(steps=cfg.steps, width=width, pattern=pattern or cfg.pattern,
                      payload=cfg.payload, kernel=KernelSpec("compute_bound", grain))
 
 
 def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
-                od: int, repeats: int, device: torch.device) -> Dict[str, object]:
-    """``repeats`` grain sweeps of one schedule at W = cores x od."""
+                od: Optional[int], repeats: int, device: torch.device,
+                width: Optional[int] = None) -> Dict[str, object]:
+    """``repeats`` grain sweeps of one schedule at W = cores x od (or at
+    ``width``, with od None)."""
     rt = get_runtime(backend, device=device, **options)
-    width = rt.cores * od
+    width = rt.cores * od if width is None else width
     metgs: List[Optional[float]] = []
     peaks: List[float] = []
     walls: Dict[int, List[float]] = {grain: [] for grain in cfg.grains}
@@ -118,6 +143,35 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
         "dispatches_per_run": dispatches, "graph_nodes": nodes,
         "capture_s_median": statistics.median(capture) if capture else None,
     }
+
+
+def floor_records(cfg: TaskBenchConfig, cases, rounds: int, device: torch.device):
+    """The butterfly floor at grain 1: per (pattern, W), ``fused[kernels]``
+    against ``pallas_step`` (and ``pallas_step[S=8]`` where S = 8 blocks
+    the all-gather plan), each built once and timed in interleaved rounds,
+    best of each."""
+    for pattern, widths in cases:
+        for width in widths:
+            g = _graph(cfg, width, 1, pattern)
+            rts = {label: get_runtime(backend, device=device, **options)
+                   for label, backend, options in FLOOR_SCHEDULES}
+            blocked = get_runtime("pallas_step", device=device, steps_per_launch=FLOOR_S)
+            plan = blocked._schedule_for_graph(g)
+            if plan.steps_per_launch > 1:
+                rts[f"pallas_step[S={FLOOR_S}]"] = blocked
+            x = rts["pallas_step"]._init(g, None)
+            runs = {label: rt.build(g) for label, rt in rts.items()}
+            best = {label: float("inf") for label in runs}
+            for _ in range(rounds):
+                for label, run in runs.items():
+                    best[label] = min(best[label], _step_us(cfg, run, x))
+            plans = {label: list(rt._schedule_for_graph(g)[:2])
+                     for label, rt in rts.items() if rt.name == "pallas_step"}
+            yield {"kind": "floor", "pattern": pattern, "W": width, "grain": 1,
+                   "steps": cfg.steps, "rounds": rounds, "us_per_step": best,
+                   "plans": plans,
+                   "launches_per_run": {k: rt.dispatches_per_run(g) for k, rt in rts.items()},
+                   "pallas_step_strictly_lower": best["pallas_step"] < best["fused[kernels]"]}
 
 
 def _step_us(cfg: TaskBenchConfig, run, x: torch.Tensor) -> float:
@@ -164,7 +218,8 @@ def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
 
 
 def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
-        sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS) -> List[dict]:
+        sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS,
+        floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W) -> List[dict]:
     t0 = time.perf_counter()
     smi = card(device)
     records: List[dict] = []
@@ -183,6 +238,12 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
                 emit(metg_record(cfg, label, backend, options, od, repeats, device))
             for rec in grain1_records(cfg, od, sweep_s, eager_s, rounds, device):
                 emit(rec)
+        for rec in floor_records(cfg, floor_cases, rounds, device):
+            emit(rec)
+        fft = dataclasses.replace(cfg, pattern="fft")
+        for label, backend, options in FLOOR_SCHEDULES:
+            emit(metg_record(fft, label, backend, options, None, repeats, device,
+                             width=floor_metg_w))
         emit({"kind": "summary", "preset": cfg.name, "repeats": repeats,
               "device": str(device), "seconds": time.perf_counter() - t0})
     return records
@@ -202,7 +263,7 @@ def main(argv=None) -> int:
     if args.smoke:
         out = args.out or DEFAULT_OUT.with_name("metg_smoke.json")
         run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
-            rounds=1)
+            rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W)
     else:
         run(PAPER, args.repeats, device, args.out or DEFAULT_OUT)
     return 0

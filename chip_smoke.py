@@ -31,7 +31,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              onehot), compute and empty bodies, S in {2, 8}, M = 2144 and
              301, held to the plain version and equal to the cooperative
              form bit for bit; the pipelined phases stitched together equal
-             to one full K4 launch, bit for bit, in both forms;
+             to one full K4 launch, bit for bit, in both forms; K3 gather
+             and onehot at W = D = 512 (all_to_all's slots at the gather
+             cap); K4's time-varying tables at M = 512 and 2048, S = 8, D =
+             3 and 512 (the blocked all-gather plan's shapes);
              K5 (both forms) at the serving prefill (8 x 16 heads x 1024 x
              128, causal) and a windowed ragged case, K6 (one cluster
              launch) at the serving decode (q 8 x 16
@@ -63,12 +66,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
              replay of a short S = 1 run's graph under ``torch.profiler``
              shows one device kernel a timestep, K3, and nothing else (the
              halo wrap is folded into K3).
-  4. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
+  4. plans   ``pallas_step``'s stride and all-gather plans at T = 1000,
+             payload 64, grain 64, each run one graph replay equal to its
+             eager loop bit for bit, its launches (zeroed just before the
+             phase, the eager loops' and the references' kept apart) equal
+             to ``dispatches_per_run`` and to the plan's kernels: fft and
+             tree at W = 2048 on the stride plan (K3 ``pair``; gather and
+             onehot) and at an explicit S = 8 over the cap (per step), at
+             W = 512 with S = 8 (re-routed to the blocked all-gather plan:
+             K4's cooperative form on time-varying tables); spread and
+             all_to_all at W = 512 at S = 1 and 8, all_to_all with the row
+             mean on and off; spread at W = 2048 under a raised cap; one
+             memory_bound run on each plan; W = 1 fft; then each plan at
+             grain 1, T = 12 against the CPU plain path. Butterfly runs
+             equal ``fused(use_kernels=True)`` bit for bit, the rest are
+             held to TOL (TOL_MEMORY_RUN for memory_bound) against it and
+             against plain ``fused``. One replay of a 6-step fft graph
+             under ``torch.profiler``: 6 K3 in their pair mode and the XOR
+             shuffle's copy kernels, counted and timed.
+  5. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial, each run one graph replay; at grains 1
              and 64 the eager loop's step wall beside the graph's.
-  5. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
+  6. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
              batch 8, prompt 1024, 64 tokens (launches: 24 K5 in its
@@ -90,7 +111,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
-  6. times   each kernel and its plain version timed with CUDA events at
+  7. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes and in the main path's form (K3 on the
              W-row state with the halo wrap folded in), beside its bound on
              this card (K2 also beside its shared-memory bound); K1 and K3
@@ -99,7 +120,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              each launch ran (the plan its wrapper handed the launch),
              beside the launch floor and the bound's latency term (the
              FMA's dependent latency, read by a clock-mark probe, x each
-             element's chain; derived, under "bounds" in the JSON);
+             element's chain; derived, under "bounds" in the JSON); K3 at
+             the plans' shapes (pair on a W = 2048 stride step, gather at W
+             = D = 512) and K4's cooperative form on a blocked fft launch's
+             time-varying tables (under "plans_shapes");
              K4 in both forms as one full
              launch at S = 2 and S = 8 and as the pipelined phases, and one
              whole pipelined launch with its interior on the same stream
@@ -129,6 +153,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -154,7 +179,12 @@ TOL = 1e-5
 # away as the FMA body does; allow ~2 ulp of 0.5 per step.
 TOL_MEMORY_RUN = T_MAIN * 1.2e-7
 S_MAIN = 8  # the blocked main path's steps per launch
-T_PROFILED = 6  # steps of the S = 1 run traced in [main]
+T_PROFILED = 6  # steps of the S = 1 run traced in [main], and of the fft run in [plans]
+# [plans]: fft and tree at the power of two nearest the main path's width
+# (graph validation asks a power of two for them), and the all-gather
+# plan's default cap (`schedule.DEFAULT_GATHER_WIDTH_CAP`); a grain-1 run
+# this short still shows the dataflow (each step halves a difference)
+W_PLAN, W_GATHER, T_PLANS_SHORT = 2048, 512, 12
 TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
                      "taskbench_blocked", "taskbench_blocked_tiled")
 # K4's launch counters by form: the main path's fixed-table compute runs
@@ -441,6 +471,41 @@ def main() -> int:
         errs["taskbench_step"] = max(errs["taskbench_step"], check_close(
             f"K3 out-of-range {combine}", ops.taskbench_step(src, idx, wgt, **kw),
             taskbench_step_plain(src, idx, wgt, **kw), TOL))
+    # K3 at the all-gather plan's widest slot count: all_to_all without the
+    # row mean gathers every row of the cap's width, D = W = 512
+    src = rand(1, W_GATHER, PAYLOAD)
+    wgt = torch.rand((1, W_GATHER, W_GATHER), device=dev, generator=gen) / W_GATHER
+    idx = torch.randint(0, W_GATHER, (1, W_GATHER, W_GATHER), device=dev, generator=gen,
+                        dtype=torch.int32)
+    idx[:, ::2, 1] = idx[:, ::2, 0]
+    for combine in ("gather", "onehot"):
+        for kind, it in (("compute_bound", GRAIN), ("empty", 0)):
+            kw = dict(kind=kind, iterations=it, combine=combine)
+            errs["taskbench_step"] = max(errs["taskbench_step"], check_close(
+                f"K3 W={W_GATHER} D={W_GATHER} {combine} {kind}",
+                ops.taskbench_step(src, idx, wgt, **kw),
+                taskbench_step_plain(src, idx, wgt, **kw), TOL))
+    # K4's time-varying (K, S, M, D) tables at the blocked all-gather plan's
+    # shapes: the cap's width and the full one, butterfly's and spread's few
+    # slots and all_to_all's D = W, with a masked tail
+    for M, D, combines in ((W_GATHER, 3, ("gather", "onehot")),
+                           (W_PLAN, 3, ("gather", "onehot")),
+                           (W_GATHER, W_GATHER, ("gather", "onehot")),
+                           (W_PLAN, W_GATHER, ("gather",))):
+        act = torch.ones((1, S_MAIN), device=dev)
+        act[:, S_MAIN - 3:] = 0.0
+        src = rand(1, M, PAYLOAD)
+        wgt = torch.rand((1, S_MAIN, M, D), device=dev, generator=gen) / D
+        idx = torch.randint(0, M, (1, S_MAIN, M, D), device=dev, generator=gen,
+                            dtype=torch.int32)
+        idx[..., ::2, 1] = idx[..., ::2, 0]
+        for combine in combines:
+            for kind, it in (("compute_bound", GRAIN), ("empty", 0)):
+                kw = dict(kind=kind, iterations=it, combine=combine)
+                errs["taskbench_blocked"] = max(errs["taskbench_blocked"], check_close(
+                    f"K4 time-varying M={M} D={D} S={S_MAIN} {combine} {kind}",
+                    ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S_MAIN, **kw),
+                    taskbench_step_blocked_plain(src, idx, wgt, act, **kw), TOL))
     # K4 at the blocked main path's buffer: W + 2 * S * r rows (r = 2)
     M, K, D = W_MAIN + 2 * S_MAIN * 2, 3, 5
     for S in (2, S_MAIN):
@@ -811,6 +876,193 @@ def main() -> int:
     print(json.dumps({"captures": [{"run": lbl, "capture_s": sec, "nodes": n}
                                    for lbl, sec, n in captures]}), flush=True)
 
+    # ---------------------------------------------------------------- plans
+    # pallas_step's stride plan (fft, tree) and all-gather plan (spread,
+    # all_to_all, W = 1 fft, and butterfly at an explicit depth under the
+    # cap) through the runtime's build, each run one graph replay held to its
+    # eager loop; the launch counters are zeroed just before and read just
+    # after, apart from the eager loops'
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    check_launches = dict.fromkeys(_build.ENTRIES, 0)
+    plan_runs = []  # (label, plan, S, launches of the replay)
+    plan_errs = {}
+
+    def plan_run(label: str, g: TaskGraph, init, opts: dict):
+        """pallas_step(**opts) on ``g``: one graph replay equal to its eager
+        loop, its launches equal to dispatches_per_run and to the plan's
+        kernels (T K3 per step; 1 K3 + ceil((T-1)/S) K4 in the cooperative
+        form when blocked). Returns the final state on the host."""
+        rt = get_runtime("pallas_step", **opts)
+        plan = rt._schedule_for_graph(g)
+        out, d = graphed(f"{label} pallas_step {opts}", rt, g, init)
+        want = dict.fromkeys(_build.ENTRIES, 0)
+        blocked = plan.kind == ps_mod.PLAN_ALLGATHER and plan.steps_per_launch > 1
+        if blocked:
+            want["taskbench_step"] = 1
+            want[K4_COOP] = -(-(g.steps - 1) // plan.steps_per_launch)
+        else:
+            want["taskbench_step"] = g.steps
+        if d != want or sum(d.values()) != rt.dispatches_per_run(g):
+            fail(f"[plans] {label} {opts}: plan {plan}, launches {d}, expected {want}, "
+                 f"dispatches_per_run {rt.dispatches_per_run(g)}")
+        plan_runs.append((label, plan.kind, plan.steps_per_launch,
+                          rt._plan_combine(plan.kind), d))
+        return out
+
+    def plan_refs(label: str, g: TaskGraph, init, plain: bool):
+        """fused(kernels) (and with ``plain``, fused plain) on ``g``: the
+        references, their launches kept out of the plans' counts."""
+        outs = []
+        for tag, opts in (("kernels", {"use_kernels": True}), ("plain", {}))[:1 + plain]:
+            out, d = graphed(f"{label} fused {tag}", get_runtime("fused", **opts), g, init,
+                             eager=False)
+            for k, n in d.items():
+                check_launches[k] += n
+            outs.append(out)
+        return outs[0], (outs[1] if plain else None)
+
+    def held(label: str, got, want, tol: Optional[float]):
+        """``tol`` None: equal bit for bit; else max abs error <= tol."""
+        if tol is None:
+            if not torch.equal(got, want):
+                fail(f"[plans] {label}: not bit for bit fused(kernels), max |difference| "
+                     f"{(got - want).abs().max().item()}")
+            err = 0.0
+        else:
+            err = check_close(f"[plans] {label}", got, want, tol)
+        plan_errs[label] = max(plan_errs.get(label, 0.0), err)
+
+    def tb_graph(pattern, W, kind="compute_bound", it=GRAIN, steps=T_MAIN):
+        return TaskGraph(steps=steps, width=W, pattern=pattern, payload=PAYLOAD,
+                         kernel=KernelSpec(kind, it, scratch=2048), seed=0)
+
+    # fft and tree at full width: the stride plan (pair, gather, onehot) and
+    # an explicit S = 8 over the cap (per step); at the cap's width S = 8
+    # re-routes to the blocked all-gather plan (K4, time-varying tables)
+    for pattern in ("fft", "tree"):
+        g = tb_graph(pattern, W_PLAN)
+        init = rand(W_PLAN, PAYLOAD)
+        fk, _ = plan_refs(pattern, g, init, plain=False)
+        for opts in ({}, {"combine": "gather"}, {"combine": "onehot"},
+                     {"steps_per_launch": S_MAIN}):
+            held(f"{pattern} W={W_PLAN} {opts}", plan_run(pattern, g, init, opts), fk, None)
+        g = tb_graph(pattern, W_GATHER)
+        init = rand(W_GATHER, PAYLOAD)
+        fk, _ = plan_refs(pattern, g, init, plain=False)
+        held(f"{pattern} W={W_GATHER} S={S_MAIN}",
+             plan_run(pattern, g, init, {"steps_per_launch": S_MAIN}), fk, None)
+    # spread and all_to_all at the cap's width, per step and blocked,
+    # all_to_all with and without the row mean (whose sum is taken in
+    # another order: TOL); spread at full width under a raised cap
+    for pattern, W, cap_opts in (("spread", W_GATHER, {}), ("all_to_all", W_GATHER, {}),
+                                 ("spread", W_PLAN, {"gather_width_cap": W_PLAN})):
+        g = tb_graph(pattern, W)
+        init = rand(W, PAYLOAD)
+        fk, fp = plan_refs(pattern, g, init, plain=True)
+        runs = [{}, {"steps_per_launch": S_MAIN}]
+        if pattern == "all_to_all":
+            runs.append({"psum_mean": False})
+        for opts in runs:
+            opts = dict(cap_opts, **opts)
+            out = plan_run(pattern, g, init, opts)
+            held(f"{pattern} W={W} {opts} vs fused(kernels)", out, fk, TOL)
+            held(f"{pattern} W={W} {opts} vs fused(plain)", out, fp, TOL)
+    # one memory_bound run on each plan: stride, blocked and per-step
+    # all-gather
+    for pattern, W, opts in (("fft", W_PLAN, {}), ("tree", W_GATHER, {"steps_per_launch": S_MAIN}),
+                             ("spread", W_GATHER, {}), ("all_to_all", W_GATHER, {})):
+        g = tb_graph(pattern, W, "memory_bound", 4)
+        init = rand(W, PAYLOAD)
+        fk, _ = plan_refs(f"{pattern} memory_bound", g, init, plain=False)
+        held(f"{pattern} W={W} memory_bound {opts}",
+             plan_run(f"{pattern} memory_bound", g, init, opts), fk, TOL_MEMORY_RUN)
+    # W = 1 fft: a pure self-dependency, on the all-gather plan
+    g = tb_graph("fft", 1)
+    init = rand(1, PAYLOAD)
+    fk, _ = plan_refs("fft W=1", g, init, plain=False)
+    held("fft W=1", plan_run("fft W=1", g, init, {}), fk, None)
+    if get_runtime("pallas_step")._schedule_for_graph(g).kind != ps_mod.PLAN_ALLGATHER:
+        fail("[plans] W = 1 fft is not on the all-gather plan")
+    # grain 64 drives every state to the FMA's fixed point, and grain 1 over
+    # ~30 steps: the dataflow shows in a short run at grain 1, each plan at
+    # full width against the plain path on the CPU (and butterfly bit for bit
+    # fused(kernels) on the card)
+    for pattern, W, opts in (
+            ("fft", W_PLAN, {}), ("tree", W_PLAN, {"combine": "onehot"}),
+            ("fft", W_GATHER, {"steps_per_launch": 3}), ("tree", W_GATHER, {"steps_per_launch": 3}),
+            ("spread", W_GATHER, {}), ("spread", W_GATHER, {"steps_per_launch": 3}),
+            ("all_to_all", W_GATHER, {}), ("all_to_all", W_GATHER, {"psum_mean": False}),
+            ("all_to_all", W_GATHER, {"steps_per_launch": 3})):
+        g = tb_graph(pattern, W, it=1, steps=T_PLANS_SHORT)
+        cpu_fused = get_runtime("fused", device="cpu")
+        init = cpu_fused._init(g, None)
+        want = torch.from_numpy(cpu_fused.execute(g, init))
+        out = plan_run(f"{pattern} grain 1", g, init.to(dev), opts)
+        held(f"{pattern} W={W} grain 1 T={T_PLANS_SHORT} {opts} vs CPU plain", out, want, TOL)
+        if pattern in ("fft", "tree"):
+            fk, _ = plan_refs(f"{pattern} grain 1", g, init.to(dev), plain=False)
+            held(f"{pattern} W={W} grain 1 T={T_PLANS_SHORT} {opts}", out, fk, None)
+    # replays of a 6-step fft graph at full width under torch.profiler: K3
+    # (pair) once a step, and the XOR shuffle's copies (the flip and the
+    # concatenation; at t = 0 the [x | x] concatenation). Two replays in one
+    # profiling window, the last replay's events read (the window may drop the
+    # first events it sees)
+    gp = tb_graph("fft", W_PLAN, steps=T_PROFILED)
+    run = get_runtime("pallas_step").build(gp)
+    init = rand(W_PLAN, PAYLOAD)
+    run(init)
+    run.stage(init)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, d = counted(lambda: [run.graphed.replay() for _ in range(2)])
+    seen = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    per_replay = 3 * T_PROFILED - 1  # 6 K3, 5 flips, 6 concatenations
+    events = [(n, us) for _, n, us in seen[-per_replay:]]
+    k3_pair = [us for n, us in events if "step_compute_kernel<3" in n]
+    others = [(n, us) for n, us in events if "step_compute_kernel" not in n]
+    pattern = ["cat"] + ["k3", "flip", "cat"] * (T_PROFILED - 1) + ["k3"]
+    kinds = ["k3" if "step_compute_kernel<3" in n else "cat" if "Cat" in n
+             else "flip" if "index_elementwise" in n or "flip" in n else n[:60]
+             for n, _ in events]
+    if d["taskbench_step"] != 2 * T_PROFILED or sum(d.values()) != 2 * T_PROFILED \
+            or kinds != pattern:
+        fail(f"[plans] fft profiled replays of {T_PROFILED} steps: launch counters {d}, "
+             f"{len(seen)} device events, the last replay's {kinds}")
+    del run
+    stride_profile = {
+        "steps": T_PROFILED, "W": W_PLAN, "device_events": len(events),
+        "device_events_two_replays": len(seen), "sequence": kinds,
+        "k3_pair": len(k3_pair), "k3_pair_us": sum(k3_pair),
+        "glue": len(others), "glue_us": sum(us for _, us in others),
+        "glue_kernels": sorted({n[:60] for n, _ in others})}
+    print(f"[plans] two replays of the fft stride graph of {T_PROFILED} steps (W={W_PLAN}): "
+          f"launch counter {d['taskbench_step']} K3; torch.profiler: {len(seen)} device "
+          f"events; the last replay's {len(events)}: {len(k3_pair)} K3 in its pair mode ({sum(k3_pair):.3f} us) and "
+          f"{len(others)} glue kernels ({stride_profile['glue_us']:.3f} us: "
+          f"{stride_profile['glue_kernels']}) | {smi}", flush=True)
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    launches_plans = {k: n - check_launches[k] for k, n in total.items()}
+    for k in ("taskbench_step", K4_COOP):
+        if launches_plans[k] == 0:
+            fail(f"kernel {k}: no launches on the plans' path")
+    for k, n in launches_plans.items():
+        if n and k not in ("taskbench_step", K4_COOP):
+            fail(f"kernel {k}: {n} launches on the plans' path")
+    print(f"[plans] {len(plan_runs)} pallas_step runs on the stride and all-gather "
+          f"plans (T={T_MAIN} at W={W_PLAN} and {W_GATHER}, grain {GRAIN}; grain 1 at "
+          f"T={T_PLANS_SHORT}): each graph equal to its eager loop bit for bit, launches "
+          f"equal to dispatches_per_run; butterfly bit for bit fused(kernels); "
+          f"launches {launches_plans} (and {check_launches} by the eager loops); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(json.dumps({"plans": [
+        {"run": lbl, "plan": kind, "S": s, "combine": comb,
+         "launches": {k: n for k, n in d.items() if n}}
+        for lbl, kind, s, comb, d in plan_runs],
+        "max_abs_err": plan_errs, "stride_profile": stride_profile}), flush=True)
+
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall, step_wall_eager = {}, {}
@@ -1171,6 +1423,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_run": per_run,
+            "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname]},
         })
         if kname in ("taskbench_compute", "taskbench_step"):
             # the grid its wrapper launched in the timing above
@@ -1316,6 +1569,57 @@ def main() -> int:
         print(f"[time] {key} W={W_MAIN} grain {GRAIN}: step wall {wall_us:.3f} us "
               f"per timestep as a graph replay, K4 {k4_us / S_MAIN:.3f} us per timestep "
               f"on a stream ({label}): ratio {k4_us / S_MAIN / wall_us:.4f}")
+
+    # K3 and K4 as the plans launch them, beside their bounds: K3 in its pair
+    # mode on the [x | partner] halves of a W_PLAN-row stride step; K3
+    # gathering D = 512 slots (all_to_all at the cap without the row mean);
+    # K4's cooperative form on the time-varying (1, S, 512, 2) tables of a
+    # blocked fft launch (its first launch's, as the runtime builds them)
+    pair_src = rand(1, 2 * W_PLAN, PAYLOAD)
+    pair_w = torch.zeros((1, W_PLAN, 1), device=dev)
+    a2a = tb_graph("all_to_all", W_GATHER)
+    a2a_i, a2a_w = (torch.from_numpy(a[:1]).to(dev)
+                    for a in ps_mod._global_slot_operands(a2a))
+    a2a_src = rand(1, W_GATHER, PAYLOAD)
+    bfly = tb_graph("fft", W_GATHER)
+    tables_at, key_of, _ = get_runtime("pallas_step")._global_table_fn(bfly)
+    tv_i, tv_w, _ = ps_mod._stack_tables(tables_at, key_of, [list(range(1, S_MAIN + 1))],
+                                         dev)
+    tv_src = rand(1, W_GATHER, PAYLOAD)
+    tv_act = torch.ones((1, S_MAIN), device=dev)
+    P_ = PAYLOAD
+    plan_cases = (
+        (kernels[2], "pair", f"K3 pair W={W_PLAN}",
+         lambda: ops.taskbench_step(pair_src, None, pair_w, **dict(step_kw, combine="pair")),
+         lambda: taskbench_step_plain(pair_src, None, pair_w, **dict(step_kw, combine="pair")),
+         3 * W_PLAN * P_ * 4, W_PLAN * P_ * (2 + 2 * GRAIN)),
+        (kernels[2], "gather_d512", f"K3 gather W={W_GATHER} D={W_GATHER}",
+         lambda: ops.taskbench_step(a2a_src, a2a_i, a2a_w, **dict(step_kw, combine="gather")),
+         lambda: taskbench_step_plain(a2a_src, a2a_i, a2a_w,
+                                      **dict(step_kw, combine="gather")),
+         (2 * W_GATHER * P_ + 2 * W_GATHER * W_GATHER) * 4,
+         W_GATHER * P_ * (2 * W_GATHER + 2 * GRAIN)),
+        (kernels[4], "time_varying", f"K4 cooperative time-varying M={W_GATHER} D=2",
+         lambda: ops.taskbench_step(tv_src, tv_i, tv_w, tv_act,
+                                    **dict(blk_kw, combine="gather")),
+         lambda: taskbench_step_blocked_plain(tv_src, tv_i, tv_w, tv_act,
+                                              **dict(step_kw, combine="gather")),
+         (2 * W_GATHER * P_ + 2 * S_MAIN * W_GATHER * 2 + S_MAIN) * 4,
+         S_MAIN * W_GATHER * P_ * (2 * 2 + 2 * GRAIN)),
+    )
+    for rec, key, tag, kern, plain, nbytes, nops in plan_cases:
+        check_close(f"{tag} timing inputs", kern(), plain(), TOL)
+        ms = gpu_ms(kern, 200)
+        plain_ms = gpu_ms(plain, 2, cover=False) if tag.startswith("K4") else gpu_ms(plain, 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS_PER_S * 1e3
+        rec.setdefault("plans_shapes", {})[key] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[time] {tag} (the plans' shape), grain {GRAIN}: {ms * 1e3:.3f} us per "
+              f"launch (plain version {plain_ms * 1e3:.3f} us), bound "
+              f"{max(t_bytes, t_ops) * 1e3:.3f} us by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
+    del pair_src, a2a_src, tv_src
 
     # K5 at internlm2's and hymba's prefill shapes (bf16, and its f32 form at
     # internlm2's), K6 at the serving decode warm and L2-cold, each beside

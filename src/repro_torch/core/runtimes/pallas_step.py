@@ -1,54 +1,98 @@
 """`pallas_step` runtime — fused megakernel launches, temporally blockable,
 on one GPU.
 
-Counterpart of ``repro.core.runtimes.pallas_step`` for the halo plan on one
-device. At the default schedule (``steps_per_launch`` unset or 1) each
-timestep is one launch of the single-step megakernel K3
-(``kernels/taskbench_step.py``): gather the dependency rows of the
-previous state, take their masked mean and run the grain body, in one
-kernel.
+Counterpart of ``repro.core.runtimes.pallas_step`` on one device. Every
+timestep of every plan is one launch of the single-step megakernel K3
+(``kernels/taskbench_step.py``: gather the dependency rows of the previous
+state, take their masked mean, run the grain body, in one kernel), or S
+timesteps are one launch of the blocked megakernel K4. Each schedule is
+written as an eager loop (`_build_eager`); on the card ``Runtime.build``
+captures the whole run as one CUDA graph, as the reference jits it.
 
-Dataflow: with one device the whole width is one block, and the reference's
-ring halo exchange becomes a wrap of the state onto itself: the extended
-source holds global rows [-H, W + H) mod W (H = the pattern's halo
-radius), which also keeps ``nearest`` with W <= 2r (dependencies more than
-one ring away) exact. K3 folds that wrap into its row index (``wrap=H``):
-it reads the extended source from the state itself, so a timestep is one
-launch. It combines through host-built (idx, wgt) operands addressing the
-extended source, weights pre-normalized to 1 / live count and
-zero-dependency rows self-padded.
+The pattern -> plan dispatch (`plan_for`, `_schedule_for_graph`, the
+reference's, resolved once and shared by the build methods and
+`dispatches_per_run`):
 
-Each schedule is written as an eager loop (`_build_eager`); on the card
-``Runtime.build`` captures the whole run as one CUDA graph, as the
-reference jits it.
+  halo       halo-expressible period-1 patterns. One device makes the
+             whole width one block, and the reference's ring halo exchange
+             a wrap of the state onto itself: K3 folds it into its row
+             index (``wrap=H``, the extended source's row p is state row
+             (p - H) mod W, exact at W <= 2H), so a timestep is one launch.
+             It combines through host-built (idx, wgt) operands, weights
+             pre-normalized to 1 / live count and zero-dependency rows
+             self-padded.
+  stride     butterfly patterns (fft, tree) at W > 1. Step t pairs p with
+             p XOR 2^k, the period slot's stride, chosen on the host from
+             t (it takes the place of the reference's ``lax.switch``; the
+             graph records the unrolled sequence). On one device every
+             stride is in-block: the partner rows come from an XOR layout
+             shuffle (`_xor_swap`: a reshape and a flip of the pair axis),
+             and K3 combines the stacked [x | partner] halves with its
+             ``pair`` mode, (a + b) * 0.5, bit for bit the ``fused``
+             oracle's mean (gather/onehot over `_stride_slot_tables` stay
+             selectable as ablations). The t = 0 launch is ``pair`` over
+             [x | x]. Per step by construction: an explicit depth S > 1
+             re-routes to the all-gather plan when the width is under the
+             cap, and stays per step over it.
+  allgather  global patterns (spread, all_to_all), W = 1 butterfly and
+             blocked butterfly, for widths <= ``gather_width_cap``. On one
+             device the gathered buffer is the state itself (the
+             reference's ``gather_global`` is the identity), and the
+             graph's own dependency arrays are the tables, in global rows:
+             a period stack (`_global_slot_operands`) or spread's base
+             table rotated by t - 1 (`_spread_base_operands`). Per step
+             (S = 1): one K3 launch on timestep t's tables. all_to_all
+             under ``psum_mean`` (default on) combines through the row
+             mean instead, ``state.sum(rows) / W`` (the reference's
+             ``_halo.global_mean``, XLA glue there too), then one K3
+             launch that gathers that one mean row for every output row
+             with weight 1 (the reference's self tables over the
+             broadcast mean, without materializing it): within float32
+             reduction tolerance of the gathered combine, not bit for bit.
+             Blocked (S > 1): after the t = 0 K3 launch, ceil((T-1)/S)
+             launches of K4 on the full W-row state with TIME-VARYING
+             (1, S, W, D) tables (period-1 patterns keep one static (1, W,
+             D) pair); every row advances exactly (no valid-span shrink),
+             the masked tail comes from `_act_schedule`, and no radius is
+             declared, so K4 takes its cooperative form.
 
-Temporal blocking (``steps_per_launch=S > 1``, an int): after the t = 0
-body-only K3 launch, the loop makes ceil((T-1)/S) launches of the blocked
-megakernel K4, each S timesteps on a buffer wrapped S*H rows deep per side,
-whose valid span shrinks by H rows per side per depth; the owned rows are
-sliced out after each launch. Every K4 launch declares ``radius=H``, the
-tables' reach, so the fixed-table launches take K4's tiled form. Per-row weight tables (and, for gather /
-onehot, signed offsets rebased onto the buffer) are wrapped once per run.
-The final launch carries a masked tail (the (L, S) act schedule). S is
-clamped to T - 1, as the reference clamps an explicit depth.
+Every table a run reads is built on the host once per build and moved to
+the card before the run; per timestep the loop only picks a slice (a view)
+of a static tensor, so a captured graph equals its eager loop.
 
-Pipelined schedule (``pipeline=True``, the default, when the block keeps
-an interior: W > 2*S*H): each blocked launch splits into a boundary phase
-(both 3*S*H-row edge buffers stacked into one K4 launch) and an interior
-phase (the owned block, one K4 launch). On one device the next launch's
-edge exchange is a self-wrap of the boundary outputs, so what can overlap
-is the two phases themselves: the interior runs on a second CUDA stream,
-ordered by events; the capture forks that stream from the capturing one
-and joins it back at every launch, so the graph holds the two phases as
-parallel branches. ``pipeline=False`` is the serial ablation; both give the
-same bits.
+Temporal blocking of the halo plan (``steps_per_launch=S > 1``): after the
+t = 0 body-only K3 launch, the loop makes ceil((T-1)/S) launches of K4,
+each S timesteps on a buffer wrapped S*H rows deep per side, whose valid
+span shrinks by H rows per side per depth; the owned rows are sliced out
+after each launch. Every K4 launch declares ``radius=H``, the tables'
+reach, so the fixed-table launches take K4's tiled form. Per-row weight
+tables (and, for gather / onehot, signed offsets rebased onto the buffer)
+are wrapped once per run. S is clamped to T - 1, as the reference clamps
+an explicit depth (`kernels/schedule.py`'s `_resolve_depth`, every plan's
+one option parser).
 
-Options: ``combine`` = "window" (default; shifted-row sums, no gather),
-"gather" or "onehot" (the ablations); ``steps_per_launch`` = 1 or an int
-> 1 ("auto" raises NotImplementedError until the scheduler is ported,
-ROADMAP Queue 1 item 7); ``pipeline`` = True or False. The stride plan
-(fft, tree) and the all-gather plan (all_to_all, spread) are ROADMAP
-Queue 1 item 5; those patterns run on the ``fused`` backend meanwhile.
+Pipelined schedule of the halo plan (``pipeline=True``, the default, when
+the block keeps an interior: W > 2*S*H): each blocked launch splits into a
+boundary phase (both 3*S*H-row edge buffers stacked into one K4 launch)
+and an interior phase (the owned block, one K4 launch). On one device the
+next launch's edge exchange is a self-wrap of the boundary outputs, so
+what can overlap is the two phases themselves: the interior runs on a
+second CUDA stream, ordered by events; the capture forks that stream from
+the capturing one and joins it back at every launch, so the graph holds
+the two phases as parallel branches. ``pipeline=False`` is the serial
+ablation; both give the same bits.
+
+Options: ``combine`` = "window" (default: the halo plan's shifted-row
+sums; ``pair`` on the stride plan, ``gather`` on the all-gather plan) or
+"gather" / "onehot" (the ablations, honoured on every plan);
+``steps_per_launch`` = 1 or an int > 1 ("auto" raises NotImplementedError
+until the scheduler and cost model are ported, ROADMAP Queue 1 item 7);
+``pipeline`` = True or False; ``gather_width_cap`` = the widest state the
+all-gather plan takes (default 512, `schedule.DEFAULT_GATHER_WIDTH_CAP`);
+``psum_mean`` = True or False (all_to_all's row-mean combine). The
+reference's ``gather_impl``, ``halo_impl``, ``block_rows`` and ``unroll``
+are transports and tilings of its multi-device and TPU paths (ROADMAP
+Queue 1 item 8), unknown options here.
 """
 from __future__ import annotations
 
@@ -62,20 +106,23 @@ from repro_torch.core import patterns as _patterns
 from repro_torch.core.graph import TaskGraph
 from repro_torch.core.runtimes.base import Runtime, register
 from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import schedule as _schedule
+from repro_torch.kernels.schedule import AUTO_NOT_PORTED
 from repro_torch.kernels.taskbench_step import (
     WEIGHT_ACCUM_DTYPE,
+    WEIGHT_DTYPE,
     finalize_weights,
     halo_rows,
     prepare_step_operands,
     wrap_rows,
 )
 
+#: Execution-plan kinds the pattern -> plan dispatch resolves to.
 PLAN_HALO = "halo"
+PLAN_STRIDE = "stride"
+PLAN_ALLGATHER = "allgather"
+PLAN_KINDS = (PLAN_HALO, PLAN_STRIDE, PLAN_ALLGATHER)
 COMBINE_OPTIONS = ("window", "gather", "onehot")
-AUTO_NOT_PORTED = (
-    "steps_per_launch='auto' needs the scheduler and cost model "
-    "(kernels/schedule.py, kernels/probes.py), which are not ported yet: "
-    "ROADMAP.md, Queue 1 item 7; pass an int depth")
 
 
 def _ext_dep_operands(
@@ -174,6 +221,111 @@ def _window_operands(
             else:
                 raise ValueError(f"dep {q} of point {p} outside halo {r}")
     return idx, finalize_weights(wgt)
+
+
+def _stride_slot_tables(
+    block: int, stride: int
+) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """(B, 2) idx/wgt tables for one butterfly period slot (the
+    gather/onehot ablations of the stride plan; the default pair combine
+    needs no tables).
+
+    A power-of-two width (graph-validated) gives every point exactly the
+    two dependencies {p, p XOR stride} at weight 1/2, so 0.5*a + 0.5*b is
+    bit for bit the fused oracle's (a + b) / 2 under every combine.
+    In-block strides (stride < block) address the local rows; block
+    strides address a [local | partner] working buffer (partner block at
+    rows [B, 2B)), which only a multi-device run has (ROADMAP Queue 1 item
+    8). Returns (idx, wgt, off_block)."""
+    i = np.arange(block, dtype=np.int32)
+    off_block = stride >= block
+    partner = (block + i) if off_block else (i ^ stride)
+    idx = np.stack([i, partner], axis=1).astype(np.int32)
+    wgt = np.full((block, 2), 0.5, dtype=WEIGHT_ACCUM_DTYPE)
+    return idx, finalize_weights(wgt), off_block
+
+
+def _global_slot_operands(graph: TaskGraph) -> Tuple[np.ndarray, np.ndarray]:
+    """(period, W, D) idx + pre-normalized wgt tables in GLOBAL row ids.
+
+    The all-gather plan's working buffer is the full state in global
+    order, so the graph's own dependency arrays ARE the gather tables.
+    Weights follow the shared precision policy (mask / live count
+    accumulated wide, rounded once); zero-dep rows self-gather at weight 1
+    (the keep-own-state rule).
+    """
+    idx, mask = graph.dependency_arrays()
+    acc = np.asarray(mask, WEIGHT_ACCUM_DTYPE)
+    live = acc.sum(-1, keepdims=True)
+    wgt = acc / np.maximum(live, 1.0)
+    zero = live[..., 0] == 0  # (period, W)
+    if zero.any():
+        P, W, _ = idx.shape
+        idx = idx.copy()
+        selfs = np.broadcast_to(np.arange(W, dtype=np.int32), (P, W))
+        idx[..., 0] = np.where(zero, selfs, idx[..., 0])
+        wgt[..., 0] = np.where(zero, 1.0, wgt[..., 0])
+    return idx, finalize_weights(wgt)
+
+
+def _spread_base_operands(graph: TaskGraph) -> Tuple[np.ndarray, np.ndarray]:
+    """(W, D) t = 1 tables for spread; timestep t rotates idx by +(t-1) mod W.
+
+    spread's dependence set {(p + i*stride + (t-1)) mod W} shifts rigidly
+    with t, so one base table and a rotation replace the period-W stack
+    `_global_slot_operands` would build. The live count is point- and
+    time-invariant, so the weight table never rotates."""
+    W = graph.width
+    lists = [graph.dependencies(1, p) for p in range(W)]
+    D = max(1, max(len(l) for l in lists))
+    idx = np.zeros((W, D), dtype=np.int32)
+    acc = np.zeros((W, D), dtype=WEIGHT_ACCUM_DTYPE)
+    for p, deps in enumerate(lists):
+        share = 1.0 / len(deps)
+        for j, q in enumerate(deps):
+            idx[p, j] = q
+            acc[p, j] = share
+    return idx, finalize_weights(acc)
+
+
+def _self_tables(block: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, 1) identity tables for the t = 0 body-only launch."""
+    return (torch.arange(block, dtype=torch.int32, device=device)[:, None],
+            torch.ones((block, 1), dtype=torch.float32, device=device))
+
+
+def _xor_swap(x: torch.Tensor, stride: int, row_axis: int = 0) -> torch.Tensor:
+    """Rows (along ``row_axis``) permuted by i -> i XOR stride (a power of
+    two dividing the row count): reshape to (pairs, 2, stride, ...) and
+    flip the pair axis, a layout shuffle with no index table."""
+    B = x.shape[row_axis]
+    g = x.reshape(*x.shape[:row_axis], B // (2 * stride), 2, stride,
+                  *x.shape[row_axis + 1:])
+    return g.flip(row_axis + 1).reshape(x.shape)
+
+
+def _stack_tables(tables_at: Callable[[int], Tuple[np.ndarray, np.ndarray]],
+                  key_of: Callable[[int], int], groups: Sequence[Sequence[int]],
+                  device) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """Host-built per-launch tables, deduplicated and moved to ``device``
+    once: each group of timesteps (one launch's, in depth order) gets the
+    (n, W, D) stack of ``tables_at(t)`` for its timesteps. Groups whose
+    first timesteps share a ``key_of`` share tables (the pattern's tables
+    depend on t through that key alone). Returns (idx, wgt), each (keys,
+    n, W, D), and each group's row in them."""
+    rows: dict = {}
+    order: List[int] = []
+    stacks_i, stacks_w = [], []
+    for ts in groups:
+        key = key_of(ts[0])
+        if key not in rows:
+            rows[key] = len(stacks_i)
+            pairs = [tables_at(t) for t in ts]
+            stacks_i.append(np.stack([i for i, _ in pairs]))
+            stacks_w.append(np.stack([w for _, w in pairs]))
+        order.append(rows[key])
+    return (torch.from_numpy(np.stack(stacks_i)).to(device),
+            torch.from_numpy(np.stack(stacks_w)).to(device), order)
 
 
 def _extend_rows(width: int, halo: int) -> np.ndarray:
@@ -311,10 +463,21 @@ def _act_schedule(
     return (t < msteps).astype(np.float32)
 
 
+class _ResolvedPlan(NamedTuple):
+    """What one graph will actually run: a plan kind and a launch depth;
+    ``reason`` names why a plan was re-routed (empty for structural
+    picks)."""
+
+    kind: str
+    steps_per_launch: int
+    reason: str = ""
+
+
 @register
 class PallasStepRuntime(Runtime):
     name = "pallas_step"
-    known_options = ("combine", "steps_per_launch", "pipeline")
+    known_options = ("combine", "steps_per_launch", "pipeline", "gather_width_cap",
+                     "psum_mean")
 
     def __init__(self, device="cuda", **options):
         super().__init__(device, **options)
@@ -325,20 +488,74 @@ class PallasStepRuntime(Runtime):
             raise ValueError(f"steps_per_launch must be >= 1 or 'auto', got {s!r}")
         self._combine_mode()
 
+    # ------------------------------------------------------ plan dispatch
+
+    def _gather_width_cap(self) -> int:
+        return int(self.options.get("gather_width_cap",
+                                    _schedule.DEFAULT_GATHER_WIDTH_CAP))
+
     def plan_for(self, graph: TaskGraph) -> Tuple[Optional[str], str]:
-        """pattern -> execution plan kind, or (None, reason)."""
-        if _patterns.halo_radius(graph) >= 0 and graph.period == 1:
+        """pattern -> execution plan kind, or (None, reason).
+
+        halo-expressible period-1 patterns take the halo plan; butterfly
+        patterns the stride plan; anything else (and W = 1 butterfly, whose
+        partner falls outside the width: a pure self-dependency the stride
+        plan's two-dep tables cannot express) the all-gather plan, capped
+        at ``gather_width_cap`` rows."""
+        r = _patterns.halo_radius(graph)
+        if r >= 0 and graph.period == 1:
             return PLAN_HALO, ""
+        if graph.pattern in _patterns.BUTTERFLY_PATTERNS and graph.width > 1:
+            return PLAN_STRIDE, ""
+        cap = self._gather_width_cap()
+        if graph.width <= cap:
+            return PLAN_ALLGATHER, ""
         return None, (
-            f"pattern {graph.pattern} needs the stride plan (fft, tree) or "
-            f"the all-gather plan (all_to_all, spread), which are not ported "
-            f"yet (ROADMAP Queue 1 item 5); the port's pallas_step runs "
-            f"the halo plan only — fall back to the `fused` backend, which "
-            f"runs every pattern")
+            f"pattern {graph.pattern} at width {graph.width} fits no "
+            f"pallas_step plan (halo: halo-expressible period-1 patterns "
+            f"at any width; stride: butterfly fft/tree; allgather: any "
+            f"pattern up to gather_width_cap={cap} rows) — fall back to "
+            f"the `fused` backend, which runs every pattern at any width")
 
     def supports(self, graph: TaskGraph):
         plan, why = self.plan_for(graph)
         return (True, "") if plan is not None else (False, why)
+
+    def _schedule_for_graph(self, graph: TaskGraph) -> _ResolvedPlan:
+        """The (plan, steps_per_launch) this runtime will execute, which
+        the build methods and `dispatches_per_run` share. The stride plan is per
+        step by construction; an explicit depth on a butterfly graph
+        re-routes to the blocked all-gather plan when the width is under
+        the cap and the resolved depth is > 1, and stays per step
+        otherwise."""
+        plan, why = self.plan_for(graph)
+        if plan is None:
+            raise ValueError(
+                f"runtime {self.name} cannot run {graph.describe()}: {why}")
+        if plan == PLAN_HALO:
+            return _ResolvedPlan(plan, self._steps_per_launch(graph.steps))
+        if plan == PLAN_STRIDE:
+            if self.options.get("steps_per_launch") in (None, 1):
+                return _ResolvedPlan(plan, 1)
+            if graph.width <= self._gather_width_cap():
+                s = self._gathered_steps_per_launch(graph)
+                if s > 1:
+                    return _ResolvedPlan(PLAN_ALLGATHER, s, "explicit blocked request")
+            return _ResolvedPlan(plan, 1)
+        return _ResolvedPlan(plan, self._gathered_steps_per_launch(graph))
+
+    def _gathered_steps_per_launch(self, graph: TaskGraph) -> int:
+        return _schedule.resolve_steps_per_launch_gathered(
+            self.options.get("steps_per_launch"), total_steps=graph.steps)
+
+    def _steps_per_launch(self, total_steps: int) -> int:
+        """The halo plan's explicit depth, clamped to the combine-step
+        count (deeper than the run is all masked tail), through the plans'
+        one option parser."""
+        return _schedule._resolve_depth(self.options.get("steps_per_launch"),
+                                        _schedule.auto_not_ported, total_steps)
+
+    # ------------------------------------------------------------ operands
 
     def _combine_mode(self) -> str:
         mode = str(self.options.get("combine", "window"))
@@ -349,14 +566,20 @@ class PallasStepRuntime(Runtime):
                 f"lowering, selected automatically)")
         return mode
 
-    def _steps_per_launch(self, total_steps: int) -> int:
-        """The explicit depth, clamped to the combine-step count (deeper
-        than the run is all masked tail), as the reference resolves it."""
-        s = self.options.get("steps_per_launch")
-        if s in (None, 1):
-            return 1
-        s = int(s)
-        return min(s, total_steps - 1) if total_steps > 1 else s
+    def _plan_combine(self, plan: str) -> str:
+        """Combine mode under a plan. halo honours the option as is; the
+        stride and all-gather buffers are addressed by gathered rows, which
+        the window combine cannot express, so the default resolves per
+        plan: ``pair`` on the stride plan (the partner rows come from the
+        XOR shuffle, so the combine is an elementwise (a + b) * 0.5),
+        ``gather`` on the all-gather plan (the reference's choice off the
+        TPU, where its onehot's (W, W) matrix is pure overhead). An
+        explicit gather / onehot is honoured on both (the ablations); every
+        choice gives the same bits per plan."""
+        mode = self._combine_mode()
+        if plan == PLAN_HALO or mode in ("gather", "onehot"):
+            return mode
+        return "pair" if plan == PLAN_STRIDE else "gather"
 
     def _pipeline_requested(self) -> bool:
         """``pipeline=False`` is the serial ablation; default on."""
@@ -401,13 +624,22 @@ class PallasStepRuntime(Runtime):
         idx0, wgt0 = _self_operands(graph.width, graph.width)
         return idx, wgt, idx0, wgt0
 
-    def _kernel_kw(self, graph: TaskGraph) -> dict:
+    def _kernel_kw(self, graph: TaskGraph, combine: Optional[str] = None) -> dict:
         spec = graph.kernel
         return dict(kind=spec.kind, iterations=spec.iterations,
-                    scratch=spec.scratch, combine=self._combine_mode())
+                    scratch=spec.scratch, combine=combine or self._combine_mode())
+
+    # ------------------------------------------------------------- builds
 
     def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
-        S = self._steps_per_launch(graph.steps)
+        plan = self._schedule_for_graph(graph)
+        if plan.kind == PLAN_STRIDE:
+            return self._build_plan_stepper(graph, plan.kind)
+        if plan.kind == PLAN_ALLGATHER:
+            if plan.steps_per_launch > 1:
+                return self._build_allgather_blocked(graph, plan.steps_per_launch)
+            return self._build_plan_stepper(graph, plan.kind)
+        S = plan.steps_per_launch
         if S > 1:
             return self._build_blocked(graph, S)
         H = _patterns.halo_radius(graph)
@@ -471,16 +703,195 @@ class PallasStepRuntime(Runtime):
 
         return run
 
+    # ------------------------------------------- stride / all-gather plans
+
+    def _stride_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+        """(t0, step) for the stride plan (butterfly) on (1, W, P) states.
+
+        ``step(s, t)`` runs timestep t: the period slot's stride, chosen
+        on the host, selects a branch, and one K3 launch combines {p,
+        partner} and runs the body. With ``pair`` the partner rows come
+        from `_xor_swap` and K3 reads [x | partner]; with the gather /
+        onehot ablations K3 reads x through the slot's (W, 2) tables. On
+        one device the block is the whole width, so every stride is
+        in-block."""
+        B = graph.width
+        dev = self.device
+        mode = self._plan_combine(PLAN_STRIDE)
+        kw = self._kernel_kw(graph, combine=mode)
+        period = graph.period
+        strides = _patterns.butterfly_slot_strides(graph)
+        # pair's idx/wgt are dummies: wgt's row count declares the width
+        dummy_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
+        dummy_w = torch.zeros((1, B, 1), dtype=torch.float32, device=dev)
+
+        def make_branch(s: int) -> Callable:
+            if mode == "pair":
+                def branch(x):
+                    src = torch.cat([x, _xor_swap(x, s, row_axis=1)], dim=1)
+                    return _kops.taskbench_step(src, dummy_i, dummy_w, **kw)
+
+                return branch
+            idx_np, wgt_np, _ = _stride_slot_tables(B, s)  # in-block: B = W
+            idx = torch.from_numpy(idx_np)[None].to(dev)
+            wgt = torch.from_numpy(wgt_np)[None].to(dev)
+
+            def branch(x):
+                return _kops.taskbench_step(x, idx, wgt, **kw)
+
+            return branch
+
+        branches = {s: make_branch(s) for s in sorted(set(strides))}
+        if mode == "pair":
+            # t = 0 (body only) through pair itself: [x | x] halves give
+            # (a + a) * 0.5 == a bit for bit
+            def t0(x):
+                return _kops.taskbench_step(torch.cat([x, x], dim=1), dummy_i,
+                                            dummy_w, **kw)
+        else:
+            i0, w0 = (a[None] for a in _self_tables(B, dev))
+
+            def t0(x):
+                return _kops.taskbench_step(x, i0, w0, **kw)
+
+        def step(x, t: int):
+            return branches[strides[(t - 1) % period]](x)
+
+        return t0, step
+
+    def _global_table_fn(self, graph: TaskGraph):
+        """(tables_at, key_of, time_varying): the global-table policy,
+        shared by the per-step and blocked all-gather build methods so the two
+        schedules cannot diverge. ``tables_at(t)`` gives timestep t's (W,
+        D) idx / wgt numpy tables: spread rotates its base table by +(t-1)
+        (weights never rotate), other patterns take their period stack at
+        slot (t-1) mod period. ``key_of(t)`` is what the tables depend on
+        (the rotation or the slot). time_varying is False for period-1
+        patterns (e.g. all_to_all): one static (W, D) pair."""
+        W = graph.width
+        if graph.pattern == "spread":
+            base_i, base_w = _spread_base_operands(graph)
+
+            def tables_at(t: int):
+                return np.mod(base_i + (t - 1), W).astype(np.int32), base_w
+
+            return tables_at, (lambda t: (t - 1) % W), True
+        gi, gw = _global_slot_operands(graph)
+        period = gi.shape[0]
+
+        def tables_at(t: int):
+            slot = (t - 1) % period
+            return gi[slot], gw[slot]
+
+        return tables_at, (lambda t: (t - 1) % period), period > 1
+
+    def _allgather_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+        """(t0, step) for the all-gather plan, per step, on (1, W, P) states.
+
+        ``step(s, t)``: one K3 launch on timestep t's global tables (a
+        slice of a stack built once, on the host). all_to_all under
+        ``psum_mean`` (default on) takes the row mean instead (see the
+        module docstring): sum and divide, then one K3 launch."""
+        W, T = graph.width, graph.steps
+        dev = self.device
+        kw = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
+        i0, w0 = (a[None] for a in _self_tables(W, dev))
+
+        def t0(x):
+            return _kops.taskbench_step(x, i0, w0, **kw)
+
+        if graph.pattern == "all_to_all" and bool(self.options.get("psum_mean", True)):
+            # every output row gathers the one mean row at weight 1
+            i_mean = torch.zeros((1, W, 1), dtype=torch.int32, device=dev)
+
+            def step(x, t: int):
+                mean = x.sum(dim=1, keepdim=True) / W
+                return _kops.taskbench_step(mean, i_mean, w0, **kw)
+
+            return t0, step
+
+        tables_at, key_of, time_varying = self._global_table_fn(graph)
+        ts = range(1, T) if time_varying and T > 1 else (1,)
+        idx, wgt, rows = _stack_tables(tables_at, key_of, [[t] for t in ts], dev)
+        row_of = dict(zip(ts, rows))
+
+        def step(x, t: int):
+            r = row_of[t] if time_varying else 0
+            return _kops.taskbench_step(x, idx[r], wgt[r], **kw)
+
+        return t0, step
+
+    def _plan_step_fns(self, graph: TaskGraph, plan: str) -> Tuple[Callable, Callable]:
+        if plan == PLAN_STRIDE:
+            return self._stride_step_fns(graph)
+        return self._allgather_step_fns(graph)
+
+    def _build_plan_stepper(self, graph: TaskGraph, plan: str) -> Callable:
+        """The stride / all-gather plans per step: one K3 launch a
+        timestep (and the plan's glue: the XOR shuffle, or all_to_all's
+        row mean), the same dispatch shape as the halo plan at S = 1."""
+        T = graph.steps
+        t0, step = self._plan_step_fns(graph, plan)
+
+        def run(init):
+            state = t0(init[None])
+            for t in range(1, T):
+                state = step(state, t)
+            return state[0]
+
+        return run
+
+    def _build_allgather_blocked(self, graph: TaskGraph, S: int) -> Callable:
+        """The blocked all-gather plan: after the t = 0 K3 launch,
+        ceil((T-1)/S) K4 launches on the full W-row state, each with the S
+        timesteps' (1, S, W, D) tables (time-varying: a per-launch stack
+        built once on the host, launches with the same key sharing one) or
+        the one static (1, W, D) pair. Every row advances exactly, so the
+        state is the whole output; the final launch carries the masked
+        tail. No radius is declared: K4 takes its cooperative form."""
+        T, W = graph.steps, graph.width
+        dev = self.device
+        kw0 = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
+        kwb = dict(kw0, steps_per_launch=S)
+        i0, w0 = (a[None] for a in _self_tables(W, dev))
+        acts = torch.from_numpy(_act_schedule((T,), T, S)[:, 0]).to(dev)  # (L, S)
+        tables_at, key_of, time_varying = self._global_table_fn(graph)
+        # first timestep of each launch, and its S timesteps
+        groups = [[1 + l * S + d for d in range(S)] for l in range(acts.shape[0])]
+        if not groups:  # T = 1: the body alone
+            return lambda init: _kops.taskbench_step(init[None], i0, w0, **kw0)[0]
+        if not time_varying:
+            groups = groups[:1]
+        idx, wgt, rows = _stack_tables(tables_at, key_of, groups, dev)
+        if not time_varying:  # one (1, W, D) pair for every launch
+            idx, wgt, rows = idx[:, 0], wgt[:, 0], [0] * acts.shape[0]
+
+        def run(init):
+            state = _kops.taskbench_step(init[None], i0, w0, **kw0)  # t=0
+            for a, r in zip(acts, rows):
+                state = _kops.taskbench_step(state, idx[r:r + 1], wgt[r:r + 1],
+                                             a[None], **kwb)
+            return state[0]
+
+        return run
+
+    # ---------------------------------------------------------- accounting
+
     def dispatches_per_run(self, graph: TaskGraph) -> int:
-        """Kernel launches: the t=0 body-only launch plus ceil((T-1)/S)
-        blocked launches (S=1: T in all, each one K3 launch and nothing
-        else, the halo wrap folded into it). The pipelined schedule splits
-        every blocked launch into a boundary and an interior launch. (At
-        halo > 0 each serial blocked launch also issues the deep halo wrap,
-        a row gather of the state, and each pipelined launch three
-        concatenations.)"""
-        S = self._steps_per_launch(graph.steps)
-        L = self._launches(graph.steps, S)
-        if self._pipeline_active(graph.width, S, _patterns.halo_radius(graph)):
+        """Kernel launches of one run, as `_schedule_for_graph` resolves it:
+        the t = 0 launch plus ceil((T-1)/S) launches (S = 1: T in all, each
+        one K3 launch). The halo plan's pipelined schedule splits every
+        blocked launch into a boundary and an interior launch. The stride
+        plan is per step (T K3 launches); so is the per-step all-gather
+        plan; the blocked all-gather plan is 1 K3 + ceil((T-1)/S) K4.
+        Glue is not counted: at halo > 0 each serial blocked launch also
+        issues the deep halo wrap (a row gather of the state) and each
+        pipelined launch three concatenations; a stride step with ``pair``
+        also issues the XOR shuffle's flip and the concatenation, and
+        all_to_all's row mean a sum and a division."""
+        plan = self._schedule_for_graph(graph)
+        L = self._launches(graph.steps, plan.steps_per_launch)
+        if plan.kind == PLAN_HALO and self._pipeline_active(
+                graph.width, plan.steps_per_launch, _patterns.halo_radius(graph)):
             return 1 + 2 * (L - 1)
         return L

@@ -8,7 +8,12 @@ on the tensor cores as ``flash_attention``, the f32 form as
 every schedule's graph equal to its eager loop bit for bit, with its
 launches counted per replay; two replays' outputs apart; a capture that
 fails raises, and ``build`` never falls back to the eager loop; the decode
-step's graph equal to the eager step. Every test carries the ``gpu`` marker
+step's graph equal to the eager step. ``pallas_step``'s stride and
+all-gather plans at small widths: each run's graph equal to its eager loop,
+its replay's launches equal to ``dispatches_per_run`` (T K3, or 1 K3 and
+ceil((T-1)/S) K4 in the cooperative form when blocked), butterfly compute
+runs equal to ``fused`` with the kernels bit for bit, the blocked
+all-gather plan under masked tails. Every test carries the ``gpu`` marker
 and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
@@ -839,6 +844,71 @@ def test_memory_bound_blocked_graph_takes_the_cooperative_form(cuda, opts):
     assert torch.equal(got, want)
     assert counts["taskbench_blocked"] > 0 and counts["taskbench_blocked_tiled"] == 0
     assert sum(counts.values()) == rt.dispatches_per_run(g)
+
+
+# The stride and all-gather plans: (pattern, W, options). fft and tree at
+# S = 1 with each combine, an explicit S that re-routes (W under the cap)
+# and one that stays per step (over it); spread and all_to_all per step and
+# blocked, all_to_all with and without the row mean; W = 1 fft.
+PLAN_CASES = [
+    ("fft", 64, {}), ("tree", 64, {}), ("fft", 64, {"combine": "gather"}),
+    ("tree", 64, {"combine": "onehot"}), ("fft", 16, {"steps_per_launch": 3}),
+    ("tree", 16, {"steps_per_launch": 3}),
+    ("fft", 64, {"steps_per_launch": 3, "gather_width_cap": 32}),
+    ("spread", 24, {}), ("spread", 24, {"steps_per_launch": 3}),
+    ("all_to_all", 24, {}), ("all_to_all", 24, {"psum_mean": False}),
+    ("all_to_all", 24, {"steps_per_launch": 3}), ("fft", 1, {}),
+]
+
+
+def _plan_run(cuda, pattern, width, opts, kind, iterations, steps, seed):
+    """One plan's run of a small graph: graph against eager loop, and the
+    launches of the replay against `dispatches_per_run` and the plan's
+    kernels (1 K3 + L K4 for the blocked all-gather plan, else T K3)."""
+    g = TaskGraph(steps=steps, width=width, pattern=pattern, payload=16,
+                  kernel=KernelSpec(kind, iterations, scratch=40), seed=seed)
+    rt = get_runtime("pallas_step", device=cuda, **opts)
+    x = _rand((width, 16), seed, cuda)
+    got, want, counts = _graph_vs_eager(rt, g, x)
+    assert torch.equal(got, want)
+    assert sum(counts.values()) == rt.dispatches_per_run(g)
+    plan = rt._schedule_for_graph(g)
+    want_counts = dict.fromkeys(counts, 0)
+    if plan.kind == ps.PLAN_ALLGATHER and plan.steps_per_launch > 1:
+        want_counts["taskbench_step"] = 1
+        want_counts["taskbench_blocked"] = -(-(steps - 1) // plan.steps_per_launch)
+    else:
+        want_counts["taskbench_step"] = steps
+    assert counts == want_counts
+    fused = get_runtime("fused", device=cuda, use_kernels=True).build(g)(x)
+    torch.cuda.synchronize()
+    return g, got, fused
+
+
+@pytest.mark.parametrize("pattern,width,opts", PLAN_CASES)
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 4), ("memory_bound", 2)])
+def test_plan_graph_equals_its_eager_loop(cuda, pattern, width, opts, kind, iterations):
+    """Butterfly compute runs equal ``fused[kernels]`` bit for bit (every
+    plan and combine); the rest within TOL."""
+    g, got, fused = _plan_run(cuda, pattern, width, opts, kind, iterations, 11, 3)
+    if pattern in ("fft", "tree") and kind == "compute_bound":
+        assert torch.equal(got, fused)
+    else:
+        assert (got - fused).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("pattern", ["fft", "tree", "spread", "all_to_all"])
+@pytest.mark.parametrize("S", [3, 8])
+def test_blocked_allgather_masked_tails_equal_the_eager_loop(cuda, pattern, S):
+    """T = 7: S = 3 ends on a launch with one masked depth; S = 8 clamps to
+    one launch of 6 depths."""
+    width = 16 if pattern in ("fft", "tree") else 12
+    g, got, fused = _plan_run(cuda, pattern, width, {"steps_per_launch": S},
+                              "compute_bound", 1, 7, 4)
+    if pattern in ("fft", "tree"):
+        assert torch.equal(got, fused)
+    else:
+        assert (got - fused).abs().max().item() <= TOL
 
 
 def test_two_replays_do_not_alias(cuda):

@@ -186,13 +186,24 @@ def test_registry_and_options():
 
 @pytest.mark.parametrize("pattern", [p for p in PATTERNS if p not in HALO])
 def test_pallas_step_refuses_non_halo_patterns(pattern):
+    """The non-halo patterns take the reference's plan (stride for fft and
+    tree, all-gather for spread and all_to_all) and launch count; past
+    ``gather_width_cap`` the port refuses what the reference refuses, the
+    reason naming the plans and the `fused` fallback."""
     g, r = _graphs(pattern, 8)
-    plan, why = get_runtime("pallas_step", device="cpu").plan_for(g)
-    assert plan is None
-    assert "stride plan" in why and "all-gather plan" in why and "`fused`" in why
-    with pytest.raises(ValueError, match="cannot run"):
-        get_runtime("pallas_step", device="cpu").execute(g)
-    assert ref_ps.PallasStepRuntime().plan_for(r)[0] is not None  # the reference can
+    rt, ref = get_runtime("pallas_step", device="cpu"), ref_ps.PallasStepRuntime()
+    assert rt.plan_for(g) == ref.plan_for(r)
+    assert rt.plan_for(g)[0] in (ps.PLAN_STRIDE, ps.PLAN_ALLGATHER)
+    assert rt.dispatches_per_run(g) == ref.dispatches_per_run(r) == g.steps
+    capped = get_runtime("pallas_step", device="cpu", gather_width_cap=4)
+    ref_capped = ref_ps.PallasStepRuntime(gather_width_cap=4)
+    plan, why = capped.plan_for(g)
+    assert plan == ref_capped.plan_for(r)[0]
+    if plan is None:  # the global patterns, past the cap
+        assert "stride" in why and "allgather" in why and "`fused`" in why
+        assert "gather_width_cap=4" in why
+        with pytest.raises(ValueError, match="cannot run"):
+            capped.execute(g)
 
 
 @pytest.mark.parametrize("pattern", HALO)

@@ -39,7 +39,7 @@ def test_smoke_sweeps_every_schedule_at_every_width(smoke):
     from benchmarks.torch_metg import SCHEDULES, SMOKE
 
     _, records = smoke
-    metg = [r for r in records if r["kind"] == "metg"]
+    metg = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"]
     assert {(r["runtime"], r["od"]) for r in metg} == {
         (label, od) for label, _, _ in SCHEDULES for od in SMOKE.overdecomposition}
     for r in metg:
@@ -72,3 +72,39 @@ def test_smoke_times_the_depths_and_the_eager_loop_at_grain_1(smoke):
         (od, S, sched) for od in (1, 8)
         for S, sched in ((1, "S=1"), (2, "pipelined"), (2, "serial"))}
     assert all(set(r["us_per_step"]) == {"graph", "eager"} for r in eager)
+
+
+def test_smoke_times_the_butterfly_floor(smoke):
+    """The floor's records: fused[kernels] against pallas_step at grain 1
+    on each non-halo pattern and width, pallas_step[S=8] beside where it
+    blocks the all-gather plan, each schedule's plan named."""
+    from benchmarks.torch_metg import FLOOR_S, SMOKE_FLOOR
+
+    _, records = smoke
+    floor = [r for r in records if r["kind"] == "floor"]
+    assert [(r["pattern"], r["W"]) for r in floor] == [
+        (p, w) for p, widths in SMOKE_FLOOR for w in widths]
+    blocked = f"pallas_step[S={FLOOR_S}]"
+    for r in floor:
+        want = {"fused[kernels]", "pallas_step", blocked}
+        assert set(r["us_per_step"]) == set(r["launches_per_run"]) == want
+        assert min(r["us_per_step"].values()) > 0 and r["grain"] == 1
+        stride = r["pattern"] in ("fft", "tree")
+        assert r["plans"]["pallas_step"] == ["stride" if stride else "allgather", 1]
+        assert r["plans"][blocked] == ["allgather", 5]  # T = 6 clamps S to 5
+        assert r["launches_per_run"]["pallas_step"] == r["steps"]
+        assert r["launches_per_run"][blocked] == 2
+        assert r["pallas_step_strictly_lower"] == (
+            r["us_per_step"]["pallas_step"] < r["us_per_step"]["fused[kernels]"])
+
+
+def test_smoke_sweeps_fft_metg_on_both_backends(smoke):
+    from benchmarks.torch_metg import FLOOR_SCHEDULES, SMOKE_FLOOR_METG_W
+
+    _, records = smoke
+    fft = [r for r in records if r["kind"] == "metg" and r["pattern"] == "fft"]
+    assert [(r["runtime"], r["W"], r["od"]) for r in fft] == [
+        (label, SMOKE_FLOOR_METG_W, None) for label, _, _ in FLOOR_SCHEDULES]
+    for r in fft:
+        assert r["repeats"] == len(r["metg_us"]) == 2
+        assert r["dispatches_per_run"] > 0
