@@ -1,20 +1,23 @@
-"""Regression guard over the port's METG sweep: each (pattern, schedule, W)
-median METG(50%) of a run held to the committed baseline.
+"""Regression guard over the port's METG sweep: each (pattern, schedule, W,
+K) median METG(50%) of a run held to the committed baseline.
 
     PYTHONPATH=src python -m benchmarks.torch_floor_guard RUN.json \
         [--baseline artifacts/bench_torch/metg_baseline.json]
 
 Both files are ``benchmarks/torch_metg.py``'s output, one JSON record per
 line. For every ``"kind": "metg"`` record of the baseline, the run must hold
-a record of the same pattern, schedule and W whose median is a positive
+a record of the same pattern, schedule, W and ensemble size K (a record
+without K is a single graph, K = 1) whose median is a positive
 number no more than the baseline's median times (1 + bound): +10% for the
 ``pallas_step`` schedules, +15% for ``fused`` (PERF.md §2's bounds, about
 three times the largest move of a median between two runs on one card).
 A cell missing from the
 run, a malformed record, a median that went unreached, or a run on another
 card or preset fails the guard rather than passing it; a cell whose
-baseline median is unreached is not guarded and is listed as such. Exits 0
-when every guarded cell holds, 1 otherwise, and prints one line per cell.
+baseline median is unreached is not guarded and is listed as such. A cell
+of the run that the baseline lacks (e.g. the ensemble rows, K > 1) is
+listed as new, not guarded and not a failure. Exits 0 when every guarded
+cell holds, 1 otherwise, and prints one line per cell.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ DEFAULT_BASELINE = ROOT / "artifacts" / "bench_torch" / "metg_baseline.json"
 #: allowed rise of a median over the baseline's, by schedule family
 BOUNDS = {"pallas_step": 0.10, "fused": 0.15}
 
-Key = Tuple[str, str, int]
+Key = Tuple[str, str, int, int]
 
 
 def bound_for(runtime: str) -> float:
@@ -56,7 +59,12 @@ def read_records(path: Path) -> List[dict]:
 
 
 def _key(rec: dict) -> Key:
-    return (str(rec["pattern"]), str(rec["runtime"]), int(rec["W"]))
+    return (str(rec["pattern"]), str(rec["runtime"]), int(rec["W"]), int(rec.get("K", 1)))
+
+
+def _tag(key: Key) -> str:
+    pattern, runtime, width, k = key
+    return f"{pattern} {runtime} W={width}" + (f" K={k}" if k != 1 else "")
 
 
 def _median(rec: dict) -> Optional[float]:
@@ -72,8 +80,8 @@ def _median(rec: dict) -> Optional[float]:
 
 
 def metg_cells(records: List[dict]) -> Dict[Key, dict]:
-    """The ``metg`` records by (pattern, schedule, W); a duplicate cell or a
-    record without those fields raises ValueError."""
+    """The ``metg`` records by (pattern, schedule, W, K); a duplicate cell or
+    a record without those fields raises ValueError."""
     cells: Dict[Key, dict] = {}
     for rec in records:
         if rec.get("kind") != "metg":
@@ -115,8 +123,7 @@ def check(run: List[dict], baseline: List[dict]) -> Tuple[bool, List[str]]:
             lines.append(f"FAIL the run's {what} {sorted(map(str, r))} is not the "
                          f"baseline's {sorted(map(str, b))}")
     for key in sorted(base):
-        pattern, runtime, width = key
-        tag = f"{pattern} {runtime} W={width}"
+        runtime, tag = key[1], _tag(key)
         try:
             want = _median(base[key])
             bound = bound_for(runtime)
@@ -147,6 +154,9 @@ def check(run: List[dict], baseline: List[dict]) -> Tuple[bool, List[str]]:
         ok &= held
         lines.append(f"{'ok  ' if held else 'FAIL'} {tag}: {have:.6g} us against "
                      f"{want:.6g} ({rise:+.2%}, limit +{bound:.0%})")
+    for key in sorted(set(got) - set(base)):
+        lines.append(f"new  {_tag(key)}: median {got[key].get('metg_us_median')!r} us, "
+                     f"not in the baseline")
     return ok, lines
 
 

@@ -1,6 +1,7 @@
 """METG of the PyTorch/CUDA port on one card, with repeated sweeps.
 
     PYTHONPATH=src python -m benchmarks.torch_metg [--repeats 5] [--out PATH]
+        [--ensemble 2,4,8]
     PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu
 
 The port's counterpart of ``benchmarks/table2_metg.py`` (METG(50%) per
@@ -35,11 +36,24 @@ Then the METG(50%) of fft at W = 2048 for ``fused[kernels]`` and
 ``pallas_step``, the PAPER preset otherwise, each sweep ``--repeats``
 times.
 
+The ensemble rows (``benchmarks/table2_metg.py``'s ``--ensemble``, Task
+Bench's ``-and``, the paper's "multi-task per core" scenario): for each K of
+``--ensemble`` (default the preset's ``ensemble_sizes`` above 1: 2, 4, 8),
+K stencil_1d graphs of seeds 0..K-1 at W = SMs x od for od in {1, 16}, run
+as one ``GraphEnsemble`` (one graph replay a run) on ``fused[kernels]``,
+``pallas_step`` (S = 1: one K3 launch a step for all K members) and
+``pallas_step[S=8,serial]``, the PAPER preset otherwise; each point through
+``measure_ensemble``, whose one sample folds the members' tasks and FLOPs
+against the ensemble's wall, so granularity is wall x SMs / (K x W x T).
+Each (schedule, W, K) sweep runs ``--repeats`` times; single-graph records
+carry K = 1.
+
 Every record carries the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``). Records print as
 JSON lines and are written to ``--out`` (one JSON object per line).
 ``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats;
-the floor at W in {8, 16}, fft's METG at W = 16) that also runs with
+the floor at W in {8, 16}, fft's METG at W = 16, the ensemble rows at K = 2
+and od 1) that also runs with
 ``--device cpu``, where the runtimes run their eager
 loops. The script imports nothing of JAX, of the JAX package ``repro`` or
 of ``benchmarks/common.py``.
@@ -58,7 +72,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.taskbench import PAPER, TaskBenchConfig
-from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
+from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, compute_metg, get_runtime
 from repro_torch.core.runtimes._capture import time_runs
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -80,8 +94,11 @@ FLOOR_S = 8
 FLOOR_METG_W = 2048
 #: the schedules of the floor and of fft's METG
 FLOOR_SCHEDULES = SCHEDULES[:2]
+#: the ensemble rows: the schedules, and the overdecompositions
+ENSEMBLE_SCHEDULES = (SCHEDULES[0], SCHEDULES[1], SCHEDULES[3])
+ENSEMBLE_ODS = (1, 16)
 SMOKE = dataclasses.replace(PAPER, name="smoke", steps=6, grains=(1, 16), reps=2,
-                            overdecomposition=(1, 8))
+                            overdecomposition=(1, 8), ensemble_sizes=(1, 2))
 SMOKE_FLOOR = (("fft", (8, 16)), ("tree", (8,)), ("spread", (8,)), ("all_to_all", (8,)))
 SMOKE_FLOOR_METG_W = 16
 
@@ -97,16 +114,18 @@ def card(device: torch.device) -> str:
 
 
 def _graph(cfg: TaskBenchConfig, width: int, grain: int,
-           pattern: Optional[str] = None) -> TaskGraph:
+           pattern: Optional[str] = None, seed: int = 0) -> TaskGraph:
     return TaskGraph(steps=cfg.steps, width=width, pattern=pattern or cfg.pattern,
-                     payload=cfg.payload, kernel=KernelSpec("compute_bound", grain))
+                     payload=cfg.payload, kernel=KernelSpec("compute_bound", grain),
+                     seed=seed)
 
 
 def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
                 od: Optional[int], repeats: int, device: torch.device,
-                width: Optional[int] = None) -> Dict[str, object]:
+                width: Optional[int] = None, K: int = 1) -> Dict[str, object]:
     """``repeats`` grain sweeps of one schedule at W = cores x od (or at
-    ``width``, with od None)."""
+    ``width``, with od None); with K > 1 each point is an ensemble of K
+    such graphs (seeds 0..K-1) through ``measure_ensemble``."""
     rt = get_runtime(backend, device=device, **options)
     width = rt.cores * od if width is None else width
     metgs: List[Optional[float]] = []
@@ -117,7 +136,11 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
     for _ in range(repeats):
         samples = []
         for grain in cfg.grains:
-            sample, st = rt.measure(_graph(cfg, width, grain), reps=cfg.reps, warmup=1)
+            if K == 1:
+                sample, st = rt.measure(_graph(cfg, width, grain), reps=cfg.reps, warmup=1)
+            else:
+                ens = GraphEnsemble([_graph(cfg, width, grain, seed=k) for k in range(K)])
+                sample, st = rt.measure_ensemble(ens, reps=cfg.reps, warmup=1)
             samples.append(sample)
             walls[grain].append(sample.wall_time / cfg.steps * 1e6)
             dispatches = st.dispatches
@@ -130,7 +153,7 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
     reached = [m for m in metgs if m is not None]
     med = statistics.median(reached) if reached else None
     return {
-        "kind": "metg", "runtime": label, "options": options, "W": width, "od": od,
+        "kind": "metg", "runtime": label, "options": options, "W": width, "od": od, "K": K,
         "steps": cfg.steps, "payload": cfg.payload, "pattern": cfg.pattern,
         "grains": list(cfg.grains), "reps": cfg.reps, "repeats": repeats,
         "metg_us": metgs, "metg_us_median": med,
@@ -219,7 +242,13 @@ def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
 
 def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
         sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS,
-        floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W) -> List[dict]:
+        floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W,
+        ensembles=None, ensemble_ods=ENSEMBLE_ODS) -> List[dict]:
+    """Every record of the sweep, emitted as it is taken; ``ensembles``
+    (default the preset's ``ensemble_sizes`` above 1) are the K of the
+    ensemble rows."""
+    if ensembles is None:
+        ensembles = tuple(k for k in cfg.ensemble_sizes if k > 1)
     t0 = time.perf_counter()
     smi = card(device)
     records: List[dict] = []
@@ -244,8 +273,13 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
         for label, backend, options in FLOOR_SCHEDULES:
             emit(metg_record(fft, label, backend, options, None, repeats, device,
                              width=floor_metg_w))
+        for K in ensembles:
+            for od in ensemble_ods:
+                for label, backend, options in ENSEMBLE_SCHEDULES:
+                    emit(metg_record(cfg, label, backend, options, od, repeats, device, K=K))
         emit({"kind": "summary", "preset": cfg.name, "repeats": repeats,
-              "device": str(device), "seconds": time.perf_counter() - t0})
+              "ensembles": list(ensembles), "device": str(device),
+              "seconds": time.perf_counter() - t0})
     return records
 
 
@@ -256,16 +290,26 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats)")
+    ap.add_argument("--ensemble", default=None,
+                    help="comma-separated ensemble sizes K > 1 of the ensemble rows "
+                         "(default: the preset's above 1); 'none' for none")
     args = ap.parse_args(argv)
+    ensembles = None
+    if args.ensemble is not None:
+        ensembles = () if args.ensemble == "none" else tuple(
+            int(k) for k in args.ensemble.split(","))
+        if any(k < 2 for k in ensembles):
+            raise SystemExit(f"torch_metg: ensemble sizes must be > 1, got {ensembles}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("torch_metg: no CUDA device is available; pass --device cpu")
     if args.smoke:
         out = args.out or DEFAULT_OUT.with_name("metg_smoke.json")
         run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
-            rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W)
+            rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W,
+            ensembles=ensembles, ensemble_ods=(1,))
     else:
-        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT)
+        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT, ensembles=ensembles)
     return 0
 
 

@@ -84,12 +84,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
              against plain ``fused``. One replay of a 6-step fft graph
              under ``torch.profiler``: 6 K3 in their pair mode and the XOR
              shuffle's copy kernels, counted and timed.
-  5. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
+  5. ensemble  GraphEnsembles through ``build_ensemble``, each run one graph
+             replay equal to its eager loop bit for bit, its launches
+             (zeroed just before the phase, the eager loops' and the
+             references' kept apart) equal to ``ensemble_dispatches_per_run``:
+             K = 4 stacked stencil_1d members at W = 2112, T = 1000, payload
+             64, grain 64 (seeds 0-3) through ``pallas_step`` at S = 1 (1000
+             K3 for all four) and at S = 8 pipelined and serial with horizons
+             T = (1000, 750, 333, 1) (pipelined equal to serial bit for bit),
+             each member against its own single-graph run (bit for bit
+             recorded, TOL held); one memory_bound stacked run; a
+             mixed-spec tuple (stencil_1d grain 64, nearest radius 2 grain
+             256, no_comm memory_bound) at S = 1 and 8; a mixed-plan tuple
+             (stencil_1d W = 2112, fft W = 2048, spread and all_to_all W =
+             512), one step a launch; ``fused(use_kernels=True)`` on each,
+             held to TOL against ``pallas_step`` and the plain path. Then
+             the stacked launch plan at S = 8, stepped on the host: equal to
+             ``build_ensemble`` bit for bit; with member 1's act rows zeroed
+             from launch 40 it equals its own run at T = 321, bit for bit; a
+             fresh member admitted into slot 3 at launch 60 holds the t = 0
+             K3 of its init; the capture count reads the same before and
+             after both edits. Grain 64 drives every state to the FMA's
+             fixed point, so the members against their own runs and the
+             launch plan's edits run again at grain 1 (T = 41, 33, 17, 1;
+             radii 1 and 2 stacked; each combine at S = 1 and 8), also
+             against the CPU plain path, and so do ``fused(use_kernels=
+             True)``'s stacked run and both tuples (mixed-spec at S = 1 and
+             8 and on ``fused(use_kernels=True)``, mixed-plan on both, the
+             fft member bit for bit), each with mixed horizons and each
+             member held to the CPU plain path. The members bit for bit
+             their own runs are counted apart: at grain 1 and memory_bound
+             (the evidence), and the grain-64 compute members.
+  6. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial, each run one graph replay; at grains 1
              and 64 the eager loop's step wall beside the graph's.
-  6. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
+  7. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
              batch 8, prompt 1024, 64 tokens (launches: 24 K5 in its
@@ -111,7 +142,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
-  7. times   each kernel and its plain version timed with CUDA events at
+  8. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes and in the main path's form (K3 on the
              W-row state with the halo wrap folded in), beside its bound on
              this card (K2 also beside its shared-memory bound); K1 and K3
@@ -245,6 +276,14 @@ TOL_SERVE_HYB = {"max": 0.035, "rms": 0.031}
 # (PERF.md §6).
 TOL_F32_SCALED = 2e-5
 BLOCKED_RUNS = (("pipelined", {}), ("serial", {"pipeline": False}))
+# [ensemble]: K = 4 stacked stencil_1d members at the main path's shape
+# (seeds 0-3), their mixed horizons at S = 8, and where the launch plan
+# evicts member 1 (from launch EVICT_AT: it stops at T = 1 + EVICT_AT * S)
+# and admits a fresh member into the finished slot 3 (at launch ADMIT_AT)
+K_ENS, HETERO_T, EVICT_AT, ADMIT_AT = 4, (1000, 750, 333, 1), 40, 60
+# and at grain 1, where the dataflow shows, mixed horizons of 5, 4, 2 and 0
+# launches at S = 8
+T_ENS_SHORT = (41, 33, 17, 1)
 
 
 def fail(msg: str) -> None:
@@ -337,7 +376,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import KernelSpec, TaskGraph, compute_metg, get_runtime
+    from repro_torch.core import (GraphEnsemble, KernelSpec, TaskGraph, compute_metg,
+                                  get_runtime)
     from repro_torch.core.patterns import halo_radius
     from repro_torch.core.runtimes import pallas_step as ps_mod
     from repro_torch.core.runtimes._capture import Graphed, GraphRun, time_runs
@@ -1063,6 +1103,332 @@ def main() -> int:
         for lbl, kind, s, comb, d in plan_runs],
         "max_abs_err": plan_errs, "stride_profile": stride_profile}), flush=True)
 
+    # ------------------------------------------------------------- ensemble
+    # GraphEnsembles through both backends' build_ensemble, each run one
+    # graph replay held to its eager loop, its launches (zeroed just before
+    # the phase, the eager loops' and the references' kept apart) equal to
+    # ensemble_dispatches_per_run; pallas_step's stacked launch plan stepped
+    # on the host
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    check_launches = dict.fromkeys(_build.ENTRIES, 0)
+    ens_runs = []  # (label, stacked, launches of the replay)
+    ens_errs = {}  # label -> max abs difference (0.0: bit for bit)
+    own_bitwise = {}  # stacked member vs its own single-graph run
+
+    def ens_graphed(label: str, rt, ens, xs, eager: bool = True):
+        """``rt``'s run of ``ens`` on the member states ``xs``: built (one
+        CUDA graph), replayed once with the launch counters read around the
+        replay, equal to its eager loop bit for bit with the same launches,
+        and its launches equal to ensemble_dispatches_per_run. Returns the
+        members' final states."""
+        run = rt.build_ensemble(ens)
+        if not isinstance(run, GraphRun):
+            fail(f"[ensemble] {label}: build_ensemble gave {type(run).__name__}")
+        out, d = counted(lambda: run(xs))
+        captures.append((f"ensemble {label}", run.capture_s, run.nodes))
+        if eager:
+            want, d_eager = counted(lambda: run.eager(tuple(x.clone() for x in xs)))
+            for k, (a, b) in enumerate(zip(out, want)):
+                if not torch.equal(a, b):
+                    fail(f"[ensemble] {label}: member {k}'s replay differs from the "
+                         f"eager loop, max |difference| {(a - b).abs().max().item()}")
+            if d_eager != d:
+                fail(f"[ensemble] {label}: the eager loop launched {d_eager}, the replay {d}")
+            for k, n in d_eager.items():
+                check_launches[k] += n
+        if rt.name == "pallas_step":
+            if sum(d.values()) != rt.ensemble_dispatches_per_run(ens):
+                fail(f"[ensemble] {label}: launches {d}, ensemble_dispatches_per_run "
+                     f"{rt.ensemble_dispatches_per_run(ens)}")
+        elif d != fused_launches(rt, ens):
+            fail(f"[ensemble] {label}: launches {d}, expected {fused_launches(rt, ens)}")
+        ens_runs.append((label, rt.name, dict(rt.options), rt._is_stacked(ens)
+                         if rt.name == "pallas_step" else None, d))
+        return out
+
+    def fused_launches(rt, ens):
+        """``fused(use_kernels=True)``'s kernel launches for ``ens`` (its
+        ensemble_dispatches_per_run counts every device operation): one body
+        launch a step over all rows of a stacked uniform ensemble, else one
+        per member a step, frozen members included."""
+        want = dict.fromkeys(_build.ENTRIES, 0)
+        specs = [g.kernel for g in ens.members]
+        if rt._is_stacked(ens) and len(set(specs)) == 1:
+            specs = specs[:1]
+        for spec in specs:
+            if spec.iterations and spec.kind != "empty":
+                want["taskbench_compute" if spec.kind == "compute_bound"
+                     else "memory_bound"] += ens.steps
+        return want
+
+    def reference_run(fn):
+        """A run the ensemble is held to, its launches kept apart."""
+        out, d = counted(fn)
+        for k, n in d.items():
+            check_launches[k] += n
+        return out
+
+    def ens_held(label: str, got, want, tol: Optional[float]):
+        """``tol`` None: bit for bit; else max abs error <= tol."""
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if tol is None and err != 0.0:
+            fail(f"[ensemble] {label}: not bit for bit, max |difference| {err}")
+        if tol is not None:
+            for k, (a, b) in enumerate(zip(got, want)):
+                check_close(f"[ensemble] {label} member {k}", a, b, tol)
+        ens_errs[label] = max(ens_errs.get(label, 0.0), err)
+
+    def own_runs(label: str, rt, ens, xs, outs, tol: float):
+        """Each member against its own single-graph run under ``rt`` (the
+        K-dependent rounding check): recorded bit for bit or not, held to
+        ``tol``."""
+        for k, (g, x, out) in enumerate(zip(ens.members, xs, outs)):
+            own = reference_run(lambda: rt.build(g)(x))
+            same = torch.equal(out, own)
+            own_bitwise[f"{label} member {k}"] = (
+                True if same else (out - own).abs().max().item())
+            check_close(f"[ensemble] {label} member {k} vs its own run", out, own, tol)
+
+    def ens_of(specs):
+        """GraphEnsemble of (steps, width, pattern, kind, iterations, radius)
+        members, payload 64, seed k."""
+        return GraphEnsemble([
+            TaskGraph(steps=t, width=w, pattern=p, payload=PAYLOAD, radius=r, seed=k,
+                      kernel=KernelSpec(kind, it, scratch=2048))
+            for k, (t, w, p, kind, it, r) in enumerate(specs)])
+
+    def inits_of(ens):
+        return tuple(rand(g.width, g.payload) for g in ens.members)
+
+    k3_only = dict.fromkeys(_build.ENTRIES, 0)
+    # the stacked S = 1 ensemble: one K3 a step for all K members
+    stacked = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1)] * K_ENS)
+    xs = inits_of(stacked)
+    rt = get_runtime("pallas_step")
+    st1 = ens_graphed("stacked S=1", rt, stacked, xs)
+    if ens_runs[-1][-1] != dict(k3_only, taskbench_step=T_MAIN):
+        fail(f"[ensemble] stacked S=1 at K={K_ENS}: launches {ens_runs[-1][-1]}, "
+             f"expected {T_MAIN} K3")
+    own_runs("stacked S=1", rt, stacked, xs, st1, TOL)
+    fk = ens_graphed("stacked fused(kernels)", get_runtime("fused", use_kernels=True),
+                     stacked, xs)
+    fp = reference_run(lambda: get_runtime("fused")._build_ensemble_eager(stacked)(xs))
+    ens_held("stacked S=1 vs fused(kernels)", st1, fk, TOL)
+    ens_held("stacked fused(kernels) vs fused(plain)", fk, fp, TOL)
+    # the same members at S = 8 with mixed horizons, pipelined and serial
+    hetero = ens_of([(t, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1) for t in HETERO_T])
+    blocked = {}
+    for label, opts in BLOCKED_RUNS:
+        rt = get_runtime("pallas_step", steps_per_launch=S_MAIN, **opts)
+        blocked[label] = ens_graphed(f"stacked S={S_MAIN} {label}", rt, hetero, xs)
+        own_runs(f"stacked S={S_MAIN} {label}", rt, hetero, xs, blocked[label], TOL)
+        d = ens_runs[-1][-1]
+        split = rt._pipeline_active(W_MAIN, S_MAIN, 1)
+        if d != dict(k3_only, taskbench_step=1,
+                     **{K4_TILED: -(-(T_MAIN - 1) // S_MAIN) * (1 + split)}):
+            fail(f"[ensemble] stacked S={S_MAIN} {label}: launches {d}")
+    ens_held(f"stacked S={S_MAIN} pipelined vs serial", blocked["pipelined"],
+             blocked["serial"], None)
+    hs1 = reference_run(lambda: get_runtime("pallas_step").build_ensemble(hetero)(xs))
+    ens_held(f"stacked S={S_MAIN} vs S=1 (mixed horizons)", blocked["serial"], hs1, TOL)
+    # one memory_bound stacked run
+    mem = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "memory_bound", 4, 1)] * K_ENS)
+    xm = inits_of(mem)
+    rt = get_runtime("pallas_step")
+    ms1 = ens_graphed("stacked memory_bound S=1", rt, mem, xm)
+    own_runs("stacked memory_bound S=1", rt, mem, xm, ms1, TOL_MEMORY_RUN)
+    fmk = ens_graphed("stacked memory_bound fused(kernels)",
+                      get_runtime("fused", use_kernels=True), mem, xm)
+    ens_held("stacked memory_bound vs fused(kernels)", ms1, fmk, TOL_MEMORY_RUN)
+    # a mixed-spec tuple ensemble, at S = 1 and S = 8
+    mixed = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1),
+                    (T_MAIN, W_MAIN, "nearest", "compute_bound", 256, 2),
+                    (T_MAIN, W_MAIN, "no_comm", "memory_bound", 4, 1)])
+    xt = inits_of(mixed)
+    tols = [TOL, TOL, TOL_MEMORY_RUN]
+    tup = {S: ens_graphed(f"tuple mixed-spec S={S}",
+                          get_runtime("pallas_step", steps_per_launch=S), mixed, xt)
+           for S in (1, S_MAIN)}
+    tk = ens_graphed("tuple mixed-spec fused(kernels)", get_runtime("fused", use_kernels=True),
+                     mixed, xt)
+    tp = reference_run(lambda: get_runtime("fused")._build_ensemble_eager(mixed)(xt))
+    for k, tol in enumerate(tols):
+        for tag, got in (("S=1", tup[1]), (f"S={S_MAIN}", tup[S_MAIN]), ("fused(kernels)", tk)):
+            check_close(f"[ensemble] tuple mixed-spec {tag} member {k} vs fused(plain)",
+                        got[k], tp[k], tol)
+        ens_errs[f"tuple mixed-spec member {k} vs fused(plain)"] = max(
+            (got[k] - tp[k]).abs().max().item() for got in (tup[1], tup[S_MAIN], tk))
+    # a mixed-plan tuple ensemble: halo, stride, all-gather (spread,
+    # all_to_all); the shared cadence is per step
+    plans = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1),
+                    (T_MAIN, W_PLAN, "fft", "compute_bound", GRAIN, 1),
+                    (T_MAIN, W_GATHER, "spread", "compute_bound", GRAIN, 1),
+                    (T_MAIN, W_GATHER, "all_to_all", "compute_bound", GRAIN, 1)])
+    xp = inits_of(plans)
+    rt = get_runtime("pallas_step", steps_per_launch=S_MAIN)
+    if rt._ensemble_steps_per_launch(plans) != 1:
+        fail("[ensemble] the mixed-plan ensemble's cadence is not per step")
+    pl = ens_graphed("tuple mixed-plan", rt, plans, xp)
+    if ens_runs[-1][-1] != dict(k3_only, taskbench_step=len(plans) * T_MAIN):
+        fail(f"[ensemble] mixed-plan: launches {ens_runs[-1][-1]}")
+    pk = ens_graphed("tuple mixed-plan fused(kernels)", get_runtime("fused", use_kernels=True),
+                     plans, xp)
+    ens_held("tuple mixed-plan vs fused(kernels)", pl, pk, TOL)
+    if not torch.equal(pl[1], pk[1]):
+        fail("[ensemble] the fft member is not bit for bit fused(kernels)")
+    def plan_checks(label: str, ens, xs, want, evict_at: int, admit_at: int):
+        """The stacked launch plan of ``ens`` at S = 8, stepped on the host:
+        equal to ``want`` (build_ensemble's serial run) bit for bit; member
+        1's act rows zeroed from launch ``evict_at`` (it then equals its own
+        run at T = 1 + evict_at * 8), a fresh member admitted into the
+        finished slot 3 at ``admit_at`` (it then holds the t = 0 K3 of its
+        init); the capture count flat under both edits. Returns the plan
+        and the launches of its plain and its edited run."""
+        rt = get_runtime("pallas_step", steps_per_launch=S_MAIN)
+        lp = rt.build_ensemble_launches(ens)
+        if lp.kind != "stacked" or lp.num_launches != -(-(ens.steps - 1) // S_MAIN) \
+                or not evict_at < admit_at < lp.num_launches:
+            fail(f"[ensemble] {label} launch plan {lp.kind}, {lp.num_launches} launches, "
+                 f"evict at {evict_at}, admit at {admit_at}")
+
+        def step_plan(acts, admit=None):
+            carry = lp.init_fn(xs)
+            for l in range(lp.num_launches):
+                if admit is not None and l == admit[0]:
+                    carry = lp.admit_fn(carry, admit[1], admit[2])
+                carry = lp.launch_fn(carry, acts[l], lp.launch_t0(l))
+            return lp.finalize(carry)
+
+        plan_out, d_plan = counted(lambda: step_plan(lp.acts))
+        ens_held(f"{label} launch plan S={S_MAIN} vs build_ensemble", plan_out, want, None)
+        captures_before = lp.compile_counter()
+        acts = lp.acts.copy()
+        acts[evict_at:, 1, :] = 0
+        g3 = ens.members[3]
+        fresh = rand(g3.width, g3.payload)
+        churned, d_churn = counted(lambda: step_plan(acts, admit=(admit_at, 3, fresh)))
+        if lp.compile_counter() != captures_before:
+            fail(f"[ensemble] {label}: the launch plan captured under eviction and "
+                 f"admission: {captures_before} -> {lp.compile_counter()}")
+        t_evict = 1 + evict_at * S_MAIN
+        g1 = dataclasses.replace(ens.members[1], steps=t_evict)
+        ens_held(f"{label} evicted member 1 vs its own run at T={t_evict}", churned[1:2],
+                 (reference_run(lambda: rt.build(g1)(xs[1])),), None)
+        t0_fresh = reference_run(lambda: ops.taskbench_step(
+            fresh[None], *(t[None] for t in ps_mod._self_tables(g3.width, dev)),
+            kind=g3.kernel.kind, iterations=g3.kernel.iterations, scratch=2048,
+            combine="window")[0])
+        ens_held(f"{label} admitted member 3 vs the t = 0 K3 of its init", churned[3:4],
+                 (t0_fresh,), None)
+        ens_held(f"{label} members 0 and 2 under churn", (churned[0], churned[2]),
+                 (plan_out[0], plan_out[2]), None)
+        return lp, d_plan, d_churn, captures_before
+
+    # the stacked launch plan at S = 8 on the mixed horizons: evict member 1
+    # from launch EVICT_AT, admit a fresh member into slot 3 at ADMIT_AT
+    lp, d_plan, d_churn, captures_before = plan_checks(
+        "grain 64", hetero, xs, blocked["serial"], EVICT_AT, ADMIT_AT)
+    # grain 64 drives every state to the FMA's fixed point 0.2 within a
+    # step, so the members against their own runs (the K-dependent rounding
+    # check) and the launch plan's edits run again where the dataflow
+    # shows: grain 1, T_ENS_SHORT steps, radii 1 and 2 stacked (every
+    # member read through the radius-2 window), each combine, S = 1 and 8,
+    # and against the CPU plain path
+    cpu_fused = get_runtime("fused", device="cpu")
+
+    def cpu_plain(ens):
+        """The members' inits, on the card, and their final states on the
+        CPU plain path."""
+        xs = tuple(cpu_fused._init(g, None) for g in ens.members)
+        want = tuple(torch.from_numpy(cpu_fused.execute(g, x)) for g, x in zip(ens.members, xs))
+        return tuple(x.to(dev) for x in xs), want
+
+    def held_to_cpu(label: str, got, want, tols):
+        for k, (a, b, tol) in enumerate(zip(got, want, tols)):
+            check_close(f"[ensemble] {label} member {k} vs CPU plain", a.cpu(), b, tol)
+        ens_errs[f"{label} vs CPU plain"] = max(
+            (a.cpu() - b).abs().max().item() for a, b in zip(got, want))
+
+    short = ens_of([(t, W_MAIN, p, "compute_bound", 1, 2) for t, p in zip(
+        T_ENS_SHORT, ("stencil_1d", "nearest", "stencil_1d", "random_nearest"))])
+    xs1, want1 = cpu_plain(short)
+    short_serial = None
+    for combine in ("window", "gather", "onehot"):
+        for tag, opts in (("S=1", {}),) + tuple(
+                (f"S={S_MAIN} {lbl}", dict(o, steps_per_launch=S_MAIN)) for lbl, o in BLOCKED_RUNS):
+            rt = get_runtime("pallas_step", combine=combine, **opts)
+            label = f"grain 1 {combine} {tag}"
+            out = ens_graphed(label, rt, short, xs1)
+            own_runs(label, rt, short, xs1, out, TOL)
+            ens_held(f"{label} vs CPU plain", tuple(o.cpu() for o in out), want1, TOL)
+            if combine == "window" and tag.endswith("serial"):
+                short_serial = out
+    plan_checks("grain 1", short, xs1, short_serial, 2, 3)
+    # fused(kernels)'s stacked run and both tuple ensembles at grain 1 as
+    # well, mixed horizons freezing members, each held to the CPU plain path
+    fk1 = ens_graphed("grain 1 stacked fused(kernels)", get_runtime("fused", use_kernels=True),
+                      short, xs1)
+    held_to_cpu("grain 1 stacked fused(kernels)", fk1, want1, [TOL] * K_ENS)
+    mixed1 = ens_of([(T_ENS_SHORT[0], W_MAIN, "stencil_1d", "compute_bound", 1, 1),
+                     (T_ENS_SHORT[1], W_MAIN, "nearest", "compute_bound", 1, 2),
+                     (T_ENS_SHORT[2], W_MAIN, "no_comm", "memory_bound", 4, 1)])
+    xt1, want_t1 = cpu_plain(mixed1)
+    for tag, rt in (("S=1", get_runtime("pallas_step")),
+                    (f"S={S_MAIN}", get_runtime("pallas_step", steps_per_launch=S_MAIN)),
+                    ("fused(kernels)", get_runtime("fused", use_kernels=True))):
+        label = f"grain 1 tuple mixed-spec {tag}"
+        held_to_cpu(label, ens_graphed(label, rt, mixed1, xt1), want_t1, tols)
+    plans1 = ens_of([(T_ENS_SHORT[3], W_MAIN, "stencil_1d", "compute_bound", 1, 1),
+                     (T_ENS_SHORT[0], W_PLAN, "fft", "compute_bound", 1, 1),
+                     (T_ENS_SHORT[1], W_GATHER, "spread", "compute_bound", 1, 1),
+                     (T_ENS_SHORT[2], W_GATHER, "all_to_all", "compute_bound", 1, 1)])
+    xp1, want_p1 = cpu_plain(plans1)
+    pl1 = ens_graphed("grain 1 tuple mixed-plan",
+                      get_runtime("pallas_step", steps_per_launch=S_MAIN), plans1, xp1)
+    pk1 = ens_graphed("grain 1 tuple mixed-plan fused(kernels)",
+                      get_runtime("fused", use_kernels=True), plans1, xp1)
+    held_to_cpu("grain 1 tuple mixed-plan", pl1, want_p1, [TOL] * len(plans1))
+    held_to_cpu("grain 1 tuple mixed-plan fused(kernels)", pk1, want_p1, [TOL] * len(plans1))
+    if not torch.equal(pl1[1], pk1[1]):
+        fail("[ensemble] grain 1: the fft member is not bit for bit fused(kernels)")
+    torch.cuda.synchronize()
+
+    def own_count(evidence: bool) -> str:
+        """'n of m' members bit for bit their own runs, among the cases
+        where the dataflow shows (grain 1, memory_bound) or the others."""
+        vs = [v for lbl, v in own_bitwise.items()
+              if (lbl.startswith("grain 1") or "memory_bound" in lbl) == evidence]
+        return f"{sum(v is True for v in vs)} of {len(vs)}"
+
+    total = ops.launch_counts()
+    launches_ens = {k: n - check_launches[k] for k, n in total.items()}
+    for k, n in launches_ens.items():
+        if (n == 0) == (k in TASKBENCH_KERNELS):
+            fail(f"kernel {k}: {n} launches on the ensemble path")
+    print(f"[ensemble] {len(ens_runs)} ensemble runs (K={K_ENS} stacked stencil_1d at "
+          f"W={W_MAIN} T={T_MAIN}, S=1 ({T_MAIN} K3 for all members) and S={S_MAIN} "
+          f"pipelined and serial at T={HETERO_T}; memory_bound stacked; mixed-spec tuple "
+          f"at S=1 and {S_MAIN}; mixed-plan tuple; fused(kernels) on each): each graph "
+          f"equal to its eager loop bit for bit, launches equal to "
+          f"ensemble_dispatches_per_run; pipelined equal to serial; the launch plan "
+          f"(S={S_MAIN}, {lp.num_launches} launches) equal to build_ensemble, eviction "
+          f"and admission bit for bit, captures {captures_before} before and after; "
+          f"stacked members bit for bit their own runs: {own_count(True)} at grain 1 "
+          f"and memory_bound (the evidence), {own_count(False)} compute members at grain "
+          f"{GRAIN} (at the FMA's fixed point, no evidence); "
+          f"launches {launches_ens} (and {check_launches} by the eager loops and the "
+          f"references); {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({"ensemble": [
+        {"run": lbl, "runtime": name, "options": opts, "stacked": st,
+         "launches": {k: n for k, n in d.items() if n}}
+        for lbl, name, opts, st, d in ens_runs],
+        "max_abs_err": ens_errs, "own_run_bitwise": own_bitwise,
+        "launch_plan": {"S": S_MAIN, "launches": lp.num_launches,
+                        "kernel_launches": {k: n for k, n in d_plan.items() if n},
+                        "kernel_launches_churned": {k: n for k, n in d_churn.items() if n},
+                        "captures": captures_before}}), flush=True)
+
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall, step_wall_eager = {}, {}
@@ -1423,7 +1789,8 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_run": per_run,
-            "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname]},
+            "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname],
+                                 "ensemble": launches_ens[kname]},
         })
         if kname in ("taskbench_compute", "taskbench_step"):
             # the grid its wrapper launched in the timing above

@@ -167,9 +167,12 @@ class GraphEnsemble:
     — it carries its final state unchanged through the remaining lockstep
     iterations, executing no further tasks.
 
-    There is no dataflow between members. In the port the ensemble is the
-    host-side description and its padded tables; running ensembles on the
-    card is not ported yet (ROADMAP.md).
+    There is no dataflow between members: every backend must produce, for
+    each member, the final state of running that member alone. On the card
+    each backend runs an ensemble as one CUDA graph replay
+    (``Runtime.build_ensemble``): ``fused`` shares each combine and body
+    across a stackable ensemble's members, ``pallas_step`` each megakernel
+    launch across a stacked one's, and both launch per member otherwise.
     """
 
     members: Tuple[TaskGraph, ...]
@@ -205,6 +208,10 @@ class GraphEnsemble:
 
     def total_flops(self) -> int:
         return sum(g.total_flops() for g in self.members)
+
+    def active_table(self) -> np.ndarray:
+        """(T, K) bool: row t says which members run timestep t (t < T_k)."""
+        return np.arange(self.steps)[:, None] < np.asarray(self.member_steps)[None, :]
 
     @cached_property
     def stackable(self) -> bool:

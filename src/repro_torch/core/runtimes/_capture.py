@@ -11,8 +11,10 @@ tensors (the decode step). `GraphRun` captures a runtime's eager loop
 ``eager(init) -> final`` on a static input: it warms up once, eagerly, on a
 side stream, then captures the loop there; ``stage(x)`` copies ``x`` into
 the static input and ``replay()`` runs the graph and returns a clone of the
-static output. A failed capture raises: nothing falls back to the eager
-loop. Launch counters (``kernels/_build.py``): the warm-up and the capture
+static output. An ensemble's loop takes and returns a tuple of member
+states: its static input is a tuple, ``stage`` copies each member's state
+and ``replay`` returns a tuple of clones. A failed capture raises: nothing
+falls back to the eager loop. Launch counters (``kernels/_build.py``): the warm-up and the capture
 count as build launches, and each replay adds the capture's launches to
 the run counters. Dropping either object frees its graph and memory pool.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 
@@ -79,17 +81,29 @@ class Graphed:
         self.close()
 
 
+#: One state, or an ensemble's tuple of member states.
+States = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def clone_states(x: States) -> States:
+    """A copy of a state, or of each state of a tuple."""
+    return x.clone() if isinstance(x, torch.Tensor) else tuple(t.clone() for t in x)
+
+
+def _first(x: States) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else x[0]
+
+
 class GraphRun:
     """``eager(init) -> final`` captured on a static input shaped like
-    ``example`` (on the card): ``stage(x)``, then ``replay()``; or call it
-    with ``x`` for both. ``eager`` stays reachable, the loop the graph
-    records."""
+    ``example`` (on the card), a tensor or a tuple of tensors:
+    ``stage(x)``, then ``replay()``; or call it with ``x`` for both.
+    ``eager`` stays reachable, the loop the graph records."""
 
-    def __init__(self, eager: Callable[[torch.Tensor], torch.Tensor],
-                 example: torch.Tensor):
+    def __init__(self, eager: Callable[[States], States], example: States):
         self.eager = eager
-        dev = example.device
-        self.static_in = example.clone()
+        dev = _first(example).device
+        self.static_in = clone_states(example)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with _build.building(), torch.cuda.stream(stream):
@@ -105,13 +119,20 @@ class GraphRun:
     def nodes(self) -> int:
         return self.graphed.nodes
 
-    def stage(self, x: torch.Tensor) -> None:
-        self.static_in.copy_(x)
+    def stage(self, x: States) -> None:
+        if isinstance(self.static_in, torch.Tensor):
+            self.static_in.copy_(x)
+            return
+        if len(x) != len(self.static_in):
+            raise ValueError(f"staged {len(x)} states into a graph of "
+                             f"{len(self.static_in)}")
+        for dst, src in zip(self.static_in, x):
+            dst.copy_(src)
 
-    def replay(self) -> torch.Tensor:
-        return self.graphed.replay().clone()
+    def replay(self) -> States:
+        return clone_states(self.graphed.replay())
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: States) -> States:
         self.stage(x)
         return self.replay()
 
@@ -119,26 +140,28 @@ class GraphRun:
         self.graphed.close()
 
 
-def time_runs(run: Callable, x: torch.Tensor, *, reps: int, warmup: int = 1
+def time_runs(run: Callable, x: States, *, reps: int, warmup: int = 1
               ) -> List[float]:
     """Host seconds of each of ``reps`` runs of ``run`` (a `GraphRun`, or an
-    eager loop) on fresh copies of ``x``: each copy is staged outside the
-    timed region, which holds the run and a device synchronize;
-    ``max(warmup, 1)`` untimed runs first."""
+    eager loop) on fresh copies of ``x`` (a state, or an ensemble's tuple):
+    each copy is staged outside the timed region, which holds the run and a
+    device synchronize; ``max(warmup, 1)`` untimed runs first."""
     if isinstance(run, GraphRun):
         stage, replay = run.stage, run.replay
     else:
-        held: List[torch.Tensor] = []
+        held: List[States] = []
 
         def stage(x):
-            held[:] = [x.clone()]
+            held[:] = [clone_states(x)]
 
         def replay():
             return run(held[0])
 
+    dev = _first(x).device
+
     def sync():
-        if x.device.type == "cuda":
-            torch.cuda.synchronize(x.device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     for _ in range(max(warmup, 1)):
         stage(x)

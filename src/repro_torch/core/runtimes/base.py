@@ -14,22 +14,31 @@ the counterpart of the reference's ``jax.jit`` of a whole run), so a run is
 one host call; on the CPU it returns the eager loop. A capture that fails
 raises: nothing falls back to the eager loop on the card.
 
+Ensembles (`GraphEnsemble`, Task Bench's ``-and``) run the same way: each
+backend writes an ensemble's run as an eager loop over a tuple of member
+states (``_build_ensemble_eager``), and ``build_ensemble`` captures it as one
+CUDA graph on the card. `EnsembleLaunchPlan` is the host-steppable form of
+an ensemble run, one launch per call (``build_ensemble_launches``; only
+``pallas_step`` has one).
+
 Runtimes run on the card (``device="cuda"``, the default) unless the caller
 asks for the CPU; with no card they raise rather than run on the CPU. Not
-ported yet (ROADMAP.md): the ``trace=`` option, ``EnsembleLaunchPlan`` and
-the ensemble methods.
+ported yet (ROADMAP.md): the ``trace=`` option (Queue 1 item 9) and
+``execute_ensemble_resilient``, which needs the resilience engine (Queue 1
+item 10).
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Callable, Optional, Tuple
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import TaskGraph
-from repro_torch.core.metg import GrainSample
+from repro_torch.core.graph import GraphEnsemble, TaskGraph
+from repro_torch.core.metg import GrainSample, combine_grain_samples
 from repro_torch.core.runtimes._capture import GraphRun, time_runs
 from repro_torch.core.task_kernels import initial_state, state_from_reference
 
@@ -44,6 +53,57 @@ class TimingStats:
     #: run), and its node count; None for the eager loop on the CPU
     capture_s: Optional[float] = None
     graph_nodes: Optional[int] = None
+
+
+@dataclasses.dataclass
+class EnsembleLaunchPlan:
+    """A host-steppable launch schedule for one ensemble run.
+
+    Counterpart of the reference's ``EnsembleLaunchPlan``: the launch
+    boundaries of an ensemble run, visible to the host, for the resilience
+    engine and the serving loop (Queue 1 item 10), which detect, retry or
+    replay at a boundary. Every ``launch_fn`` call is a deterministic
+    function of (carry, act row), so a replay from the pre-launch carry
+    gives the same bits. ``acts`` is the host (L, K, S) activity schedule;
+    a caller edits its own copy to evict a member (zero its (K, S) slot from
+    the eviction launch on) or to re-admit a fresh one into a freed slot.
+    """
+
+    #: lockstep timesteps advanced per launch (the blocked cadence)
+    steps_per_launch: int
+    #: each member's own horizon T_k
+    member_steps: Tuple[int, ...]
+    #: (L, K, S) float32 per-depth activity masks, on the host
+    acts: np.ndarray
+    #: per-member initial states (a sequence of tensors on the runtime's
+    #: device) -> carry (the t = 0 body-only launch)
+    init_fn: Callable[[Sequence[torch.Tensor]], Any]
+    #: (carry, act row (K, S) numpy array, launch's first lockstep timestep)
+    #: -> next carry
+    launch_fn: Callable[[Any, np.ndarray, int], Any]
+    #: carry -> tuple of per-member (W_k, P_k) final states
+    finalize: Callable[[Any], Tuple[torch.Tensor, ...]]
+    #: (carry, slot, init state) -> carry with the slot's rows replaced by
+    #: the fresh member's t = 0 state (re-admission); None where the
+    #: schedule cannot replace rows in place
+    admit_fn: Optional[Callable[[Any, int, torch.Tensor], Any]] = None
+    #: the cost model's expected wall per launch; None until the cost model
+    #: is ported (ROADMAP Queue 1 item 7)
+    expected_launch_us: Optional[float] = None
+    #: "stacked" or "stepwise"
+    kind: str = ""
+    #: zero-argument callable giving the CUDA graphs captured so far
+    #: (``_build.CAPTURES``): editing ``acts`` or admitting a member must
+    #: not make it grow (no re-capture under membership churn)
+    compile_counter: Optional[Callable[[], int]] = None
+
+    @property
+    def num_launches(self) -> int:
+        return int(self.acts.shape[0])
+
+    def launch_t0(self, launch: int) -> int:
+        """First lockstep timestep executed by launch ``launch``."""
+        return 1 + launch * self.steps_per_launch
 
 
 class Runtime(abc.ABC):
@@ -84,10 +144,23 @@ class Runtime(abc.ABC):
         """Whether this backend can run the graph (and why not, if not)."""
         return True, ""
 
+    def supports_ensemble(self, ensemble: GraphEnsemble) -> Tuple[bool, str]:
+        """Whether this backend can run every member of the ensemble."""
+        for i, g in enumerate(ensemble.members):
+            ok, why = self.supports(g)
+            if not ok:
+                return False, f"member {i} ({g.describe()}): {why}"
+        return True, ""
+
     def _require_support(self, graph: TaskGraph) -> None:
         ok, why = self.supports(graph)
         if not ok:
             raise ValueError(f"runtime {self.name} cannot run {graph.describe()}: {why}")
+
+    def _require_ensemble_support(self, ensemble: GraphEnsemble) -> None:
+        ok, why = self.supports_ensemble(ensemble)
+        if not ok:
+            raise ValueError(f"runtime {self.name} cannot run ensemble: {why}")
 
     # -- execution ---------------------------------------------------------
 
@@ -112,12 +185,54 @@ class Runtime(abc.ABC):
         """Device launches for one execution (overhead model)."""
         return 1
 
+    @abc.abstractmethod
+    def _build_ensemble_eager(
+            self, ensemble: GraphEnsemble
+    ) -> Callable[[Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, ...]]:
+        """The ensemble's run as an eager loop: one initial (W_k, payload_k)
+        state per member on the device -> each member's final state. Member
+        dataflows never mix; the backend decides only how members share
+        launches."""
+
+    def build_ensemble(
+            self, ensemble: GraphEnsemble
+    ) -> Callable[[Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, ...]]:
+        """An executor for K concurrent member graphs: a tuple of initial
+        states -> a tuple of final states. On the card, the eager loop
+        captured as one CUDA graph (a `GraphRun` over the tuple); on the
+        CPU, the eager loop."""
+        self._require_ensemble_support(ensemble)
+        eager = self._build_ensemble_eager(ensemble)
+        if self.device.type != "cuda":
+            return eager
+        return GraphRun(eager, tuple(
+            torch.zeros((g.width, g.payload), dtype=torch.float32, device=self.device)
+            for g in ensemble.members))
+
+    def ensemble_dispatches_per_run(self, ensemble: GraphEnsemble) -> int:
+        """Device launches for one ensemble execution: by default every
+        member's own, summed."""
+        return sum(self.dispatches_per_run(g) for g in ensemble.members)
+
     def _init(self, graph: TaskGraph, init) -> torch.Tensor:
         if init is None:
             return initial_state(graph.width, graph.payload, graph.seed, self.device)
         if isinstance(init, torch.Tensor):
             return init.to(self.device, torch.float32)
         return state_from_reference(init, self.device)
+
+    def _ensemble_inits(self, ensemble: GraphEnsemble,
+                        inits=None) -> Tuple[torch.Tensor, ...]:
+        """Each member's initial state on the device: the port's own
+        `initial_state` by default, else ``inits`` (tensors or numpy arrays,
+        e.g. the reference's), one per member."""
+        members = ensemble.members
+        if inits is None:
+            inits = (None,) * len(members)
+        elif len(inits) != len(members):
+            raise ValueError(f"got {len(inits)} initial states for "
+                             f"{len(members)} ensemble members")
+        return tuple(self._init(g, x) for g, x in zip(members, inits))
 
     def execute(self, graph: TaskGraph, init=None) -> np.ndarray:
         """Build the run (on the card, capture its CUDA graph) and run it
@@ -130,6 +245,23 @@ class Runtime(abc.ABC):
         x = self._init(graph, init)
         out = self.build(graph)(x)
         return out.cpu().numpy()
+
+    def execute_ensemble(self, ensemble: GraphEnsemble,
+                         inits=None) -> Tuple[np.ndarray, ...]:
+        """Build the ensemble's run (on the card, capture its CUDA graph)
+        and run all members once; returns each member's final state."""
+        self._require_ensemble_support(ensemble)
+        xs = self._ensemble_inits(ensemble, inits)
+        outs = self.build_ensemble(ensemble)(xs)
+        return tuple(o.cpu().numpy() for o in outs)
+
+    def build_ensemble_launches(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
+        """A host-steppable launch schedule (`EnsembleLaunchPlan`). A backend
+        whose run is one opaque program has no launch boundaries to expose;
+        ``pallas_step`` overrides this."""
+        raise NotImplementedError(
+            f"runtime {self.name} has no launch-granular schedule; resilient "
+            f"execution needs pallas_step")
 
     # -- measurement -------------------------------------------------------
 
@@ -163,6 +295,67 @@ class Runtime(abc.ABC):
             cores=self.cores,
         )
         return sample, stats
+
+    def _ensemble_sample(self, ensemble: GraphEnsemble, wall: float) -> GrainSample:
+        """The members' samples folded into one at the ensemble's wall
+        (`metg.combine_grain_samples`): FLOPs and tasks sum, the grain is
+        the task-weighted mean."""
+        return combine_grain_samples([
+            GrainSample(iterations=g.kernel.iterations, wall_time=wall,
+                        total_flops=float(g.total_flops()), num_tasks=g.num_tasks,
+                        cores=self.cores)
+            for g in ensemble.members], wall_time=wall)
+
+    def measure_ensemble(self, ensemble: GraphEnsemble, *, reps: int = 3,
+                         warmup: int = 1, inits=None) -> Tuple[GrainSample, TimingStats]:
+        """Timed concurrent execution of all members -> one aggregate
+        sample, so `compute_metg` runs unchanged on ensemble sweeps. Timed
+        as `measure` times a single graph (on the card one graph replay of
+        the whole ensemble)."""
+        self._require_ensemble_support(ensemble)
+        xs = self._ensemble_inits(ensemble, inits)
+        fn = self.build_ensemble(ensemble)
+        walls = time_runs(fn, xs, reps=reps, warmup=warmup)
+        graphed = isinstance(fn, GraphRun)
+        stats = TimingStats(
+            best=min(walls), mean=sum(walls) / len(walls), walls=tuple(walls),
+            dispatches=self.ensemble_dispatches_per_run(ensemble),
+            capture_s=fn.capture_s if graphed else None,
+            graph_nodes=fn.nodes if graphed else None)
+        return self._ensemble_sample(ensemble, stats.best), stats
+
+    def measure_launch_plan(self, ensemble: GraphEnsemble, *, reps: int = 3,
+                            warmup: int = 1) -> Tuple[GrainSample, TimingStats]:
+        """Timed host-stepped execution of ``build_ensemble_launches``: the
+        init launch, then each launch followed by a device synchronize, the
+        cadence of the resilience engine and the serving loop."""
+        self._require_ensemble_support(ensemble)
+        lp = self.build_ensemble_launches(ensemble)
+        xs = self._ensemble_inits(ensemble)
+        acts = np.asarray(lp.acts, dtype=np.float32)
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def run_once():
+            carry = lp.init_fn(tuple(x.clone() for x in xs))
+            sync()
+            for l in range(lp.num_launches):
+                carry = lp.launch_fn(carry, acts[l], lp.launch_t0(l))
+                sync()
+            return lp.finalize(carry)
+
+        for _ in range(max(warmup, 1)):
+            run_once()
+        walls: List[float] = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run_once()
+            walls.append(time.perf_counter() - t0)
+        stats = TimingStats(best=min(walls), mean=sum(walls) / len(walls),
+                            walls=tuple(walls), dispatches=1 + lp.num_launches)
+        return self._ensemble_sample(ensemble, stats.best), stats
 
 
 # ----------------------------------------------------------------- registry

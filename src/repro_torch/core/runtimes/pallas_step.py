@@ -82,6 +82,26 @@ the capturing one and joins it back at every launch, so the graph holds
 the two phases as parallel branches. ``pipeline=False`` is the serial
 ablation; both give the same bits.
 
+Ensembles (``build_ensemble``; the reference's ensemble section). An
+ensemble is *stacked* when its members share (width, payload) and one
+kernel and all take the halo plan (`stacking_verdict` names the failed
+requirement otherwise): all K members then share each launch, K3 on the
+(K, W, payload) state with ``wrap=H`` for H the largest radius (each
+member's window operands built at that H; gather/onehot tables padded with
+index 0 at weight 0, a valid row under the wrap), or K4 with ``radius=H``
+and the (K, S) act rows of `_act_schedule` (member k runs depth d while its
+own horizon lasts), serial or pipelined as for one graph; at S = 1 a member
+past its horizon keeps its state through a ``torch.where`` on a slice of a
+static (T-1, K) table. Any other ensemble is a *tuple*: each member launches
+its own plan's kernel every step (halo members through `_operands`, stride
+and all-gather members through `_plan_step_fns`), frozen members included,
+whose output the host then drops; when every member is on the halo plan,
+the shared cadence blocks too, each member serial or pipelined by its own
+gate. A member off the halo plan pins the cadence to one step a launch.
+``build_ensemble_launches`` gives the host-steppable form
+(`EnsembleLaunchPlan`): the stacked one captures its launch once on the
+card and replays it per launch, with the act row staged into the graph.
+
 Options: ``combine`` = "window" (default: the halo plan's shifted-row
 sums; ``pair`` on the stride plan, ``gather`` on the all-gather plan) or
 "gather" / "onehot" (the ablations, honoured on every plan);
@@ -92,7 +112,8 @@ all-gather plan takes (default 512, `schedule.DEFAULT_GATHER_WIDTH_CAP`);
 ``psum_mean`` = True or False (all_to_all's row-mean combine). The
 reference's ``gather_impl``, ``halo_impl``, ``block_rows`` and ``unroll``
 are transports and tilings of its multi-device and TPU paths (ROADMAP
-Queue 1 item 8), unknown options here.
+Queue 1 item 8), unknown options here, as is ``member_shards`` (the
+row x member mesh, Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -103,8 +124,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import patterns as _patterns
-from repro_torch.core.graph import TaskGraph
-from repro_torch.core.runtimes.base import Runtime, register
+from repro_torch.core.graph import GraphEnsemble, TaskGraph
+from repro_torch.core.runtimes._capture import GraphRun
+from repro_torch.core.runtimes.base import EnsembleLaunchPlan, Runtime, register
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import schedule as _schedule
 from repro_torch.kernels.schedule import AUTO_NOT_PORTED
@@ -463,6 +486,19 @@ def _act_schedule(
     return (t < msteps).astype(np.float32)
 
 
+def _stack_operands(ops4):
+    """Stack per-member (idx, wgt, idx0, wgt0) numpy operands on a leading K
+    axis, padding every member's slot dim to the group max (idx 0 / weight
+    0: a harmless gather of row 0 at weight zero)."""
+
+    def stack(j):
+        dmax = max(o[j].shape[1] for o in ops4)
+        return np.stack([np.pad(o[j], ((0, 0), (0, dmax - o[j].shape[1])))
+                         for o in ops4])
+
+    return stack(0), stack(1), stack(2), stack(3)
+
+
 class _ResolvedPlan(NamedTuple):
     """What one graph will actually run: a plan kind and a launch depth;
     ``reason`` names why a plan was re-routed (empty for structural
@@ -633,29 +669,62 @@ class PallasStepRuntime(Runtime):
 
     def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         plan = self._schedule_for_graph(graph)
-        if plan.kind == PLAN_STRIDE:
+        S = plan.steps_per_launch
+        if S == 1:
             return self._build_plan_stepper(graph, plan.kind)
         if plan.kind == PLAN_ALLGATHER:
-            if plan.steps_per_launch > 1:
-                return self._build_allgather_blocked(graph, plan.steps_per_launch)
-            return self._build_plan_stepper(graph, plan.kind)
-        S = plan.steps_per_launch
-        if S > 1:
-            return self._build_blocked(graph, S)
+            return self._build_allgather_blocked(graph, S)
+        return self._build_blocked(graph, S)
+
+    def _halo_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+        """(t0, step) for the halo plan at S = 1 on (1, W, P) states: the
+        t = 0 body-only K3 launch on the self operands, then one K3 launch a
+        timestep with the halo wrap folded in (``wrap=H``)."""
         H = _patterns.halo_radius(graph)
         kw = self._kernel_kw(graph)
         idx, wgt, idx0, wgt0 = (
             torch.from_numpy(a)[None].to(self.device)
             for a in self._operands(graph, H))
-        steps = graph.steps
 
-        def run(init):
-            state = _kops.taskbench_step(init[None], idx0, wgt0, **kw)  # t=0
-            for _ in range(steps - 1):
-                state = _kops.taskbench_step(state, idx, wgt, wrap=H, **kw)
-            return state[0]
+        def t0(x):
+            return _kops.taskbench_step(x, idx0, wgt0, **kw)
 
-        return run
+        def step(x, t: int):
+            return _kops.taskbench_step(x, idx, wgt, wrap=H, **kw)
+
+        return t0, step
+
+    def _blocked_launches(self, idx, wgt, B: int, S: int, H: int, kwb: dict,
+                          pipelined: bool) -> Tuple[Callable, Callable]:
+        """(begin, launch) for the halo plan's blocked launches on a stacked
+        (K, B, payload) state with (K, B, D) tables: ``begin(state)`` gives
+        the carry, ``launch(carry, a)`` runs one blocked launch under the
+        (K, S) act rows ``a`` and gives the next; the state is ``carry[0]``.
+        Pipelined: boundary + interior phases (two K4 launches, the interior
+        on a second stream on the card). Serial: one deep wrap and one K4
+        launch on the wrapped state, the owned rows sliced out after it."""
+        depth = S * H
+        mode = self._combine_mode()
+        if pipelined:
+            ph = _phase_tables(idx, wgt, depth, mode)
+            side = (torch.cuda.Stream(self.device)
+                    if self.device.type == "cuda" else None)
+
+            def begin(state):
+                return (state, *_prologue_exchange(state, depth))
+
+            def launch(carry, a):
+                return _pipelined_launch(*carry, a, ph, depth, kwb, side)
+
+            return begin, launch
+        iext, wext = _extend_tables(idx, wgt, depth, mode, row_axis=1)
+        rows = halo_rows(B, depth, self.device) if depth else None
+
+        def launch(carry, a):
+            nf = _kops.taskbench_step(_extend_state(carry[0], rows), iext, wext, a, **kwb)
+            return (nf[:, depth:depth + B],)
+
+        return (lambda state: (state,)), launch
 
     def _build_blocked(self, graph: TaskGraph, S: int) -> Callable:
         """ceil((T-1)/S) launches of K4 after the t = 0 K3 launch. When the
@@ -663,9 +732,7 @@ class PallasStepRuntime(Runtime):
         phases (two K4 launches); otherwise one deep wrap and one K4 launch
         on the wrapped state."""
         H = _patterns.halo_radius(graph)
-        depth = S * H
-        B, T = graph.width, graph.steps
-        mode = self._combine_mode()
+        T = graph.steps
         kw0 = self._kernel_kw(graph)
         # the tables reach at most H rows (window: D = 2H + 1; gather/onehot:
         # offsets in [-H, H], which `_rebase_rows`' clamp only moves toward
@@ -674,32 +741,15 @@ class PallasStepRuntime(Runtime):
         idx, wgt, idx0, wgt0 = (
             torch.from_numpy(a)[None].to(self.device)
             for a in self._blocked_operands(graph, H))
-        acts = torch.from_numpy(
-            _act_schedule((T,), T, S)[:, 0]).to(self.device)  # (L, S)
-        pipelined = self._pipeline_active(B, S, H)
-        if pipelined:
-            ph = _phase_tables(idx, wgt, depth, mode)
-            side = (torch.cuda.Stream(self.device)
-                    if self.device.type == "cuda" else None)
-        else:
-            iext, wext = _extend_tables(idx, wgt, depth, mode, row_axis=1)
-            rows = halo_rows(B, depth, self.device) if depth else None
+        acts = torch.from_numpy(_act_schedule((T,), T, S)).to(self.device)  # (L, 1, S)
+        begin, launch = self._blocked_launches(
+            idx, wgt, graph.width, S, H, kwb, self._pipeline_active(graph.width, S, H))
 
         def run(init):
-            state = _kops.taskbench_step(init[None], idx0, wgt0, **kw0)  # t=0
-            if T == 1:
-                return state[0]
-            if pipelined:
-                hl, hr = _prologue_exchange(state, depth)
-                for a in acts:
-                    state, hl, hr = _pipelined_launch(
-                        state, hl, hr, a[None], ph, depth, kwb, side)
-                return state[0]
+            carry = begin(_kops.taskbench_step(init[None], idx0, wgt0, **kw0))  # t=0
             for a in acts:
-                nf = _kops.taskbench_step(_extend_state(state, rows), iext, wext,
-                                          a[None], **kwb)
-                state = nf[:, depth:depth + B]
-            return state[0]
+                carry = launch(carry, a)
+            return carry[0][0]
 
         return run
 
@@ -785,14 +835,17 @@ class PallasStepRuntime(Runtime):
 
         return tables_at, (lambda t: (t - 1) % period), period > 1
 
-    def _allgather_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+    def _allgather_step_fns(self, graph: TaskGraph,
+                            steps: Optional[int] = None) -> Tuple[Callable, Callable]:
         """(t0, step) for the all-gather plan, per step, on (1, W, P) states.
 
         ``step(s, t)``: one K3 launch on timestep t's global tables (a
-        slice of a stack built once, on the host). all_to_all under
-        ``psum_mean`` (default on) takes the row mean instead (see the
-        module docstring): sum and divide, then one K3 launch."""
-        W, T = graph.width, graph.steps
+        slice of a stack built once, on the host, for t < ``steps``, by
+        default the graph's T; an ensemble's lockstep T is longer for a
+        member that freezes early). all_to_all under ``psum_mean`` (default
+        on) takes the row mean instead (see the module docstring): sum and
+        divide, then one K3 launch."""
+        W, T = graph.width, steps or graph.steps
         dev = self.device
         kw = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
         i0, w0 = (a[None] for a in _self_tables(W, dev))
@@ -821,15 +874,19 @@ class PallasStepRuntime(Runtime):
 
         return t0, step
 
-    def _plan_step_fns(self, graph: TaskGraph, plan: str) -> Tuple[Callable, Callable]:
+    def _plan_step_fns(self, graph: TaskGraph, plan: str,
+                       steps: Optional[int] = None) -> Tuple[Callable, Callable]:
+        """(t0, step) of ``plan`` at S = 1 on (1, W, P) states, valid for
+        t < ``steps`` (default the graph's T)."""
+        if plan == PLAN_HALO:
+            return self._halo_step_fns(graph)
         if plan == PLAN_STRIDE:
             return self._stride_step_fns(graph)
-        return self._allgather_step_fns(graph)
+        return self._allgather_step_fns(graph, steps)
 
     def _build_plan_stepper(self, graph: TaskGraph, plan: str) -> Callable:
-        """The stride / all-gather plans per step: one K3 launch a
-        timestep (and the plan's glue: the XOR shuffle, or all_to_all's
-        row mean), the same dispatch shape as the halo plan at S = 1."""
+        """Any plan per step: one K3 launch a timestep (and the plan's glue:
+        the XOR shuffle, or all_to_all's row mean)."""
         T = graph.steps
         t0, step = self._plan_step_fns(graph, plan)
 
@@ -875,6 +932,286 @@ class PallasStepRuntime(Runtime):
 
         return run
 
+    # ------------------------------------------------------------ ensembles
+
+    def _ensemble_steps_per_launch(self, ensemble: GraphEnsemble) -> int:
+        """One launch cadence for all members (launch boundaries are
+        shared): a member on the stride or all-gather plan pins it to one
+        step a launch (its exchanges are per step); otherwise the explicit
+        depth, clamped to the lockstep T. (The reference takes the most
+        conservative member's resolved depth, which differs from this only
+        under "auto", not ported.)"""
+        if any(self.plan_for(g)[0] != PLAN_HALO for g in ensemble.members):
+            return 1
+        return self._steps_per_launch(ensemble.steps)
+
+    def stacking_verdict(self, ensemble: GraphEnsemble) -> Tuple[bool, str]:
+        """``supports()``-style verdict for the stacked fast path: (ok,
+        reason). Stacked launches share one (K, W, ...) operand set built by
+        the halo-plan machinery, so they require uniform (width, payload),
+        one kernel, and every member on the halo plan; anything else takes
+        the per-member tuple path. The reason names each requirement that
+        failed, as the reference's does."""
+        members = ensemble.members
+        reasons = []
+        if not ensemble.stackable:
+            widths = sorted({g.width for g in members})
+            payloads = sorted({g.payload for g in members})
+            reasons.append(
+                f"members do not stack into one (K, W, payload) state: "
+                f"widths {widths}, payloads {payloads}")
+        kernels = {g.kernel for g in members}
+        if len(kernels) != 1:
+            reasons.append("mixed kernels: " + ", ".join(sorted(
+                f"{k.kind}@it{k.iterations}" for k in kernels)))
+        off_plan = []
+        for i, g in enumerate(members):
+            plan, _ = self.plan_for(g)
+            if plan != PLAN_HALO:
+                off_plan.append(
+                    f"member {i} ({g.pattern}) resolves the "
+                    f"{plan or 'un-supported'} plan")
+        if off_plan:
+            reasons.append(
+                "stacked operands are built by the halo-plan machinery: "
+                + "; ".join(off_plan))
+        if reasons:
+            return False, "; ".join(reasons)
+        return True, ("stacked: uniform (width, payload, kernel) and "
+                      "every member on the halo plan")
+
+    def _is_stacked(self, ensemble: GraphEnsemble) -> bool:
+        return self.stacking_verdict(ensemble)[0]
+
+    def _stacked_operands(self, ensemble: GraphEnsemble, H: int, blocked: bool):
+        """The members' (idx, wgt, idx0, wgt0) at the shared halo H, stacked
+        (`_stack_operands`) and moved to the device."""
+        build = self._blocked_operands if blocked else self._operands
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in _stack_operands([build(g, H) for g in ensemble.members]))
+
+    def _build_ensemble_eager(self, ensemble: GraphEnsemble) -> Callable:
+        S = self._ensemble_steps_per_launch(ensemble)
+        if self._is_stacked(ensemble):
+            if S > 1:
+                return self._build_ensemble_stacked_blocked(ensemble, S)
+            return self._build_ensemble_stacked(ensemble)
+        if S > 1:
+            return self._build_ensemble_tuple_blocked(ensemble, S)
+        return self._build_ensemble_tuple(ensemble)
+
+    def _build_ensemble_stacked(self, ensemble: GraphEnsemble) -> Callable:
+        """All K members' combines and bodies in one K3 launch a timestep,
+        on the (K, W, payload) state with the wrap folded in at H, the
+        largest radius; the t = 0 launch on the stacked (K, W, 1) self
+        operands. With mixed horizons a member past its own T keeps its
+        state (``torch.where`` on a slice of a static table)."""
+        T = ensemble.steps
+        t0, step = self._stacked_step_fns(ensemble)
+        live = (torch.from_numpy(ensemble.active_table()[:, :, None, None]).to(self.device)
+                if ensemble.heterogeneous_steps else None)
+
+        def run(inits):
+            state = t0(inits)
+            for t in range(1, T):
+                state = step(state, None if live is None else live[t])
+            return state.unbind(0)
+
+        return run
+
+    def _stacked_step_fns(self, ensemble: GraphEnsemble):
+        """The stacked S = 1 (t0, step) fns: ``t0(inits, slots)`` is the
+        t = 0 K3 on the stacked self operands of the members ``slots`` (all
+        by default); ``step(state, live)`` one K3 for all K
+        members with the wrap folded in at H, the largest radius, and, when
+        ``live`` is a (K, 1, 1) bool, a member that is not live keeps its
+        state (``torch.where``)."""
+        members = ensemble.members
+        H = max(_patterns.halo_radius(g) for g in members)
+        kw = self._kernel_kw(members[0])
+        idx, wgt, idx0, wgt0 = self._stacked_operands(ensemble, H, blocked=False)
+
+        def t0(inits, slots=slice(None)):
+            return _kops.taskbench_step(torch.stack(tuple(inits)), idx0[slots], wgt0[slots],
+                                        **kw)
+
+        def step(state, live=None):
+            nxt = _kops.taskbench_step(state, idx, wgt, wrap=H, **kw)
+            return nxt if live is None else torch.where(live, nxt, state)
+
+        return t0, step
+
+    def _build_ensemble_stacked_blocked(self, ensemble: GraphEnsemble, S: int) -> Callable:
+        """All K members share each blocked launch (two when pipelined: one
+        boundary launch for both edges of every member, one interior
+        launch), K4 with ``radius=H`` and member k's act row freezing it at
+        its own horizon."""
+        members = ensemble.members
+        W, T = members[0].width, ensemble.steps
+        H = max(_patterns.halo_radius(g) for g in members)
+        kw0 = self._kernel_kw(members[0])
+        kwb = dict(kw0, steps_per_launch=S, radius=H)
+        idx, wgt, idx0, wgt0 = self._stacked_operands(ensemble, H, blocked=True)
+        acts = torch.from_numpy(
+            _act_schedule(ensemble.member_steps, T, S)).to(self.device)  # (L, K, S)
+        begin, launch = self._blocked_launches(
+            idx, wgt, W, S, H, kwb, self._pipeline_active(W, S, H))
+
+        def run(inits):
+            carry = begin(_kops.taskbench_step(torch.stack(inits), idx0, wgt0, **kw0))
+            for a in acts:
+                carry = launch(carry, a)
+            return carry[0].unbind(0)
+
+        return run
+
+    def _build_ensemble_tuple(self, ensemble: GraphEnsemble) -> Callable:
+        """Mixed specs, shapes or plans, one step a launch: every member's
+        (t0, step) of its own plan, each member launched every lockstep
+        step. A frozen member is launched too (the reference's accounting)
+        and its output dropped on the host: t is a host int."""
+        members = ensemble.members
+        T = ensemble.steps
+        fns = [self._plan_step_fns(g, self.plan_for(g)[0], T) for g in members]
+
+        def run(inits):
+            states = [t0(x[None]) for (t0, _), x in zip(fns, inits)]
+            for t in range(1, T):
+                for k, (g, (_, step)) in enumerate(zip(members, fns)):
+                    nxt = step(states[k], t)
+                    if t < g.steps:
+                        states[k] = nxt
+            return tuple(s[0] for s in states)
+
+        return run
+
+    def _build_ensemble_tuple_blocked(self, ensemble: GraphEnsemble, S: int) -> Callable:
+        """Mixed specs or shapes, every member on the halo plan, blocked:
+        one S-step launch per member per lockstep launch (the cadence and
+        the act schedule shared), each member serial or pipelined by its
+        own gate (one with no interior at depth S * h_k stays serial)."""
+        members = ensemble.members
+        T = ensemble.steps
+        acts = torch.from_numpy(
+            _act_schedule(ensemble.member_steps, T, S)).to(self.device)  # (L, K, S)
+        t0s, runners = [], []
+        for g in members:
+            h = _patterns.halo_radius(g)
+            kw0 = self._kernel_kw(g)
+            idx, wgt, idx0, wgt0 = (torch.from_numpy(a)[None].to(self.device)
+                                    for a in self._blocked_operands(g, h))
+            t0s.append((idx0, wgt0, kw0))
+            runners.append(self._blocked_launches(
+                idx, wgt, g.width, S, h, dict(kw0, steps_per_launch=S, radius=h),
+                self._pipeline_active(g.width, S, h)))
+
+        def run(inits):
+            carries = [begin(_kops.taskbench_step(x[None], i0, w0, **kw0))
+                       for x, (i0, w0, kw0), (begin, _) in zip(inits, t0s, runners)]
+            for a in acts:
+                for k, (_, launch) in enumerate(runners):
+                    carries[k] = launch(carries[k], a[k:k + 1])
+            return tuple(c[0][0] for c in carries)
+
+        return run
+
+    # ----------------------------------------------------------- launch plans
+
+    def build_ensemble_launches(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
+        """The ensemble's launch structure, stepped from the host: a
+        stacked ensemble keeps its blocked cadence on the serial schedule
+        (equal to the pipelined one bit for bit); any other runs the tuple
+        path's step fns one step a launch. Each launch is a deterministic
+        function of (carry, act row)."""
+        self._require_ensemble_support(ensemble)
+        if self._is_stacked(ensemble):
+            return self._launch_plan_stacked(
+                ensemble, self._ensemble_steps_per_launch(ensemble))
+        return self._launch_plan_stepwise(ensemble)
+
+    def _launch_plan_stacked(self, ensemble: GraphEnsemble, S: int) -> EnsembleLaunchPlan:
+        """Host-stepped twin of the stacked builds: the same kernels,
+        operands and act predicate. At S = 1 a launch is one K3 step and a
+        ``torch.where`` on act row column 0 (member k runs while it is 1);
+        at S > 1 one serial K4 launch. On the card the launch is captured
+        once, over a static carry and a static act row, and each call
+        stages both and replays it, so editing ``acts`` or admitting a
+        member captures nothing. ``admit_fn`` runs the t = 0 K3 on the new
+        init and writes its rows into the carry's slot, in place."""
+        members = ensemble.members
+        K, B, P, T = len(members), members[0].width, members[0].payload, ensemble.steps
+        first, step = self._stacked_step_fns(ensemble)
+        if S > 1:
+            H = max(_patterns.halo_radius(g) for g in members)
+            idx, wgt, _, _ = self._stacked_operands(ensemble, H, blocked=True)
+            _, blocked = self._blocked_launches(
+                idx, wgt, B, S, H, dict(self._kernel_kw(members[0]), steps_per_launch=S,
+                                        radius=H), False)
+
+            def launch(xs):
+                s, a = xs
+                return blocked((s,), a)[0]
+        else:
+            def launch(xs):
+                s, a = xs
+                return step(s, a[:, :1, None] > 0)
+
+        dev = self.device
+        graphed = (GraphRun(launch, (torch.zeros((K, B, P), device=dev),
+                                     torch.zeros((K, S), device=dev)))
+                   if dev.type == "cuda" else None)
+
+        def launch_fn(carry, act_row, t0):
+            del t0  # the stacked halo tables are time-invariant
+            a = torch.as_tensor(np.asarray(act_row, dtype=np.float32))
+            if graphed is None:
+                return launch((carry, a.to(dev)))
+            return graphed((carry, a))
+
+        def admit_fn(carry, slot, init):
+            carry[slot].copy_(first((init,), slice(slot, slot + 1))[0])
+            return carry
+
+        return EnsembleLaunchPlan(
+            steps_per_launch=S, member_steps=tuple(ensemble.member_steps),
+            acts=_act_schedule(ensemble.member_steps, T, S), init_fn=first,
+            launch_fn=launch_fn, finalize=lambda carry: carry.unbind(0),
+            admit_fn=admit_fn, kind="stacked",
+            compile_counter=lambda: _build.CAPTURES["graphs"])
+
+    def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
+        """One step a launch for mixed ensembles: the tuple path's (t0,
+        step) fns, issued eagerly from the host at each launch (t picks each
+        member's branch or table slice), every member launched and a frozen
+        one's output dropped by its act row, so eviction is the same edit of
+        ``acts`` as for the stacked plan. Nothing is captured."""
+        members = ensemble.members
+        T = ensemble.steps
+        fns = [self._plan_step_fns(g, self.plan_for(g)[0], T) for g in members]
+
+        def init_fn(inits):
+            return tuple(t0(x[None]) for (t0, _), x in zip(fns, inits))
+
+        def launch_fn(carry, act_row, t0):
+            act = np.asarray(act_row)
+            out = []
+            for k, (s, (_, step)) in enumerate(zip(carry, fns)):
+                nxt = step(s, t0)  # launched also when frozen
+                out.append(nxt if act[k, 0] > 0 else s)
+            return tuple(out)
+
+        def admit_fn(carry, slot, init):
+            out = list(carry)
+            out[slot] = fns[slot][0](init[None])
+            return tuple(out)
+
+        return EnsembleLaunchPlan(
+            steps_per_launch=1, member_steps=tuple(ensemble.member_steps),
+            acts=_act_schedule(ensemble.member_steps, T, 1), init_fn=init_fn,
+            launch_fn=launch_fn, finalize=lambda carry: tuple(s[0] for s in carry),
+            admit_fn=admit_fn, kind="stepwise",
+            compile_counter=lambda: _build.CAPTURES["graphs"])
+
     # ---------------------------------------------------------- accounting
 
     def dispatches_per_run(self, graph: TaskGraph) -> int:
@@ -895,3 +1232,21 @@ class PallasStepRuntime(Runtime):
                 graph.width, plan.steps_per_launch, _patterns.halo_radius(graph)):
             return 1 + 2 * (L - 1)
         return L
+
+    def ensemble_dispatches_per_run(self, ensemble: GraphEnsemble) -> int:
+        """Kernel launches of one ensemble run. A stacked ensemble launches
+        once for all K members: the t = 0 launch plus ceil((T-1)/S), two a
+        blocked launch when pipelined (the boundary launch covers both
+        edges of every member). A tuple ensemble launches every member at
+        every lockstep launch, frozen members included, so it pays each
+        member's own count at the shared cadence, summed; glue is not
+        counted, as in `dispatches_per_run`."""
+        S = self._ensemble_steps_per_launch(ensemble)
+        L = self._launches(ensemble.steps, S)
+        members = ensemble.members
+        if self._is_stacked(ensemble):
+            H = max(_patterns.halo_radius(g) for g in members)
+            return 1 + (2 if self._pipeline_active(members[0].width, S, H) else 1) * (L - 1)
+        return sum(
+            1 + (2 if self._pipeline_active(g.width, S, _patterns.halo_radius(g)) else 1)
+            * (L - 1) for g in members)

@@ -40,6 +40,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 COLD_COPIES = 4
+# tries of a covered measurement, each behind a sleep twice as long
+COVER_ATTEMPTS = 3
 BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
@@ -48,11 +50,12 @@ def gpu_ms(fn: Callable[[], object], n: int, cover: bool = True) -> float:
     events, queued behind a device sleep (at least ~0.1 s at the H100's
     clocks, and twice the host time one warm call predicts for the n) so
     that the host's enqueue time does not leave the device idle between
-    them. Raises if the host took longer to enqueue the calls than the
-    sleep lasted. ``cover=False`` drops the sleep, for a function that
-    issues more operations than the card's launch queue holds (the enqueue
-    then blocks until the sleep ends): the events then span the host's
-    enqueue gaps too."""
+    them. A measurement whose enqueue outlasted the sleep is not kept: it
+    is taken again behind a sleep twice as long, and after
+    ``COVER_ATTEMPTS`` such tries this raises. ``cover=False`` drops the sleep, for a function
+    that issues more operations than the card's launch queue holds (the
+    enqueue then blocks until the sleep ends): the events then span the
+    host's enqueue gaps too."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -61,23 +64,26 @@ def gpu_ms(fn: Callable[[], object], n: int, cover: bool = True) -> float:
     fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    t0 = time.perf_counter()
-    asleep.record()
-    if cover:
-        # ~2e6 sleep cycles per ms at the card's clocks
-        torch.cuda._sleep(int(max(200_000_000, 4e6 * host_ms * n)))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    if cover and enqueue_ms >= asleep.elapsed_time(start):
-        raise RuntimeError(
-            f"enqueueing {n} calls took {enqueue_ms:.3f} ms, longer than the "
-            f"{asleep.elapsed_time(start):.3f} ms device sleep meant to cover it")
-    return start.elapsed_time(end) / n
+    # ~2e6 sleep cycles per ms at the card's clocks
+    cycles = int(max(200_000_000, 4e6 * host_ms * n))
+    for attempt in range(COVER_ATTEMPTS if cover else 1):
+        asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        asleep.record()
+        if cover:
+            torch.cuda._sleep(cycles << attempt)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if not cover or enqueue_ms < asleep.elapsed_time(start):
+            return start.elapsed_time(end) / n
+    raise RuntimeError(
+        f"enqueueing {n} calls took {enqueue_ms:.3f} ms, longer than the "
+        f"{asleep.elapsed_time(start):.3f} ms device sleep meant to cover it, "
+        f"{COVER_ATTEMPTS} times")
 
 
 def device_kernels(fn: Callable[[], object]) -> list:

@@ -180,6 +180,56 @@ def test_graph_run_counts_its_warmup_and_capture_apart(fake_card):
     assert graph.was_reset and run.graphed.graph is None
 
 
+def _member_launches(xs):
+    """An ensemble's eager loop (stub): one K3 launch for each member."""
+    outs = []
+    for x in xs:
+        _build.launch("taskbench_step")
+        outs.append(x * 2.0)
+    return tuple(outs)
+
+
+def test_graph_run_over_a_tuple_stages_each_member(fake_card):
+    """An ensemble's graph: a tuple of static inputs, each member staged
+    into its own; the replay gives a tuple of clones, one a member; a
+    staged tuple of another length raises; the launches of one member each
+    count per replay."""
+    example = (torch.zeros(3, 2), torch.zeros(5, 4))
+    run = _capture.GraphRun(_member_launches, example)
+    assert isinstance(run.static_in, tuple) and len(run.static_in) == 2
+    assert all(s is not e for s, e in zip(run.static_in, example))
+    assert run.graphed.launches == {"taskbench_step": 2}
+    xs = (torch.arange(6.0).reshape(3, 2), torch.ones(5, 4))
+    a = run(xs)
+    assert all(torch.equal(s, x) for s, x in zip(run.static_in, xs))
+    b = run.replay()
+    assert isinstance(a, tuple) and len(a) == 2
+    assert [t.shape for t in a] == [(3, 2), (5, 4)]
+    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(a, b))
+    assert ops.launch_counts()["taskbench_step"] == 4
+    with pytest.raises(ValueError, match="staged 1 states"):
+        run.stage(xs[:1])
+    walls = _capture.time_runs(run, xs, reps=2)
+    assert len(walls) == 2
+    assert ops.launch_counts()["taskbench_step"] == 4 + 2 * 3
+
+
+def test_time_runs_takes_a_tuple_of_states():
+    seen = []
+
+    def run(xs):
+        seen.append(xs)
+        for x in xs:
+            x.add_(1.0)
+        return xs
+
+    xs = (torch.zeros(2), torch.zeros(3))
+    walls = _capture.time_runs(run, xs, reps=2, warmup=1)
+    assert len(walls) == 2 and len(seen) == 3
+    assert all(isinstance(s, tuple) and s[0] is not xs[0] for s in seen)
+    assert torch.equal(xs[0], torch.zeros(2)) and torch.equal(xs[1], torch.zeros(3))
+
+
 def test_graphed_registers_the_generators_it_is_given(fake_card):
     gen = torch.Generator().manual_seed(1)
     g = _capture.Graphed(lambda: torch.ones(2), _FakeStream(), (gen,))
@@ -344,3 +394,71 @@ def test_serve_sampled_on_the_cpu_is_seeded():
                             verbose=False, device="cpu") for _ in range(2))
     np.testing.assert_array_equal(a.tokens, b.tokens)
     assert ((a.tokens >= 0) & (a.tokens < cfg.vocab)).all()
+
+
+class _FakeEvent:
+    """Stands in for ``torch.cuda.Event``: the sleep queued after it
+    lasts what `_sleep` was given (2e6 cycles a ms); start to end 1 ms."""
+
+    slept_ms = 0.0
+
+    def __init__(self, enable_timing=False):
+        self.kind = None
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return _FakeEvent.slept_ms if self.kind == "sleep" else 1.0
+
+
+def test_gpu_ms_retakes_a_measurement_its_sleep_did_not_cover(monkeypatch):
+    """An enqueue that outlasts the device sleep is not kept: the
+    measurement is taken again behind a sleep twice as long; after the
+    last attempt it raises."""
+    import time
+
+    from repro_torch.launch import attention_times
+
+    sleeps = []
+
+    def sleep(cycles):
+        sleeps.append(cycles)
+        _FakeEvent.slept_ms = cycles / 2e6
+
+    events = []
+
+    def event(enable_timing=False):
+        e = _FakeEvent()
+        events.append(e)
+        if len(events) % 3 == 1:
+            e.kind = "sleep"
+        return e
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = []
+
+    def slow_first_attempt():
+        calls.append(1)
+        if 5 <= len(calls) <= 6:  # the first timed attempt's two calls
+            time.sleep(0.06)
+
+    assert attention_times.gpu_ms(slow_first_attempt, 2) == 0.5
+    assert len(sleeps) == 2 and sleeps[1] == 2 * sleeps[0] == 400_000_000
+    calls.clear()
+    sleeps.clear()
+
+    def slow_after_warmup():  # 2 x 0.21 s outlasts 0.1, 0.2 and 0.4 s of sleep
+        calls.append(1)
+        if len(calls) > 4:
+            time.sleep(0.21)
+
+    with pytest.raises(RuntimeError, match="3 times"):
+        attention_times.gpu_ms(slow_after_warmup, 2)
+    assert attention_times.COVER_ATTEMPTS == 3
+    assert sleeps == [200_000_000, 400_000_000, 800_000_000]

@@ -91,6 +91,23 @@ def test_an_unreached_baseline_cell_is_not_guarded():
     assert ok and any(line.startswith("skip") for line in lines)
 
 
+def test_cells_are_keyed_by_ensemble_size_and_new_cells_do_not_fail():
+    """An ensemble record (K > 1) is its own cell: one the baseline lacks is
+    listed as new and does not fail the guard; one the baseline holds is
+    guarded like any other; a record without K is K = 1."""
+    ens = [_rec("pallas_step", 132, 1.0, K=k) for k in (2, 8)]
+    ok, lines = guard.check(_run() + ens, BASE)
+    assert ok, lines
+    new = [line for line in lines if line.startswith("new")]
+    assert len(new) == 2 and all("K=" in line for line in new)
+    assert ("stencil_1d", "pallas_step", 132, 1) in guard.metg_cells(BASE)
+    base = BASE + [_rec("pallas_step", 132, 1.0, K=2)]
+    run = _run() + [_rec("pallas_step", 132, 1.2, K=2)]
+    assert not guard.check(run, base)[0]
+    assert guard.check(_run() + [_rec("pallas_step", 132, 1.05, K=2)], base)[0]
+    assert not guard.check(_run(), base)[0]  # the K = 2 cell is missing
+
+
 def test_bounds_by_schedule_family():
     assert guard.bound_for("pallas_step[S=8]") == guard.bound_for("pallas_step") == 0.10
     assert guard.bound_for("fused[kernels]") == 0.15
@@ -114,7 +131,7 @@ def test_the_cli_exit_codes(tmp_path, capsys):
 def test_the_committed_baseline_holds_against_itself():
     records = guard.read_records(guard.DEFAULT_BASELINE)
     cells = guard.metg_cells(records)
-    assert {(p, rt) for p, rt, _ in cells} >= {
+    assert {(p, rt) for p, rt, *_ in cells} >= {
         ("stencil_1d", "fused[kernels]"), ("stencil_1d", "pallas_step"),
         ("stencil_1d", "pallas_step[S=8]"), ("stencil_1d", "pallas_step[S=8,serial]"),
         ("fft", "fused[kernels]"), ("fft", "pallas_step")}

@@ -13,8 +13,13 @@ all-gather plans at small widths: each run's graph equal to its eager loop,
 its replay's launches equal to ``dispatches_per_run`` (T K3, or 1 K3 and
 ceil((T-1)/S) K4 in the cooperative form when blocked), butterfly compute
 runs equal to ``fused`` with the kernels bit for bit, the blocked
-all-gather plan under masked tails. Every test carries the ``gpu`` marker
-and skips without a card.
+all-gather plan under masked tails. Ensembles: stacked and tuple ensembles
+on both backends, each graph equal to its eager loop bit for bit and its
+replay's launches equal to ``ensemble_dispatches_per_run``; a stacked
+member equal to its own single-graph run bit for bit; the launch plans
+equal to ``build_ensemble`` bit for bit, with ``_build.CAPTURES`` flat under
+act edits and ``admit_fn``. Every test carries the ``gpu`` marker and skips
+without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -25,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, get_runtime
 from repro_torch.core.runtimes import _capture
 from repro_torch.core.runtimes import pallas_step as ps
 from repro_torch.configs.registry import get_config
@@ -966,3 +971,127 @@ def test_decode_graph_equals_the_eager_step(cuda, arch, greedy):
     assert a.counts == b.counts and a.healthy
     attn = sum(k != "ssm" for k in cfg.layer_plan_flat())
     assert a.counts["decode_attention"] == 6 * attn
+
+
+# -------------------------------------------------------------- ensembles
+
+
+def _ensemble(specs):
+    """GraphEnsemble of (steps, width, pattern, kind, iterations) members,
+    radius 2, payload 16, seed k."""
+    return GraphEnsemble([
+        TaskGraph(steps=t, width=w, pattern=p, payload=16, radius=2, seed=k,
+                  kernel=KernelSpec(kind, it, scratch=40))
+        for k, (t, w, p, kind, it) in enumerate(specs)])
+
+
+# grain 1 and 2, so that the dataflow shows over 11 steps (the FMA body
+# halves a difference each iteration)
+STACKED = [(11, 64, "stencil_1d", "compute_bound", 1), (8, 64, "stencil_1d", "compute_bound", 1),
+           (1, 64, "stencil_1d", "compute_bound", 1), (11, 64, "nearest", "compute_bound", 1)]
+TUPLE = [(11, 64, "stencil_1d", "compute_bound", 1), (7, 48, "nearest", "compute_bound", 2),
+         (11, 64, "no_comm", "memory_bound", 2)]
+PLANS = [(11, 64, "stencil_1d", "compute_bound", 1), (9, 32, "fft", "compute_bound", 1),
+         (11, 24, "spread", "compute_bound", 2), (5, 24, "all_to_all", "compute_bound", 1)]
+ENSEMBLE_CASES = [("stacked", STACKED, {}), ("stacked", STACKED, {"steps_per_launch": 3}),
+                  ("stacked", STACKED, {"steps_per_launch": 3, "pipeline": False}),
+                  ("stacked", STACKED, {"combine": "onehot"}),
+                  ("tuple", TUPLE, {}), ("tuple", TUPLE, {"steps_per_launch": 3}),
+                  ("tuple", PLANS, {"steps_per_launch": 3})]
+
+
+def _ensemble_vs_eager(rt, ens, seed):
+    """``rt``'s run of ``ens`` as one graph replay (its launches counted)
+    and as its eager loop, on the same inits."""
+    run = rt.build_ensemble(ens)
+    assert isinstance(run, _capture.GraphRun)
+    xs = tuple(_rand((g.width, g.payload), seed + k, rt.device)
+               for k, g in enumerate(ens.members))
+    ops.reset_launch_counts()
+    got = run(xs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = run.eager(tuple(x.clone() for x in xs))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(ens)
+    return xs, got, want, counts
+
+
+@pytest.mark.parametrize("kind,specs,opts", ENSEMBLE_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(ENSEMBLE_CASES)])
+def test_ensemble_graph_equals_its_eager_loop(cuda, kind, specs, opts):
+    ens = _ensemble(specs)
+    rt = get_runtime("pallas_step", device=cuda, **opts)
+    assert rt._is_stacked(ens) == (kind == "stacked")
+    _, got, want, counts = _ensemble_vs_eager(rt, ens, 11)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sum(counts.values()) == rt.ensemble_dispatches_per_run(ens)
+    if kind == "stacked" and "steps_per_launch" not in opts:
+        assert counts["taskbench_step"] == ens.steps  # one K3 a step for all K
+
+
+@pytest.mark.parametrize("specs", [STACKED, TUPLE, PLANS], ids=["stacked", "tuple", "plans"])
+def test_fused_ensemble_graph_equals_its_eager_loop(cuda, specs):
+    """``fused(use_kernels=True)``: one body launch a step over all K*W
+    rows of a stacked uniform ensemble, one per member a step otherwise;
+    held to pallas_step within TOL (memory_bound, whose sums in another
+    order add up over the steps: TOL a step)."""
+    ens = _ensemble(specs)
+    rt = get_runtime("fused", device=cuda, use_kernels=True)
+    xs, got, want, counts = _ensemble_vs_eager(rt, ens, 12)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    uniform = rt._is_stacked(ens) and len({g.kernel for g in ens.members}) == 1
+    bodies = ens.steps if uniform else ens.steps * len(ens)
+    assert sum(counts.values()) == bodies
+    ps_out = get_runtime("pallas_step", device=cuda).build_ensemble(ens)(xs)
+    for g, a, b in zip(ens.members, got, ps_out):
+        tol = TOL * g.steps if g.kernel.kind == "memory_bound" else TOL
+        assert (a - b).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("combine", ["window", "gather", "onehot"])
+@pytest.mark.parametrize("opts", GRAPH_SCHEDULES, ids=["S1", "S3", "S3serial"])
+def test_stacked_member_equals_its_own_run(cuda, combine, opts):
+    """K3 and K4 compute each output element in one thread with the same
+    arithmetic at every K: each stacked member equals its single-graph
+    run bit for bit (a radius-1 member read through the radius-2 window
+    too)."""
+    ens = _ensemble(STACKED)
+    rt = get_runtime("pallas_step", device=cuda, combine=combine, **opts)
+    xs = tuple(_rand((64, 16), 20 + k, cuda) for k in range(len(ens)))
+    outs = rt.build_ensemble(ens)(xs)
+    for g, x, out in zip(ens.members, xs, outs):
+        assert torch.equal(out, rt.build(g)(x)), g.describe()
+
+
+@pytest.mark.parametrize("specs,opts", [(STACKED, {}), (STACKED, {"steps_per_launch": 3}),
+                                        (PLANS, {})], ids=["stacked-S1", "stacked-S3", "stepwise"])
+def test_launch_plan_equals_build_and_captures_nothing_under_churn(cuda, specs, opts):
+    """Stepped on the host, the plan equals ``build_ensemble`` bit for bit;
+    evicting member 0 from launch 2 and admitting a fresh member into the
+    finished slot 2 capture nothing (``_build.CAPTURES`` flat)."""
+    ens = _ensemble(specs)
+    rt = get_runtime("pallas_step", device=cuda, **opts)
+    lp = rt.build_ensemble_launches(ens)
+    xs = tuple(_rand((g.width, g.payload), 30 + k, cuda) for k, g in enumerate(ens.members))
+
+    def step(acts, admit=None):
+        carry = lp.init_fn(xs)
+        for l in range(lp.num_launches):
+            if admit is not None and l == admit[0]:
+                carry = lp.admit_fn(carry, admit[1], admit[2])
+            carry = lp.launch_fn(carry, acts[l], lp.launch_t0(l))
+        return lp.finalize(carry)
+
+    outs = step(lp.acts)
+    want = rt.build_ensemble(ens)(xs)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    before = lp.compile_counter()
+    acts = lp.acts.copy()
+    acts[2:, 0, :] = 0
+    fresh = _rand((ens.members[2].width, 16), 40, cuda)
+    churned = step(acts, admit=(1, 2, fresh))
+    torch.cuda.synchronize()
+    assert lp.compile_counter() == before == _build.CAPTURES["graphs"]
+    assert not torch.equal(churned[0], outs[0])
+    assert torch.equal(churned[1], outs[1])

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 loads no JAX and no module of the JAX package ``repro``, the chip smoke
 script imports neither, and the port's benchmark scripts (``benchmarks/torch_*.py``)
-import neither, nor ``benchmarks/common.py`` (which imports both).
+import neither, nor ``benchmarks/common.py`` (which imports both). The card
+tests (``tests/test_torch_gpu.py``) import neither, as they run where JAX
+is not installed; the parity tests (``tests/test_torch_ensembles.py`` and
+the others) import both, the reference to hold the port against.
 """
 import ast
 import json
@@ -39,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference_module():
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention", "repro_torch.kernels.ssd_scan",
             "repro_torch.kernels.rmsnorm", "repro_torch.models.ssm",
-            "repro_torch.launch.attention_times"} <= set(got["modules"])
+            "repro_torch.launch.attention_times", "repro_torch.core.runtimes.base",
+            "repro_torch.core.runtimes.fused",
+            "repro_torch.core.runtimes._capture"} <= set(got["modules"])
 
 
 def _imported_roots(path: Path):
@@ -56,6 +61,13 @@ def test_port_sources_and_chip_smoke_name_no_jax_or_reference_module():
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f
+
+
+def test_card_tests_name_no_jax_and_parity_tests_name_both():
+    roots = set(_imported_roots(ROOT / "tests" / "test_torch_gpu.py"))
+    assert "repro_torch" in roots and not roots & {"jax", "jaxlib", "repro"}
+    roots = set(_imported_roots(ROOT / "tests" / "test_torch_ensembles.py"))
+    assert {"jax", "repro", "repro_torch"} <= roots
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -108,3 +108,23 @@ def test_smoke_sweeps_fft_metg_on_both_backends(smoke):
     for r in fft:
         assert r["repeats"] == len(r["metg_us"]) == 2
         assert r["dispatches_per_run"] > 0
+
+
+def test_smoke_sweeps_the_ensemble_rows(smoke):
+    """The ensemble rows: K graphs a point through ``measure_ensemble``, one
+    record per (schedule, od, K), each with K and the card; granularity
+    counts every member's tasks."""
+    from benchmarks.torch_metg import ENSEMBLE_SCHEDULES, SMOKE
+
+    _, records = smoke
+    ens = [r for r in records if r["kind"] == "metg" and r.get("K", 1) > 1]
+    assert [(r["runtime"], r["od"], r["K"]) for r in ens] == [
+        (label, 1, k) for k in SMOKE.ensemble_sizes if k > 1
+        for label, _, _ in ENSEMBLE_SCHEDULES]
+    for r in ens:
+        assert r["repeats"] == len(r["metg_us"]) == 2 and r["card"] == "cpu"
+        assert r["dispatches_per_run"] > 0
+    single = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"
+              and r["K"] == 1]
+    assert len(single) == 2 * 4
+    assert records[-1]["ensembles"] == [2]
