@@ -1,7 +1,7 @@
 """METG of the PyTorch/CUDA port on one card, with repeated sweeps.
 
     PYTHONPATH=src python -m benchmarks.torch_metg [--repeats 5] [--out PATH]
-        [--ensemble 2,4,8]
+        [--ensemble 2,4,8] [--cost-model PATH]
     PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu
 
 The port's counterpart of ``benchmarks/table2_metg.py`` (METG(50%) per
@@ -15,11 +15,20 @@ and ``pallas_step(steps_per_launch=8)`` pipelined and serial. Each
 (schedule, W) sweep runs ``--repeats`` times; a record gives the METG(50%)
 of each repeat, their median and their spread.
 
+``steps_per_launch="auto"`` runs under the cost model the run calibrates
+first (``kernels/probes.py``'s ``run_probes`` on the run's device, or the
+cache file ``--cost-model PATH`` names), printed as the first record
+(``"kind": "cost_model"``): ``pallas_step[auto]``'s METG(50%) at each W
+beside the four schedules (cells the regression guard lists as new), and
+the ``Sauto`` row below.
+
 At grain 1, the finest, where the runtime's per-step cost sets the wall,
 for each W:
   1. the wall per step of ``pallas_step`` at S in {1, 2, 4, 8, 16},
      pipelined against serial, in interleaved rounds (pipelined, serial,
-     pipelined, ...; best of each);
+     pipelined, ...; best of each), and under "auto" (the ``Sauto`` row,
+     ``"kind": "steps_per_launch_auto"``: the depth and schedule it
+     resolved to, its reason and the model's ``describe()``);
   2. the eager loop (``Runtime._build_eager``) beside the graph at S = 1
      and S = 8 (both schedules), in interleaved rounds: what capture
      removes.
@@ -67,13 +76,15 @@ import statistics
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.taskbench import PAPER, TaskBenchConfig
 from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, compute_metg, get_runtime
+from repro_torch.core.patterns import halo_radius
 from repro_torch.core.runtimes._capture import time_runs
+from repro_torch.kernels import probes
 
 ROOT = Path(__file__).resolve().parents[1]
 DEFAULT_OUT = ROOT / "artifacts" / "bench_torch" / "metg.json"
@@ -84,6 +95,8 @@ SCHEDULES = (
     ("pallas_step[S=8]", "pallas_step", {"steps_per_launch": 8}),
     ("pallas_step[S=8,serial]", "pallas_step", {"steps_per_launch": 8, "pipeline": False}),
 )
+#: "auto" under the run's calibrated model (its cost_model option is added)
+AUTO_SCHEDULE = ("pallas_step[auto]", "pallas_step", {"steps_per_launch": "auto"})
 SWEEP_S = (1, 2, 4, 8, 16)
 EAGER_S = (1, 8)
 ROUNDS = 3
@@ -210,9 +223,10 @@ def _schedules_at(S: int) -> Dict[str, dict]:
 
 
 def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
-                   device: torch.device):
-    """At grain 1 and W = cores x od: the S sweep (pipelined against serial)
-    and the eager loop beside the graph, each pair in interleaved rounds."""
+                   device: torch.device, model: Optional[probes.CostModel] = None):
+    """At grain 1 and W = cores x od: the S sweep (pipelined against serial),
+    the ``Sauto`` row under ``model`` (when given), and the eager loop
+    beside the graph, each in interleaved rounds."""
     probe = get_runtime("pallas_step", device=device)
     width = probe.cores * od
     g = _graph(cfg, width, 1)
@@ -227,6 +241,19 @@ def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
         yield {"kind": "steps_per_launch", "W": width, "od": od, "S": S, "grain": 1,
                "steps": cfg.steps, "rounds": rounds, "us_per_step": best,
                "launches_per_run": {k: rt.dispatches_per_run(g) for k, rt in rts.items()}}
+    if model is not None:
+        rt = get_runtime("pallas_step", device=device, steps_per_launch="auto",
+                         cost_model=model)
+        plan = rt._schedule_for_graph(g)
+        run = rt.build(g)
+        best = min(_step_us(cfg, run, x) for _ in range(rounds))
+        yield {"kind": "steps_per_launch_auto", "W": width, "od": od, "S": "auto",
+               "grain": 1, "steps": cfg.steps, "rounds": rounds,
+               "us_per_step": {"auto": best}, "resolved_S": plan.steps_per_launch,
+               "pipelined": rt._pipeline_active(width, plan.steps_per_launch,
+                                                halo_radius(g), g.payload),
+               "reason": plan.reason, "cost_model": model.describe(),
+               "launches_per_run": {"auto": rt.dispatches_per_run(g)}}
     for S in eager_s:
         for sched, opts in _schedules_at(S).items():
             rt = get_runtime("pallas_step", device=device, steps_per_launch=S, **opts)
@@ -240,17 +267,36 @@ def grain1_records(cfg: TaskBenchConfig, od: int, sweep_s, eager_s, rounds: int,
                    "us_per_step": best, "launches_per_run": rt.dispatches_per_run(g)}
 
 
+def calibrate(cfg: TaskBenchConfig, device: torch.device, cost_model: Optional[Path],
+              smoke: bool) -> Tuple[probes.CostModel, dict]:
+    """The cost model "auto" runs under: the cache file ``cost_model`` names
+    (its entry for this device's platform, one device, the preset's payload),
+    else ``run_probes`` on ``device``; and its record."""
+    t0 = time.perf_counter()
+    if cost_model is not None:
+        model = probes.coerce_cost_model(cost_model, devices=1, payload=cfg.payload,
+                                         platform=probes._platform(device))
+        source = str(cost_model)
+    else:
+        model = probes.run_probes(payload=cfg.payload, smoke=smoke, device=device)
+        source = "run_probes"
+    return model, {"kind": "cost_model", "source": source, "describe": model.describe(),
+                   "model": model.to_dict(), "seconds": time.perf_counter() - t0}
+
+
 def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
         sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS,
         floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W,
-        ensembles=None, ensemble_ods=ENSEMBLE_ODS) -> List[dict]:
+        ensembles=None, ensemble_ods=ENSEMBLE_ODS, cost_model: Optional[Path] = None,
+        smoke: bool = False) -> List[dict]:
     """Every record of the sweep, emitted as it is taken; ``ensembles``
     (default the preset's ``ensemble_sizes`` above 1) are the K of the
-    ensemble rows."""
+    ensemble rows; "auto" runs under the model `calibrate` gives."""
     if ensembles is None:
         ensembles = tuple(k for k in cfg.ensemble_sizes if k > 1)
     t0 = time.perf_counter()
     smi = card(device)
+    model, model_rec = calibrate(cfg, device, cost_model, smoke)
     records: List[dict] = []
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as f:
@@ -262,10 +308,15 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
             f.write(line + "\n")
             f.flush()
 
+        emit(model_rec)
+        auto_label, auto_backend, auto_options = AUTO_SCHEDULE
         for od in cfg.overdecomposition:
             for label, backend, options in SCHEDULES:
                 emit(metg_record(cfg, label, backend, options, od, repeats, device))
-            for rec in grain1_records(cfg, od, sweep_s, eager_s, rounds, device):
+            emit(metg_record(cfg, auto_label, auto_backend,
+                             dict(auto_options, cost_model=model.to_dict()), od, repeats,
+                             device))
+            for rec in grain1_records(cfg, od, sweep_s, eager_s, rounds, device, model):
                 emit(rec)
         for rec in floor_records(cfg, floor_cases, rounds, device):
             emit(rec)
@@ -290,6 +341,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats)")
+    ap.add_argument("--cost-model", type=Path, default=None,
+                    help="the cost-model cache file \"auto\" runs under (default: "
+                         "calibrate with run_probes first)")
     ap.add_argument("--ensemble", default=None,
                     help="comma-separated ensemble sizes K > 1 of the ensemble rows "
                          "(default: the preset's above 1); 'none' for none")
@@ -307,9 +361,10 @@ def main(argv=None) -> int:
         out = args.out or DEFAULT_OUT.with_name("metg_smoke.json")
         run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
             rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W,
-            ensembles=ensembles, ensemble_ods=(1,))
+            ensembles=ensembles, ensemble_ods=(1,), cost_model=args.cost_model, smoke=True)
     else:
-        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT, ensembles=ensembles)
+        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT, ensembles=ensembles,
+            cost_model=args.cost_model)
     return 0
 
 

@@ -115,12 +115,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
              member held to the CPU plain path. The members bit for bit
              their own runs are counted apart: at grain 1 and memory_bound
              (the evidence), and the grain-64 compute members.
-  6. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
+  6. schedule  ``steps_per_launch="auto"`` under a cost model measured on
+             the card (``kernels/probes.py``'s ``run_probes``: K3 as a graph
+             node, the slope of its wall over widths, the one-device
+             exchange 0.0 so X = 1), printed and saved to a temporary cache
+             file: the 7 halo patterns at the main path's shape and one
+             memory_bound run through ``pallas_step(steps_per_launch=
+             "auto", cost_model=...)``, each resolution and its reason
+             printed, the compute runs serial at S = 16 (the deepest depth
+             K4's tiled form holds), memory_bound at S = 1, each run equal
+             bit for bit to the explicit run of the depth and schedule it
+             resolved to and launching ``dispatches_per_run`` (the counters
+             zeroed just before the phase, the twins' and the probes' kept
+             apart); the step walls of "auto" beside explicit S = 1, 8 and
+             16 serial (graph replays, grains 64 and 1); one run resolved
+             through the cache (``REPRO_COST_MODEL`` naming the file, keyed
+             by the CUDA device name); fft, tree, spread and all_to_all at
+             [plans]' widths under "auto" (the all-gather plan at S = 1);
+             the K = 4 stacked ensemble under "auto", equal to its twin,
+             its step walls beside explicit S = 1, 8 and 16 serial, and
+             its launch plan stepped under a ``DeadlineDetector`` held
+             to its ``expected_launch_us`` (no launch flagged), each
+             launch's wall beside the expected one; under the analytic
+             model ``expected_launch_us`` is None.
+  7. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial, each run one graph replay; at grains 1
              and 64 the eager loop's step wall beside the graph's.
-  7. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
+  8. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
              batch 8, prompt 1024, 64 tokens (launches: 24 K5 in its
@@ -142,7 +165,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
-  8. times   each kernel and its plain version timed with CUDA events at
+  9. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes and in the main path's form (K3 on the
              W-row state with the halo wrap folded in), beside its bound on
              this card (K2 also beside its shared-memory bound); K1 and K3
@@ -284,6 +307,11 @@ K_ENS, HETERO_T, EVICT_AT, ADMIT_AT = 4, (1000, 750, 333, 1), 40, 60
 # and at grain 1, where the dataflow shows, mixed horizons of 5, 4, 2 and 0
 # launches at S = 8
 T_ENS_SHORT = (41, 33, 17, 1)
+# [schedule]: the depth "auto" resolves the main path's compute runs to under
+# the card's measured model (the deepest of schedule.CANDIDATES whose K4
+# launch takes the tiled form, serial since X = 1), and the explicit depths
+# its step walls are timed beside
+S_AUTO_MAIN, S_WALLS = 16, (1, 8, 16)
 
 
 def fail(msg: str) -> None:
@@ -1429,6 +1457,240 @@ def main() -> int:
                         "kernel_launches_churned": {k: n for k, n in d_churn.items() if n},
                         "captures": captures_before}}), flush=True)
 
+    # ------------------------------------------------------------- schedule
+    # steps_per_launch="auto" under the cost model measured on the card: the
+    # main path, the cache tier, the other plans and the stacked ensemble's
+    # launch plan; the launch counters zeroed just before the auto runs and
+    # read just after, the probes' (before) and the explicit twins' and
+    # references' (check_launches) kept apart
+    import os
+    import tempfile
+
+    from repro_torch.kernels import probes
+    from repro_torch.kernels import schedule as sched
+    from repro_torch.resilience.detect import DeadlineDetector
+
+    t0 = time.perf_counter()
+    model = probes.run_probes(payload=PAYLOAD)
+    probe_s = time.perf_counter() - t0
+    floor_us = probes.row_step_floor_us(PAYLOAD)
+    print(f"[schedule] run_probes() in {probe_s:.3f} s: {model.describe()}; launch "
+          f"{model.launch_us:.6f} us, row-step {model.row_step_us:.6e} us (floor "
+          f"{floor_us:.6e}) | {smi}", flush=True)
+    print(json.dumps({"cost_model": model.to_dict(), "row_step_floor_us": floor_us,
+                      "probe_s": probe_s}), flush=True)
+    if not (model.is_measured and model.launch_us > 0 and model.row_step_us > floor_us):
+        fail(f"[schedule] the cost model is not a measurement: {model.to_dict()}")
+    if model.halo_exchange_us != {probes.SELF_EXCHANGE: 0.0} \
+            or model.exchange_row_steps != 1.0 or model.platform != name \
+            or model.devices != 1:
+        fail(f"[schedule] the one-device model: exchange {model.halo_exchange_us}, X "
+             f"{model.exchange_row_steps}, platform {model.platform!r}")
+    cache_dir = tempfile.TemporaryDirectory()
+    cache = probes.save_cost_model(model, Path(cache_dir.name) / "cost_model.json")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    check_launches = dict.fromkeys(_build.ENTRIES, 0)
+    sched_runs = []  # (label, plan, S, pipelined, reason, launches of the replay)
+
+    def apart(fn):
+        """A run the auto runs are held to, its launches kept apart."""
+        out, d = counted(fn)
+        for k, n in d.items():
+            check_launches[k] += n
+        return out
+
+    def auto_run(label: str, g: TaskGraph, init, opts: dict, rt=None):
+        """pallas_step(steps_per_launch="auto", cost_model=model, **opts) on
+        ``g`` (or ``rt``): one graph replay equal to its eager loop, its
+        launches equal to dispatches_per_run, and equal bit for bit to the
+        explicit run of the depth and schedule it resolved to. Returns
+        (output on the host, the resolution)."""
+        rt = rt or get_runtime("pallas_step", steps_per_launch="auto", cost_model=model,
+                               **opts)
+        plan = rt._schedule_for_graph(g)
+        H = halo_radius(g)
+        piped = plan.kind == ps_mod.PLAN_HALO and rt._pipeline_active(
+            g.width, plan.steps_per_launch, H, g.payload)
+        out, d = graphed(f"[schedule] {label} auto", rt, g, init)
+        if sum(d.values()) != rt.dispatches_per_run(g):
+            fail(f"[schedule] {label}: launches {d}, dispatches_per_run "
+                 f"{rt.dispatches_per_run(g)}")
+        twin = get_runtime("pallas_step", steps_per_launch=plan.steps_per_launch,
+                           pipeline=piped, **opts)
+        if twin._schedule_for_graph(g)[:2] != plan[:2]:
+            fail(f"[schedule] {label}: the twin resolves {twin._schedule_for_graph(g)}")
+        want = apart(lambda: twin.build(g)(init)).cpu()
+        if not torch.equal(out, want):
+            fail(f"[schedule] {label}: auto ({plan.kind}, S={plan.steps_per_launch}, "
+                 f"pipelined={piped}) differs from its explicit twin, max |difference| "
+                 f"{(out - want).abs().max().item()}")
+        sched_runs.append((label, plan.kind, plan.steps_per_launch, piped, plan.reason, d))
+        print(f"  {label}: {plan.kind} S={plan.steps_per_launch} pipelined={piped}: "
+              f"{plan.reason}", flush=True)
+        return out, plan
+
+    # the main path: the 7 halo patterns and one memory_bound run
+    for pattern in HALO_PATTERNS:
+        g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+        _, plan = auto_run(pattern, g, rand(W_MAIN, PAYLOAD), {})
+        if (plan.kind, plan.steps_per_launch, sched_runs[-1][3]) != (
+                ps_mod.PLAN_HALO, S_AUTO_MAIN, False):
+            fail(f"[schedule] {pattern}: auto resolved {plan} pipelined="
+                 f"{sched_runs[-1][3]}, expected halo S={S_AUTO_MAIN} serial")
+    g_mem = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                      kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
+    _, plan = auto_run("stencil_1d memory_bound", g_mem, rand(W_MAIN, PAYLOAD), {})
+    if plan[:2] != (ps_mod.PLAN_HALO, 1) or "memory body" not in plan.reason:
+        fail(f"[schedule] memory_bound: auto resolved {plan}")
+    # through the cache: REPRO_COST_MODEL names the saved file, no option
+    g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="nearest", payload=PAYLOAD,
+                  kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+    init = rand(W_MAIN, PAYLOAD)
+    explicit_model, explicit_plan = auto_run("nearest (explicit model)", g, init, {})
+    before = os.environ.get(probes.COST_MODEL_ENV)
+    os.environ[probes.COST_MODEL_ENV] = str(cache)
+    try:
+        rt_cache = get_runtime("pallas_step", steps_per_launch="auto")
+        if rt_cache._cost_model(PAYLOAD) != model:
+            fail(f"[schedule] the cache tier read {rt_cache._cost_model(PAYLOAD)}")
+        cached, cached_plan = auto_run("nearest (through the cache)", g, init, {},
+                                       rt=rt_cache)
+    finally:
+        if before is None:
+            os.environ.pop(probes.COST_MODEL_ENV)
+        else:
+            os.environ[probes.COST_MODEL_ENV] = before
+        cache_dir.cleanup()
+    if cached_plan != explicit_plan or not torch.equal(cached, explicit_model):
+        fail(f"[schedule] the cache resolved {cached_plan}, the explicit model "
+             f"{explicit_plan}")
+    # the step walls of "auto" beside explicit depths (graph replays, serial)
+    walls = {}
+    for grain in (GRAIN, 1):
+        g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", grain), seed=0)
+        x = rand(W_MAIN, PAYLOAD)
+        runs = {"auto": get_runtime("pallas_step", steps_per_launch="auto",
+                                    cost_model=model).build(g)}
+        for S in S_WALLS:
+            runs[f"S={S}" + (" serial" if S > 1 else "")] = get_runtime(
+                "pallas_step", steps_per_launch=S, pipeline=False).build(g)
+        best = {key: float("inf") for key in runs}
+        for _ in range(3):
+            for key, run in runs.items():
+                best[key] = min(best[key], min(apart(lambda: time_runs(run, x, reps=5))))
+        walls[grain] = {key: t / T_MAIN * 1e6 for key, t in best.items()}
+        del runs
+        print(f"[schedule] stencil_1d W={W_MAIN} grain {grain}: us per step (graph "
+              f"replays, best of 15) " + ", ".join(
+                  f"{key} {us:.4f}" for key, us in walls[grain].items()) + f" | {smi}",
+              flush=True)
+    # the other plans at [plans]' widths
+    for pattern, W, want in (("fft", W_PLAN, "stride"), ("tree", W_PLAN, "stride"),
+                             ("fft", W_GATHER, "stride"), ("spread", W_GATHER, "allgather"),
+                             ("all_to_all", W_GATHER, "allgather")):
+        g = TaskGraph(steps=T_MAIN, width=W, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), seed=0)
+        _, plan = auto_run(f"{pattern} W={W}", g, rand(W, PAYLOAD), {})
+        if plan[:2] != (want, 1):
+            fail(f"[schedule] {pattern} W={W}: auto resolved {plan}, expected {want} S=1")
+        if want == "allgather" and "declares no radius" not in plan.reason:
+            fail(f"[schedule] {pattern}: the reason names no rule: {plan.reason}")
+    # the K = 4 stacked ensemble: its run, and its launch plan under a deadline
+    ens_k4 = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1)] * K_ENS)
+    xe = inits_of(ens_k4)
+    rt = get_runtime("pallas_step", steps_per_launch="auto", cost_model=model)
+    S_ens = rt._ensemble_steps_per_launch(ens_k4)
+    if S_ens != S_AUTO_MAIN or rt._pipeline_active(W_MAIN, S_ens, 1, PAYLOAD):
+        fail(f"[schedule] the stacked ensemble resolved S={S_ens}")
+    got = ens_graphed("auto stacked", rt, ens_k4, xe)
+    twin = get_runtime("pallas_step", steps_per_launch=S_ens, pipeline=False)
+    want = apart(lambda: twin.build_ensemble(ens_k4)(xe))
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            fail(f"[schedule] stacked member {k} differs from its explicit twin")
+    # the stacked ensemble's step walls: "auto" beside explicit depths (graph
+    # replays, serial), where one (K, W) launch carries K x W rows
+    ens_walls = {}
+    for grain in (GRAIN, 1):
+        ens_g = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", grain, 1)] * K_ENS)
+        xg = inits_of(ens_g)
+        runs = {"auto": rt.build_ensemble(ens_g)}
+        for S in S_WALLS:
+            runs[f"S={S}" + (" serial" if S > 1 else "")] = get_runtime(
+                "pallas_step", steps_per_launch=S, pipeline=False).build_ensemble(ens_g)
+        best = {key: float("inf") for key in runs}
+        for _ in range(3):
+            for key, run in runs.items():
+                best[key] = min(best[key], min(apart(lambda: time_runs(run, xg, reps=5))))
+        ens_walls[grain] = {key: t / T_MAIN * 1e6 for key, t in best.items()}
+        del runs
+        print(f"[schedule] K={K_ENS} stacked stencil_1d W={W_MAIN} grain {grain}: us per "
+              f"step (graph replays, best of 15) " + ", ".join(
+                  f"{key} {us:.4f}" for key, us in ens_walls[grain].items()) + f" | {smi}",
+              flush=True)
+    lp = rt.build_ensemble_launches(ens_k4)
+    if lp.expected_launch_us is None or lp.steps_per_launch != S_ens:
+        fail(f"[schedule] the measured launch plan: S={lp.steps_per_launch}, expected "
+             f"{lp.expected_launch_us}")
+    det = DeadlineDetector(expected_us=lp.expected_launch_us)
+    det.note_recompile_boundary()  # the cohort's first launch
+    launch_walls, device_walls = [], []
+    carry = lp.init_fn(xe)
+    torch.cuda.synchronize()
+    for l in range(lp.num_launches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        carry = lp.launch_fn(carry, lp.acts[l], lp.launch_t0(l))
+        end.record()
+        end.synchronize()
+        launch_walls.append((time.perf_counter() - t1) * 1e6)
+        device_walls.append(start.elapsed_time(end) * 1e3)
+        if det.observe(launch_walls[-1]) is not None:
+            fail(f"[schedule] launch {l} flagged: {launch_walls[-1]:.3f} us against the "
+                 f"deadline {det.deadline_us():.3f} (expected {lp.expected_launch_us:.3f})")
+    for k, (a, b) in enumerate(zip(lp.finalize(carry), want)):
+        if not torch.equal(a, b):
+            fail(f"[schedule] the launch plan's member {k} differs from build_ensemble")
+    analytic = get_runtime("pallas_step", steps_per_launch="auto",
+                           cost_model=probes.analytic_cost_model())
+    if analytic.build_ensemble_launches(ens_k4).expected_launch_us is not None:
+        fail("[schedule] the analytic launch plan priced a launch")
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    launches_sched = {k: n - check_launches[k] for k, n in total.items()}
+    for k, n in launches_sched.items():
+        if (n == 0) == (k in ("taskbench_step", K4_TILED)):
+            fail(f"kernel {k}: {n} launches on the schedule path")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    print(f"[schedule] launch plan of the K={K_ENS} stacked ensemble at S={S_ens} "
+          f"({lp.num_launches} launches): expected {lp.expected_launch_us:.3f} us a "
+          f"launch; host wall median {med(launch_walls[1:]):.3f} us (max "
+          f"{max(launch_walls[1:]):.3f}), device (events) median "
+          f"{med(device_walls[1:]):.3f} us; ratio host/expected "
+          f"{med(launch_walls[1:]) / lp.expected_launch_us:.3f}, device/expected "
+          f"{med(device_walls[1:]) / lp.expected_launch_us:.3f} (DEADLINE_FACTOR "
+          f"{sched.DEADLINE_FACTOR:g}); deadline {det.deadline_us():.3f} us, none flagged",
+          flush=True)
+    print(f"[schedule] {len(sched_runs)} auto runs (the main path's 7 halo patterns at "
+          f"S={S_AUTO_MAIN} serial, memory_bound at S=1, the cache tier, fft/tree/spread/"
+          f"all_to_all, the K={K_ENS} stacked ensemble at S={S_ens}): each equal to its "
+          f"explicit twin bit for bit and launching dispatches_per_run; launches "
+          f"{launches_sched} (and {check_launches} by the eager loops and the twins); "
+          f"{time.perf_counter() - t0:.3f} s (+{probe_s:.3f} s of probes) | {smi}",
+          flush=True)
+    print(json.dumps({"schedule": {
+        "runs": [{"run": lbl, "plan": kind, "S": s, "pipelined": piped, "reason": why,
+                  "launches": {k: n for k, n in d.items() if n}}
+                 for lbl, kind, s, piped, why, d in sched_runs],
+        "step_us": walls, "ensemble_S": S_ens, "ensemble_step_us": ens_walls,
+        "launch_plan": {"expected_us": lp.expected_launch_us, "host_us": launch_walls,
+                        "device_us": device_walls, "deadline_us": det.deadline_us()}}}),
+        flush=True)
+
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall, step_wall_eager = {}, {}
@@ -1790,7 +2052,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_run": per_run,
             "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname],
-                                 "ensemble": launches_ens[kname]},
+                                 "ensemble": launches_ens[kname],
+                                 "schedule": launches_sched[kname]},
         })
         if kname in ("taskbench_compute", "taskbench_step"):
             # the grid its wrapper launched in the timing above

@@ -87,8 +87,9 @@ class EnsembleLaunchPlan:
     #: the fresh member's t = 0 state (re-admission); None where the
     #: schedule cannot replace rows in place
     admit_fn: Optional[Callable[[Any, int, torch.Tensor], Any]] = None
-    #: the cost model's expected wall per launch; None until the cost model
-    #: is ported (ROADMAP Queue 1 item 7)
+    #: the cost model's expected wall per launch
+    #: (`schedule.expected_launch_wall_us`): a number under a measured model,
+    #: None under the analytic one (a deadline detector then self-calibrates)
     expected_launch_us: Optional[float] = None
     #: "stacked" or "stepwise"
     kind: str = ""

@@ -102,14 +102,30 @@ gate. A member off the halo plan pins the cadence to one step a launch.
 (`EnsembleLaunchPlan`): the stacked one captures its launch once on the
 card and replays it per launch, with the act row staged into the graph.
 
+Depth under ``steps_per_launch="auto"`` (or 0, "0"; `kernels/schedule.py`
+and `kernels/probes.py`, the reference's policy): the halo plan takes the
+deepest of (16, 8, 4, 2, 1), at most T - 1, whose K4 launch takes the tiled
+form (the card's fit rule, in place of the reference's VMEM budget), and
+pipelines it only where the cost model says the interior covers the
+exchange (`_pipeline_active`); the all-gather plan's launches declare no
+radius, so they never take the tiled form and "auto" resolves them to one
+step a launch, and a butterfly keeps the stride plan unless a measured
+model ranks the blocked all-gather plan ahead (`gathered_beats_strides`).
+An ensemble takes its most conservative member's depth. Each "auto"
+resolution carries its reason (`_ResolvedPlan.reason`). The model decides
+which schedule runs, never what it computes: an "auto" run equals the
+explicit run of the depth and schedule it resolved to, bit for bit.
+
 Options: ``combine`` = "window" (default: the halo plan's shifted-row
 sums; ``pair`` on the stride plan, ``gather`` on the all-gather plan) or
 "gather" / "onehot" (the ablations, honoured on every plan);
-``steps_per_launch`` = 1 or an int > 1 ("auto" raises NotImplementedError
-until the scheduler and cost model are ported, ROADMAP Queue 1 item 7);
-``pipeline`` = True or False; ``gather_width_cap`` = the widest state the
-all-gather plan takes (default 512, `schedule.DEFAULT_GATHER_WIDTH_CAP`);
-``psum_mean`` = True or False (all_to_all's row-mean combine). The
+``steps_per_launch`` = 1, an int > 1 or "auto" (0, "0"); ``cost_model`` =
+the `probes.CostModel` "auto" is priced by (a CostModel, its ``to_dict()``,
+or a cache-file path; default `probes.default_cost_model`: env > cache >
+analytic); ``pipeline`` = True or False; ``gather_width_cap`` = the widest
+state the all-gather plan takes (default 512,
+`schedule.DEFAULT_GATHER_WIDTH_CAP`); ``psum_mean`` = True or False
+(all_to_all's row-mean combine). The
 reference's ``gather_impl``, ``halo_impl``, ``block_rows`` and ``unroll``
 are transports and tilings of its multi-device and TPU paths (ROADMAP
 Queue 1 item 8), unknown options here, as is ``member_shards`` (the
@@ -129,11 +145,15 @@ from repro_torch.core.runtimes._capture import GraphRun
 from repro_torch.core.runtimes.base import EnsembleLaunchPlan, Runtime, register
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import probes as _probes
 from repro_torch.kernels import schedule as _schedule
-from repro_torch.kernels.schedule import AUTO_NOT_PORTED
+from repro_torch.kernels.bodies import SMEM_LIMIT
+from repro_torch.kernels.launch_plan import sm_count
 from repro_torch.kernels.taskbench_step import (
     WEIGHT_ACCUM_DTYPE,
     WEIGHT_DTYPE,
+    blocked_plan,
+    cooperative_only,
     finalize_weights,
     halo_rows,
     prepare_step_operands,
@@ -499,6 +519,18 @@ def _stack_operands(ops4):
     return stack(0), stack(1), stack(2), stack(3)
 
 
+def _memory_body(spec) -> bool:
+    """Whether a launch of kernel ``spec`` runs the memory sweep (the body
+    K4 runs only in its cooperative form)."""
+    return spec.kind == "memory_bound" and spec.iterations > 0
+
+
+def _time_varying(graph: TaskGraph) -> bool:
+    """Whether the all-gather plan's blocked launch holds S per-depth tables
+    (spread, period > 1) or one static pair."""
+    return graph.pattern == "spread" or graph.period > 1
+
+
 class _ResolvedPlan(NamedTuple):
     """What one graph will actually run: a plan kind and a launch depth;
     ``reason`` names why a plan was re-routed (empty for structural
@@ -513,14 +545,12 @@ class _ResolvedPlan(NamedTuple):
 class PallasStepRuntime(Runtime):
     name = "pallas_step"
     known_options = ("combine", "steps_per_launch", "pipeline", "gather_width_cap",
-                     "psum_mean")
+                     "psum_mean", "cost_model")
 
     def __init__(self, device="cuda", **options):
         super().__init__(device, **options)
         s = self.options.get("steps_per_launch")
-        if s == "auto":
-            raise NotImplementedError(AUTO_NOT_PORTED)
-        if s is not None and int(s) < 1:
+        if s is not None and not _schedule.is_auto(s) and int(s) < 1:
             raise ValueError(f"steps_per_launch must be >= 1 or 'auto', got {s!r}")
         self._combine_mode()
 
@@ -557,39 +587,172 @@ class PallasStepRuntime(Runtime):
         plan, why = self.plan_for(graph)
         return (True, "") if plan is not None else (False, why)
 
+    def _cost_model(self, payload: Optional[int] = None) -> _probes.CostModel:
+        """The CostModel pricing this runtime's "auto" verdicts: the
+        ``cost_model`` option (the explicit tier), else
+        `probes.default_cost_model` (env > cached probes > analytic) for
+        this device's platform and one device. It ranks and sizes
+        schedules only; the numerics do not depend on it."""
+        return _probes.coerce_cost_model(
+            self.options.get("cost_model"), devices=1, payload=payload,
+            platform=_probes._platform(self.device))
+
     def _schedule_for_graph(self, graph: TaskGraph) -> _ResolvedPlan:
         """The (plan, steps_per_launch) this runtime will execute, which
-        the build methods and `dispatches_per_run` share. The stride plan is per
-        step by construction; an explicit depth on a butterfly graph
+        the build methods and `dispatches_per_run` share. The stride plan is
+        per step by construction. An explicit depth on a butterfly graph
         re-routes to the blocked all-gather plan when the width is under
-        the cap and the resolved depth is > 1, and stays per step
-        otherwise."""
+        the cap and the resolved depth is > 1; "auto" re-routes only when a
+        measured model ranks that plan ahead (`gathered_beats_strides`) at
+        a resolved depth > 1, and stays per step otherwise."""
         plan, why = self.plan_for(graph)
         if plan is None:
             raise ValueError(
                 f"runtime {self.name} cannot run {graph.describe()}: {why}")
         if plan == PLAN_HALO:
-            return _ResolvedPlan(plan, self._steps_per_launch(graph.steps))
+            H = _patterns.halo_radius(graph)
+            return _ResolvedPlan(plan, *self._halo_depth(
+                [graph], H, graph.steps))
+        opt = self.options.get("steps_per_launch")
         if plan == PLAN_STRIDE:
-            if self.options.get("steps_per_launch") in (None, 1):
+            if opt in (None, 1):
                 return _ResolvedPlan(plan, 1)
-            if graph.width <= self._gather_width_cap():
-                s = self._gathered_steps_per_launch(graph)
+            cap = self._gather_width_cap()
+            if _schedule.is_auto(opt):
+                if graph.width > cap:
+                    return _ResolvedPlan(plan, 1, (
+                        f"auto keeps the stride plan, per step by construction: "
+                        f"width {graph.width} is over gather_width_cap={cap}"))
+                s, why = self._gathered_depth(graph)
+                if s <= 1:
+                    return _ResolvedPlan(plan, 1, f"auto keeps the stride plan ({why})")
+                strides = _patterns.butterfly_slot_strides(graph)
+                B = graph.width  # one device: every stride is in-block
+                beats, why = _schedule.gathered_beats_strides(
+                    width=graph.width, block=B, steps_per_launch=s,
+                    off_block_strides=sum(1 for st in strides if st >= B),
+                    period=len(strides), model=self._cost_model(graph.payload),
+                    impl=_probes.SELF_EXCHANGE)
+                return _ResolvedPlan(PLAN_ALLGATHER, s, why) if beats \
+                    else _ResolvedPlan(plan, 1, why)
+            if graph.width <= cap:
+                s = self._gathered_depth(graph)[0]
                 if s > 1:
                     return _ResolvedPlan(PLAN_ALLGATHER, s, "explicit blocked request")
             return _ResolvedPlan(plan, 1)
-        return _ResolvedPlan(plan, self._gathered_steps_per_launch(graph))
+        return _ResolvedPlan(plan, *self._gathered_depth(graph))
+
+    # ------------------------------------------------------- launch depth
+
+    def _tile_sms(self) -> dict:
+        """The SM count K4's tile cut is planned for: the card's on the
+        card; on the CPU `blocked_plan`'s default, the H100's 132."""
+        if self.device.type == "cuda":
+            return {"sms": sm_count(self.device.index or 0)}
+        return {}
+
+    def _table_width(self, members: Sequence[TaskGraph], halo: int) -> int:
+        """D of the halo plan's blocked (K, M, D) tables at halo ``halo``:
+        the window's 2H + 1 slots, or the most dependencies of any member's
+        row (gather / onehot, `_rel_dep_operands`, padded to the group's
+        most by `_stack_operands`)."""
+        if self._combine_mode() == "window":
+            return 2 * halo + 1
+        return max(max(1, max(len(g.dependencies(1, p)) for p in range(g.width)))
+                   for g in members)
+
+    def _halo_fit(self, K: int, width: int, payload: int, halo: int, table_width: int,
+                  kernel) -> _schedule.HaloFit:
+        """The card's fit rule for the halo plan: ``fits(S, pipelined)`` is
+        whether every K4 launch of depth S on that schedule takes the tiled
+        form (`blocked_plan` finds a cut under ``bodies.SMEM_LIMIT``): the
+        serial launch on the (K, W + 2*S*H) wrapped state, or the pipelined
+        boundary (K, 6*S*H) and interior (K, W) launches (at H = 0 the runtime
+        runs the serial one, `_pipeline_active`)."""
+        memory = _memory_body(kernel)
+        combine, sms = self._combine_mode(), self._tile_sms()
+
+        def fits(s: int, pipelined: bool) -> bool:
+            depth = s * halo
+            rows = (6 * depth, width) if pipelined and depth else (width + 2 * depth,)
+            return all(blocked_plan((K, m, payload), (K, m, table_width), s, combine,
+                                    memory, halo, **sms) is not None for m in rows)
+
+        return fits
+
+    def _halo_depth(self, members: Sequence[TaskGraph], halo: int,
+                    total_steps: int) -> Tuple[int, str]:
+        """(S, reason) of the halo plan for ``members`` stacked into one
+        launch at halo ``halo`` (one graph: K = 1): an explicit depth
+        through the plans' one option parser, clamped to T - 1 (reason
+        empty); "auto" through `schedule.resolve_steps_per_launch` under
+        the card's fit rule (`_halo_fit`) and this runtime's cost model."""
+        opt = self.options.get("steps_per_launch")
+        if not _schedule.is_auto(opt):  # explicit: the option parser alone
+            return _schedule._resolve_depth(opt, None, total_steps), ""
+        g = members[0]
+        D = self._table_width(members, halo)
+        fits = self._halo_fit(len(members), g.width, g.payload, halo, D, g.kernel)
+        model = self._cost_model(g.payload)
+        s = _schedule.resolve_steps_per_launch(
+            opt, block=g.width, radius=halo, fits=fits, total_steps=total_steps,
+            pipeline=self._pipeline_requested(), model=model)
+        rule = ("a depth fits when its K4 launch takes the tiled form, a tile "
+                f"under {SMEM_LIMIT} bytes of shared memory")
+        if s == 1:
+            why = (cooperative_only(3, _memory_body(g.kernel), halo)
+                   or (f"T = {total_steps} leaves one combine step" if total_steps <= 2
+                       else "no depth > 1 finds such a tile"))
+            return 1, f"auto -> S=1: no depth > 1 fits, since {why} ({rule})"
+        if self._pipeline_active(g.width, s, halo, g.payload):
+            sched = "pipelined: its interior covers the exchange and pays off"
+        elif not self._pipeline_requested():
+            sched = "serial (pipeline=False)"
+        else:
+            sched = ("serial: no depth's pipelined interior covers the exchange "
+                     "and pays off")
+        return s, (f"auto -> S={s}, the deepest candidate of {_schedule.CANDIDATES} "
+                   f"under T - 1 = {total_steps - 1} that fits ({rule}), {sched}; "
+                   f"cost model: {model.describe()}")
+
+    def _gathered_fit(self, graph: TaskGraph) -> _schedule.GatherFit:
+        """The card's fit rule for the blocked all-gather plan: ``fits(S)``
+        is whether its K4 launch on the (1, W) state, with the tables the
+        launch holds ((1, S, W, D) time-varying, or one static (1, W, D)
+        pair), takes the tiled form. It declares no radius, so it never
+        does."""
+        W, P, D = graph.width, graph.payload, graph.max_deps
+        memory, time_varying = _memory_body(graph.kernel), _time_varying(graph)
+        combine, sms = self._plan_combine(PLAN_ALLGATHER), self._tile_sms()
+
+        def fits(s: int) -> bool:
+            wgt = (1, s, W, D) if time_varying else (1, W, D)
+            return blocked_plan((1, W, P), wgt, s, combine, memory, None, **sms) is not None
+
+        return fits
+
+    def _gathered_depth(self, graph: TaskGraph) -> Tuple[int, str]:
+        """(S, reason) of the all-gather plan: explicit depths through the
+        shared option parser (reason empty); "auto" through
+        `schedule.resolve_steps_per_launch_gathered` under `_gathered_fit`."""
+        opt = self.options.get("steps_per_launch")
+        if not _schedule.is_auto(opt):  # explicit: the option parser alone
+            return _schedule._resolve_depth(opt, None, graph.steps), ""
+        model = self._cost_model(graph.payload)
+        s = _schedule.resolve_steps_per_launch_gathered(
+            opt, width=graph.width, block=graph.width, fits=self._gathered_fit(graph),
+            total_steps=graph.steps, model=model)
+        if s > 1:
+            return s, (f"auto -> S={s}: the deepest candidate whose gathered launch "
+                       f"pays off and takes K4's tiled form; cost model: "
+                       f"{model.describe(graph.width)}")
+        why = cooperative_only(4 if _time_varying(graph) else 3,
+                               _memory_body(graph.kernel), None)
+        return 1, (f"auto -> S=1 on the all-gather plan: no depth > 1 fits, since "
+                   f"{why} (a depth fits when its K4 launch takes the tiled form)")
 
     def _gathered_steps_per_launch(self, graph: TaskGraph) -> int:
-        return _schedule.resolve_steps_per_launch_gathered(
-            self.options.get("steps_per_launch"), total_steps=graph.steps)
-
-    def _steps_per_launch(self, total_steps: int) -> int:
-        """The halo plan's explicit depth, clamped to the combine-step
-        count (deeper than the run is all masked tail), through the plans'
-        one option parser."""
-        return _schedule._resolve_depth(self.options.get("steps_per_launch"),
-                                        _schedule.auto_not_ported, total_steps)
+        return self._gathered_depth(graph)[0]
 
     # ------------------------------------------------------------ operands
 
@@ -621,12 +784,22 @@ class PallasStepRuntime(Runtime):
         """``pipeline=False`` is the serial ablation; default on."""
         return bool(self.options.get("pipeline", True))
 
-    def _pipeline_active(self, block: int, s: int, halo: int) -> bool:
+    def _pipeline_active(self, block: int, s: int, halo: int,
+                         payload: Optional[int] = None) -> bool:
         """The pipelined schedule applies when blocking is on AND the owned
         block keeps a nonempty interior once 2*S*r edge rows belong to the
-        boundary phase; otherwise the serial schedule runs."""
-        return (s > 1 and halo > 0 and self._pipeline_requested()
-                and block > 2 * s * halo)
+        boundary phase; otherwise the serial schedule runs. Under
+        ``steps_per_launch="auto"`` the tuner's verdict also binds: the
+        interior must cover the exchange under this runtime's cost model
+        for ``payload`` (`schedule.pipeline_interior_covers_exchange`); an
+        explicit S pipelines wherever it structurally can."""
+        if not (s > 1 and halo > 0 and self._pipeline_requested()
+                and block > 2 * s * halo):
+            return False
+        if _schedule.is_auto(self.options.get("steps_per_launch")):
+            return _schedule.pipeline_interior_covers_exchange(
+                block, halo, s, self._cost_model(payload))
+        return True
 
     @staticmethod
     def _launches(total_steps: int, s: int) -> int:
@@ -743,7 +916,8 @@ class PallasStepRuntime(Runtime):
             for a in self._blocked_operands(graph, H))
         acts = torch.from_numpy(_act_schedule((T,), T, S)).to(self.device)  # (L, 1, S)
         begin, launch = self._blocked_launches(
-            idx, wgt, graph.width, S, H, kwb, self._pipeline_active(graph.width, S, H))
+            idx, wgt, graph.width, S, H, kwb,
+            self._pipeline_active(graph.width, S, H, graph.payload))
 
         def run(init):
             carry = begin(_kops.taskbench_step(init[None], idx0, wgt0, **kw0))  # t=0
@@ -936,14 +1110,19 @@ class PallasStepRuntime(Runtime):
 
     def _ensemble_steps_per_launch(self, ensemble: GraphEnsemble) -> int:
         """One launch cadence for all members (launch boundaries are
-        shared): a member on the stride or all-gather plan pins it to one
-        step a launch (its exchanges are per step); otherwise the explicit
-        depth, clamped to the lockstep T. (The reference takes the most
-        conservative member's resolved depth, which differs from this only
-        under "auto", not ported.)"""
-        if any(self.plan_for(g)[0] != PLAN_HALO for g in ensemble.members):
+        shared), so the most conservative member's resolved depth, at the
+        lockstep T: a stacked ensemble resolves once, for its one (K, W)
+        launch at the largest radius; a tuple takes the least of its
+        members' own depths. A member on the stride or all-gather plan pins
+        the cadence to one step a launch (its exchanges are per step)."""
+        members = ensemble.members
+        if any(self.plan_for(g)[0] != PLAN_HALO for g in members):
             return 1
-        return self._steps_per_launch(ensemble.steps)
+        if self._is_stacked(ensemble):
+            H = max(_patterns.halo_radius(g) for g in members)
+            return self._halo_depth(members, H, ensemble.steps)[0]
+        return min(self._halo_depth([g], _patterns.halo_radius(g), ensemble.steps)[0]
+                   for g in members)
 
     def stacking_verdict(self, ensemble: GraphEnsemble) -> Tuple[bool, str]:
         """``supports()``-style verdict for the stacked fast path: (ok,
@@ -1055,7 +1234,7 @@ class PallasStepRuntime(Runtime):
         acts = torch.from_numpy(
             _act_schedule(ensemble.member_steps, T, S)).to(self.device)  # (L, K, S)
         begin, launch = self._blocked_launches(
-            idx, wgt, W, S, H, kwb, self._pipeline_active(W, S, H))
+            idx, wgt, W, S, H, kwb, self._pipeline_active(W, S, H, members[0].payload))
 
         def run(inits):
             carry = begin(_kops.taskbench_step(torch.stack(inits), idx0, wgt0, **kw0))
@@ -1103,7 +1282,7 @@ class PallasStepRuntime(Runtime):
             t0s.append((idx0, wgt0, kw0))
             runners.append(self._blocked_launches(
                 idx, wgt, g.width, S, h, dict(kw0, steps_per_launch=S, radius=h),
-                self._pipeline_active(g.width, S, h)))
+                self._pipeline_active(g.width, S, h, g.payload)))
 
         def run(inits):
             carries = [begin(_kops.taskbench_step(x[None], i0, w0, **kw0))
@@ -1122,7 +1301,10 @@ class PallasStepRuntime(Runtime):
         stacked ensemble keeps its blocked cadence on the serial schedule
         (equal to the pipelined one bit for bit); any other runs the tuple
         path's step fns one step a launch. Each launch is a deterministic
-        function of (carry, act row)."""
+        function of (carry, act row). ``expected_launch_us`` is the cost
+        model's wall of one launch (`schedule.expected_launch_wall_us` over
+        K x W rows, or the members' rows summed at S = 1): a number under a
+        measured model, None under the analytic one."""
         self._require_ensemble_support(ensemble)
         if self._is_stacked(ensemble):
             return self._launch_plan_stacked(
@@ -1176,8 +1358,11 @@ class PallasStepRuntime(Runtime):
             steps_per_launch=S, member_steps=tuple(ensemble.member_steps),
             acts=_act_schedule(ensemble.member_steps, T, S), init_fn=first,
             launch_fn=launch_fn, finalize=lambda carry: carry.unbind(0),
-            admit_fn=admit_fn, kind="stacked",
-            compile_counter=lambda: _build.CAPTURES["graphs"])
+            admit_fn=admit_fn,
+            expected_launch_us=_schedule.expected_launch_wall_us(
+                rows=K * B, steps_per_launch=S, model=self._cost_model(P),
+                impl=_probes.SELF_EXCHANGE),
+            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
 
     def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
         """One step a launch for mixed ensembles: the tuple path's (t0,
@@ -1209,8 +1394,11 @@ class PallasStepRuntime(Runtime):
             steps_per_launch=1, member_steps=tuple(ensemble.member_steps),
             acts=_act_schedule(ensemble.member_steps, T, 1), init_fn=init_fn,
             launch_fn=launch_fn, finalize=lambda carry: tuple(s[0] for s in carry),
-            admit_fn=admit_fn, kind="stepwise",
-            compile_counter=lambda: _build.CAPTURES["graphs"])
+            admit_fn=admit_fn,
+            expected_launch_us=_schedule.expected_launch_wall_us(
+                rows=sum(g.width for g in members), steps_per_launch=1,
+                model=self._cost_model(members[0].payload), impl=_probes.SELF_EXCHANGE),
+            kind="stepwise", compile_counter=lambda: _build.CAPTURES["graphs"])
 
     # ---------------------------------------------------------- accounting
 
@@ -1229,7 +1417,8 @@ class PallasStepRuntime(Runtime):
         plan = self._schedule_for_graph(graph)
         L = self._launches(graph.steps, plan.steps_per_launch)
         if plan.kind == PLAN_HALO and self._pipeline_active(
-                graph.width, plan.steps_per_launch, _patterns.halo_radius(graph)):
+                graph.width, plan.steps_per_launch, _patterns.halo_radius(graph),
+                graph.payload):
             return 1 + 2 * (L - 1)
         return L
 
@@ -1246,7 +1435,9 @@ class PallasStepRuntime(Runtime):
         members = ensemble.members
         if self._is_stacked(ensemble):
             H = max(_patterns.halo_radius(g) for g in members)
-            return 1 + (2 if self._pipeline_active(members[0].width, S, H) else 1) * (L - 1)
+            piped = self._pipeline_active(members[0].width, S, H, members[0].payload)
+            return 1 + (2 if piped else 1) * (L - 1)
         return sum(
-            1 + (2 if self._pipeline_active(g.width, S, _patterns.halo_radius(g)) else 1)
+            1 + (2 if self._pipeline_active(g.width, S, _patterns.halo_radius(g), g.payload)
+                 else 1)
             * (L - 1) for g in members)

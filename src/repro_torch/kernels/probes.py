@@ -1,0 +1,594 @@
+"""Measured cost model: probes taken on the card behind the scheduling policy.
+
+Counterpart of ``repro.kernels.probes``. ``schedule.py`` ranks launch
+depths and plans with covers/pays-off rules in *row-steps* against one
+exchange-cost constant; this module measures what the card costs:
+
+  probe_launch_us          one K3 launch as a CUDA graph node (window mode,
+                           8 rows: all fixed cost)
+  probe_row_step_us        one working row advanced one depth: the slope of
+                           K3's per-launch wall over widths
+  probe_halo_exchange_us   the deep halo exchange; on one device a
+                           self-wrap that launches nothing: {"self": 0.0}
+  probe_stride_exchange_us the XOR block exchange; {} below 2 devices
+  probe_gather_us          the all-gather plan's gather per width; on one
+                           device the gathered buffer is the state: 0.0
+
+Every run of the port is one CUDA graph replay, so a launch costs what it
+costs as a graph node: each probe captures N chained launches in one graph,
+replays it behind a device sleep (``launch.attention_times.gpu_ms``, CUDA
+events) and takes the wall over N. A host-synchronised single call, as the
+reference's ``_time_best_us`` takes, would measure the synchronisation.
+
+The row-step probe's widths and floor. K3 costs the same fixed ~2 us at
+every width up to 2112 rows (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W), so
+a slope over such widths is noise. The probe widths (16384, 65536, 262144
+rows; 8 to 124 waves of K3's 132 CTAs of 16 rows at payload 64) are where
+the wall grows with the rows: a row reads and writes 2 x 64 x 4 = 512
+bytes, 1.5e-4 us at the card's 3.35 TB/s, so 262144 rows take ~40 us a
+launch. The floor is restated in the card's units: a tenth of that byte
+time, ``ROW_STEP_FLOOR_FRACTION x 8 x payload / HBM_BYTES_PER_S`` (1.5e-5
+us at payload 64); a slope at the floor was not measured. The reference's
+1e-3 us floor, a TPU-container number, would price a K = 4 stacked S = 8
+launch (8448 rows) at ~70 us where K4 takes ~12.
+
+``run_probes`` bundles the results into a :class:`CostModel` and
+``save_cost_model`` persists it under ``artifacts/bench_torch/cost_model.json``
+(the reference's cache, ``artifacts/bench/cost_model.json``, is never
+written), keyed per (platform, device count, payload); the platform is the
+CUDA device name (``torch.cuda.get_device_name``), "cpu" on the CPU. One
+repair against the reference: the exchange ratio X = exchange / row-step is
+derived when the exchange was measured at all (``is not None``), where the
+reference tests its truth, so a measured exchange of 0.0 (one device) gives
+X = max(1, 0) = 1, not the analytic 512. Then no depth's pipelined split
+pays off and "auto" on one device runs the serial schedule.
+
+``default_cost_model`` is the resolution every scheduling decision goes
+through when no model is passed explicitly; precedence:
+
+  explicit option  a CostModel handed to the resolver / runtime wins
+  env              REPRO_PIPELINE_EXCHANGE_ROW_STEPS overrides the
+                   exchange constant (source="env")
+  cached probes    a matching entry in the cache file (REPRO_COST_MODEL
+                   names the file; unset -> the default path; "off"
+                   disables the cache, which the test suite pins)
+  analytic         schedule.PIPELINE_EXCHANGE_ROW_STEPS, no absolute costs,
+                   plans not rankable
+
+CLI (calibrate on the card and persist)::
+
+    PYTHONPATH=src python -m repro_torch.kernels.probes \
+        --out artifacts/bench_torch/cost_model.json
+
+Nothing is timed or built when this module is imported; the probes import
+the kernels inside their functions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional, Sequence
+
+from repro_torch.kernels import schedule as _schedule
+
+#: Cache layout version (the reference's); loads fail on a mismatch.
+SCHEMA_VERSION = 1
+
+#: REPRO_COST_MODEL: path of the calibration cache file; empty/unset -> the
+#: default path below; one of _DISABLE_VALUES -> no cache.
+COST_MODEL_ENV = "REPRO_COST_MODEL"
+
+_DISABLE_VALUES = ("off", "0", "none", "disabled")
+
+#: the port's own cache, at the root of the checkout
+DEFAULT_CACHE_PATH = (
+    Path(__file__).resolve().parents[3] / "artifacts" / "bench_torch"
+    / "cost_model.json"
+)
+
+#: The one-device halo exchange's key in ``halo_exchange_us``: a wrap of the
+#: state onto itself, no launch.
+SELF_EXCHANGE = "self"
+
+#: The card's memory rate (H100 SXM data sheet, 700 W), bytes per second.
+HBM_BYTES_PER_S = 3.35e12
+#: The row-step floor, as a fraction of the time one row's bytes (read and
+#: write, f32) take at HBM_BYTES_PER_S.
+ROW_STEP_FLOOR_FRACTION = 0.1
+
+#: The launch probe: K3 over this many rows, N launches a graph.
+LAUNCH_ROWS = 8
+LAUNCH_NODES = 100
+#: The row-step probe's widths and launches a graph (see the docstring).
+ROW_WIDTHS = (16384, 65536, 262144)
+ROW_NODES = 20
+#: The smoke grids: the CPU tests' sizes.
+SMOKE_ROW_WIDTHS = (64, 256, 512)
+SMOKE_NODES = 4
+#: The all-gather plan's widths the gather probe reports.
+GATHER_WIDTHS = (64, 256, 512)
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """The costs the scheduling policy runs on, and where they came from
+    (the reference's fields and codec). ``exchange_row_steps`` is the one
+    number every covers/pays-off rule consumes; the rest exist only on
+    measured models. All wall costs are microseconds."""
+
+    source: str  # "analytic" | "env" | "measured"
+    exchange_row_steps: float
+    launch_us: Optional[float] = None
+    row_step_us: Optional[float] = None
+    halo_exchange_us: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stride_exchange_us: Dict[str, float] = dataclasses.field(default_factory=dict)
+    gather_us: Dict[int, float] = dataclasses.field(default_factory=dict)
+    #: impl -> devices -> width -> us: the devices-dimension gather probes
+    #: (multi-device, ROADMAP Queue 1 item 8); empty here, kept for the codec
+    gather_impl_us: Dict[str, Dict[int, Dict[int, float]]] = (
+        dataclasses.field(default_factory=dict))
+    platform: str = ""
+    devices: int = 0
+    payload: int = 0
+
+    # ------------------------------------------------------------ queries
+
+    @property
+    def is_measured(self) -> bool:
+        return self.source == "measured"
+
+    @property
+    def can_rank_plans(self) -> bool:
+        """Plan ranking needs absolute costs: launch, row-step and at least
+        one measured gather width."""
+        return (self.is_measured and self.launch_us is not None
+                and self.row_step_us is not None and bool(self.gather_us))
+
+    @staticmethod
+    def _interp_width(curve: Dict[int, float],
+                      width: int) -> Optional[float]:
+        """Piecewise-linear over probed widths, clamp-extrapolated with the
+        end slopes. None on an empty curve."""
+        if not curve:
+            return None
+        pts = sorted(curve.items())
+        if len(pts) == 1 or width <= pts[0][0]:
+            lo, hi = pts[0], pts[min(1, len(pts) - 1)]
+        elif width >= pts[-1][0]:
+            lo, hi = pts[-2], pts[-1]
+        else:
+            lo = max(p for p in pts if p[0] <= width)
+            hi = min(p for p in pts if p[0] >= width)
+        if lo[0] == hi[0]:
+            return float(lo[1])
+        slope = (hi[1] - lo[1]) / (hi[0] - lo[0])
+        return float(max(0.0, lo[1] + slope * (width - lo[0])))
+
+    def gather_us_at(self, width: int) -> Optional[float]:
+        """Measured gather wall at ``width``, interpolated per
+        :meth:`_interp_width`. None when the model has no gather probes."""
+        return self._interp_width(self.gather_us, width)
+
+    def stride_us_for(self, impl: str = "xla") -> Optional[float]:
+        """One XOR block-exchange wall for ``impl``, falling back to any
+        probed transport; None when none was probed."""
+        if impl in self.stride_exchange_us:
+            return float(self.stride_exchange_us[impl])
+        if self.stride_exchange_us:
+            return float(min(self.stride_exchange_us.values()))
+        return None
+
+    def describe(self, width: Optional[int] = None) -> str:
+        """The verdict source, for reason strings: a wrong auto-pick must be
+        diagnosable from the message alone."""
+        if self.source == "env":
+            return (f"env override {_schedule._EXCHANGE_ROW_STEPS_ENV}="
+                    f"{self.exchange_row_steps:g} row-steps")
+        if not self.is_measured:
+            return (f"analytic fallback "
+                    f"(exchange={self.exchange_row_steps:g} row-steps)")
+        parts = [f"measured on {self.platform} x{self.devices}"]
+        costs = []
+        if self.halo_exchange_us:
+            costs.append(f"exchange={min(self.halo_exchange_us.values()):.1f}us")
+        stride = self.stride_us_for()
+        if stride is not None:
+            costs.append(f"stride={stride:.1f}us")
+        g = self.gather_us_at(width) if width else None
+        if g is not None:
+            costs.append(f"gather={g:.1f}us@w{width}")
+        elif self.gather_us:
+            w, us = sorted(self.gather_us.items())[-1]
+            costs.append(f"gather={us:.1f}us@w{w}")
+        if self.launch_us is not None:
+            costs.append(f"launch={self.launch_us:.1f}us")
+        if self.row_step_us is not None:
+            costs.append(f"row-step={self.row_step_us:.3f}us")
+        return (f"{parts[0]}: " + ", ".join(costs)
+                + f" -> exchange={self.exchange_row_steps:g} row-steps")
+
+    # -------------------------------------------------------------- codec
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["gather_us"] = {str(k): v for k, v in sorted(self.gather_us.items())}
+        d["gather_impl_us"] = {
+            impl: {str(dd): {str(w): us for w, us in sorted(curve.items())}
+                   for dd, curve in sorted(by_d.items())}
+            for impl, by_d in sorted(self.gather_impl_us.items())}
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CostModel":
+        known = {f.name for f in dataclasses.fields(cls)}
+        extra = set(d) - known
+        if extra:
+            raise ValueError(f"unknown CostModel fields {sorted(extra)}")
+        d = dict(d)
+        d["gather_us"] = {int(k): float(v)
+                          for k, v in d.get("gather_us", {}).items()}
+        d["gather_impl_us"] = {
+            str(impl): {int(dd): {int(w): float(us)
+                                  for w, us in curve.items()}
+                        for dd, curve in by_d.items()}
+            for impl, by_d in d.get("gather_impl_us", {}).items()}
+        return cls(**d)
+
+    def cache_key(self) -> str:
+        return f"{self.platform}|d{self.devices}|p{self.payload}"
+
+
+def analytic_cost_model() -> CostModel:
+    """The documented fallback: schedule.py's constant, no absolute costs,
+    plans not rankable."""
+    return CostModel(source="analytic",
+                     exchange_row_steps=float(
+                         _schedule.PIPELINE_EXCHANGE_ROW_STEPS))
+
+
+def _env_cost_model(raw: str) -> CostModel:
+    """REPRO_PIPELINE_EXCHANGE_ROW_STEPS as a model; invalid values raise."""
+    value = int(raw)
+    if value <= 0:
+        raise ValueError(
+            f"{_schedule._EXCHANGE_ROW_STEPS_ENV} must be a positive "
+            f"integer, got {raw!r}")
+    return CostModel(source="env", exchange_row_steps=float(value))
+
+
+# --------------------------------------------------------------- cache file
+
+
+def save_cost_model(model: CostModel, path=None) -> Path:
+    """Merge one calibration into the cache file (other keys survive)."""
+    path = Path(path) if path is not None else DEFAULT_CACHE_PATH
+    entries: Dict[str, CostModel] = {}
+    if path.exists():
+        entries = load_cost_model(path)
+    entries[model.cache_key()] = model
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "schema": SCHEMA_VERSION,
+        "entries": {k: m.to_dict() for k, m in sorted(entries.items())},
+    }
+    path.write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n")
+    return path
+
+
+def load_cost_model(path=None) -> Dict[str, CostModel]:
+    """All cached calibrations, keyed "platform|dD|pP". Corrupt files and
+    schema mismatches raise ValueError."""
+    path = Path(path) if path is not None else DEFAULT_CACHE_PATH
+    try:
+        raw = json.loads(path.read_text())
+    except json.JSONDecodeError as e:
+        raise ValueError(f"corrupt cost-model cache {path}: {e}") from None
+    if not isinstance(raw, dict) or raw.get("schema") != SCHEMA_VERSION:
+        schema = raw.get("schema") if isinstance(raw, dict) else None
+        raise ValueError(
+            f"cost-model cache {path} has schema {schema!r}, "
+            f"this build reads schema {SCHEMA_VERSION}: re-run "
+            f"`python -m repro_torch.kernels.probes` to recalibrate")
+    try:
+        return {k: CostModel.from_dict(v)
+                for k, v in raw.get("entries", {}).items()}
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"corrupt cost-model cache {path}: {e}") from None
+
+
+def _match_entry(entries: Dict[str, CostModel], platform: str,
+                 devices: Optional[int],
+                 payload: Optional[int]) -> Optional[CostModel]:
+    """Best cached calibration for the current context: platform must match
+    exactly; device count must match when known; payload picks the nearest
+    probe."""
+    pool = [m for m in entries.values() if m.platform == platform]
+    if devices is not None:
+        pool = [m for m in pool if m.devices == devices]
+    if not pool:
+        return None
+    if payload is not None:
+        pool.sort(key=lambda m: (abs(m.payload - payload), m.payload))
+    else:
+        pool.sort(key=lambda m: m.payload)
+    return pool[0]
+
+
+def _device(device=None):
+    """The probes' device: the card unless ``device`` says "cpu"; asking
+    for the card where there is none raises."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the probes run on the card and no CUDA device is "
+                           "available; pass device='cpu' for the plain path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the probes run on cuda or cpu, not {dev}")
+    return dev
+
+
+def _platform(device=None) -> str:
+    """The cache's platform key: the CUDA device name on the card, "cpu" on
+    the CPU. With no device, the card if there is one."""
+    import torch
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    return torch.cuda.get_device_name(dev.index or 0)
+
+
+_default_cache: Dict[tuple, CostModel] = {}
+
+
+def default_cost_model(devices: Optional[int] = None,
+                       payload: Optional[int] = None,
+                       platform: Optional[str] = None) -> CostModel:
+    """The model scheduling decisions use when none is passed explicitly:
+    env constant > cached probes > analytic fallback (the explicit tier
+    lives at the call sites). Re-reads the environment per call; memoizes
+    file loads per (path, mtime). ``platform`` defaults to `_platform()`."""
+    raw_env = os.environ.get(_schedule._EXCHANGE_ROW_STEPS_ENV)
+    if raw_env:
+        return _env_cost_model(raw_env)
+    raw_path = os.environ.get(COST_MODEL_ENV)
+    if raw_path and raw_path.strip().lower() in _DISABLE_VALUES:
+        return analytic_cost_model()
+    path = Path(raw_path) if raw_path else DEFAULT_CACHE_PATH
+    if not path.exists():
+        return analytic_cost_model()
+    platform = _platform() if platform is None else platform
+    mtime = path.stat().st_mtime_ns
+    key = (str(path), mtime, platform, devices, payload)
+    if key not in _default_cache:
+        entry = _match_entry(load_cost_model(path), platform, devices, payload)
+        _default_cache[key] = entry if entry is not None \
+            else analytic_cost_model()
+    return _default_cache[key]
+
+
+def coerce_cost_model(value, devices: Optional[int] = None,
+                      payload: Optional[int] = None,
+                      platform: Optional[str] = None) -> CostModel:
+    """A runtime's ``cost_model`` option -> CostModel. Accepts a CostModel,
+    a to_dict()-shaped dict, or a cache-file path; None falls through to
+    ``default_cost_model``."""
+    if value is None:
+        return default_cost_model(devices=devices, payload=payload,
+                                  platform=platform)
+    if isinstance(value, CostModel):
+        return value
+    if isinstance(value, dict):
+        return CostModel.from_dict(value)
+    if isinstance(value, (str, os.PathLike)):
+        platform = _platform() if platform is None else platform
+        entry = _match_entry(load_cost_model(Path(value)), platform,
+                             devices, payload)
+        if entry is None:
+            raise ValueError(
+                f"cost-model file {value} has no entry for platform "
+                f"{platform!r} at {devices} devices")
+        return entry
+    raise TypeError(
+        f"cost_model option must be a CostModel, dict, or path; "
+        f"got {type(value).__name__}")
+
+
+# ------------------------------------------------------------------- probes
+
+
+def row_step_floor_us(payload: int) -> float:
+    """The row-step probe's floor: ROW_STEP_FLOOR_FRACTION of the time one
+    row's f32 bytes, read and written, take at the card's memory rate."""
+    return ROW_STEP_FLOOR_FRACTION * 8 * payload / HBM_BYTES_PER_S * 1e6
+
+
+def _launch_us(step: Callable, x, nodes: int, reps: int) -> float:
+    """Wall of one of ``nodes`` chained ``x = step(x)`` launches, in us: on
+    the card the chain captured as one CUDA graph, ``reps`` replays queued
+    back to back behind a device sleep and timed with CUDA events; on the
+    CPU best of ``reps`` host walls of the chain."""
+    def chain():
+        y = x
+        for _ in range(nodes):
+            y = step(y)
+        return y
+
+    if x.device.type == "cuda":
+        import torch
+
+        from repro_torch.core.runtimes._capture import Graphed
+        from repro_torch.launch.attention_times import gpu_ms
+
+        stream = torch.cuda.Stream(x.device)
+        stream.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(stream):
+            chain()  # the warm-up (loads the kernel) before capture
+        torch.cuda.current_stream(x.device).wait_stream(stream)
+        graph = Graphed(chain, stream)
+        try:
+            return gpu_ms(graph.replay, max(1, reps)) * 1e3 / nodes
+        finally:
+            graph.close()
+    chain()
+    best = float("inf")
+    for _ in range(max(1, reps)):
+        t0 = time.perf_counter()
+        chain()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e6 / nodes
+
+
+def _step_call(width: int, payload: int, device):
+    """(step, x): ONE single-step window-mode K3 launch over ``width`` rows
+    (radius-1 three-point stencil, grain 1, the one-device wrap folded in),
+    the launch and combine the halo plan issues at S = 1, and its state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as _kops
+
+    x = torch.zeros((1, width, payload), dtype=torch.float32, device=device)
+    idx = torch.zeros((1, width, 1), dtype=torch.int32, device=device)
+    wgt = torch.from_numpy(np.full((1, width, 3), 1.0 / 3.0, np.float32)).to(device)
+    kw = dict(kind="compute_bound", iterations=1, scratch=2048, combine="window")
+    return (lambda s: _kops.taskbench_step(s, idx, wgt, wrap=1, **kw)), x
+
+
+def probe_launch_us(payload: int = 64, *, reps: int = 5, device=None,
+                    nodes: int = LAUNCH_NODES) -> float:
+    """Per-launch cost: K3 over LAUNCH_ROWS rows, too few for the body to
+    matter, as one of ``nodes`` graph nodes."""
+    step, x = _step_call(LAUNCH_ROWS, payload, _device(device))
+    return _launch_us(step, x, nodes, reps)
+
+
+def probe_row_step_us(payload: int = 64, *,
+                      widths: Sequence[int] = ROW_WIDTHS,
+                      reps: int = 5, device=None,
+                      nodes: int = ROW_NODES) -> float:
+    """Marginal cost of one working row advanced one depth: the
+    least-squares slope of K3's per-launch wall over ``widths``, floored at
+    `row_step_floor_us` (a slope at or under it is noise)."""
+    dev = _device(device)
+    reps = max(reps, 3)  # the slope is a difference of walls
+    ws = sorted(set(int(w) for w in widths))
+    ts = [_launch_us(*_step_call(w, payload, dev), nodes, reps) for w in ws]
+    n = len(ws)
+    mw, mt = sum(ws) / n, sum(ts) / n
+    var = sum((w - mw) ** 2 for w in ws)
+    slope = sum((w - mw) * (t - mt) for w, t in zip(ws, ts)) / var
+    return max(row_step_floor_us(payload), slope)
+
+
+def _one_device(devices: int, what: str) -> None:
+    if devices != 1:
+        raise NotImplementedError(
+            f"{what} across {devices} devices needs the multi-rank transports "
+            f"(ROADMAP.md, Queue 1 item 8); the port runs on one card")
+
+
+def probe_halo_exchange_us(devices: int = 1, payload: int = 64) -> Dict[str, float]:
+    """The deep halo exchange per transport. On one device the exchange is a
+    wrap of the state onto itself that launches nothing: the serial blocked
+    launch reads the wrapped rows through ``halo_rows`` and the pipelined
+    one takes the boundary phase's outputs as the next launch's halos
+    (``pallas_step._pipelined_launch``), the first ones sliced from the
+    state (``_prologue_exchange``). So it costs nothing: {"self": 0.0}."""
+    _one_device(devices, "the halo exchange probe")
+    return {SELF_EXCHANGE: 0.0}
+
+
+def probe_stride_exchange_us(devices: int = 1, payload: int = 64) -> Dict[str, float]:
+    """One XOR block exchange per transport: {} below 2 devices (every
+    stride is in-block there) and at device counts that are not powers of
+    two, as the reference's."""
+    if devices >= 2 and not devices & (devices - 1):
+        _one_device(devices, "the stride exchange probe")
+    return {}
+
+
+def probe_gather_us(devices: int = 1, payload: int = 64, *,
+                    widths: Sequence[int] = GATHER_WIDTHS) -> Dict[int, float]:
+    """The all-gather plan's gather per width. On one device the gathered
+    buffer is the state itself (the plan gathers nothing): 0.0 at each
+    width."""
+    _one_device(devices, "the gather probe")
+    return {int(w): 0.0 for w in sorted(set(widths))}
+
+
+def run_probes(devices: Optional[int] = None, payload: int = 64, *,
+               reps: int = 5, smoke: bool = False, device=None) -> CostModel:
+    """All probes -> one measured CostModel (not yet persisted), on the card
+    unless ``device="cpu"`` (the plain path, for the tests). ``smoke``
+    shrinks reps, widths and graph lengths; the schema and the derivation
+    are identical."""
+    dev = _device(device)
+    devices = 1 if devices is None else int(devices)
+    _one_device(devices, "the probes")
+    row_widths, nodes = ROW_WIDTHS, (LAUNCH_NODES, ROW_NODES)
+    if smoke:
+        reps = min(reps, 3)
+        row_widths, nodes = SMOKE_ROW_WIDTHS, (SMOKE_NODES, SMOKE_NODES)
+    launch = probe_launch_us(payload, reps=reps, device=dev, nodes=nodes[0])
+    row_step = probe_row_step_us(payload, widths=row_widths, reps=reps,
+                                 device=dev, nodes=nodes[1])
+    halo = probe_halo_exchange_us(devices, payload)
+    stride = probe_stride_exchange_us(devices, payload)
+    gather = probe_gather_us(devices, payload)
+    # The covers/pays-off unit: one exchange in row-steps. Tested for a
+    # measurement, not for truth: a measured 0.0 exchange gives X = 1.
+    exch = halo.get("xla", min(halo.values()) if halo else None)
+    x = (exch / row_step) if exch is not None else float(
+        _schedule.PIPELINE_EXCHANGE_ROW_STEPS)
+    return CostModel(
+        source="measured",
+        exchange_row_steps=float(max(1.0, x)),
+        launch_us=float(launch),
+        row_step_us=float(row_step),
+        halo_exchange_us={k: float(v) for k, v in halo.items()},
+        stride_exchange_us={k: float(v) for k, v in stride.items()},
+        gather_us={k: float(v) for k, v in gather.items()},
+        platform=_platform(dev),
+        devices=devices,
+        payload=int(payload),
+    )
+
+
+# ---------------------------------------------------------------------- CLI
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Calibrate on the card (or the CPU) and persist."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--payload", type=int, default=64)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny grids and reps (the CPU tests' sizes)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=str(DEFAULT_CACHE_PATH),
+                    help="cache file to merge into ('-' = don't persist)")
+    ap.add_argument("--json", action="store_true",
+                    help="print the model as JSON on stdout")
+    args = ap.parse_args(argv)
+    model = run_probes(payload=args.payload, reps=args.reps, smoke=args.smoke,
+                       device=args.device)
+    if args.out != "-":
+        path = save_cost_model(model, args.out)
+        print(f"cost model [{model.cache_key()}] -> {path}")
+    print(model.describe())
+    if args.json:
+        print(json.dumps(model.to_dict(), indent=2, sort_keys=True))
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - exercised via subprocess
+    raise SystemExit(main())

@@ -501,12 +501,26 @@ def step_plan(K: int, W: int, P: int, sms: int = 132) -> LaunchPlan:
     return LaunchPlan(chains, *cut_ctas(W * -(-P // chains), sms, K))
 
 
+def cooperative_only(wgt_ndim: int, memory: bool,
+                     radius: Optional[int]) -> Optional[str]:
+    """Why a K4 launch takes the cooperative form whatever its size (each
+    rule that binds, joined), or None when the tiled form may apply."""
+    why = []
+    if memory:
+        why.append("the memory body runs only in K4's cooperative form")
+    if radius is None:
+        why.append("the launch declares no radius (its tables may reach any row)")
+    if wgt_ndim != 3:
+        why.append("time-varying (K, S, M, D) tables run only in K4's cooperative form")
+    return "; ".join(why) or None
+
+
 def blocked_plan(src_shape, wgt_shape, S: int, combine: str, memory: bool,
                  radius: Optional[int], sms: int = 132) -> Optional[TilePlan]:
     """K4's form rule: the tiled form's plan when a radius is declared, the
     (K, M, D) tables are fixed, the body is not the memory sweep and a tile
     fits in shared memory; None for the cooperative form."""
-    if radius is None or len(wgt_shape) != 3 or memory:
+    if cooperative_only(len(wgt_shape), memory, radius):
         return None
     K, M, P = src_shape
     D = wgt_shape[-1]

@@ -1,16 +1,19 @@
 """Deadline-based straggler detection (no hand-tuned timeouts).
 
 A copy of ``repro.resilience.detect`` (pure Python). The port's serving loop
-(``launch.serve``) uses the self-calibrated ("observed") form; the cost
-model that prices the "measured" form is not ported yet (ROADMAP Queue 1
-item 7).
+(``launch.serve``) uses the self-calibrated ("observed") form. The
+"measured" form takes a launch plan's expected wall:
+``DeadlineDetector(expected_us=plan.expected_launch_us)`` holds a deadline
+from the first launch wherever ``pallas_step`` was priced by a measured
+cost model (``kernels/probes.py``, ``kernels/schedule.py``).
 
 A launch (or decode step) is flagged when its wall exceeds ``factor`` x
 the EXPECTED wall. Two sources for the expectation, in precedence order:
 
-  measured    the PR 6 CostModel prices the launch
-              (kernels.schedule.launch_deadline_us) — the deadline exists
-              from the first launch.
+  measured    the CostModel prices the launch
+              (kernels.schedule.expected_launch_wall_us, the launch plan's
+              ``expected_launch_us``) — the deadline exists from the first
+              launch.
   observed    uncalibrated runs self-calibrate: after ``warmup`` clean
               observations the expectation is the running median of the
               walls seen so far. This is the analytic fallback — the

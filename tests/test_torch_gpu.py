@@ -1095,3 +1095,48 @@ def test_launch_plan_equals_build_and_captures_nothing_under_churn(cuda, specs, 
     assert lp.compile_counter() == before == _build.CAPTURES["graphs"]
     assert not torch.equal(churned[0], outs[0])
     assert torch.equal(churned[1], outs[1])
+
+
+@pytest.fixture(scope="module")
+def card_model():
+    """The cost model measured on the card once for this module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    from repro_torch.kernels import probes
+
+    return probes.run_probes()
+
+
+def test_run_probes_measures_the_card(card_model):
+    """A measured one-device model: K3's node cost, a row-step slope above
+    its floor (measured, not floored), the self-wrap exchange free, X = 1."""
+    from repro_torch.kernels import probes
+
+    m = card_model
+    assert (m.source, m.devices, m.payload) == ("measured", 1, 64)
+    assert m.platform == torch.cuda.get_device_name(0)
+    assert m.launch_us > 0 and m.row_step_us > probes.row_step_floor_us(64)
+    assert m.halo_exchange_us == {probes.SELF_EXCHANGE: 0.0} and m.exchange_row_steps == 1.0
+
+
+@pytest.mark.parametrize("pattern", ["stencil_1d", "nearest"])
+def test_auto_main_path_run_equals_its_explicit_twin(card_model, pattern):
+    """"auto" at the main path's shape resolves serial S = 16 under the
+    card's model, equals the explicit serial S = 16 run bit for bit, and a
+    replay launches dispatches_per_run (1 K3 + 63 tiled K4)."""
+    g = TaskGraph(steps=1000, width=2112, pattern=pattern, payload=64,
+                  kernel=KernelSpec("compute_bound", 64), radius=2, seed=0)
+    rt = get_runtime("pallas_step", steps_per_launch="auto", cost_model=card_model)
+    plan = rt._schedule_for_graph(g)
+    H = ps._patterns.halo_radius(g)
+    assert plan[:2] == ("halo", 16) and not rt._pipeline_active(2112, 16, H, 64)
+    twin = get_runtime("pallas_step", steps_per_launch=16, pipeline=False)
+    x = _rand((2112, 64), 50, torch.device("cuda"))
+    run = rt.build(g)
+    before = dict(_build.LAUNCHES)
+    out = run(x)
+    torch.cuda.synchronize()
+    d = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items() if n != before.get(k, 0)}
+    assert d == {"taskbench_step": 1, "taskbench_blocked_tiled": 63} \
+        and sum(d.values()) == rt.dispatches_per_run(g)
+    assert torch.equal(out, twin.build(g)(x))

@@ -177,10 +177,19 @@ def test_registry_and_options():
         get_runtime("pallas_step", device="cpu", combine="pair")
     for s in (2, 8):
         get_runtime("pallas_step", device="cpu", steps_per_launch=s, pipeline=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_runtime("pallas_step", device="cpu", steps_per_launch="auto")
+    # "auto", 0 and "0" are the reference's spellings of the depth tuner
+    # (repro.kernels.schedule.is_auto): all three construct and resolve alike
+    g = TaskGraph(steps=9, width=12, pattern="stencil_1d", payload=5,
+                  kernel=KernelSpec("compute_bound", 1))
+    auto = get_runtime("pallas_step", device="cpu", steps_per_launch="auto")
+    want = auto._schedule_for_graph(g)
+    assert want.kind == ps.PLAN_HALO and want.steps_per_launch == 8 and want.reason
+    for s in (0, "0"):
+        rt = get_runtime("pallas_step", device="cpu", steps_per_launch=s)
+        assert rt._schedule_for_graph(g) == want
+        assert rt.dispatches_per_run(g) == auto.dispatches_per_run(g)
     with pytest.raises(ValueError, match="steps_per_launch must be >= 1"):
-        get_runtime("pallas_step", device="cpu", steps_per_launch=0)
+        get_runtime("pallas_step", device="cpu", steps_per_launch=-1)
     get_runtime("pallas_step", device="cpu", steps_per_launch=1)
 
 

@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -36,12 +37,14 @@ def test_smoke_writes_one_json_record_per_line(smoke):
 
 
 def test_smoke_sweeps_every_schedule_at_every_width(smoke):
-    from benchmarks.torch_metg import SCHEDULES, SMOKE
+    """The four schedules and ``pallas_step[auto]`` at every width."""
+    from benchmarks.torch_metg import AUTO_SCHEDULE, SCHEDULES, SMOKE
 
     _, records = smoke
     metg = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"]
     assert {(r["runtime"], r["od"]) for r in metg} == {
-        (label, od) for label, _, _ in SCHEDULES for od in SMOKE.overdecomposition}
+        (label, od) for label, _, _ in SCHEDULES + (AUTO_SCHEDULE,)
+        for od in SMOKE.overdecomposition}
     for r in metg:
         assert r["W"] == r["od"]  # one core on the CPU
         assert r["repeats"] == len(r["metg_us"]) == 2
@@ -126,5 +129,44 @@ def test_smoke_sweeps_the_ensemble_rows(smoke):
         assert r["dispatches_per_run"] > 0
     single = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"
               and r["K"] == 1]
-    assert len(single) == 2 * 4
+    assert len(single) == 2 * (4 + 1)  # the four schedules and pallas_step[auto]
     assert records[-1]["ensembles"] == [2]
+
+
+def test_smoke_calibrates_and_times_auto(smoke):
+    """The first record is the cost model "auto" runs under (``run_probes``
+    on the run's device); ``pallas_step[auto]``'s METG runs under it, and
+    the ``Sauto`` row at each width names the depth and schedule it
+    resolved to, its reason and the model. Measured on one device, X = 1:
+    serial, at the deepest depth under T - 1 = 5 that fits."""
+    from benchmarks.torch_metg import SMOKE
+
+    _, records = smoke
+    model = records[0]
+    assert model["kind"] == "cost_model" and model["source"] == "run_probes"
+    assert model["model"]["source"] == "measured" and model["model"]["platform"] == "cpu"
+    assert model["model"]["exchange_row_steps"] == 1.0
+    assert model["describe"].startswith("measured on cpu x1")
+    auto = [r for r in records if r["kind"] == "metg" and r["runtime"] == "pallas_step[auto]"]
+    assert all(r["options"] == {"steps_per_launch": "auto", "cost_model": model["model"]}
+               for r in auto)
+    rows = [r for r in records if r["kind"] == "steps_per_launch_auto"]
+    assert [r["od"] for r in rows] == list(SMOKE.overdecomposition)
+    for r in rows:
+        assert (r["S"], r["resolved_S"], r["pipelined"]) == ("auto", 4, False)
+        assert r["reason"].startswith("auto -> S=4") and r["cost_model"] == model["describe"]
+        assert r["us_per_step"]["auto"] > 0 and r["launches_per_run"]["auto"] == 1 + 2
+
+
+def test_cost_model_option_reads_a_cache(tmp_path):
+    """``--cost-model PATH`` takes the model from a cache file in place of
+    calibrating: its entry for this platform, one device, the payload."""
+    from benchmarks.torch_metg import SMOKE, calibrate
+    from repro_torch.kernels import probes
+
+    m = probes.CostModel(source="measured", exchange_row_steps=1.0, launch_us=2.0,
+                         row_step_us=1e-4, halo_exchange_us={"self": 0.0},
+                         platform="cpu", devices=1, payload=SMOKE.payload)
+    path = probes.save_cost_model(m, tmp_path / "cm.json")
+    got, rec = calibrate(SMOKE, torch.device("cpu"), path, smoke=True)
+    assert got == m and rec["source"] == str(path) and rec["model"] == m.to_dict()

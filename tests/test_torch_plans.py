@@ -131,31 +131,40 @@ def test_butterfly_dispatch_accounting():
     """The reference's ``test_pallas_step_butterfly_dispatch_accounting``:
     the stride plan is per step, so a butterfly run drops below T launches
     only when an explicit depth re-routes it to the all-gather plan (width
-    under the cap); "auto" raises until the scheduler is ported."""
+    under the cap); "auto" keeps the stride plan under the analytic model,
+    as the reference's does (only a measured model may rank the blocked
+    all-gather plan ahead)."""
     g, r, init = _pair("fft")  # W = 16, T = 7
     for opts, want in (({}, 7), ({"steps_per_launch": 3}, 3),
-                       ({"steps_per_launch": 3, "gather_width_cap": 8}, 7)):
+                       ({"steps_per_launch": 3, "gather_width_cap": 8}, 7),
+                       ({"steps_per_launch": "auto"}, 7)):
         assert _port(**opts).dispatches_per_run(g) == want
         assert ref_runtime("pallas_step", **opts).dispatches_per_run(r) == want
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _port(steps_per_launch="auto")
+    assert _port(steps_per_launch="auto")._schedule_for_graph(g)[:2] == ("stride", 1)
     # the capped explicit request still runs bit for bit (the stride plan)
     out = _port(steps_per_launch=3, gather_width_cap=8).execute(g, init)
     np.testing.assert_array_equal(out, get_runtime("fused", device="cpu").execute(g, init))
 
 
 def test_explicit_depth_parser_equals_the_reference():
+    never = lambda *_: pytest.fail("an explicit depth consulted the fit rule")  # noqa: E731
     for value in (None, 1, 2, 3, 8, 50, "4"):
         for total in (None, 0, 1, 2, 7, 1000):
             got = schedule._resolve_depth(value, lambda: -1, total)
             assert got == ref_schedule._resolve_depth(value, lambda: -1, total)
             assert schedule.resolve_steps_per_launch_gathered(
-                value, total_steps=total) == got
+                value, width=16, block=16, fits=never, total_steps=total) == got
     for value in ("auto", 0, "0"):
         assert schedule.is_auto(value) and ref_schedule.is_auto(value)
         assert schedule._resolve_depth(value, lambda: 5, 9) == 5
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            schedule.resolve_steps_per_launch_gathered(value, total_steps=9)
+        # "auto" reaches the chooser: the deepest depth <= T - 1 that pays
+        # off and fits, as the reference's for the same budget
+        fits = lambda s: s <= 4  # noqa: E731
+        assert schedule.resolve_steps_per_launch_gathered(
+            value, width=16, block=16, fits=fits, total_steps=9) == 4 == \
+            ref_schedule.resolve_steps_per_launch_gathered(
+                value, width=16, block=16, max_deps=3, payload=8, total_steps=9,
+                vmem_budget=ref_schedule.gathered_working_set_bytes(16, 3, 4, 8))
     for value in (-1, -7):
         with pytest.raises(ValueError, match="must be >= 1"):
             schedule._resolve_depth(value, lambda: 1, 9)
