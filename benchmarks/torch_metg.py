@@ -15,6 +15,21 @@ and ``pallas_step(steps_per_launch=8)`` pipelined and serial. Each
 (schedule, W) sweep runs ``--repeats`` times; a record gives the METG(50%)
 of each repeat, their median and their spread.
 
+The paper's other rungs (Table 2's MPI and Charm++/HPX rows), each with the
+kernels: ``bsp[kernels]`` (one graph replay a superstep from a host loop),
+``bsp_scan[kernels]`` and ``overlap[kernels]`` (the run one graph replay),
+on the PAPER preset at every W like the four schedules (cells the
+regression guard lists as new; a width a rung refuses, e.g. ``overlap`` at
+one point a row on the CPU, gives a ``"kind": "refused"`` record); and ``serialized[kernels]`` (one eager host
+call a task), its sweep cut to what fits: T = 50 (the ``QUICK`` preset's
+steps; the PAPER preset's T x W at W = 1056 is over its ``MAX_TASKS``), the
+best of 1 rep a point, 3 sweeps at W = 132 and 1 at W = 1056 (od 1 and 8),
+each record ``"kind": "metg_cut"`` with its ``cuts`` (another protocol than
+the guard's cells, so the guard does not read it), its host us a task at
+each grain (``us_per_task_median``) and whether its METG(50%) lies within
+the sweep (``metg_within_sweep``: false when the FLOP/s peak is the top
+grain's, as with a wall the host's issue sets at every grain).
+
 ``steps_per_launch="auto"`` runs under the cost model the run calibrates
 first (``kernels/probes.py``'s ``run_probes`` on the run's device, or the
 cache file ``--cost-model PATH`` names), printed as the first record
@@ -60,7 +75,8 @@ carry K = 1.
 Every record carries the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``). Records print as
 JSON lines and are written to ``--out`` (one JSON object per line).
-``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats;
+``--smoke`` is a sweep of a few seconds (T = 6, grains 1 and 16, 2 repeats,
+the rungs too, serialized at T = 6 and 2 sweeps at each od;
 the floor at W in {8, 16}, fft's METG at W = 16, the ensemble rows at K = 2
 and od 1) that also runs with
 ``--device cpu``, where the runtimes run their eager
@@ -80,7 +96,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.taskbench import PAPER, TaskBenchConfig
+from repro_torch.configs.taskbench import PAPER, QUICK, TaskBenchConfig
 from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, compute_metg, get_runtime
 from repro_torch.core.patterns import halo_radius
 from repro_torch.core.runtimes._capture import time_runs
@@ -95,6 +111,17 @@ SCHEDULES = (
     ("pallas_step[S=8]", "pallas_step", {"steps_per_launch": 8}),
     ("pallas_step[S=8,serial]", "pallas_step", {"steps_per_launch": 8, "pipeline": False}),
 )
+#: the paper's other rungs, with the kernels, on the PAPER preset
+RUNG_SCHEDULES = (
+    ("bsp[kernels]", "bsp", {"use_kernels": True}),
+    ("bsp_scan[kernels]", "bsp_scan", {"use_kernels": True}),
+    ("overlap[kernels]", "overlap", {"use_kernels": True}),
+)
+#: serialized, cut to what fits: at most the QUICK preset's T, 1 rep a
+#: point, and (od, sweeps) at each width (the smoke's own)
+SERIALIZED_SCHEDULE = ("serialized[kernels]", "serialized", {"use_kernels": True})
+SERIALIZED_STEPS, SERIALIZED_REPS = QUICK.steps, 1
+SERIALIZED_ODS, SMOKE_SERIALIZED_ODS = ((1, 3), (8, 1)), ((1, 2), (8, 2))
 #: "auto" under the run's calibrated model (its cost_model option is added)
 AUTO_SCHEDULE = ("pallas_step[auto]", "pallas_step", {"steps_per_launch": "auto"})
 SWEEP_S = (1, 2, 4, 8, 16)
@@ -145,7 +172,7 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
     peaks: List[float] = []
     walls: Dict[int, List[float]] = {grain: [] for grain in cfg.grains}
     capture: List[float] = []
-    nodes = dispatches = None
+    nodes = dispatches = host_calls = None
     for _ in range(repeats):
         samples = []
         for grain in cfg.grains:
@@ -156,7 +183,7 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
                 sample, st = rt.measure_ensemble(ens, reps=cfg.reps, warmup=1)
             samples.append(sample)
             walls[grain].append(sample.wall_time / cfg.steps * 1e6)
-            dispatches = st.dispatches
+            dispatches, host_calls = st.dispatches, st.host_calls
             if st.capture_s is not None:
                 capture.append(st.capture_s)
                 nodes = st.graph_nodes
@@ -176,9 +203,38 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
         "unreached": len(metgs) - len(reached),
         "peak_gflops_median": statistics.median(peaks) / 1e9,
         "us_per_step_median": {g: statistics.median(w) for g, w in walls.items()},
-        "dispatches_per_run": dispatches, "graph_nodes": nodes,
+        "dispatches_per_run": dispatches, "host_calls_per_run": host_calls,
+        "graph_nodes": nodes,
         "capture_s_median": statistics.median(capture) if capture else None,
     }
+
+
+def serialized_records(cfg: TaskBenchConfig, repeats: int, device: torch.device,
+                       smoke: bool = False):
+    """``serialized[kernels]``'s METG rows, its sweep cut to at most
+    ``SERIALIZED_STEPS`` timesteps, ``SERIALIZED_REPS`` rep a point and each
+    od's own number of sweeps (at most ``repeats``); each cut is written in
+    the record. Its host time a task at each grain (the step wall over W)
+    is the rung's own metric: a task's host issue (~70 us on an H100)
+    sets its wall at every grain of the sweep, so the FLOP/s peak falls on
+    the sweep's top grain and the METG(50%) is the top of the sweep's, not
+    the runtime's (``metg_within_sweep`` false)."""
+    steps = min(cfg.steps, SERIALIZED_STEPS)
+    cut = dataclasses.replace(cfg, steps=steps, reps=SERIALIZED_REPS)
+    label, backend, options = SERIALIZED_SCHEDULE
+    for od, sweeps in SMOKE_SERIALIZED_ODS if smoke else SERIALIZED_ODS:
+        rec = metg_record(cut, label, backend, options, od, min(sweeps, repeats), device)
+        rec["kind"] = "metg_cut"
+        walls = rec["us_per_step_median"]
+        rec["us_per_task_median"] = {g: us / rec["W"] for g, us in walls.items()}
+        rec["metg_within_sweep"] = max(walls, key=lambda g: g / walls[g]) != cfg.grains[-1]
+        rec["cuts"] = {
+            "steps": [steps, cfg.steps], "reps": [SERIALIZED_REPS, cfg.reps],
+            "repeats": [rec["repeats"], repeats],
+            "reason": "one host call a task: the preset's T x W at od 8 is over "
+                      "serialized's MAX_TASKS, and its sweep at full protocol would "
+                      "outlast the driver's time"}
+        yield rec
 
 
 def floor_records(cfg: TaskBenchConfig, cases, rounds: int, device: torch.device):
@@ -316,8 +372,16 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
             emit(metg_record(cfg, auto_label, auto_backend,
                              dict(auto_options, cost_model=model.to_dict()), od, repeats,
                              device))
+            for label, backend, options in RUNG_SCHEDULES:
+                rt = get_runtime(backend, device=device, **options)
+                ok, why = rt.supports(_graph(cfg, rt.cores * od, 1))
+                emit(metg_record(cfg, label, backend, options, od, repeats, device) if ok
+                     else {"kind": "refused", "runtime": label, "od": od,
+                           "W": rt.cores * od, "reason": why})
             for rec in grain1_records(cfg, od, sweep_s, eager_s, rounds, device, model):
                 emit(rec)
+        for rec in serialized_records(cfg, repeats, device, smoke):
+            emit(rec)
         for rec in floor_records(cfg, floor_cases, rounds, device):
             emit(rec)
         fft = dataclasses.replace(cfg, pattern="fft")

@@ -138,12 +138,51 @@ Phases, in order; any failure ends the run with a non-zero exit:
              to its ``expected_launch_us`` (no launch flagged), each
              launch's wall beside the expected one; under the analytic
              model ``expected_launch_us`` is None.
-  7. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
+  7. rungs   the paper's other four rungs, each with the kernels
+             (``use_kernels=True``; the launch counters and host calls
+             zeroed just before the phase, the eager loops' and the
+             references' kept apart): ``bsp`` (one graph per distinct
+             superstep, replayed from a host loop, one host call a step),
+             ``bsp_scan`` and ``overlap`` (the run one graph replay;
+             ``overlap`` also with ``overlap=False`` and
+             ``halo_via="allgather"``) on the main path's 7 halo patterns
+             (overlap refuses trivial) at W = 2112, T = 1000, payload 64,
+             grain 64, ``bsp(donate=False)`` on stencil_1d equal bit for
+             bit to ``donate=True``; one memory_bound run each; ``bsp`` and
+             ``bsp_scan`` on fft and spread at W = 512 (fft bit for bit
+             ``fused(use_kernels=True)``); ``serialized`` at W = 132, T = 50
+             (the main path's 2.1 M tasks are over its MAX_TASKS, the
+             refusal printed), grains 64 and 1; a K = 4 ensemble on each
+             (stencil_1d, seeds 0-3, horizons T = (1000, 750, 333, 1), for
+             serialized (50, 40, 20, 1) at W = 132), each member against
+             its own ``fused(use_kernels=True)`` run. Every run equals its
+             eager loop bit for bit (``serialized``: a second run), is held
+             to ``fused(use_kernels=True)`` (TOL; TOL_MEMORY_RUN for
+             memory_bound), launches its K1/K2 bodies
+             (``body_launches_per_run``: T, or 1 + 3 (T - 1) for
+             ``overlap``, T x W for ``serialized``) and nothing else,
+             and makes ``host_calls_per_run`` host calls (graph replays
+             and task calls); its us a step (a task), graphs, nodes, build
+             seconds and the memory reserved at its build are printed.
+             Grain 64 puts every state at the FMA's fixed point 0.2 within
+             a step, so the agreement that shows the dataflow comes from
+             the grain-1 and memory_bound runs, counted apart: at grain 1
+             a K = 4 ensemble on each rung (members of mixed patterns and
+             horizons from ENS_SHORT, one of T = 1, W = 64), each member
+             against the CPU plain path's run of it alone, and every rung
+             with each option (bsp both buffer schemes, overlap three
+             ways) at T = 8, W = 64 on the 11 patterns it supports against
+             the CPU plain path. Then a short run of each under
+             ``torch.profiler`` (issued three times in one window, the
+             last read): one device kernel per counted operation
+             (``dispatches_per_run``), the K1 launches among them, and
+             their device time.
+  8. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
              pipelined and serial, each run one graph replay; at grains 1
              and 64 the eager loop's step wall beside the graph's.
-  8. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
+  9. serve   the LM serving paths through ``repro_torch.launch.serve.serve``,
              each at full width and depth, f32 storage, bf16 compute,
              random weights from seed 0, greedy: [serve] internlm2-1.8b,
              batch 8, prompt 1024, 64 tokens (launches: 24 K5 in its
@@ -165,7 +204,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
-  9. times   each kernel and its plain version timed with CUDA events at
+ 10. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes and in the main path's form (K3 on the
              W-row state with the halo wrap folded in), beside its bound on
              this card (K2 also beside its shared-memory bound); K1 and K3
@@ -312,6 +351,19 @@ T_ENS_SHORT = (41, 33, 17, 1)
 # launch takes the tiled form, serial since X = 1), and the explicit depths
 # its step walls are timed beside
 S_AUTO_MAIN, S_WALLS = 16, (1, 8, 16)
+# [rungs]: serialized at the QUICK preset's T (the main path's T x W = 2.1 M
+# tasks is over its MAX_TASKS) and W = one task an SM, and its K = 4
+# ensemble's mixed horizons
+T_SER, T_SER_ENS = 50, (50, 40, 20, 1)
+# [rungs] at grain 1, where the dataflow shows (grain 64 puts every state at
+# the FMA's fixed point within a step): the width of the runs held to the
+# CPU plain path, and the (pattern, T) an ensemble's members are taken from,
+# the first four a rung runs (overlap: the halo patterns)
+W_SMALL = 64
+ENS_SHORT = (("stencil_1d", 8), ("spread", 6), ("fft", 4), ("nearest", 1), ("dom", 5),
+             ("random_nearest", 3))
+# [rungs]' profiled runs: issues in one profiling window, the last one read
+PROFILE_ISSUES = 3
 
 
 def fail(msg: str) -> None:
@@ -1691,6 +1743,346 @@ def main() -> int:
                         "device_us": device_walls, "deadline_us": det.deadline_us()}}}),
         flush=True)
 
+    # ---------------------------------------------------------------- rungs
+    # the paper's other four rungs, each with the kernels: bsp (one graph
+    # replay a superstep), bsp_scan and overlap (the run one graph replay),
+    # serialized (one eager host call a task); the launch counters and host
+    # calls zeroed just before the phase, the eager loops' and the fused
+    # references' kept apart
+    from repro_torch.core.runtimes._capture import HostLoop, ReplayLoop
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    check_launches = dict.fromkeys(_build.ENTRIES, 0)
+    check_calls = 0
+    rung_rows = []  # one record per run
+
+    def counted_calls(fn):
+        """``fn()``'s result, launches and host calls (a synchronize after)."""
+        h0 = ops.host_calls()
+        out, d = counted(fn)
+        return out, d, ops.host_calls() - h0
+
+    def reference(g: TaskGraph, init):
+        """fused(use_kernels=True)'s run of ``g`` (one graph replay), its
+        launches kept apart."""
+        nonlocal check_calls
+        run = get_runtime("fused", use_kernels=True).build(g)
+        out, d, h = counted_calls(lambda: run(init))
+        for k, n in d.items():
+            check_launches[k] += n
+        check_calls += h
+        return out.cpu()
+
+    def rung(label: str, rt, g: TaskGraph, init, want, tol: float, bits: bool = False):
+        """``rt``'s run of ``g`` on ``init``: built (its graphs captured; the
+        warm-ups and captures counted apart), run once with the launch
+        counters and host calls read around it, equal bit for bit to its
+        eager loop on the same init (a second run, for serialized), held to
+        ``want`` (fused with the kernels) within ``tol`` (or bit for bit
+        with ``bits``), and timed (best of 3 runs; serialized: 1). Returns
+        its output."""
+        nonlocal check_calls
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_reserved()
+        tb = time.perf_counter()
+        run = rt.build(g)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+        pool_mb = (torch.cuda.memory_reserved() - m0) / 2**20
+        form = {"bsp": ReplayLoop, "bsp_scan": GraphRun, "overlap": GraphRun}.get(rt.name)
+        if not (isinstance(run, form) if form else
+                not isinstance(run, (GraphRun, ReplayLoop, HostLoop))):
+            fail(f"[rungs] {label}: build gave {type(run).__name__}")
+        out, d, calls = counted_calls(lambda: run(init))
+        eager = getattr(run, "eager", run)
+        again, d_eager, h_eager = counted_calls(lambda: eager(init.clone()))
+        for k, n in d_eager.items():
+            check_launches[k] += n
+        check_calls += h_eager
+        if not torch.equal(out, again):
+            fail(f"[rungs] {label}: the run differs from its eager loop, max |difference| "
+                 f"{(out - again).abs().max().item()}")
+        body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
+        want_d = dict.fromkeys(_build.ENTRIES, 0)
+        want_d[body] = rt.body_launches_per_run(g)
+        if d != want_d or d_eager != d:
+            fail(f"[rungs] {label}: launches {d} (eager loop {d_eager}), expected {want_d}")
+        if calls != rt.host_calls_per_run(g):
+            fail(f"[rungs] {label}: {calls} host calls, host_calls_per_run "
+                 f"{rt.host_calls_per_run(g)}")
+        if rt.name == "bsp" and len(run.graphs) != len(set(run.eager.order)):
+            fail(f"[rungs] {label}: {len(run.graphs)} graphs for "
+                 f"{len(set(run.eager.order))} distinct supersteps")
+        err = 0.0
+        if bits:
+            if not torch.equal(out.cpu(), want):
+                fail(f"[rungs] {label}: not bit for bit fused(kernels), max |difference| "
+                     f"{(out.cpu() - want).abs().max().item()}")
+        else:
+            err = check_close(f"[rungs] {label} vs fused(kernels)", out.cpu(), want, tol)
+        walls = time_runs(run, init, reps=1 if rt.name == "serialized" else 3)
+        tasks = g.num_tasks
+        rung_rows.append({
+            "run": label, "runtime": rt.name, "options": rt.options, "pattern": g.pattern,
+            "W": g.width, "T": g.steps, "kind": g.kernel.kind, "grain": g.kernel.iterations,
+            "us_per_step": min(walls) / g.steps * 1e6, "us_per_task": min(walls) / tasks * 1e6,
+            "host_calls": calls, "launches": d[body], "device_ops": rt.dispatches_per_run(g),
+            "graphs": len(getattr(run, "graphs", [])) or (1 if isinstance(run, GraphRun) else 0),
+            "nodes": getattr(run, "nodes", None), "build_s": build_s, "pool_mb": pool_mb,
+            "max_abs_err": err, "bit_for_bit_fused": bool(torch.equal(out.cpu(), want))})
+        return out.cpu()
+
+    RUNGS = (("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("overlap", {"overlap": False}),
+             ("overlap", {"halo_via": "allgather"}))
+    refused = {}
+    for pattern in HALO_PATTERNS:
+        g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+        init = rand(W_MAIN, PAYLOAD)
+        want = reference(g, init)
+        for rt_name, opts in RUNGS:
+            rt = get_runtime(rt_name, use_kernels=True, **opts)
+            ok, why = rt.supports(g)
+            if not ok:
+                refused[f"{pattern} {rt_name}"] = why
+                continue
+            rung(f"{pattern} {rt_name}{opts or ''}", rt, g, init, want, TOL)
+        if pattern == "stencil_1d":  # both buffer schemes, the same bits
+            a = rung("stencil_1d bsp{'donate': False}",
+                     get_runtime("bsp", use_kernels=True, donate=False), g, init, want, TOL)
+            b = get_runtime("bsp", use_kernels=True).execute(g, init)
+            if not torch.equal(a, torch.from_numpy(b)):
+                fail("[rungs] bsp donate=False differs from donate=True")
+    g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                  kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
+    init = rand(W_MAIN, PAYLOAD)
+    want = reference(g, init)
+    for rt_name in ("bsp", "bsp_scan", "overlap"):
+        rung(f"memory_bound {rt_name}", get_runtime(rt_name, use_kernels=True), g, init, want,
+             TOL_MEMORY_RUN)
+    for pattern in ("fft", "spread"):
+        g = TaskGraph(steps=T_MAIN, width=W_GATHER, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), seed=0)
+        init = rand(W_GATHER, PAYLOAD)
+        want = reference(g, init)
+        for rt_name in ("bsp", "bsp_scan"):
+            rung(f"{pattern} {rt_name}", get_runtime(rt_name, use_kernels=True), g, init,
+                 want, TOL, bits=pattern == "fft")
+    ser = get_runtime("serialized", use_kernels=True)
+    g_main = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="stencil_1d", payload=PAYLOAD,
+                       kernel=KernelSpec("compute_bound", GRAIN))
+    ok, why = ser.supports(g_main)
+    if ok:
+        fail("[rungs] serialized accepted the main path's 2.1 M tasks")
+    refused[f"stencil_1d serialized W={W_MAIN} T={T_MAIN}"] = why
+    for grain in (GRAIN, 1):
+        g = TaskGraph(steps=T_SER, width=SMS, pattern="stencil_1d", payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", grain), seed=0)
+        init = rand(SMS, PAYLOAD)
+        rung(f"stencil_1d serialized grain {grain}", ser, g, init, reference(g, init), TOL)
+    # K = 4 ensembles, mixed horizons: round-robin host calls (bsp,
+    # serialized) or one graph; each member bit for bit its eager loop
+    ens_rows = []
+
+    def rung_ensemble(label: str, rt, members, xs, wants):
+        """``rt``'s run of the ensemble of ``members`` on ``xs``: its K1
+        launches (``body_launches_per_run``) and host calls counted, each
+        member bit for bit its eager loop and held to ``wants`` within TOL
+        (another run of that member alone), timed (best of 3; serialized:
+        1)."""
+        nonlocal check_calls
+        ens = GraphEnsemble(members)
+        run = rt.build_ensemble(ens)
+        outs, d, calls = counted_calls(lambda: run(xs))
+        eager = getattr(run, "eager", run)
+        again, d_eager, h_eager = counted_calls(lambda: eager(tuple(x.clone() for x in xs)))
+        for k, n in d_eager.items():
+            check_launches[k] += n
+        check_calls += h_eager
+        want_k1 = rt.body_launches_per_run(ens)
+        if d["taskbench_compute"] != want_k1 or sum(d.values()) != want_k1 or d_eager != d:
+            fail(f"[rungs] {label}: launches {d} (eager {d_eager}), expected {want_k1} K1")
+        if calls != rt.host_calls_per_run(ens):
+            fail(f"[rungs] {label}: {calls} host calls, expected {rt.host_calls_per_run(ens)}")
+        errs = []
+        for k, (a, b, w) in enumerate(zip(outs, again, wants)):
+            if not torch.equal(a, b):
+                fail(f"[rungs] {label} member {k}: the run differs from its eager loop")
+            errs.append(check_close(f"[rungs] {label} member {k} vs its own run",
+                                    a.cpu(), w, TOL))
+        walls = time_runs(run, xs, reps=1 if rt.name == "serialized" else 3)
+        ens_rows.append({"run": label, "runtime": rt.name, "K": len(members),
+                         "W": [g.width for g in members], "T": [g.steps for g in members],
+                         "patterns": [g.pattern for g in members],
+                         "grain": [g.kernel.iterations for g in members],
+                         "host_calls": calls, "launches": d["taskbench_compute"],
+                         "us_per_step": min(walls) / ens.steps * 1e6, "max_abs_err": max(errs)})
+
+    # at grain 64 (the main path's width; serialized at W = 132), each
+    # member against fused(kernels)'s run of it alone
+    ens_cases = {}
+    for W, horizons in ((W_MAIN, HETERO_T), (SMS, T_SER_ENS)):
+        members = [TaskGraph(steps=T, width=W, pattern="stencil_1d", payload=PAYLOAD,
+                             kernel=KernelSpec("compute_bound", GRAIN), seed=k)
+                   for k, T in enumerate(horizons)]
+        xs = tuple(rand(W, PAYLOAD) for _ in members)
+        ens_cases[W] = (members, xs, [reference(g, x) for g, x in zip(members, xs)])
+    for rt_name, W in (("bsp", W_MAIN), ("bsp_scan", W_MAIN), ("overlap", W_MAIN),
+                       ("serialized", SMS)):
+        rung_ensemble(f"K={K_ENS} {rt_name} grain {GRAIN}",
+                      get_runtime(rt_name, use_kernels=True), *ens_cases[W])
+    # at grain 1, where the dataflow shows: K = 4 members of mixed patterns
+    # and horizons (the first four a rung runs of ENS_SHORT; a T = 1 member
+    # frozen from the start), each against the plain path's run of it alone
+    # on the CPU: bsp's round-robin replays skip the frozen members,
+    # bsp_scan's and overlap's one graph masks them
+    cpu = get_runtime("fused", device="cpu")
+    for rt_name in ("bsp", "bsp_scan", "overlap", "serialized"):
+        rt = get_runtime(rt_name, use_kernels=True)
+        members = [TaskGraph(steps=T, width=W_SMALL, pattern=p, payload=PAYLOAD, radius=2,
+                             kernel=KernelSpec("compute_bound", 1), seed=10 + k)
+                   for k, (p, T) in enumerate(ENS_SHORT)]
+        members = [g for g in members if rt.supports(g)[0]][:K_ENS]
+        xs = tuple(rand(W_SMALL, PAYLOAD) for _ in members)
+        wants = [torch.from_numpy(cpu.execute(g, x.cpu())) for g, x in zip(members, xs)]
+        rung_ensemble(f"K={K_ENS} {rt_name} grain 1 {[g.pattern for g in members]}", rt,
+                      members, xs, wants)
+    # grain 1, where the dataflow shows: every pattern each rung runs, each
+    # option, against the plain path on the CPU
+    n_small = 0
+    for pattern in (*HALO_PATTERNS, "fft", "tree", "spread", "all_to_all"):
+        g = TaskGraph(steps=8, width=W_SMALL, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", 1), radius=3, seed=1)
+        want = torch.from_numpy(cpu.execute(g))
+        init = cpu._init(g, None)
+        for rt_name, opts in (*RUNGS, ("bsp", {"donate": False}), ("serialized", {})):
+            rt = get_runtime(rt_name, use_kernels=True, **opts)
+            if rt.supports(g)[0]:
+                check_close(f"[rungs] small {pattern} {rt_name}{opts or ''}",
+                            torch.from_numpy(rt.execute(g, init)), want, TOL)
+                n_small += 1
+    # device kernels of a short run, by torch.profiler: one event per
+    # counted operation (the replays', without the output's clone). A
+    # profiling window late in this process drops the first device events
+    # it sees (12-15 of a bsp run's 32; [plans] reads the last of two
+    # replays for the same reason), so the run is issued PROFILE_ISSUES
+    # times in one window, each behind a marker kernel (a short device
+    # sleep), and the events after the last marker are the run's.
+    def profiled(issue):
+        """(device kernel names, {name: (count, device us)}, launches, host
+        calls) of the last of PROFILE_ISSUES calls of ``issue()`` in one
+        torch.profiler window; every call's launches and host calls are
+        kept apart in check_launches and check_calls."""
+        nonlocal check_calls
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_ISSUES):
+                torch.cuda._sleep(1000)  # the marker
+                _, d, calls = counted_calls(issue)
+                for k, n in d.items():
+                    check_launches[k] += n
+                check_calls += calls
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [i for i, (_, name, _) in enumerate(events)
+                 if "spin_kernel" in name or "sleep" in name.lower()]
+        if not marks:
+            fail("[rungs] the profiler recorded no marker kernel")
+        names, by_kernel = [], {}
+        for _, name, us in events[marks[-1] + 1:]:
+            names.append(name)
+            n, total = by_kernel.get(name[:48], (0, 0.0))
+            by_kernel[name[:48]] = (n + 1, total + us)
+        return names, by_kernel, d, calls
+
+    prof_rows = {}
+    gp = TaskGraph(steps=T_PROFILED, width=W_MAIN, pattern="nearest", payload=PAYLOAD,
+                   kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+    gs = TaskGraph(steps=2, width=8, pattern="stencil_1d", payload=PAYLOAD,
+                   kernel=KernelSpec("compute_bound", GRAIN), seed=0)
+    for rt_name, g in (("bsp", gp), ("bsp_scan", gp), ("overlap", gp), ("serialized", gs)):
+        rt = get_runtime(rt_name, use_kernels=True)
+        run = rt.build(g)
+        init = rand(g.width, PAYLOAD)
+        run(init)
+        if isinstance(run, GraphRun):
+            run.stage(init)
+            issue = run.graphed.replay
+        elif isinstance(run, ReplayLoop):
+            run.stage(init)
+            issue = lambda run=run: [run.graphs[i].replay() for i in run.eager.order]
+        else:
+            issue = lambda run=run, init=init: run(init)
+        names, by_kernel, d, calls = profiled(issue)
+        run_events, run_k1 = len(names), sum("fma_kernel" in n for n in names)
+        if run_events != rt.dispatches_per_run(g) or run_k1 != d["taskbench_compute"] \
+                or calls != rt.host_calls_per_run(g):
+            fail(f"[rungs] {rt_name} profiled: {run_events} device kernels ({run_k1} K1), "
+                 f"dispatches_per_run {rt.dispatches_per_run(g)}, launch counters {d}, "
+                 f"{calls} host calls: {sorted(by_kernel)}")
+        if isinstance(run, ReplayLoop) and sum(run.graphs[i].nodes for i in run.eager.order) \
+                != rt.dispatches_per_run(g):
+            fail(f"[rungs] bsp's superstep graphs hold "
+                 f"{[run.graphs[i].nodes for i in run.eager.order]} nodes")
+        device_us = sum(us for _, us in by_kernel.values())
+        prof_rows[rt_name] = {"W": g.width, "T": g.steps, "device_events": run_events,
+                              "k1": run_k1, "host_calls": calls,
+                              "per_host_call": run_events / calls,
+                              "device_us": device_us,
+                              "device_us_per_host_call": device_us / calls,
+                              "kernels": by_kernel}
+    torch.cuda.synchronize()
+    total = ops.launch_counts()
+    launches_rungs = {k: n - check_launches[k] for k, n in total.items()}
+    for k, n in launches_rungs.items():
+        if (n == 0) == (k in ("taskbench_compute", "memory_bound")):
+            fail(f"[rungs] kernel {k}: {n} launches on the rungs' runs")
+    for row in rung_rows:
+        extra = (f", {row['us_per_task']:.3f} us a task" if row["runtime"] == "serialized"
+                 else "")
+        print(f"  {row['run']} W={row['W']} T={row['T']} {row['kind']} grain {row['grain']}: "
+              f"{row['us_per_step']:.3f} us a step{extra}; {row['host_calls']} host calls, "
+              f"{row['launches']} K1/K2 launches, {row['device_ops']} device operations a run; "
+              f"{row['graphs']} graphs, {row['nodes']} nodes, built in {row['build_s']:.3f} s, "
+              f"pool {row['pool_mb']:.0f} MiB; max |err| vs fused(kernels) "
+              f"{row['max_abs_err']:.3g}")
+    for row in ens_rows:
+        print(f"  {row['run']} W={row['W']} T={row['T']}: "
+              f"{row['us_per_step']:.3f} us a lockstep step, {row['host_calls']} host calls, "
+              f"{row['launches']} K1 launches; max |err| vs the members' own runs "
+              f"{row['max_abs_err']:.3g}", flush=True)
+    ser_rows = [r for r in rung_rows if r["runtime"] == "serialized"]
+    print(f"[rungs] refused: {refused}", flush=True)
+    print(f"[rungs] torch.profiler, device kernels per run: "
+          f"{ {k: (v['device_events'], v['k1'], v['host_calls'], round(v['device_us'], 3)) for k, v in prof_rows.items()} } "
+          f"(events, K1, host calls, device us: the kernels' durations summed); serialized: "
+          f"{prof_rows['serialized']['per_host_call']:.3f} device kernels and "
+          f"{prof_rows['serialized']['k1'] / prof_rows['serialized']['host_calls']:.3f} K1 a "
+          f"task, {[round(r['us_per_task'], 3) for r in ser_rows]} us a task (grains "
+          f"{[r['grain'] for r in ser_rows]})", flush=True)
+    # where the dataflow shows in the result (grain 1, memory_bound): the
+    # agreement there is the evidence; at grain 64 every state sits at the
+    # FMA's fixed point, and those runs check counts, graphs and bits only
+    shows = [r for r in rung_rows if r["grain"] == 1 or r["kind"] == "memory_bound"]
+    ens_shows = [r for r in ens_rows if set(r["grain"]) == {1}]
+    print(f"[rungs] {len(rung_rows)} runs (bsp, bsp_scan, overlap three ways on the main "
+          f"path's halo patterns, memory_bound, fft and spread at W={W_GATHER}, serialized "
+          f"at W={SMS} T={T_SER}) and {len(ens_rows)} K={K_ENS} ensembles: every bsp_scan "
+          f"and overlap run one graph replay, every bsp superstep one replay (one host call), "
+          f"every serialized task one host call, each equal to its eager loop bit for bit; "
+          f"held to a reference where the dataflow shows: {len(shows)} single runs (grain 1, "
+          f"memory_bound) against fused(kernels), {len(ens_shows)} grain-1 ensembles and "
+          f"{n_small} grain-1 runs at W={W_SMALL} against the CPU plain path; "
+          f"{len(rung_rows) - len(shows)} runs and {len(ens_rows) - len(ens_shows)} ensembles "
+          f"at grain {GRAIN} (the fixed point); launches {launches_rungs} (and "
+          f"{check_launches}, {check_calls} host calls, by the eager loops and the "
+          f"references); {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({"rungs": {"runs": rung_rows, "ensembles": ens_rows,
+                                "profiled": prof_rows, "refused": refused}}), flush=True)
+
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall, step_wall_eager = {}, {}
@@ -2053,7 +2445,8 @@ def main() -> int:
             "library_ms": None, "launches_per_run": per_run,
             "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname],
                                  "ensemble": launches_ens[kname],
-                                 "schedule": launches_sched[kname]},
+                                 "schedule": launches_sched[kname],
+                                 "rungs": launches_rungs[kname]},
         })
         if kname in ("taskbench_compute", "taskbench_step"):
             # the grid its wrapper launched in the timing above

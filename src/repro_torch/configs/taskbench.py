@@ -5,8 +5,10 @@ The paper runs the stencil pattern for 1000 timesteps, 5 reps per point,
 with overdecomposition {1, 8, 16} (Table 2) and grain sweeps (Fig 1).
 ``PAPER`` is that protocol; the others are the reference's scaled sweeps.
 The port's benchmark scripts (``benchmarks/torch_*.py``) read them from here. The
-``runtimes`` tuples name the reference's backends; the port runs ``fused``
-and ``pallas_step`` so far.
+``runtimes`` tuples name the reference's backends, and the port runs all
+six on one card: ``benchmarks/torch_metg.py`` sweeps ``fused``,
+``pallas_step`` and the rungs ``bsp``, ``bsp_scan`` and ``overlap`` on
+``PAPER``, and ``serialized`` at ``QUICK``'s steps.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ Public API:
     TaskGraph, KernelSpec           workload definition
     GraphEnsemble                   K concurrent graphs (host-side tables)
     PATTERNS                        dependence pattern names
-    get_runtime, available_runtimes execution backends (fused, pallas_step)
+    get_runtime, available_runtimes execution backends (fused, serialized,
+                                    bsp, bsp_scan, overlap, pallas_step)
     compute_metg, GrainSample       the METG metric
     combine_grain_samples           ensemble-aggregate samples for METG
 """
@@ -23,8 +24,11 @@ from repro_torch.core.task_kernels import KernelSpec
 
 # importing the backends registers them
 from repro_torch.core.runtimes.base import Runtime, available_runtimes, get_runtime
+from repro_torch.core.runtimes import bsp as _bsp  # noqa: F401
 from repro_torch.core.runtimes import fused as _fused  # noqa: F401
+from repro_torch.core.runtimes import overlap as _overlap  # noqa: F401
 from repro_torch.core.runtimes import pallas_step as _pallas_step  # noqa: F401
+from repro_torch.core.runtimes import serialized as _serialized  # noqa: F401
 
 __all__ = [
     "TaskGraph",

@@ -17,6 +17,13 @@ and ``replay`` returns a tuple of clones. A failed capture raises: nothing
 falls back to the eager loop. Launch counters (``kernels/_build.py``): the warm-up and the capture
 count as build launches, and each replay adds the capture's launches to
 the run counters. Dropping either object frees its graph and memory pool.
+
+`HostLoop` and `ReplayLoop` are the run of a backend that pays one host call
+per superstep (``bsp``, the counterpart of the reference's ``jax.jit`` call
+per step): a host loop over programs, zero-argument callables that read and
+write static state buffers. `HostLoop` calls the programs eagerly;
+`ReplayLoop` captures each program once as its own CUDA graph and replays
+them in the loop's order, one replay a host call.
 """
 from __future__ import annotations
 
@@ -140,13 +147,84 @@ class GraphRun:
         self.graphed.close()
 
 
+class HostLoop:
+    """A run as a host loop over ``programs``, zero-argument callables that
+    read and write static state buffers: ``stage(x)`` copies an initial
+    state (or an ensemble's tuple) into the buffers, ``order`` lists the
+    program each host call runs, and ``output()`` gives the static final
+    state(s). ``run()`` calls the programs in order, eagerly; calling the
+    loop with ``x`` stages it, runs, and returns a clone of the output."""
+
+    def __init__(self, stage: Callable[[States], None], programs: Sequence[Callable[[], None]],
+                 order: Sequence[int], output: Callable[[], States]):
+        self.stage = stage
+        self.programs = tuple(programs)
+        self.order = tuple(order)
+        self.output = output
+
+    def run(self) -> None:
+        for i in self.order:
+            self.programs[i]()
+
+    def replay(self) -> States:
+        self.run()
+        return clone_states(self.output())
+
+    def __call__(self, x: States) -> States:
+        self.stage(x)
+        return self.replay()
+
+
+class ReplayLoop:
+    """A `HostLoop` on the card with each program captured as its own CUDA
+    graph (each warmed up once, eagerly, on a side stream first): ``replay()``
+    replays the programs' graphs in the loop's order, one host call each,
+    and returns a clone of the output. ``eager`` is the `HostLoop`, on the
+    same buffers; ``capture_s`` and ``nodes`` are summed over the graphs."""
+
+    def __init__(self, loop: HostLoop, device: torch.device):
+        self.eager = loop
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with _build.building(), torch.cuda.stream(stream):
+            for program in loop.programs:  # the warm-ups, not counted as a run
+                program()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graphs = [Graphed(program, stream) for program in loop.programs]
+
+    @property
+    def capture_s(self) -> float:
+        return sum(g.capture_s for g in self.graphs)
+
+    @property
+    def nodes(self) -> int:
+        return sum(g.nodes for g in self.graphs)
+
+    def stage(self, x: States) -> None:
+        self.eager.stage(x)
+
+    def replay(self) -> States:
+        for i in self.eager.order:
+            self.graphs[i].replay()
+        return clone_states(self.eager.output())
+
+    def __call__(self, x: States) -> States:
+        self.stage(x)
+        return self.replay()
+
+    def close(self) -> None:
+        for g in self.graphs:
+            g.close()
+
+
 def time_runs(run: Callable, x: States, *, reps: int, warmup: int = 1
               ) -> List[float]:
-    """Host seconds of each of ``reps`` runs of ``run`` (a `GraphRun`, or an
-    eager loop) on fresh copies of ``x`` (a state, or an ensemble's tuple):
-    each copy is staged outside the timed region, which holds the run and a
-    device synchronize; ``max(warmup, 1)`` untimed runs first."""
-    if isinstance(run, GraphRun):
+    """Host seconds of each of ``reps`` runs of ``run`` (a `GraphRun`, a
+    `HostLoop` or `ReplayLoop`, or an eager loop) on fresh copies of ``x``
+    (a state, or an ensemble's tuple): each copy is staged outside the
+    timed region, which holds the run and a device synchronize;
+    ``max(warmup, 1)`` untimed runs first."""
+    if isinstance(run, (GraphRun, HostLoop, ReplayLoop)):
         stage, replay = run.stage, run.replay
     else:
         held: List[States] = []

@@ -3,16 +3,27 @@
 Counterpart of ``repro.core.runtimes.base``. A *runtime* executes a
 TaskGraph; each backend models one way of scheduling the same dataflow, and
 all must produce the same final states (tests enforce cross-backend
-allclose). The port has two backends so far:
+allclose). The six backends of the paper's overhead ladder, each on one
+device, and how each dispatches a run:
 
-  fused        timestep loop: combine + body per step
-  pallas_step  one megakernel launch per timestep (or per S timesteps)
+  fused        the whole run one program: combine + body per step (OpenMP)
+  serialized   one host call per task (the AMT worst case: per-task spawn)
+  bsp          one host call per superstep: exchange + compute (MPI)
+  bsp_scan     bsp with the timestep loop in one program (amortised MPI)
+  overlap      bsp_scan's loop with each step split into interior and
+               boundary work, overdecomposed (Charm++/HPX)
+  pallas_step  one megakernel launch per timestep (or per S timesteps): the
+               METG floor
 
 Each backend writes its run as an eager loop (``_build_eager``). On the
 card ``build`` captures that loop as one CUDA graph (``_capture.GraphRun``,
 the counterpart of the reference's ``jax.jit`` of a whole run), so a run is
-one host call; on the CPU it returns the eager loop. A capture that fails
-raises: nothing falls back to the eager loop on the card.
+one host call; on the CPU it returns the eager loop. ``bsp`` captures one
+graph per distinct superstep instead and replays them from a host loop
+(``_capture.ReplayLoop``), and ``serialized`` stays eager: each task is its
+own host call. A capture that fails raises: nothing falls back to the eager
+loop on the card. ``dispatches_per_run`` counts the device operations a run
+issues, ``host_calls_per_run`` the host calls that issue them.
 
 Ensembles (`GraphEnsemble`, Task Bench's ``-and``) run the same way: each
 backend writes an ensemble's run as an eager loop over a tuple of member
@@ -50,9 +61,12 @@ class TimingStats:
     walls: Tuple[float, ...]
     dispatches: int  # device launches for one graph execution
     #: seconds to capture and instantiate the run's graph (one replay a
-    #: run), and its node count; None for the eager loop on the CPU
+    #: run), and its node count (summed over ``bsp``'s superstep graphs);
+    #: None for an eager loop
     capture_s: Optional[float] = None
     graph_nodes: Optional[int] = None
+    #: host calls that issue one run (``Runtime.host_calls_per_run``)
+    host_calls: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -186,6 +200,12 @@ class Runtime(abc.ABC):
         """Device launches for one execution (overhead model)."""
         return 1
 
+    def host_calls_per_run(self, work) -> int:
+        """Host calls that issue one run of ``work``, a `TaskGraph` or a
+        `GraphEnsemble`: the reference's count of host dispatches. One for
+        a backend whose run is one graph replay."""
+        return 1
+
     @abc.abstractmethod
     def _build_ensemble_eager(
             self, ensemble: GraphEnsemble
@@ -279,14 +299,14 @@ class Runtime(abc.ABC):
         x = self._init(graph, init)
         fn = self.build(graph)
         walls = time_runs(fn, x, reps=reps, warmup=warmup)
-        graphed = isinstance(fn, GraphRun)
         stats = TimingStats(
             best=min(walls),
             mean=sum(walls) / len(walls),
             walls=tuple(walls),
             dispatches=self.dispatches_per_run(graph),
-            capture_s=fn.capture_s if graphed else None,
-            graph_nodes=fn.nodes if graphed else None,
+            capture_s=getattr(fn, "capture_s", None),
+            graph_nodes=getattr(fn, "nodes", None),
+            host_calls=self.host_calls_per_run(graph),
         )
         sample = GrainSample(
             iterations=graph.kernel.iterations,
@@ -317,12 +337,12 @@ class Runtime(abc.ABC):
         xs = self._ensemble_inits(ensemble, inits)
         fn = self.build_ensemble(ensemble)
         walls = time_runs(fn, xs, reps=reps, warmup=warmup)
-        graphed = isinstance(fn, GraphRun)
         stats = TimingStats(
             best=min(walls), mean=sum(walls) / len(walls), walls=tuple(walls),
             dispatches=self.ensemble_dispatches_per_run(ensemble),
-            capture_s=fn.capture_s if graphed else None,
-            graph_nodes=fn.nodes if graphed else None)
+            capture_s=getattr(fn, "capture_s", None),
+            graph_nodes=getattr(fn, "nodes", None),
+            host_calls=self.host_calls_per_run(ensemble))
         return self._ensemble_sample(ensemble, stats.best), stats
 
     def measure_launch_plan(self, ensemble: GraphEnsemble, *, reps: int = 3,

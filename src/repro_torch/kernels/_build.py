@@ -21,6 +21,10 @@ into `LAUNCHES`; each replay then adds the capture's record to `LAUNCHES`
 (`replayed`). So a run's delta of `LAUNCHES` is the same whether its loop
 was issued eagerly or replayed from a graph. `CAPTURES` counts the graphs
 captured (the counterpart of the reference's ``compile_counter``).
+`HOST_CALLS` counts the host calls that issue a run's device work: graph
+replays (one each in `replayed`) and the per-task backend's eager task
+calls (`task_called`), so a run's delta equals its runtime's
+``host_calls_per_run``.
 """
 from __future__ import annotations
 
@@ -86,6 +90,9 @@ LAUNCHES: Counter = Counter()
 BUILD_LAUNCHES: Counter = Counter()
 #: Graphs captured, under the key "graphs".
 CAPTURES: Counter = Counter()
+#: Host calls that issued device work: graph replays and the per-task
+#: backend's eager task calls.
+HOST_CALLS = 0
 #: The CTAs of each C entry's last launch, where its wrapper passes them
 #: (K1, K3: the launch plan it handed the entry).
 LAST_CTAS: Dict[str, int] = {}
@@ -94,9 +101,11 @@ _BUILDS: List[Counter] = []
 
 
 def reset_launches() -> None:
+    global HOST_CALLS
     LAUNCHES.clear()
     BUILD_LAUNCHES.clear()
     CAPTURES.clear()
+    HOST_CALLS = 0
 
 
 @contextlib.contextmanager
@@ -118,7 +127,15 @@ def captured() -> None:
 
 def replayed(record: Counter) -> None:
     """Add one replay of a graph whose capture launched ``record``."""
+    global HOST_CALLS
     LAUNCHES.update(record)
+    HOST_CALLS += 1
+
+
+def task_called() -> None:
+    """Count one eager task call of the per-task backend (``serialized``)."""
+    global HOST_CALLS
+    HOST_CALLS += 1
 
 
 def _digest() -> str:

@@ -214,5 +214,12 @@ def launch_counts() -> Dict[str, int]:
     return {entry: _build.LAUNCHES[entry] for entry in _build.ENTRIES}
 
 
+def host_calls() -> int:
+    """Host calls that issued device work since the last
+    `reset_launch_counts`: graph replays and the per-task backend's eager
+    task calls (``_build.HOST_CALLS``)."""
+    return _build.HOST_CALLS
+
+
 def reset_launch_counts() -> None:
     _build.reset_launches()

@@ -18,8 +18,12 @@ on both backends, each graph equal to its eager loop bit for bit and its
 replay's launches equal to ``ensemble_dispatches_per_run``; a stacked
 member equal to its own single-graph run bit for bit; the launch plans
 equal to ``build_ensemble`` bit for bit, with ``_build.CAPTURES`` flat under
-act edits and ``admit_fn``. Every test carries the ``gpu`` marker and skips
-without a card.
+act edits and ``admit_fn``. The four rungs (``bsp``, ``bsp_scan``,
+``overlap``, ``serialized``, with the kernels): each run equal to its eager
+loop bit for bit, its K1/K2 launches the bodies it runs and nothing else,
+its host calls ``host_calls_per_run``, its device kernels under
+``torch.profiler`` ``dispatches_per_run``, its ensembles round-robin or one
+graph. Every test carries the ``gpu`` marker and skips without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1140,3 +1144,124 @@ def test_auto_main_path_run_equals_its_explicit_twin(card_model, pattern):
     assert d == {"taskbench_step": 1, "taskbench_blocked_tiled": 63} \
         and sum(d.values()) == rt.dispatches_per_run(g)
     assert torch.equal(out, twin.build(g)(x))
+
+
+# ------------------------------------------------------------ the four rungs
+
+RUNG_CASES = [("bsp", {}), ("bsp", {"donate": False}), ("bsp_scan", {}), ("overlap", {}),
+              ("overlap", {"overlap": False}), ("overlap", {"halo_via": "allgather"}),
+              ("serialized", {})]
+RUNG_IDS = [f"{b}-{'-'.join(f'{k}={v}' for k, v in o.items()) or 'default'}"
+            for b, o in RUNG_CASES]
+
+
+def _rung_vs_eager(rt, work, xs):
+    """``rt``'s run of ``work`` (a graph or an ensemble) on the card, its
+    launches and host calls counted, and its eager loop on the same
+    inputs (for serialized, whose run is eager, a second run)."""
+    ensemble = isinstance(work, GraphEnsemble)
+    run = rt.build_ensemble(work) if ensemble else rt.build(work)
+    form = {"bsp": _capture.ReplayLoop, "bsp_scan": _capture.GraphRun,
+            "overlap": _capture.GraphRun}.get(rt.name)
+    assert isinstance(run, form) if form else not isinstance(
+        run, (_capture.GraphRun, _capture.ReplayLoop))
+    ops.reset_launch_counts()
+    got = run(xs)
+    torch.cuda.synchronize()
+    counts, calls = ops.launch_counts(), ops.host_calls()
+    eager = getattr(run, "eager", run)
+    want = eager(tuple(x.clone() for x in xs) if ensemble else xs.clone())
+    torch.cuda.synchronize()
+    return got, want, counts, calls
+
+
+@pytest.mark.parametrize("pattern", ["stencil_1d", "nearest", "random_nearest", "dom",
+                                     "fft", "spread", "all_to_all", "trivial"])
+@pytest.mark.parametrize("kind,iterations", [("compute_bound", 1), ("memory_bound", 2),
+                                             ("empty", 0)])
+@pytest.mark.parametrize("backend,opts", RUNG_CASES, ids=RUNG_IDS)
+def test_rung_run_equals_its_eager_loop(cuda, backend, opts, kind, iterations, pattern):
+    """Each rung's run on the card (bsp: a graph per superstep replayed from
+    the host; bsp_scan, overlap: one graph; serialized: eager) equals its
+    eager loop bit for bit, launches its bodies as K1/K2 and nothing else,
+    makes ``host_calls_per_run`` host calls, and agrees with the CPU plain
+    path (grain 1: at larger grains every state nears the FMA's fixed point
+    0.2 within T = 7, and the dataflow no longer shows)."""
+    g = TaskGraph(steps=7, width=32, pattern=pattern, payload=16,
+                  kernel=KernelSpec(kind, iterations, scratch=40), radius=2, seed=4)
+    rt = get_runtime(backend, device=cuda, use_kernels=True, **opts)
+    if not rt.supports(g)[0]:
+        assert backend == "overlap"
+        return
+    got, want, counts, calls = _rung_vs_eager(rt, g, _rand((32, 16), 9, cuda))
+    assert torch.equal(got, want)
+    body = {"compute_bound": "taskbench_compute", "memory_bound": "memory_bound"}
+    launched = rt.body_launches_per_run(g)
+    assert sum(counts.values()) == launched
+    if launched:
+        assert counts[body[kind]] == launched
+    assert calls == rt.host_calls_per_run(g)
+    cpu = get_runtime(backend, device="cpu", **opts)
+    init = _rand((32, 16), 9, cuda).cpu()
+    np.testing.assert_allclose(get_runtime(backend, device=cuda, use_kernels=True, **opts)
+                               .execute(g, init), cpu.execute(g, init), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend,opts", RUNG_CASES, ids=RUNG_IDS)
+def test_rung_device_kernels_equal_dispatches_per_run(cuda, backend, opts):
+    """Under torch.profiler a short run issues one device kernel per
+    operation ``dispatches_per_run`` counts (the replays' nodes, without
+    the output's clone), K1 among them as counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = TaskGraph(steps=5, width=64, pattern="nearest", payload=16,
+                  kernel=KernelSpec("compute_bound", 4), radius=2, seed=1)
+    rt = get_runtime(backend, device=cuda, use_kernels=True, **opts)
+    run = rt.build(g)
+    x = _rand((64, 16), 3, cuda)
+    run(x)
+    if isinstance(run, _capture.GraphRun):
+        run.stage(x)
+        issue = run.graphed.replay
+    elif isinstance(run, _capture.ReplayLoop):
+        run.stage(x)
+
+        def issue():
+            for i in run.eager.order:
+                run.graphs[i].replay()
+    else:
+        def issue():
+            run(x)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        issue()
+        torch.cuda.synchronize()
+    seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(seen) == rt.dispatches_per_run(g)
+    assert sum("fma_kernel" in n for n in seen) == ops.launch_counts()["taskbench_compute"]
+    assert ops.host_calls() == rt.host_calls_per_run(g)
+
+
+@pytest.mark.parametrize("backend,opts", RUNG_CASES, ids=RUNG_IDS)
+def test_rung_ensemble_equals_its_eager_loop(cuda, backend, opts):
+    """Mixed horizons: round-robin host calls (bsp: one per live member a
+    timestep; serialized: one per task), one graph for bsp_scan and overlap
+    (frozen members step and are masked); each member bit for bit its
+    eager loop and within tolerance of its own run on the CPU (grain 1,
+    where the dataflow shows)."""
+    members = [TaskGraph(steps=T, width=32, pattern=p, payload=16, radius=2, seed=k,
+                         kernel=KernelSpec("compute_bound", 1))
+               for k, (T, p) in enumerate([(7, "stencil_1d"), (4, "nearest"), (1, "dom"),
+                                           (5, "fft")])]
+    rt = get_runtime(backend, device=cuda, use_kernels=True, **opts)
+    ens = GraphEnsemble([g for g in members if rt.supports(g)[0]])
+    xs = tuple(_rand((g.width, g.payload), 20 + k, cuda) for k, g in enumerate(ens.members))
+    got, want, counts, calls = _rung_vs_eager(rt, ens, xs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert calls == rt.host_calls_per_run(ens)
+    assert sum(counts.values()) == counts["taskbench_compute"] == rt.body_launches_per_run(ens)
+    for g, a, x in zip(ens.members, got, xs):
+        np.testing.assert_allclose(a.cpu().numpy(),
+                                   get_runtime(backend, device="cpu", **opts).execute(g, x.cpu()),
+                                   rtol=1e-5, atol=1e-5)

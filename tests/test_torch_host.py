@@ -160,7 +160,7 @@ def test_extend_rows_wrap_past_the_ring():
 
 def test_runtimes_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("fused", "pallas_step"):
+    for name in ("fused", "serialized", "bsp", "bsp_scan", "overlap", "pallas_step"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_runtime(name)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -168,9 +168,10 @@ def test_runtimes_raise_without_a_card(monkeypatch):
 
 
 def test_registry_and_options():
-    assert available_runtimes() == ["fused", "pallas_step"]
+    assert available_runtimes() == ["bsp", "bsp_scan", "fused", "overlap", "pallas_step",
+                                    "serialized"]
     with pytest.raises(KeyError, match="unknown runtime"):
-        get_runtime("bsp", device="cpu")
+        get_runtime("mpi", device="cpu")
     with pytest.raises(ValueError, match="unknown options"):
         get_runtime("fused", device="cpu", use_pallas=True)
     with pytest.raises(ValueError, match="unknown combine option"):

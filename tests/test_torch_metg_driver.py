@@ -37,14 +37,19 @@ def test_smoke_writes_one_json_record_per_line(smoke):
 
 
 def test_smoke_sweeps_every_schedule_at_every_width(smoke):
-    """The four schedules and ``pallas_step[auto]`` at every width."""
-    from benchmarks.torch_metg import AUTO_SCHEDULE, SCHEDULES, SMOKE
+    """The four schedules, ``pallas_step[auto]`` and the three rungs on the
+    PAPER protocol at every width."""
+    from benchmarks.torch_metg import AUTO_SCHEDULE, RUNG_SCHEDULES, SCHEDULES, SMOKE
 
     _, records = smoke
     metg = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"]
-    assert {(r["runtime"], r["od"]) for r in metg} == {
-        (label, od) for label, _, _ in SCHEDULES + (AUTO_SCHEDULE,)
+    refused = [r for r in records if r["kind"] == "refused"]
+    assert {(r["runtime"], r["od"]) for r in metg + refused} == {
+        (label, od) for label, _, _ in SCHEDULES + (AUTO_SCHEDULE,) + RUNG_SCHEDULES
         for od in SMOKE.overdecomposition}
+    # one point a row on the CPU: overlap has no interior at W = 1
+    assert [(r["runtime"], r["W"]) for r in refused] == [("overlap[kernels]", 1)]
+    assert refused[0]["reason"].startswith("block 1 < 2*radius 1")
     for r in metg:
         assert r["W"] == r["od"]  # one core on the CPU
         assert r["repeats"] == len(r["metg_us"]) == 2
@@ -113,6 +118,29 @@ def test_smoke_sweeps_fft_metg_on_both_backends(smoke):
         assert r["dispatches_per_run"] > 0
 
 
+def test_smoke_sweeps_serialized_with_its_cuts(smoke):
+    """serialized[kernels]: one record per od, its own protocol (T, reps,
+    sweeps) written in ``cuts``, under a kind the guard does not read; one
+    host call a task."""
+    from benchmarks.torch_metg import SERIALIZED_REPS, SMOKE
+
+    _, records = smoke
+    cut = [r for r in records if r["kind"] == "metg_cut"]
+    assert [(r["runtime"], r["od"]) for r in cut] == [("serialized[kernels]", 1),
+                                                      ("serialized[kernels]", 8)]
+    for r in cut:
+        assert r["steps"] == SMOKE.steps and r["reps"] == SERIALIZED_REPS
+        assert r["cuts"]["steps"] == [SMOKE.steps, SMOKE.steps]
+        assert r["cuts"]["reps"] == [SERIALIZED_REPS, SMOKE.reps]
+        assert r["cuts"]["repeats"] == [2, 2] == [r["repeats"], len(r["metg_us"])]
+        assert r["host_calls_per_run"] == r["W"] * r["steps"]
+        assert r["us_per_task_median"] == {g: us / r["W"]
+                                           for g, us in r["us_per_step_median"].items()}
+        assert isinstance(r["metg_within_sweep"], bool)
+    rungs = [r for r in records if r["kind"] == "metg" and r["runtime"].startswith("bsp[")]
+    assert [r["host_calls_per_run"] for r in rungs] == [r["steps"] for r in rungs]
+
+
 def test_smoke_sweeps_the_ensemble_rows(smoke):
     """The ensemble rows: K graphs a point through ``measure_ensemble``, one
     record per (schedule, od, K), each with K and the card; granularity
@@ -129,7 +157,9 @@ def test_smoke_sweeps_the_ensemble_rows(smoke):
         assert r["dispatches_per_run"] > 0
     single = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"
               and r["K"] == 1]
-    assert len(single) == 2 * (4 + 1)  # the four schedules and pallas_step[auto]
+    # the four schedules, pallas_step[auto] and the three rungs (but overlap
+    # at W = 1)
+    assert len(single) == 2 * (4 + 1 + 3) - 1
     assert records[-1]["ensembles"] == [2]
 
 
