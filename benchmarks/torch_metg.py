@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m benchmarks.torch_metg [--repeats 5] [--out PATH]
         [--ensemble 2,4,8] [--cost-model PATH]
-    PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu
+    PYTHONPATH=src python -m benchmarks.torch_metg --devices 4 [--out PATH]
+    PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu [--devices 4]
 
 The port's counterpart of ``benchmarks/table2_metg.py`` (METG(50%) per
 backend and overdecomposition) and of ``benchmarks/pallas_floor.py``'s
@@ -72,6 +73,19 @@ against the ensemble's wall, so granularity is wall x SMs / (K x W x T).
 Each (schedule, W, K) sweep runs ``--repeats`` times; single-graph records
 carry K = 1.
 
+Row shards (``--devices D``, D > 1): instead of the sweep above, the rows
+of the runtimes that run over D row shards of one card
+(``Runtime(devices=[card] * D)``), at W = SMs x 16 (2112 on an H100), the
+PAPER preset, ``min(--repeats, 3)`` sweeps: ``bsp_scan[kernels]``,
+``overlap[kernels]`` with ``overlap`` True and False, ``pallas_step`` S = 1
+and ``pallas_step[S=8]`` pipelined, each at D = 1 and then at D (its label
+suffixed ``[D=4]``, so the guard's keys never meet the one-device cells;
+the guard reads the full sweep's file, not this one). Granularity stays
+wall x SMs / tasks: the D shards share the card's SMs. A record
+``"kind": "overlap_gain"`` gives, per D and grain, the step wall of
+``overlap=False`` over ``overlap=True`` less one: what issuing the halo
+transfer under the interior gains, the paper's latency hiding on one card.
+
 Every record carries the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``). Records print as
 JSON lines and are written to ``--out`` (one JSON object per line).
@@ -122,6 +136,15 @@ RUNG_SCHEDULES = (
 SERIALIZED_SCHEDULE = ("serialized[kernels]", "serialized", {"use_kernels": True})
 SERIALIZED_STEPS, SERIALIZED_REPS = QUICK.steps, 1
 SERIALIZED_ODS, SMOKE_SERIALIZED_ODS = ((1, 3), (8, 1)), ((1, 2), (8, 2))
+#: the row-shard rows (``--devices``): schedules, od, sweeps at most
+SHARD_SCHEDULES = (
+    ("bsp_scan[kernels]", "bsp_scan", {"use_kernels": True}),
+    ("overlap[kernels]", "overlap", {"use_kernels": True}),
+    ("overlap[kernels,overlap=False]", "overlap", {"use_kernels": True, "overlap": False}),
+    ("pallas_step", "pallas_step", {}),
+    ("pallas_step[S=8]", "pallas_step", {"steps_per_launch": 8}),
+)
+SHARD_OD, SHARD_REPEATS, SMOKE_SHARD_OD = 16, 3, 8
 #: "auto" under the run's calibrated model (its cost_model option is added)
 AUTO_SCHEDULE = ("pallas_step[auto]", "pallas_step", {"steps_per_launch": "auto"})
 SWEEP_S = (1, 2, 4, 8, 16)
@@ -162,11 +185,14 @@ def _graph(cfg: TaskBenchConfig, width: int, grain: int,
 
 def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
                 od: Optional[int], repeats: int, device: torch.device,
-                width: Optional[int] = None, K: int = 1) -> Dict[str, object]:
+                width: Optional[int] = None, K: int = 1,
+                devices: int = 1) -> Dict[str, object]:
     """``repeats`` grain sweeps of one schedule at W = cores x od (or at
     ``width``, with od None); with K > 1 each point is an ensemble of K
-    such graphs (seeds 0..K-1) through ``measure_ensemble``."""
-    rt = get_runtime(backend, device=device, **options)
+    such graphs (seeds 0..K-1) through ``measure_ensemble``; with
+    ``devices`` > 1 over that many row shards of ``device``."""
+    shards = {"devices": [device] * devices} if devices > 1 else {}
+    rt = get_runtime(backend, device=device, **options, **shards)
     width = rt.cores * od if width is None else width
     metgs: List[Optional[float]] = []
     peaks: List[float] = []
@@ -203,10 +229,40 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
         "unreached": len(metgs) - len(reached),
         "peak_gflops_median": statistics.median(peaks) / 1e9,
         "us_per_step_median": {g: statistics.median(w) for g, w in walls.items()},
+        "us_per_step": walls,
         "dispatches_per_run": dispatches, "host_calls_per_run": host_calls,
         "graph_nodes": nodes,
         "capture_s_median": statistics.median(capture) if capture else None,
+        "devices": devices,
     }
+
+
+def shard_records(cfg: TaskBenchConfig, devices: int, repeats: int, device: torch.device,
+                  od: int = SHARD_OD):
+    """The row-shard rows: each of SHARD_SCHEDULES at D = 1, then over
+    ``devices`` shards of ``device`` (label suffixed ``[D=devices]``), W =
+    cores x ``od``, ``repeats`` sweeps; then per D the ``overlap_gain``
+    record: per grain the medians' ``gain`` (off / on - 1), its range over
+    the sweeps (``gain_range``: the least and most off / on - 1 over every
+    pair of sweeps) and ``under``, how far on's median wall lies under
+    off's (1 - on / off)."""
+    walls = {}
+    for label, backend, options in SHARD_SCHEDULES:
+        for D in (1, devices):
+            tag = label if D == 1 else f"{label}[D={D}]"
+            rec = metg_record(cfg, tag, backend, options, od, repeats, device, devices=D)
+            walls[(label, D)] = rec["us_per_step"]
+            yield rec
+    for D in (1, devices):
+        on, off = walls[("overlap[kernels]", D)], walls[("overlap[kernels,overlap=False]", D)]
+        med_on = {g: statistics.median(w) for g, w in on.items()}
+        med_off = {g: statistics.median(w) for g, w in off.items()}
+        yield {"kind": "overlap_gain", "devices": D, "W": rec["W"],
+               "us_per_step_overlap": med_on, "us_per_step_no_overlap": med_off,
+               "gain": {g: med_off[g] / med_on[g] - 1 for g in on},
+               "gain_range": {g: [min(off[g]) / max(on[g]) - 1, max(off[g]) / min(on[g]) - 1]
+                              for g in on},
+               "under": {g: 1 - med_on[g] / med_off[g] for g in on}}
 
 
 def serialized_records(cfg: TaskBenchConfig, repeats: int, device: torch.device,
@@ -344,15 +400,15 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
         sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS,
         floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W,
         ensembles=None, ensemble_ods=ENSEMBLE_ODS, cost_model: Optional[Path] = None,
-        smoke: bool = False) -> List[dict]:
+        smoke: bool = False, devices: int = 1) -> List[dict]:
     """Every record of the sweep, emitted as it is taken; ``ensembles``
     (default the preset's ``ensemble_sizes`` above 1) are the K of the
-    ensemble rows; "auto" runs under the model `calibrate` gives."""
+    ensemble rows; "auto" runs under the model `calibrate` gives. With
+    ``devices`` > 1, the row-shard rows instead (`shard_records`)."""
     if ensembles is None:
         ensembles = tuple(k for k in cfg.ensemble_sizes if k > 1)
     t0 = time.perf_counter()
     smi = card(device)
-    model, model_rec = calibrate(cfg, device, cost_model, smoke)
     records: List[dict] = []
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as f:
@@ -364,6 +420,15 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
             f.write(line + "\n")
             f.flush()
 
+        if devices > 1:
+            for rec in shard_records(cfg, devices, min(repeats, SHARD_REPEATS), device,
+                                     SMOKE_SHARD_OD if smoke else SHARD_OD):
+                emit(rec)
+            emit({"kind": "summary", "preset": cfg.name, "repeats": min(repeats, SHARD_REPEATS),
+                  "devices": devices, "device": str(device),
+                  "seconds": time.perf_counter() - t0})
+            return records
+        model, model_rec = calibrate(cfg, device, cost_model, smoke)
         emit(model_rec)
         auto_label, auto_backend, auto_options = AUTO_SCHEDULE
         for od in cfg.overdecomposition:
@@ -408,6 +473,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cost-model", type=Path, default=None,
                     help="the cost-model cache file \"auto\" runs under (default: "
                          "calibrate with run_probes first)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="D > 1: the row-shard rows over D shards of the card instead "
+                         "of the sweep (PAPER preset, W = SMs x 16, 3 sweeps)")
     ap.add_argument("--ensemble", default=None,
                     help="comma-separated ensemble sizes K > 1 of the ensemble rows "
                          "(default: the preset's above 1); 'none' for none")
@@ -425,10 +493,13 @@ def main(argv=None) -> int:
         out = args.out or DEFAULT_OUT.with_name("metg_smoke.json")
         run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
             rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W,
-            ensembles=ensembles, ensemble_ods=(1,), cost_model=args.cost_model, smoke=True)
+            ensembles=ensembles, ensemble_ods=(1,), cost_model=args.cost_model, smoke=True,
+            devices=args.devices)
     else:
-        run(PAPER, args.repeats, device, args.out or DEFAULT_OUT, ensembles=ensembles,
-            cost_model=args.cost_model)
+        default = DEFAULT_OUT if args.devices == 1 else DEFAULT_OUT.with_name(
+            f"metg_d{args.devices}.json")
+        run(PAPER, args.repeats, device, args.out or default, ensembles=ensembles,
+            cost_model=args.cost_model, devices=args.devices)
     return 0
 
 

@@ -177,6 +177,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
              last read): one device kernel per counted operation
              (``dispatches_per_run``), the K1 launches among them, and
              their device time.
+  7b. shards the port over row shards of the card
+             (``devices=["cuda"] * D``): the main shape (W = 2112, T =
+             1000, grain 64) at D = 4 on the 7 halo patterns through
+             ``bsp_scan``, ``overlap`` and ``pallas_step`` S = 1 and S = 8
+             pipelined and serial; on stencil_1d and nearest also ``bsp``,
+             ``overlap=False``, ``halo_via="allgather"``,
+             ``halo_impl="ppermute"`` and "auto" (under the probe's model),
+             and all of it at D = 2; the same schedules at D = 1 on
+             stencil_1d for the step walls; memory_bound at D = 4 (K2, K3,
+             and K4's cooperative form at S = 8). Each run a ShardedRun
+             over one graph (bsp: a graph a superstep), equal to its eager
+             loop bit for bit, launching D times a shard's count in
+             ``host_calls_per_run`` host calls; S = 8 pipelined, serial
+             and "ppermute" equal bit for bit. Where the dataflow shows
+             (grain 1, W = 64, T = 41; fft and spread at W = 512; multi-hop
+             at W = 16, r = 2, S = 8; a K = 4 ensemble per rung and a
+             stacked pallas_step ensemble) against the CPU plain path.
+             ``probe_halo_exchange_us(4)`` per transport and its X. The
+             overlap measured: one replay each of a 6-step ``overlap``
+             (True, False) and a 17-step pipelined ``pallas_step``
+             ("ppermute") under ``torch.profiler``: the copy nodes (the
+             transfers) against every other kernel, > 0 us of overlap for
+             ``overlap=True``, exactly 0 for ``overlap=False``. Across
+             distinct cards only where there are two (else one line says
+             it was not run).
   8. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
@@ -364,6 +389,418 @@ ENS_SHORT = (("stencil_1d", 8), ("spread", 6), ("fft", 4), ("nearest", 1), ("dom
              ("random_nearest", 3))
 # [rungs]' profiled runs: issues in one profiling window, the last one read
 PROFILE_ISSUES = 3
+
+
+# [shards]: the port over D row shards of one card (``devices=["cuda"] * D``):
+# the main shape at D = 4 (B = 528) and D = 2 (at T_SHARD_D2 steps: the time
+# limit; the step walls are per step); every halo pattern runs bsp,
+# bsp_scan, overlap (overlap=True and False, halo_via="allgather") and
+# pallas_step S = 1 and S = 8 (pipelined, serial, halo_impl "xla" and
+# "ppermute") and "auto"; the main schedules at D = 1 on stencil_1d for the
+# step walls; the grain-1 evidence at W = 64, T = 41 (fft and spread at
+# W_GATHER); multi-hop at W = 16, r = 2, S = 8; the profiled overlap runs of
+# T_PROFILED steps. Each run is compared with its eager loop three times
+# (the three timed replays): a race between streams or in the allocator
+# gives wrong bits only sometimes.
+SHARD_D = (4, 2)
+T_SHARD_D2 = 250
+W_SHARD_SMALL, T_SHARD_SMALL = 64, 41
+
+
+def _measure(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _intersection(xs, ys):
+    """Length of union(xs) intersected with union(ys)."""
+    return _measure(xs) + _measure(ys) - _measure(list(xs) + list(ys))
+
+
+def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W_SHARD_SMALL,
+                 T_small=T_SHARD_SMALL, W_glob=W_GATHER, T_prof=T_PROFILED, T_d2=T_SHARD_D2,
+                 issues=PROFILE_ISSUES):
+    """The [shards] phase; returns the launches its runs counted (the eager
+    loops' and the references' apart) and its record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes._capture import GraphRun, ReplayLoop, ShardedRun, time_runs
+    from repro_torch.kernels import _build, ops, probes
+
+    t0 = time.perf_counter()
+    card = dev.type == "cuda"
+    # the probe: one exchange between 4 shards per transport, and the model;
+    # its K3 launches come before the counters' reset, apart from the runs'
+    tp = time.perf_counter()
+    model = probes.run_probes(devices=4, payload=PAYLOAD, device=dev)
+    probe = {"halo_exchange_us": model.halo_exchange_us, "row_step_us": model.row_step_us,
+             "X": model.exchange_row_steps, "seconds": time.perf_counter() - tp,
+             "describe": model.describe()}
+    print(f"[shards] probe_halo_exchange_us(4): {model.halo_exchange_us} -> X = "
+          f"{model.exchange_row_steps:.3f} row-steps ({model.describe()}) | {smi}", flush=True)
+    if card:
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    apart = dict.fromkeys(_build.ENTRIES, 0)
+    apart_calls = [0]
+    rows, refused, bitwise = [], {}, []
+    compared = [0]  # sharded outputs compared bit for bit with an eager loop
+    expected = dict.fromkeys(_build.ENTRIES, 0)  # the launches the sharded runs make
+
+    def keep_apart(d, calls):
+        for k, n in d.items():
+            apart[k] += n
+        apart_calls[0] += calls
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def runtime(name, D, opts, devices=None):
+        kw = dict(opts) if name == "pallas_step" else dict(opts, use_kernels=True)
+        return get_runtime(name, devices=devices or [dev] * D, **kw)
+
+    def reference(g, init):
+        """fused(use_kernels=True)'s run on one device, its launches apart."""
+        run = get_runtime("fused", device=dev, use_kernels=True).build(g)
+        out, d, h = counted_calls(lambda: run(init))
+        keep_apart(d, h)
+        return out.cpu()
+
+    def want_launches(rt, g):
+        """The kernel launches of one run over every shard: K3 and K4 from
+        ``dispatches_per_run`` (one shard's count) times D; the rungs' K1/K2
+        from ``body_launches_per_run`` (every shard's)."""
+        D = rt.num_devices
+        want = dict.fromkeys(_build.ENTRIES, 0)
+        if rt.name == "pallas_step":
+            per = rt.dispatches_per_run(g)
+            if rt._schedule_for_graph(g).steps_per_launch == 1:
+                want["taskbench_step"] = D * per
+            else:
+                want["taskbench_step"] = D
+                want[K4_COOP if g.kernel.kind == "memory_bound" else K4_TILED] = D * (per - 1)
+        else:
+            body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
+            want[body] = rt.body_launches_per_run(g)
+        return want
+
+    def run_once(label, rt, g, init, want, tol, reps=3):
+        """``rt``'s run of ``g``: built (D > 1: a ShardedRun over one graph,
+        or bsp's graph a superstep), run once with the counters read around
+        it, equal bit for bit to its eager loop, its launches D times the
+        per-shard count and its host calls ``host_calls_per_run``, held to
+        ``want`` within ``tol``, timed (best of ``reps``), and each timed
+        run's output again equal bit for bit to the eager loop's."""
+        D = rt.num_devices
+        tb = time.perf_counter()
+        run = rt.build(g)
+        sync()
+        build_s = time.perf_counter() - tb
+        inner = run.inner if isinstance(run, ShardedRun) else run
+        if card and (isinstance(run, ShardedRun) != (D > 1) or not isinstance(
+                inner, ReplayLoop if rt.name == "bsp" else GraphRun)):
+            fail(f"[shards] {label}: build gave {type(run).__name__} over "
+                 f"{type(inner).__name__}")
+        out, d, calls = counted_calls(lambda: run(init))
+        eager = getattr(run, "eager", run)
+        again, d_eager, h_eager = counted_calls(lambda: eager(init.clone()))
+        keep_apart(d_eager, h_eager)
+        if not torch.equal(out, again):
+            fail(f"[shards] {label}: the run differs from its eager loop, max |difference| "
+                 f"{(out - again).abs().max().item()}")
+        wd = want_launches(rt, g)
+        if d != wd or d_eager != d:
+            fail(f"[shards] {label}: launches {d} (eager loop {d_eager}), expected {wd}")
+        if calls != rt.host_calls_per_run(g):
+            fail(f"[shards] {label}: {calls} host calls, host_calls_per_run "
+                 f"{rt.host_calls_per_run(g)}")
+        err = check_close(f"[shards] {label}", out.cpu(), want, tol)
+        timed = []
+        walls = time_runs(run, init, reps=reps, outputs=timed)
+        for k, n in wd.items():  # the counted run, time_runs' warm-up and timed runs
+            expected[k] += n * (2 + reps)
+        for i, o in enumerate(timed):
+            if not torch.equal(o, again):
+                fail(f"[shards] {label}: timed run {i} differs from the eager loop, max "
+                     f"|difference| {(o - again).abs().max().item()}")
+        compared[0] += 1 + len(timed)
+        rows.append({"run": label, "runtime": rt.name, "D": D, "pattern": g.pattern,
+                     "plan": (list(rt._schedule_for_graph(g)) if rt.name == "pallas_step"
+                              else None),
+                     "W": g.width, "T": g.steps, "kind": g.kernel.kind,
+                     "grain": g.kernel.iterations, "us_per_step": min(walls) / g.steps * 1e6,
+                     "launches": {k: n for k, n in d.items() if n}, "host_calls": calls,
+                     "dispatches_per_run": rt.dispatches_per_run(g),
+                     "nodes": getattr(inner, "nodes", None), "build_s": build_s,
+                     "max_abs_err": err})
+        return out.cpu()
+
+    main_runs = (("bsp_scan", {}), ("overlap", {}), ("pallas_step", {}),
+                 ("pallas_step", {"steps_per_launch": S_MAIN}),
+                 ("pallas_step", {"steps_per_launch": S_MAIN, "pipeline": False}))
+    full_runs = (("bsp", {}), ("overlap", {"overlap": False}),
+                 ("overlap", {"halo_via": "allgather"}),
+                 ("pallas_step", {"steps_per_launch": S_MAIN, "halo_impl": "ppermute"}),
+                 ("pallas_step", {"steps_per_launch": "auto", "cost_model": model}))
+    for pattern in HALO_PATTERNS:
+        init = rand(W, PAYLOAD)
+        for D in SHARD_D:
+            g = TaskGraph(steps=T if D == SHARD_D[0] else T_d2, width=W, pattern=pattern,
+                          payload=PAYLOAD, kernel=KernelSpec("compute_bound", GRAIN), radius=2,
+                          seed=0)
+            want = reference(g, init)
+            outs = {}
+            for name, opts in main_runs + full_runs:
+                rt = runtime(name, D, opts)
+                ok, why = rt.supports(g)
+                if not ok:
+                    refused[f"{pattern} D={D} {name}"] = why
+                    continue
+                tag = {k: v for k, v in opts.items() if k != "cost_model"}
+                outs[(name, str(tag))] = run_once(f"{pattern} D={D} {name}{tag or ''}", rt, g,
+                                                  init, want, TOL)
+            blocked = [v for (n, o), v in outs.items() if "steps_per_launch': 8" in o]
+            if any(not torch.equal(blocked[0], b) for b in blocked[1:]):
+                fail(f"[shards] {pattern} D={D}: S = 8 pipelined, serial and halo_impl runs "
+                     f"differ")
+            bitwise.append(f"{pattern} D={D} S=8 x{len(blocked)}")
+        if pattern == "stencil_1d":  # the step walls at D = 1
+            g = TaskGraph(steps=T, width=W, pattern=pattern, payload=PAYLOAD,
+                          kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+            want = reference(g, init)
+            for name, opts in main_runs:
+                run_once(f"{pattern} D=1 {name}{opts or ''}", runtime(name, 1, opts, [dev]), g,
+                         init, want, TOL)
+    g = TaskGraph(steps=T, width=W, pattern="stencil_1d", payload=PAYLOAD,
+                  kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
+    init = rand(W, PAYLOAD)
+    want = reference(g, init)
+    for name, opts in (("bsp_scan", {}), ("overlap", {}), ("pallas_step", {}),
+                       ("pallas_step", {"steps_per_launch": S_MAIN})):
+        # S = 8: the memory body takes K4's cooperative form, D grids at once
+        run_once(f"memory_bound D=4 {name}{opts or ''}", runtime(name, 4, opts), g, init, want,
+                 TOL_MEMORY_RUN)
+
+    # grain 1, where the dataflow shows: against the CPU plain path at D = 1
+    cpu = get_runtime("fused", device="cpu")
+    small = (("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("overlap", {"overlap": False}),
+             ("overlap", {"halo_via": "allgather"}), ("pallas_step", {}),
+             ("pallas_step", {"steps_per_launch": 2}),
+             ("pallas_step", {"steps_per_launch": 2, "pipeline": False}),
+             ("pallas_step", {"steps_per_launch": 3, "halo_impl": "ppermute"}),
+             ("pallas_step", {"steps_per_launch": 3, "pipeline": False}))
+    n_small = 0
+    cases = [(p, W_small, 2) for p in HALO_PATTERNS] + [
+        (p, W_small, 2) for p in ("fft", "tree", "all_to_all", "spread")] + [
+        (p, W_glob, 2) for p in ("fft", "spread")] + [("nearest", 16, 2)]
+    for pattern, width, r in cases:
+        steps = 2 * S_MAIN + 1 if width == 16 else T_small
+        g = TaskGraph(steps=steps, width=width, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", 1), radius=r, seed=1)
+        init = rand(width, PAYLOAD)
+        want = torch.from_numpy(cpu.execute(g, init.cpu()))
+        runs = (("pallas_step", {"steps_per_launch": S_MAIN}),) if width == 16 else small
+        outs = {}
+        for name, opts in runs:
+            rt = runtime(name, 4, opts)
+            if not rt.supports(g)[0] or (name == "pallas_step" and rt.plan_for(g)[0] != "halo"):
+                continue
+            outs[str(opts)] = run_once(f"grain 1 {pattern} W={width} D=4 {name}{opts or ''}",
+                                       rt, g, init, want, TOL)
+            n_small += 1
+        for S in (2, 3):
+            piped = [v for o, v in outs.items() if f"'steps_per_launch': {S}" in o]
+            if len(piped) == 2 and not torch.equal(*piped):
+                fail(f"[shards] grain 1 {pattern}: S = {S} pipelined != serial")
+    # K = 4 ensembles of mixed patterns and horizons at grain 1, each member
+    # against the CPU plain path's run of it alone; one stacked pallas_step
+    # ensemble (stencil_1d, horizons T_ENS_SHORT)
+    ens_rows = []
+    mixed = (("stencil_1d", 8), ("spread", 6), ("fft", 4), ("nearest", 1), ("dom", 5),
+             ("random_nearest", 3))
+    stacked = [TaskGraph(steps=t, width=W_small, pattern="stencil_1d", payload=PAYLOAD,
+                         kernel=KernelSpec("compute_bound", 1), seed=20 + k)
+               for k, t in enumerate(T_ENS_SHORT)]
+    for name, opts in (("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("pallas_step", {}),
+                       ("pallas_step", {"steps_per_launch": S_MAIN})):
+        rt = runtime(name, 4, opts)
+        if name == "pallas_step":
+            members = stacked
+        else:
+            members = [TaskGraph(steps=t, width=W_small, pattern=p, payload=PAYLOAD, radius=2,
+                                 kernel=KernelSpec("compute_bound", 1), seed=10 + k)
+                       for k, (p, t) in enumerate(mixed)]
+            members = [g for g in members if rt.supports(g)[0]][:4]
+        ens = GraphEnsemble(members)
+        xs = tuple(rand(W_small, PAYLOAD) for _ in members)
+        run = rt.build_ensemble(ens)
+        outs, d, calls = counted_calls(lambda: run(xs))
+        again, d_eager, h_eager = counted_calls(
+            lambda: getattr(run, "eager", run)(tuple(x.clone() for x in xs)))
+        keep_apart(d_eager, h_eager)
+        if name == "pallas_step":
+            want_n = 4 * rt.ensemble_dispatches_per_run(ens)
+        else:
+            want_n = rt.body_launches_per_run(ens)
+        if sum(d.values()) != want_n or d_eager != d:
+            fail(f"[shards] K=4 {name}{opts}: launches {d}, expected {want_n}")
+        if calls != rt.host_calls_per_run(ens):
+            fail(f"[shards] K=4 {name}: {calls} host calls")
+        errs = []
+        for i, run_i in enumerate([outs] + [run(xs) for _ in range(2)]):
+            for k, (a, b) in enumerate(zip(run_i, again)):
+                if not torch.equal(a, b):
+                    fail(f"[shards] K=4 {name} member {k}: run {i} differs from its eager "
+                         f"loop")
+            compared[0] += 1
+        for k, n in d.items():
+            expected[k] += 3 * n
+        for k, (a, g, x) in enumerate(zip(outs, members, xs)):
+            errs.append(check_close(f"[shards] K=4 {name}{opts} member {k}", a.cpu(),
+                                    torch.from_numpy(cpu.execute(g, x.cpu())), TOL))
+        ens_rows.append({"run": f"K=4 {name}{opts or ''}", "patterns": [g.pattern for g in members],
+                         "T": [g.steps for g in members], "launches": sum(d.values()),
+                         "host_calls": calls, "max_abs_err": max(errs)})
+
+    # the overlap, measured: T_prof-step runs at the main shape, D = 4 and
+    # 2, replayed `issues` times in one profiling window behind a marker
+    # kernel; the events after the last marker are one replay's. The
+    # transfers are the graph's copy nodes ("ppermute": device-to-device
+    # copies); every other kernel is compute, and a replay does not say
+    # which shard ran a node. overlap=True must overlap its transfers with
+    # compute. overlap=False joins a shard's transfers before its compute,
+    # and a shard waits on its ring neighbours' transfers only: at D = 2
+    # every shard is every other's neighbour, so nothing may overlap a
+    # transfer there (0 us, the check that can fail); at D = 4 shard d's
+    # compute may run under shard d + 2's copies, which is printed.
+    overlap_rows = {}
+    profiled = (("overlap", {}, 4), ("overlap", {"overlap": False}, 4),
+                ("overlap", {}, 2), ("overlap", {"overlap": False}, 2),
+                ("pallas_step", {"steps_per_launch": S_MAIN, "halo_impl": "ppermute"}, 4))
+    for name, opts, D in profiled:
+        steps = 1 + 2 * S_MAIN if name == "pallas_step" else T_prof
+        g = TaskGraph(steps=steps, width=W, pattern="nearest", payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), radius=2, seed=0)
+        rt = runtime(name, D, opts)
+        run = rt.build(g)
+        init = rand(W, PAYLOAD)
+        keep_apart(*counted_calls(lambda: run(init))[1:])  # a warm replay
+        if not card:
+            continue
+        run.stage(init)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(issues):
+                torch.cuda._sleep(1000)  # the marker
+                _, d, calls = counted_calls(run.inner.graphed.replay)
+                keep_apart(d, calls)
+            sync()
+        events = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == torch.autograd.DeviceType.CUDA)
+        marks = [i for i, (_, _, n) in enumerate(events)
+                 if "spin_kernel" in n or "sleep" in n.lower()]
+        if not marks:
+            fail("[shards] the profiler recorded no marker kernel")
+        mine = events[marks[-1] + 1:]
+        copies = [(a, b) for a, b, n in mine if "memcpy" in n.lower()]
+        compute = [(a, b) for a, b, n in mine if "memcpy" not in n.lower()]
+        first = min(a for a, _, _ in mine)
+        during = [(round(a - first, 3), round(b - first, 3), n[:40]) for a, b, n in mine
+                  if "memcpy" not in n.lower() and any(a < y and b > x for x, y in copies)]
+        ov = _intersection(copies, compute)
+        key = f"{name}{opts} D={D}"
+        # the device span from the first transfer to the last kernel holds
+        # the T - 1 combine steps (the t = 0 body before it is left out);
+        # the busy time is the union of every node's interval in it
+        span = max(b for _, b, _ in mine) - min(copies)[0] if copies else 0.0
+        busy = _measure([(a, b) for a, b, _ in mine if copies and a >= min(copies)[0]])
+        overlap_rows[key] = {
+            "D": D, "steps": steps, "transfers": len(copies), "kernels": len(compute),
+            "transfer_us": _measure(copies), "overlap_us": ov,
+            "overlap_us_per_step": ov / (steps - 1),
+            "device_us": span, "device_us_per_step": span / (steps - 1),
+            "busy_us": busy, "busy_us_per_step": busy / (steps - 1),
+            "kernel_us": sum(b - a for a, b in compute),
+            "transfer_intervals": [(round(a - first, 3), round(b - first, 3)) for a, b in copies],
+            "compute_during_transfers": during[:24]}
+        print(f"[shards] profiled {key} (W={W}, {steps} steps): {len(copies)} transfers "
+              f"({_measure(copies):.3f} us), {len(compute)} compute kernels, overlapping the "
+              f"transfers by {ov:.3f} us ({ov / (steps - 1):.3f} a step); device "
+              f"{span:.3f} us from the first transfer ({span / (steps - 1):.3f} a step), busy "
+              f"{busy:.3f} us ({busy / (steps - 1):.3f} a step); first "
+              f"transfers {overlap_rows[key]['transfer_intervals'][:8]}, compute during them "
+              f"{during[:6]} | {smi}", flush=True)
+        if not copies:
+            fail(f"[shards] profiled {key}: no transfer seen")
+        if opts.get("overlap") is False and D == 2 and ov != 0.0:
+            fail(f"[shards] overlap=False, D = 2: the transfers overlap compute by "
+                 f"{ov:.3f} us")
+        if opts.get("overlap") is not False and ov <= 0.0:
+            fail(f"[shards] {key}: the transfers overlap no compute")
+
+    # distinct cards: the same code over cuda:0..n-1, where there are two
+    n_cards = torch.cuda.device_count() if card else 0
+    distinct = "not run: one card (torch.cuda.device_count() = %d)" % n_cards
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(4, n_cards))]
+        g = TaskGraph(steps=T_small, width=W_small, pattern="nearest", payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", 1), radius=2, seed=1)
+        init = rand(W_small, PAYLOAD)
+        want = torch.from_numpy(cpu.execute(g, init.cpu()))
+        for name, opts in (("bsp_scan", {}), ("pallas_step", {})):
+            rt = runtime(name, len(cards), opts, cards)
+            out, d, _ = counted_calls(lambda: rt.build(g)(init))
+            for k, n in d.items():
+                expected[k] += n
+            check_close(f"[shards] {name} across {len(cards)} cards", out.cpu(), want, TOL)
+        distinct = f"bsp_scan and pallas_step across {len(cards)} cards within TOL of D = 1"
+    print(f"[shards] distinct cards: {distinct}", flush=True)
+
+    sync()
+    total = ops.launch_counts()
+    launches = {k: n - apart[k] for k, n in total.items()}
+    for k in ("taskbench_compute", "memory_bound", "taskbench_step", K4_TILED, K4_COOP):
+        if launches[k] == 0:
+            fail(f"[shards] kernel {k}: no launch on the sharded runs")
+    if launches != expected:
+        fail(f"[shards] launches {launches} differ from the sharded runs' own {expected}")
+    for row in rows:
+        print(f"  {row['run']} W={row['W']} T={row['T']} {row['kind']} grain {row['grain']}: "
+              f"{row['us_per_step']:.3f} us a step; launches {row['launches']}, "
+              f"{row['host_calls']} host calls, {row['dispatches_per_run']} per shard; "
+              f"{row['nodes']} nodes, built in {row['build_s']:.3f} s; max |err| "
+              f"{row['max_abs_err']:.3g}")
+    for row in ens_rows:
+        print(f"  {row['run']} {row['patterns']} T={row['T']}: {row['launches']} launches, "
+              f"{row['host_calls']} host calls, max |err| {row['max_abs_err']:.3g}")
+    shows = [r for r in rows if r["grain"] == 1 or r["kind"] == "memory_bound"]
+    print(f"[shards] refused: {refused}", flush=True)
+    print(f"[shards] {len(rows)} sharded runs ({len(rows) - len(shows)} at grain {GRAIN}: "
+          f"counts, graphs and bits; {len(shows)} where the dataflow shows: grain 1 against "
+          f"the CPU plain path ({n_small}), memory_bound against fused(kernels)) and "
+          f"{len(ens_rows)} K=4 ensembles, each equal to its eager loop bit for bit three times "
+          f"({compared[0]} comparisons), launches "
+          f"D x the per-shard count, host calls as counted; pipelined = serial = ppermute bit "
+          f"for bit ({len(bitwise)} groups); launches {launches} (and {apart}, "
+          f"{apart_calls[0]} host calls, apart); {time.perf_counter() - t0:.3f} s | {smi}",
+          flush=True)
+    record = {"runs": rows, "ensembles": ens_rows, "overlap": overlap_rows, "probe": probe,
+              "refused": refused, "distinct_cards": distinct,
+              "seconds": time.perf_counter() - t0}
+    print(json.dumps({"shards": record}, default=str), flush=True)
+    return launches, record
 
 
 def fail(msg: str) -> None:
@@ -2083,6 +2520,9 @@ def main() -> int:
     print(json.dumps({"rungs": {"runs": rung_rows, "ensembles": ens_rows,
                                 "profiled": prof_rows, "refused": refused}}), flush=True)
 
+    # --------------------------------------------------------------- shards
+    launches_shards, _ = shards_phase(dev, rand, smi, counted_calls)
+
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()
     step_wall, step_wall_eager = {}, {}
@@ -2446,7 +2886,8 @@ def main() -> int:
             "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname],
                                  "ensemble": launches_ens[kname],
                                  "schedule": launches_sched[kname],
-                                 "rungs": launches_rungs[kname]},
+                                 "rungs": launches_rungs[kname],
+                                 "shards": launches_shards[kname]},
         })
         if kname in ("taskbench_compute", "taskbench_step"):
             # the grid its wrapper launched in the timing above

@@ -24,12 +24,21 @@ per step): a host loop over programs, zero-argument callables that read and
 write static state buffers. `HostLoop` calls the programs eagerly;
 `ReplayLoop` captures each program once as its own CUDA graph and replays
 them in the loop's order, one replay a host call.
+
+A run over D row shards (``Runtime(devices=...)``) takes and gives a tuple of
+D shard tensors, or per ensemble member such a tuple: the states nest, and
+``stage``, ``replay`` and ``clone_states`` follow the nesting. Where every
+shard sits on one card the loop forks the shards' streams from the capturing
+stream and joins them back, so one capture records the D shards as parallel
+branches. `ShardedRun` wraps such a run so that it takes and gives the
+global state: ``stage(x)`` splits x into the shards, ``replay()`` gathers
+the output.
 """
 from __future__ import annotations
 
 import ctypes
 import time
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -88,17 +97,29 @@ class Graphed:
         self.close()
 
 
-#: One state, or an ensemble's tuple of member states.
-States = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+#: One state, or a tuple of states (an ensemble's members, a run's shards,
+#: or an ensemble's members' shards).
+States = Union[torch.Tensor, Tuple["States", ...]]
 
 
 def clone_states(x: States) -> States:
-    """A copy of a state, or of each state of a tuple."""
-    return x.clone() if isinstance(x, torch.Tensor) else tuple(t.clone() for t in x)
+    """A copy of a state, or of each state of a (nested) tuple."""
+    return x.clone() if isinstance(x, torch.Tensor) else tuple(clone_states(t) for t in x)
+
+
+def copy_states(dst: States, src: States) -> None:
+    """``dst.copy_(src)`` for a state or each state of a (nested) tuple."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    if len(src) != len(dst):
+        raise ValueError(f"staged {len(src)} states into a graph of {len(dst)}")
+    for a, b in zip(dst, src):
+        copy_states(a, b)
 
 
 def _first(x: States) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else x[0]
+    return x if isinstance(x, torch.Tensor) else _first(x[0])
 
 
 class GraphRun:
@@ -127,14 +148,7 @@ class GraphRun:
         return self.graphed.nodes
 
     def stage(self, x: States) -> None:
-        if isinstance(self.static_in, torch.Tensor):
-            self.static_in.copy_(x)
-            return
-        if len(x) != len(self.static_in):
-            raise ValueError(f"staged {len(x)} states into a graph of "
-                             f"{len(self.static_in)}")
-        for dst, src in zip(self.static_in, x):
-            dst.copy_(src)
+        copy_states(self.static_in, x)
 
     def replay(self) -> States:
         return clone_states(self.graphed.replay())
@@ -217,14 +231,56 @@ class ReplayLoop:
             g.close()
 
 
-def time_runs(run: Callable, x: States, *, reps: int, warmup: int = 1
-              ) -> List[float]:
+class ShardedRun:
+    """A run over D row shards that takes and gives the global state.
+
+    ``inner`` is the shards' run (a `GraphRun`, `ReplayLoop`, `HostLoop`, or
+    an eager loop) over the tuple ``split(x)`` gives; ``gather`` turns its
+    output back into the global state. ``stage(x)`` splits (outside a timed
+    region), ``replay()`` runs and gathers. ``eager`` is the same wrapper
+    over the inner run's eager loop; ``capture_s``, ``nodes`` and
+    ``graphs`` are the inner run's."""
+
+    def __init__(self, inner, split: Callable, gather: Callable):
+        self.inner, self.split, self.gather = inner, split, gather
+        self._held = None
+
+    @property
+    def eager(self) -> "ShardedRun":
+        inner = getattr(self.inner, "eager", None)
+        return self if inner is None else ShardedRun(inner, self.split, self.gather)
+
+    def __getattr__(self, name):
+        if name in ("capture_s", "nodes", "graphs", "graphed"):
+            return getattr(self.inner, name)
+        raise AttributeError(name)
+
+    def stage(self, x: States) -> None:
+        shards = self.split(x)
+        if hasattr(self.inner, "stage"):
+            self.inner.stage(shards)
+        else:
+            self._held = shards
+
+    def replay(self) -> States:
+        if hasattr(self.inner, "replay"):
+            return self.gather(self.inner.replay())
+        return self.gather(self.inner(self._held))
+
+    def __call__(self, x: States) -> States:
+        self.stage(x)
+        return self.replay()
+
+
+def time_runs(run: Callable, x: States, *, reps: int, warmup: int = 1,
+              outputs: Optional[List[States]] = None) -> List[float]:
     """Host seconds of each of ``reps`` runs of ``run`` (a `GraphRun`, a
     `HostLoop` or `ReplayLoop`, or an eager loop) on fresh copies of ``x``
     (a state, or an ensemble's tuple): each copy is staged outside the
     timed region, which holds the run and a device synchronize;
-    ``max(warmup, 1)`` untimed runs first."""
-    if isinstance(run, (GraphRun, HostLoop, ReplayLoop)):
+    ``max(warmup, 1)`` untimed runs first. Each timed run's output is
+    appended to ``outputs``, where given."""
+    if isinstance(run, (GraphRun, HostLoop, ReplayLoop, ShardedRun)):
         stage, replay = run.stage, run.replay
     else:
         held: List[States] = []
@@ -249,7 +305,9 @@ def time_runs(run: Callable, x: States, *, reps: int, warmup: int = 1
         stage(x)
         sync()
         t0 = time.perf_counter()
-        replay()
+        out = replay()
         sync()
         walls.append(time.perf_counter() - t0)
+        if outputs is not None:
+            outputs.append(out)
     return walls

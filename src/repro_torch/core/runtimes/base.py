@@ -3,8 +3,8 @@
 Counterpart of ``repro.core.runtimes.base``. A *runtime* executes a
 TaskGraph; each backend models one way of scheduling the same dataflow, and
 all must produce the same final states (tests enforce cross-backend
-allclose). The six backends of the paper's overhead ladder, each on one
-device, and how each dispatches a run:
+allclose). The six backends of the paper's overhead ladder, and how each
+dispatches a run:
 
   fused        the whole run one program: combine + body per step (OpenMP)
   serialized   one host call per task (the AMT worst case: per-task spawn)
@@ -33,14 +33,31 @@ an ensemble run, one launch per call (``build_ensemble_launches``; only
 ``pallas_step`` has one).
 
 Runtimes run on the card (``device="cuda"``, the default) unless the caller
-asks for the CPU; with no card they raise rather than run on the CPU. Not
-ported yet (ROADMAP.md): the ``trace=`` option (Queue 1 item 9) and
+asks for the CPU; with no card they raise rather than run on the CPU.
+
+Row shards (``devices=``, the reference's option): a sequence of D devices,
+which may name one card D times; the default is ``[device]``. Shard d owns
+rows [d*B, (d+1)*B) with B = W / D, as its own tensor on ``devices[d]``,
+computing on its own stream, and reads other shards' rows only through the
+transports of ``_halo`` (`_halo.ShardMesh`). ``bsp``, ``bsp_scan``,
+``overlap`` and ``pallas_step`` run sharded; ``fused`` and ``serialized``
+are one program or one host call a task by design and take one device.
+``execute`` and ``measure`` still take and give the global (W, payload)
+state: at D > 1 ``build`` returns a `_capture.ShardedRun`, which splits the
+state into the shards (``stage``) and gathers the output (``replay``). Where
+the shards sit on one card the shards' run is captured as on one device
+(one CUDA graph, or ``bsp``'s graph a superstep); where they sit on
+distinct cards a capture would span devices, so the shards' run is the
+eager loop (`ShardedRun` over it), every operation issued from the host.
+
+Not ported yet (ROADMAP.md): the ``trace=`` option (Queue 1 item 9) and
 ``execute_ensemble_resilient``, which needs the resilience engine (Queue 1
 item 10).
 """
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
@@ -50,7 +67,8 @@ import torch
 
 from repro_torch.core.graph import GraphEnsemble, TaskGraph
 from repro_torch.core.metg import GrainSample, combine_grain_samples
-from repro_torch.core.runtimes._capture import GraphRun, time_runs
+from repro_torch.core.runtimes import _halo
+from repro_torch.core.runtimes._capture import GraphRun, ShardedRun, time_runs
 from repro_torch.core.task_kernels import initial_state, state_from_reference
 
 
@@ -128,16 +146,32 @@ class Runtime(abc.ABC):
     name: str = "abstract"
     #: options this backend reads; any other option raises
     known_options: Tuple[str, ...] = ()
+    #: whether the backend runs over row shards (``devices`` of more than one)
+    sharded: bool = False
 
-    def __init__(self, device="cuda", **options):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"runtime {self.name}: no CUDA device is available; pass "
-                    f"device='cpu' to run the plain versions on the CPU")
-        elif self.device.type != "cpu":
-            raise ValueError(f"runtime {self.name}: unsupported device {self.device}")
+    def __init__(self, device="cuda", devices: Optional[Sequence] = None, **options):
+        devices = [device] if devices is None else list(devices)
+        if not devices:
+            raise ValueError(f"runtime {self.name}: devices is empty")
+        for dev in devices:
+            dev = torch.device(dev)
+            if dev.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        f"runtime {self.name}: no CUDA device is available; pass "
+                        f"device='cpu' to run the plain versions on the CPU")
+            elif dev.type != "cpu":
+                raise ValueError(f"runtime {self.name}: unsupported device {dev}")
+        if len({torch.device(d).type for d in devices}) != 1:
+            raise ValueError(f"runtime {self.name}: mixed device types {devices}")
+        if len(devices) > 1 and not self.sharded:
+            raise ValueError(
+                f"runtime {self.name} runs on one device; got {len(devices)} "
+                f"(the sharded backends are bsp, bsp_scan, overlap, pallas_step)")
+        #: the row mesh over ``devices`` (None on one device)
+        self.mesh = _halo.ShardMesh(devices) if len(devices) > 1 else None
+        self.devices = list(self.mesh.devices) if self.mesh else [torch.device(devices[0])]
+        self.device = self.devices[0]
         unknown = sorted(set(options) - set(self.known_options))
         if unknown:
             raise ValueError(
@@ -146,12 +180,67 @@ class Runtime(abc.ABC):
         self.options = options
 
     @property
+    def num_devices(self) -> int:
+        """D, the row shards the points are block-distributed over."""
+        return len(self.devices)
+
+    def _block(self, graph: TaskGraph) -> int:
+        return graph.width // self.num_devices
+
+    @property
     def cores(self) -> int:
         """Parallel workers METG's granularity is taken over: the card's
-        SMs (an SM takes the place of the paper's core), 1 on the CPU."""
+        SMs (an SM takes the place of the paper's core), summed over the
+        distinct cards the shards sit on; 1 on the CPU."""
         if self.device.type == "cuda":
-            return torch.cuda.get_device_properties(self.device).multi_processor_count
+            return sum(torch.cuda.get_device_properties(d).multi_processor_count
+                       for d in dict.fromkeys(self.devices))
         return 1
+
+    # -- row shards --------------------------------------------------------
+
+    def _split(self, x):
+        """The global (W, payload) state, or an ensemble's tuple of them, as
+        D separate shard tensors each: shard d a copy of rows [d*B, (d+1)*B)
+        on ``devices[d]``."""
+        if not isinstance(x, torch.Tensor):
+            return tuple(self._split(m) for m in x)
+        B = x.shape[0] // self.num_devices
+        return tuple(x.narrow(0, d * B, B).to(dev, copy=True)
+                     for d, dev in enumerate(self.devices))
+
+    def _gather(self, shards):
+        """The inverse of `_split`: the shards concatenated on ``device``."""
+        if not isinstance(shards[0], torch.Tensor):
+            return tuple(self._gather(m) for m in shards)
+        return torch.cat([s.to(self.device) for s in shards])
+
+    def _on(self, d: int):
+        """A context in which shard d's work is issued (its stream)."""
+        return self.mesh.on(d) if self.mesh is not None else contextlib.nullcontext()
+
+    def _map(self, fn: Callable, *lists) -> List:
+        """``fn(d, *args)`` for each shard d, issued on shard d's stream."""
+        out = []
+        for d, args in enumerate(zip(*lists)):
+            with self._on(d):
+                out.append(fn(d, *args))
+        return out
+
+    def _sharded_run(self, eager, example):
+        """At D > 1: the shards' eager loop ``eager`` over ``example``'s
+        shard tuple(s), captured as one CUDA graph where every shard sits on
+        one card and run eagerly on the CPU or across distinct cards,
+        wrapped to take and give the global state (`ShardedRun`)."""
+        inner = eager
+        if self.device.type == "cuda" and self.mesh.one_card:
+            inner = GraphRun(eager, example)
+        return ShardedRun(inner, self._split, self._gather)
+
+    def _zero_shards(self, graph: TaskGraph):
+        B = self._block(graph)
+        return tuple(torch.zeros((B, graph.payload), dtype=torch.float32, device=dev)
+                     for dev in self.devices)
 
     # -- capabilities ------------------------------------------------------
 
@@ -182,15 +271,19 @@ class Runtime(abc.ABC):
     @abc.abstractmethod
     def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         """The run as an eager loop: initial (W, payload) state on the
-        device -> final state, every operation issued from the host."""
+        device -> final state, every operation issued from the host; at D >
+        1 a tuple of D shards -> a tuple of D shards (`_split`)."""
 
     def build(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         """An executor: initial (W, payload) state on the device -> final
         state. On the card, the eager loop captured as one CUDA graph
         (`GraphRun`: ``stage(x)`` then ``replay()``, or a call); on the
-        CPU, the eager loop."""
+        CPU, the eager loop. At D > 1 a `ShardedRun` over the shards' run
+        (see `_sharded_run`), which also takes and gives the global state."""
         self._require_support(graph)
         eager = self._build_eager(graph)
+        if self.mesh is not None:
+            return self._sharded_run(eager, self._zero_shards(graph))
         if self.device.type != "cuda":
             return eager
         return GraphRun(eager, torch.zeros((graph.width, graph.payload),
@@ -224,6 +317,9 @@ class Runtime(abc.ABC):
         CPU, the eager loop."""
         self._require_ensemble_support(ensemble)
         eager = self._build_ensemble_eager(ensemble)
+        if self.mesh is not None:
+            return self._sharded_run(eager, tuple(self._zero_shards(g)
+                                                  for g in ensemble.members))
         if self.device.type != "cuda":
             return eager
         return GraphRun(eager, tuple(

@@ -1,7 +1,7 @@
 """`pallas_step` runtime — fused megakernel launches, temporally blockable,
-on one GPU.
+on one GPU, and its halo plan over D row shards.
 
-Counterpart of ``repro.core.runtimes.pallas_step`` on one device. Every
+Counterpart of ``repro.core.runtimes.pallas_step``. Every
 timestep of every plan is one launch of the single-step megakernel K3
 (``kernels/taskbench_step.py``: gather the dependency rows of the previous
 state, take their masked mean, run the grain body, in one kernel), or S
@@ -82,6 +82,27 @@ the capturing one and joins it back at every launch, so the graph holds
 the two phases as parallel branches. ``pipeline=False`` is the serial
 ablation; both give the same bits.
 
+Row shards (``devices=``, D > 1; the reference's per-device programs under
+``shard_map``): the halo plan runs over D shards of B = W / D rows, each its
+own tensor computing on its own stream (`_halo.ShardMesh`); a shard's
+operand tables are its rows of the global tables, at its first global row
+p0 = d*B (dom's asymmetry, random_nearest's keep set and the non-periodic
+ends are global facts), the blocked ones extended by S*H rows a side once
+per build. S = 1: per timestep the ring exchange of H rows
+(``_halo.exchange_halos``, "ppermute", the reference's ``_extend_state``),
+the (K, H + B + H) extended buffer, and one K3 launch on it unfolded (the
+wrap is the one-device form). S > 1 serial: per launch the deep exchange
+(multi-hop past the block), the extended buffer, one K4 launch. Pipelined
+(B > 2*S*H): the boundary launch, the next launch's edge exchange started
+on its outputs (``_halo.exchange_edges_start`` over ``halo_impl``), the
+interior launch, which runs under the transfer; the next launch joins it,
+and the prologue exchange feeds the first. ``dispatches_per_run`` stays
+the reference's per-shard count (a run launches D times as many); the
+stacked ensembles shard alike. At D > 1 the stride and all-gather plans,
+tuple ensembles, the launch plans and ``member_shards`` keep the
+reference's verdicts and raise `NotImplementedError` naming ROADMAP.md's
+next port slice.
+
 Ensembles (``build_ensemble``; the reference's ensemble section). An
 ensemble is *stacked* when its members share (width, payload) and one
 kernel and all take the halo plan (`stacking_verdict` names the failed
@@ -125,11 +146,12 @@ or a cache-file path; default `probes.default_cost_model`: env > cache >
 analytic); ``pipeline`` = True or False; ``gather_width_cap`` = the widest
 state the all-gather plan takes (default 512,
 `schedule.DEFAULT_GATHER_WIDTH_CAP`); ``psum_mean`` = True or False
-(all_to_all's row-mean combine). The
-reference's ``gather_impl``, ``halo_impl``, ``block_rows`` and ``unroll``
-are transports and tilings of its multi-device and TPU paths (ROADMAP
-Queue 1 item 8), unknown options here, as is ``member_shards`` (the
-row x member mesh, Queue 1 item 8).
+(all_to_all's row-mean combine); ``halo_impl`` = "xla" (default) or
+"ppermute", the pipelined edge exchange's transport at D > 1 (the same
+bits; nothing to exchange on one device); ``member_shards`` = 1 (the row x
+member mesh is ROADMAP.md's next port slice). The reference's
+``gather_impl`` (the next slice), ``block_rows`` and ``unroll`` (TPU
+tilings) are unknown options here.
 """
 from __future__ import annotations
 
@@ -141,6 +163,7 @@ import torch
 
 from repro_torch.core import patterns as _patterns
 from repro_torch.core.graph import GraphEnsemble, TaskGraph
+from repro_torch.core.runtimes import _halo
 from repro_torch.core.runtimes._capture import GraphRun
 from repro_torch.core.runtimes.base import EnsembleLaunchPlan, Runtime, register
 from repro_torch.kernels import _build
@@ -541,18 +564,39 @@ class _ResolvedPlan(NamedTuple):
     reason: str = ""
 
 
+#: where the D > 1 paths this slice leaves stand in ROADMAP.md
+NEXT_SLICE = "ROADMAP.md, next port slice 15 (the rest of Queue 1 item 8)"
+
+
 @register
 class PallasStepRuntime(Runtime):
     name = "pallas_step"
     known_options = ("combine", "steps_per_launch", "pipeline", "gather_width_cap",
-                     "psum_mean", "cost_model")
+                     "psum_mean", "cost_model", "halo_impl", "member_shards")
+    sharded = True
 
-    def __init__(self, device="cuda", **options):
-        super().__init__(device, **options)
+    def __init__(self, device="cuda", devices=None, **options):
+        super().__init__(device, devices, **options)
         s = self.options.get("steps_per_launch")
         if s is not None and not _schedule.is_auto(s) and int(s) < 1:
             raise ValueError(f"steps_per_launch must be >= 1 or 'auto', got {s!r}")
         self._combine_mode()
+        if self.options.get("member_shards", 1) != 1:
+            raise NotImplementedError(
+                f"member_shards={self.options['member_shards']!r}: the row x member "
+                f"mesh is {NEXT_SLICE}")
+
+    def _halo_impl(self) -> str:
+        """The pipelined edge exchange's transport (``_halo.HALO_ASYNC_IMPLS``):
+        "xla" (default, one packed ring buffer) or "ppermute" (one copy a
+        direction); the same bits. On one device there is no exchange to
+        make and the option changes nothing."""
+        return str(self.options.get("halo_impl", "xla"))
+
+    def _sharded_only_halo(self, what: str):
+        raise NotImplementedError(
+            f"runtime {self.name} at D = {self.num_devices}: {what} is {NEXT_SLICE}; "
+            f"the halo plan runs sharded")
 
     # ------------------------------------------------------ plan dispatch
 
@@ -568,6 +612,9 @@ class PallasStepRuntime(Runtime):
         partner falls outside the width: a pure self-dependency the stride
         plan's two-dep tables cannot express) the all-gather plan, capped
         at ``gather_width_cap`` rows."""
+        D = self.num_devices
+        if graph.width % D != 0:
+            return None, f"width {graph.width} not divisible by {D} devices"
         r = _patterns.halo_radius(graph)
         if r >= 0 and graph.period == 1:
             return PLAN_HALO, ""
@@ -591,10 +638,10 @@ class PallasStepRuntime(Runtime):
         """The CostModel pricing this runtime's "auto" verdicts: the
         ``cost_model`` option (the explicit tier), else
         `probes.default_cost_model` (env > cached probes > analytic) for
-        this device's platform and one device. It ranks and sizes
+        this device's platform and the runtime's device count. It ranks and sizes
         schedules only; the numerics do not depend on it."""
         return _probes.coerce_cost_model(
-            self.options.get("cost_model"), devices=1, payload=payload,
+            self.options.get("cost_model"), devices=self.num_devices, payload=payload,
             platform=_probes._platform(self.device))
 
     def _schedule_for_graph(self, graph: TaskGraph) -> _ResolvedPlan:
@@ -627,12 +674,12 @@ class PallasStepRuntime(Runtime):
                 if s <= 1:
                     return _ResolvedPlan(plan, 1, f"auto keeps the stride plan ({why})")
                 strides = _patterns.butterfly_slot_strides(graph)
-                B = graph.width  # one device: every stride is in-block
+                B = self._block(graph)
                 beats, why = _schedule.gathered_beats_strides(
                     width=graph.width, block=B, steps_per_launch=s,
                     off_block_strides=sum(1 for st in strides if st >= B),
                     period=len(strides), model=self._cost_model(graph.payload),
-                    impl=_probes.SELF_EXCHANGE)
+                    impl=self._exchange_impl())
                 return _ResolvedPlan(PLAN_ALLGATHER, s, why) if beats \
                     else _ResolvedPlan(plan, 1, why)
             if graph.width <= cap:
@@ -680,6 +727,11 @@ class PallasStepRuntime(Runtime):
 
         return fits
 
+    def _exchange_impl(self) -> str:
+        """The cost model's exchange key: the halo transport at D > 1, the
+        one-device self-wrap's at D = 1."""
+        return self._halo_impl() if self.mesh is not None else _probes.SELF_EXCHANGE
+
     def _halo_depth(self, members: Sequence[TaskGraph], halo: int,
                     total_steps: int) -> Tuple[int, str]:
         """(S, reason) of the halo plan for ``members`` stacked into one
@@ -692,10 +744,11 @@ class PallasStepRuntime(Runtime):
             return _schedule._resolve_depth(opt, None, total_steps), ""
         g = members[0]
         D = self._table_width(members, halo)
-        fits = self._halo_fit(len(members), g.width, g.payload, halo, D, g.kernel)
+        B = self._block(g)
+        fits = self._halo_fit(len(members), B, g.payload, halo, D, g.kernel)
         model = self._cost_model(g.payload)
         s = _schedule.resolve_steps_per_launch(
-            opt, block=g.width, radius=halo, fits=fits, total_steps=total_steps,
+            opt, block=B, radius=halo, fits=fits, total_steps=total_steps,
             pipeline=self._pipeline_requested(), model=model)
         rule = ("a depth fits when its K4 launch takes the tiled form, a tile "
                 f"under {SMEM_LIMIT} bytes of shared memory")
@@ -704,7 +757,7 @@ class PallasStepRuntime(Runtime):
                    or (f"T = {total_steps} leaves one combine step" if total_steps <= 2
                        else "no depth > 1 finds such a tile"))
             return 1, f"auto -> S=1: no depth > 1 fits, since {why} ({rule})"
-        if self._pipeline_active(g.width, s, halo, g.payload):
+        if self._pipeline_active(B, s, halo, g.payload):
             sched = "pipelined: its interior covers the exchange and pays off"
         elif not self._pipeline_requested():
             sched = "serial (pipeline=False)"
@@ -740,7 +793,7 @@ class PallasStepRuntime(Runtime):
             return _schedule._resolve_depth(opt, None, graph.steps), ""
         model = self._cost_model(graph.payload)
         s = _schedule.resolve_steps_per_launch_gathered(
-            opt, width=graph.width, block=graph.width, fits=self._gathered_fit(graph),
+            opt, width=graph.width, block=self._block(graph), fits=self._gathered_fit(graph),
             total_steps=graph.steps, model=model)
         if s > 1:
             return s, (f"auto -> S={s}: the deepest candidate whose gathered launch "
@@ -810,10 +863,11 @@ class PallasStepRuntime(Runtime):
         return 1 + -(-(total_steps - 1) // s)
 
     def _operands(self, graph: TaskGraph, halo: int):
-        """Host-built (idx, wgt, idx0, wgt0) for one graph: the t >= 1
-        operands in the selected combine mode, and the t = 0 (body only)
-        1-column self operands."""
-        B = graph.width  # one device: the block is the whole width
+        """Host-built (idx, wgt, idx0, wgt0) for one graph, over its W
+        global rows: the t >= 1 operands in the selected combine mode
+        (gather / onehot as positions in the shard's halo-extended block),
+        and the t = 0 (body only) 1-column self operands."""
+        B = self._block(graph)
         if self._combine_mode() == "window":
             idx, wgt = _window_operands(graph, halo)
         else:
@@ -830,7 +884,7 @@ class PallasStepRuntime(Runtime):
             idx, wgt = _window_operands(graph, halo)
         else:
             idx, wgt = _rel_dep_operands(graph)
-        idx0, wgt0 = _self_operands(graph.width, graph.width)
+        idx0, wgt0 = _self_operands(graph.width, self._block(graph))
         return idx, wgt, idx0, wgt0
 
     def _kernel_kw(self, graph: TaskGraph, combine: Optional[str] = None) -> dict:
@@ -843,6 +897,11 @@ class PallasStepRuntime(Runtime):
     def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         plan = self._schedule_for_graph(graph)
         S = plan.steps_per_launch
+        if self.mesh is not None:
+            if plan.kind != PLAN_HALO:
+                self._sharded_only_halo(f"the {plan.kind} plan")
+            run = self._sharded_halo_run((graph,), S)
+            return lambda shards: run((shards,))[0]
         if S == 1:
             return self._build_plan_stepper(graph, plan.kind)
         if plan.kind == PLAN_ALLGATHER:
@@ -924,6 +983,183 @@ class PallasStepRuntime(Runtime):
             for a in acts:
                 carry = launch(carry, a)
             return carry[0][0]
+
+        return run
+
+    # -------------------------------------------------- the halo plan, D > 1
+
+    def _shard_tables(self, table: np.ndarray, depth: int, d: int, B: int,
+                      rebase: bool = False) -> torch.Tensor:
+        """Shard d's rows of a (K, W, Dt) global table, halo-extended by
+        ``depth`` rows a side: global rows [d*B - depth, (d+1)*B + depth)
+        mod W, exactly the rows the ring exchange would bring (multi-hop
+        past the block included). The tables are constant, so they are cut
+        once per build from the global table rather than exchanged each
+        run. ``rebase``: signed offsets -> rows of this buffer."""
+        W = table.shape[1]
+        rows = np.arange(d * B - depth, (d + 1) * B + depth) % W
+        t = torch.from_numpy(np.ascontiguousarray(table[:, rows]))
+        if rebase:
+            t = _rebase_rows(t, row_axis=1)
+        return t.to(self.devices[d])
+
+    def _sharded_halo_run(self, members: Sequence[TaskGraph], S: int) -> Callable:
+        """The halo plan over D row shards, for K members stacked into one
+        (K, B, payload) state a shard (a graph: K = 1). The run takes and
+        gives a tuple of K members' shard tuples; each shard computes on its
+        own stream (`_halo.ShardMesh`).
+
+        S = 1: each shard keeps two persistent (K, H + B + H) extended
+        buffers and alternates between them. Per timestep the ring exchange
+        of H rows (``_halo.exchange_halos``, the "ppermute" transport, the
+        reference's ``_extend_state``) writes the neighbours' edge rows
+        into the current buffer's head and tail, and one K3 launch reads
+        that buffer, unfolded (``wrap`` is the one-device form), and writes
+        the owned rows of the other (``out=``; for K > 1 members, whose
+        owned rows are not contiguous, or a frozen member, a copy). S > 1,
+        serial: per launch the deep exchange of S*H rows
+        (multi-hop past the block), the extended buffer, one K4 launch on
+        it and the owned rows sliced out. S > 1, pipelined (B > 2*S*H): per
+        launch the boundary K4 launch on both 3*S*H-row edge buffers, the
+        next launch's edge exchange started on its outputs
+        (``exchange_edges_start`` over ``halo_impl``), then the interior K4
+        launch, which runs under the transfer; the next launch joins it.
+        The t = 0 launch is K3 on the self operands. Members past their own
+        horizon keep their state (``torch.where`` at S = 1, the act rows at
+        S > 1)."""
+        mesh, devs = self.mesh, self.devices
+        D, K = len(devs), len(members)
+        g0 = members[0]
+        B, T = self._block(g0), max(g.steps for g in members)
+        H = max(_patterns.halo_radius(g) for g in members)
+        kw0 = self._kernel_kw(g0)
+        blocked = S > 1
+        build = self._blocked_operands if blocked else self._operands
+        idx, wgt, idx0, wgt0 = _stack_operands([build(g, H) for g in members])
+        rows = lambda d: slice(d * B, (d + 1) * B)  # noqa: E731
+        t0_ops = [(torch.from_numpy(np.ascontiguousarray(idx0[:, rows(d)])).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(wgt0[:, rows(d)])).to(dev))
+                  for d, dev in enumerate(devs)]
+        heterogeneous = len({g.steps for g in members}) > 1
+        window = self._combine_mode() == "window"
+
+        def extend(states, lefts, rights):
+            return self._map(lambda d, s, l, r: torch.cat([l, s, r], dim=1),
+                             states, lefts, rights)
+
+        if not blocked:
+            i_d = [torch.from_numpy(np.ascontiguousarray(idx[:, rows(d)] if not window
+                                                         else idx[:, :B])).to(dev)
+                   for d, dev in enumerate(devs)]
+            w_d = [torch.from_numpy(np.ascontiguousarray(wgt[:, rows(d)])).to(dev)
+                   for d, dev in enumerate(devs)]
+            live = ([torch.from_numpy(GraphEnsemble(members).active_table()[:, :, None, None])
+                     .to(dev) for dev in devs] if heterogeneous else None)
+
+            def step_into(x, ops, dst, keep=None):
+                """K3 on ``x`` into ``dst``, the owned rows of the next buffer
+                (``keep``: the frozen members' rows)."""
+                direct = keep is None and dst.is_contiguous()
+                nxt = _kops.taskbench_step(x, *ops, out=dst if direct else None, **kw0)
+                if not direct:
+                    dst.copy_(nxt if keep is None else torch.where(keep[0], nxt, keep[1]))
+
+            def run_one(inits):
+                mesh.fork()
+                bufs = [self._map(lambda d, x: x.new_empty((K, B + 2 * H, x.shape[-1])),
+                                  inits[0]) for _ in range(2)]
+                self._map(lambda d, y, *xs: step_into(  # t = 0: the body alone
+                    torch.stack(xs) if K > 1 else xs[0][None], t0_ops[d], y[:, H:H + B]),
+                    bufs[0], *inits)
+                for t in range(1, T):
+                    cur, nxt = bufs[(t - 1) % 2], bufs[t % 2]
+                    if H:
+                        _halo.exchange_halos([c[:, H:H + B] for c in cur], H, mesh, row_axis=1,
+                                             out=([c[:, :H] for c in cur],
+                                                  [c[:, H + B:] for c in cur]))
+                    self._map(lambda d, x, y: step_into(
+                        x, (i_d[d], w_d[d]), y[:, H:H + B],
+                        None if live is None else (live[d][t], x[:, H:H + B])), cur, nxt)
+                final = [y[:, H:H + B] for y in bufs[(T - 1) % 2]]
+                mesh.join(final)
+                return tuple(tuple(s[k] for s in final) for k in range(K))
+
+            return run_one
+
+        depth = S * H
+        kwb = dict(kw0, steps_per_launch=S, radius=H)
+        acts_np = _act_schedule([g.steps for g in members], T, S)  # (L, K, S)
+        acts = [torch.from_numpy(acts_np).to(dev) for dev in devs]
+        pipelined = self._pipeline_active(B, S, H, g0.payload)
+        impl = self._halo_impl()
+        ext_i = [self._shard_tables(idx, depth, d, B, rebase=not window)
+                 if not window else torch.from_numpy(idx[:, :1]).to(dev)
+                 for d, dev in enumerate(devs)]
+        ext_w = [self._shard_tables(wgt, depth, d, B) for d in range(D)]
+        if pipelined:
+            def phases(ext):
+                return (ext[:, depth:depth + B].contiguous(),
+                        torch.cat([ext[:, :3 * depth], ext[:, B - depth:B + 2 * depth]],
+                                  dim=1))
+
+            ph = []
+            for d, dev in enumerate(devs):
+                w_int, w_bnd = phases(ext_w[d])
+                if window:
+                    i_int = i_bnd = torch.zeros((K, 1, 1), dtype=torch.int32, device=dev)
+                else:
+                    r_int, r_bnd = phases(self._shard_tables(idx, depth, d, B))
+                    i_int = _rebase_rows(r_int, row_axis=1)
+                    i_bnd = _rebase_rows(r_bnd, row_axis=1)
+                ph.append(_PhaseTables(i_int, w_int, i_bnd, w_bnd))
+
+        def launch(carry, l):
+            if not pipelined:
+                states = carry
+                if depth:
+                    lefts, rights = _halo.exchange_halos(states, depth, mesh, row_axis=1)
+                    src = extend(states, lefts, rights)
+                else:
+                    src = states
+                return self._map(
+                    lambda d, x: _kops.taskbench_step(
+                        x, ext_i[d], ext_w[d], acts[d][l], **kwb)[:, depth:depth + B],
+                    src)
+            states, handle = carry
+            lefts, rights = handle.join()
+
+            def edges(d, s, hl, hr):
+                bl = torch.cat([hl, s[:, :2 * depth]], dim=1)
+                br = torch.cat([s[:, B - 2 * depth:], hr], dim=1)
+                return _kops.taskbench_boundary(bl, br, ph[d].i_bnd, ph[d].w_bnd,
+                                                acts[d][l], depth=depth, **kwb)
+
+            outs = self._map(edges, states, lefts, rights)
+            nxt = _halo.exchange_edges_start(mesh, [o[0] for o in outs],
+                                             [o[1] for o in outs], row_axis=1, impl=impl)
+            mids = self._map(
+                lambda d, s: _kops.taskbench_interior(s, ph[d].i_int, ph[d].w_int,
+                                                      acts[d][l], depth=depth, **kwb),
+                states)
+            return (self._map(lambda d, o, m: torch.cat([o[0], m, o[1]], dim=1),
+                              outs, mids), nxt)
+
+        def run(inits):
+            mesh.fork()
+            states = self._map(  # t = 0: the body alone
+                lambda d, *xs: _kops.taskbench_step(
+                    torch.stack(xs) if K > 1 else xs[0][None], *t0_ops[d], **kw0), *inits)
+            carry = states
+            L = acts_np.shape[0]
+            if pipelined and L:
+                carry = (states, _halo.exchange_edges_start(
+                    mesh, [s[:, :depth] for s in states], [s[:, B - depth:] for s in states],
+                    row_axis=1, impl=impl))  # the prologue exchange
+            for l in range(L):
+                carry = launch(carry, l)
+            final = carry[0] if pipelined and L else carry
+            mesh.join(final)
+            return tuple(tuple(s[k] for s in final) for k in range(K))
 
         return run
 
@@ -1171,6 +1407,10 @@ class PallasStepRuntime(Runtime):
 
     def _build_ensemble_eager(self, ensemble: GraphEnsemble) -> Callable:
         S = self._ensemble_steps_per_launch(ensemble)
+        if self.mesh is not None:
+            if not self._is_stacked(ensemble):
+                self._sharded_only_halo("a tuple ensemble (" + self.stacking_verdict(ensemble)[1] + ")")
+            return self._sharded_halo_run(ensemble.members, S)
         if self._is_stacked(ensemble):
             if S > 1:
                 return self._build_ensemble_stacked_blocked(ensemble, S)
@@ -1306,6 +1546,8 @@ class PallasStepRuntime(Runtime):
         K x W rows, or the members' rows summed at S = 1): a number under a
         measured model, None under the analytic one."""
         self._require_ensemble_support(ensemble)
+        if self.mesh is not None:
+            self._sharded_only_halo("the host-stepped launch plan")
         if self._is_stacked(ensemble):
             return self._launch_plan_stacked(
                 ensemble, self._ensemble_steps_per_launch(ensemble))
@@ -1361,7 +1603,7 @@ class PallasStepRuntime(Runtime):
             admit_fn=admit_fn,
             expected_launch_us=_schedule.expected_launch_wall_us(
                 rows=K * B, steps_per_launch=S, model=self._cost_model(P),
-                impl=_probes.SELF_EXCHANGE),
+                impl=self._exchange_impl()),
             kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
 
     def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
@@ -1397,7 +1639,7 @@ class PallasStepRuntime(Runtime):
             admit_fn=admit_fn,
             expected_launch_us=_schedule.expected_launch_wall_us(
                 rows=sum(g.width for g in members), steps_per_launch=1,
-                model=self._cost_model(members[0].payload), impl=_probes.SELF_EXCHANGE),
+                model=self._cost_model(members[0].payload), impl=self._exchange_impl()),
             kind="stepwise", compile_counter=lambda: _build.CAPTURES["graphs"])
 
     # ---------------------------------------------------------- accounting
@@ -1417,7 +1659,7 @@ class PallasStepRuntime(Runtime):
         plan = self._schedule_for_graph(graph)
         L = self._launches(graph.steps, plan.steps_per_launch)
         if plan.kind == PLAN_HALO and self._pipeline_active(
-                graph.width, plan.steps_per_launch, _patterns.halo_radius(graph),
+                self._block(graph), plan.steps_per_launch, _patterns.halo_radius(graph),
                 graph.payload):
             return 1 + 2 * (L - 1)
         return L
@@ -1435,7 +1677,7 @@ class PallasStepRuntime(Runtime):
         members = ensemble.members
         if self._is_stacked(ensemble):
             H = max(_patterns.halo_radius(g) for g in members)
-            piped = self._pipeline_active(members[0].width, S, H, members[0].payload)
+            piped = self._pipeline_active(self._block(members[0]), S, H, members[0].payload)
             return 1 + (2 if piped else 1) * (L - 1)
         return sum(
             1 + (2 if self._pipeline_active(g.width, S, _patterns.halo_radius(g), g.payload)

@@ -8,11 +8,15 @@ exchange-cost constant; this module measures what the card costs:
                            8 rows: all fixed cost)
   probe_row_step_us        one working row advanced one depth: the slope of
                            K3's per-launch wall over widths
-  probe_halo_exchange_us   the deep halo exchange; on one device a
+  probe_halo_exchange_us   the deep halo exchange per transport between D
+                           row shards (D on one card unless the caller
+                           names distinct devices); on one device a
                            self-wrap that launches nothing: {"self": 0.0}
-  probe_stride_exchange_us the XOR block exchange; {} below 2 devices
+  probe_stride_exchange_us the XOR block exchange; {} below 2 devices, and
+                           across shards not probed yet
   probe_gather_us          the all-gather plan's gather per width; on one
-                           device the gathered buffer is the state: 0.0
+                           device the gathered buffer is the state: 0.0;
+                           across shards not probed yet
 
 Every run of the port is one CUDA graph replay, so a launch costs what it
 costs as a graph node: each probe captures N chained launches in one graph,
@@ -41,7 +45,11 @@ repair against the reference: the exchange ratio X = exchange / row-step is
 derived when the exchange was measured at all (``is not None``), where the
 reference tests its truth, so a measured exchange of 0.0 (one device) gives
 X = max(1, 0) = 1, not the analytic 512. Then no depth's pipelined split
-pays off and "auto" on one device runs the serial schedule.
+pays off and "auto" on one device runs the serial schedule. Across D > 1
+row shards (``run_probes(devices=D)``) the halo probe times a real
+exchange between D shards of the card (each transport started and joined,
+as CUDA graph nodes), so X prices "auto"'s pipeline gate
+(``schedule.pipeline_interior_covers_exchange``) by what the card pays.
 
 ``default_cost_model`` is the resolution every scheduling decision goes
 through when no model is passed explicitly; precedence:
@@ -409,7 +417,7 @@ def row_step_floor_us(payload: int) -> float:
     return ROW_STEP_FLOOR_FRACTION * 8 * payload / HBM_BYTES_PER_S * 1e6
 
 
-def _launch_us(step: Callable, x, nodes: int, reps: int) -> float:
+def _launch_us(step: Callable, x, nodes: int, reps: int, device=None) -> float:
     """Wall of one of ``nodes`` chained ``x = step(x)`` launches, in us: on
     the card the chain captured as one CUDA graph, ``reps`` replays queued
     back to back behind a device sleep and timed with CUDA events; on the
@@ -420,17 +428,18 @@ def _launch_us(step: Callable, x, nodes: int, reps: int) -> float:
             y = step(y)
         return y
 
-    if x.device.type == "cuda":
+    dev = x.device if device is None else device
+    if dev.type == "cuda":
         import torch
 
         from repro_torch.core.runtimes._capture import Graphed
         from repro_torch.launch.attention_times import gpu_ms
 
-        stream = torch.cuda.Stream(x.device)
-        stream.wait_stream(torch.cuda.current_stream(x.device))
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             chain()  # the warm-up (loads the kernel) before capture
-        torch.cuda.current_stream(x.device).wait_stream(stream)
+        torch.cuda.current_stream(dev).wait_stream(stream)
         graph = Graphed(chain, stream)
         try:
             return gpu_ms(graph.replay, max(1, reps)) * 1e3 / nodes
@@ -487,30 +496,73 @@ def probe_row_step_us(payload: int = 64, *,
     return max(row_step_floor_us(payload), slope)
 
 
-def _one_device(devices: int, what: str) -> None:
-    if devices != 1:
-        raise NotImplementedError(
-            f"{what} across {devices} devices needs the multi-rank transports "
-            f"(ROADMAP.md, Queue 1 item 8); the port runs on one card")
+def _probe_mesh(devices, device=None):
+    """The probe's `_halo.ShardMesh`: ``devices`` shards on the probes'
+    device (a count), or on the devices named (a sequence)."""
+    from repro_torch.core.runtimes import _halo
+
+    if isinstance(devices, int):
+        return _halo.ShardMesh([_device(device)] * devices)
+    return _halo.ShardMesh([_device(d) for d in devices])
 
 
-def probe_halo_exchange_us(devices: int = 1, payload: int = 64) -> Dict[str, float]:
-    """The deep halo exchange per transport. On one device the exchange is a
-    wrap of the state onto itself that launches nothing: the serial blocked
-    launch reads the wrapped rows through ``halo_rows`` and the pipelined
-    one takes the boundary phase's outputs as the next launch's halos
-    (``pallas_step._pipelined_launch``), the first ones sliced from the
-    state (``_prologue_exchange``). So it costs nothing: {"self": 0.0}."""
-    _one_device(devices, "the halo exchange probe")
-    return {SELF_EXCHANGE: 0.0}
+def _sharded_wall_us(step: Callable, mesh, rows_per_device: int, payload: int,
+                     reps: int, nodes: int) -> float:
+    """Wall of one ``step(shards)`` over D (rows, payload) f32 shards, as
+    one of ``nodes`` chained steps in one CUDA graph on the card (each
+    step's shard streams forked from the capture and joined back), host
+    walls on the CPU (`_launch_us`)."""
+    import torch
+
+    xs = [torch.zeros((rows_per_device, payload), dtype=torch.float32, device=d)
+          for d in mesh.devices]
+
+    def one(shards):
+        mesh.fork()
+        out = step(shards)
+        mesh.join()
+        return out
+
+    return _launch_us(one, xs, nodes, reps, device=mesh.devices[0])
+
+
+def probe_halo_exchange_us(devices=1, payload: int = 64, *, depth: int = 8,
+                           reps: int = 5, device=None,
+                           nodes: int = LAUNCH_NODES) -> Dict[str, float]:
+    """One deep ring exchange per HALO_ASYNC_IMPLS transport, started and
+    joined, between ``devices`` row shards (a count: that many shards on
+    the probes' device; or a sequence of devices) of max(2 * depth, 16)
+    rows, ``depth`` rows each way. Fixed costs dominate at these sizes, so
+    one depth stands in for all.
+
+    On one device the exchange is a wrap of the state onto itself that
+    launches nothing: the serial blocked launch reads the wrapped rows
+    through ``halo_rows`` and the pipelined one takes the boundary phase's
+    outputs as the next launch's halos (``pallas_step._pipelined_launch``),
+    the first ones sliced from the state (``_prologue_exchange``). So it
+    costs nothing: {"self": 0.0}."""
+    from repro_torch.core.runtimes import _halo
+
+    if isinstance(devices, int) and devices == 1:
+        return {SELF_EXCHANGE: 0.0}
+    mesh = _probe_mesh(devices, device)
+    out: Dict[str, float] = {}
+    for impl in sorted(_halo.HALO_ASYNC_IMPLS):
+        def step(xs, impl=impl):
+            _halo.exchange_edges_start(mesh, [x[:depth] for x in xs],
+                                       [x[-depth:] for x in xs], impl=impl).join()
+            return xs
+
+        out[impl] = _sharded_wall_us(step, mesh, max(2 * depth, 16), payload, reps, nodes)
+    return out
 
 
 def probe_stride_exchange_us(devices: int = 1, payload: int = 64) -> Dict[str, float]:
     """One XOR block exchange per transport: {} below 2 devices (every
     stride is in-block there) and at device counts that are not powers of
-    two, as the reference's."""
-    if devices >= 2 and not devices & (devices - 1):
-        _one_device(devices, "the stride exchange probe")
+    two, as the reference's; across shards not probed yet (ROADMAP.md,
+    next port slice 15), so {} there too."""
+    del devices, payload
     return {}
 
 
@@ -518,8 +570,10 @@ def probe_gather_us(devices: int = 1, payload: int = 64, *,
                     widths: Sequence[int] = GATHER_WIDTHS) -> Dict[int, float]:
     """The all-gather plan's gather per width. On one device the gathered
     buffer is the state itself (the plan gathers nothing): 0.0 at each
-    width."""
-    _one_device(devices, "the gather probe")
+    width. Across shards the plan runs in the next slice, and its gather is
+    probed there (ROADMAP.md, next port slice 15): {} until then."""
+    if devices != 1:
+        return {}
     return {int(w): 0.0 for w in sorted(set(widths))}
 
 
@@ -531,7 +585,6 @@ def run_probes(devices: Optional[int] = None, payload: int = 64, *,
     are identical."""
     dev = _device(device)
     devices = 1 if devices is None else int(devices)
-    _one_device(devices, "the probes")
     row_widths, nodes = ROW_WIDTHS, (LAUNCH_NODES, ROW_NODES)
     if smoke:
         reps = min(reps, 3)
@@ -539,7 +592,7 @@ def run_probes(devices: Optional[int] = None, payload: int = 64, *,
     launch = probe_launch_us(payload, reps=reps, device=dev, nodes=nodes[0])
     row_step = probe_row_step_us(payload, widths=row_widths, reps=reps,
                                  device=dev, nodes=nodes[1])
-    halo = probe_halo_exchange_us(devices, payload)
+    halo = probe_halo_exchange_us(devices, payload, reps=reps, device=dev, nodes=nodes[0])
     stride = probe_stride_exchange_us(devices, payload)
     gather = probe_gather_us(devices, payload)
     # The covers/pays-off unit: one exchange in row-steps. Tested for a

@@ -444,12 +444,15 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    combine: str = "gather",
                    steps_per_launch: int = 1,
                    radius: Optional[int] = None,
-                   wrap: Optional[int] = None) -> torch.Tensor:
+                   wrap: Optional[int] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 (one timestep) or K4 (``steps_per_launch > 1``) on the card.
 
     Checks the operands as the reference does, then launches
     ``csrc/taskbench_step.cu`` (with ``wrap``, on the un-extended state, see
-    the module docstring) and returns (K, W, payload), or
+    the module docstring) and returns (K, W, payload), written into ``out``
+    where given (a contiguous (K, W, payload) float32 tensor on the card,
+    e.g. the owned rows of a halo-extended buffer), or
     ``csrc/taskbench_blocked.cu`` (its tiled form when ``radius`` declares
     the tables' reach and the form applies, see the module docstring) and
     returns (K, M, payload). Raises on tensors that are not on the card,
@@ -463,6 +466,8 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
     memory = kind == "memory_bound" and iterations > 0
     body_iters = iterations if memory or kind == "compute_bound" else 0
     if steps_per_launch > 1:
+        if out is not None:
+            raise ValueError("out= is K3's (steps_per_launch = 1)")
         return _launch_blocked(src, idx if uses_idx else None, wgt, act, combine,
                                memory, body_iters, scratch, radius)
     tensors = (src, wgt, idx) if uses_idx else (src, wgt)
@@ -475,7 +480,14 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
         raise ValueError(f"W = {W} rows of {P} columns exceed the kernel's 32-bit index")
     src, wgt = src.contiguous(), wgt.contiguous()
     idx = idx.contiguous() if uses_idx else None
-    out = torch.empty((K, W, P), dtype=src.dtype, device=src.device)
+    if out is None:
+        out = torch.empty((K, W, P), dtype=src.dtype, device=src.device)
+    elif (tuple(out.shape) != (K, W, P) or out.dtype != src.dtype
+          or out.device != src.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous ({K}, {W}, {P}) {src.dtype} tensor on "
+            f"{src.device}, got {tuple(out.shape)} {out.dtype} on {out.device}"
+            f"{'' if out.is_contiguous() else ', not contiguous'}")
     if out.numel():
         plan = step_plan(K, W, P, sm_count(src.device.index or 0))
         # the memory body runs a warp per (member, row), not the plan
@@ -569,14 +581,16 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    combine: str = "gather",
                    steps_per_launch: int = 1,
                    radius: Optional[int] = None,
-                   wrap: Optional[int] = None) -> torch.Tensor:
+                   wrap: Optional[int] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The step on the tensors' device: K3/K4 on a CUDA tensor (launch or
     raise); on a CPU tensor the plain version, after the same checks and a
-    check that the tables reach no farther than a declared ``radius``."""
+    check that the tables reach no farther than a declared ``radius``
+    (copied into ``out`` where given, which K3 writes directly)."""
     kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
     if src.device.type == "cuda":
         return taskbench_step(src, idx, wgt, act, steps_per_launch=steps_per_launch,
-                              radius=radius, wrap=wrap, **kw)
+                              radius=radius, wrap=wrap, out=out, **kw)
     check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch,
                         radius=radius, wrap=wrap, **kw)
     if radius is not None and combine != "window":
@@ -586,8 +600,17 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                 f"the {combine} table reaches {reach} rows, beyond the declared "
                 f"radius {radius}")
     if steps_per_launch > 1:
+        if out is not None:
+            raise ValueError("out= is K3's (steps_per_launch = 1)")
         return taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
-    return taskbench_step_plain(src, idx, wgt, wrap=wrap, **kw)
+    res = taskbench_step_plain(src, idx, wgt, wrap=wrap, **kw)
+    if out is None:
+        return res
+    if tuple(out.shape) != tuple(res.shape) or out.dtype != res.dtype or not out.is_contiguous():
+        raise ValueError(
+            f"out must be a contiguous {tuple(res.shape)} {res.dtype} tensor, got "
+            f"{tuple(out.shape)} {out.dtype}")
+    return out.copy_(res)
 
 
 def taskbench_step_interior(src, idx, wgt, act, *, depth: int,

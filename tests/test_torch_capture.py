@@ -214,6 +214,33 @@ def test_graph_run_over_a_tuple_stages_each_member(fake_card):
     assert ops.launch_counts()["taskbench_step"] == 4 + 2 * 3
 
 
+def test_sharded_run_stages_each_shard_and_gathers(fake_card):
+    """A run over D row shards: its graph's static input nests (member,
+    shard); ``ShardedRun`` splits each global state into its shards when
+    staging, outside the run, and gathers the output after it; ``eager``
+    is the same wrapper over the eager loop; the graph's capture seconds
+    and nodes pass through, and its launches count per replay."""
+    rt = get_runtime("bsp_scan", devices=["cpu"] * 2)
+    gs = (TaskGraph(steps=2, width=4, payload=2), TaskGraph(steps=2, width=6, payload=3))
+
+    def eager(states):  # member -> shard
+        _build.launch("taskbench_step")
+        return tuple(tuple(s * 2.0 for s in m) for m in states)
+
+    inner = _capture.GraphRun(eager, tuple(rt._zero_shards(g) for g in gs))
+    run = _capture.ShardedRun(inner, rt._split, rt._gather)
+    assert [[t.shape for t in m] for m in inner.static_in] == [[(2, 2)] * 2, [(3, 3)] * 2]
+    xs = (torch.arange(8.0).reshape(4, 2), torch.ones(6, 3))
+    out = run(xs)
+    assert torch.equal(inner.static_in[0][1], xs[0][2:])
+    assert torch.equal(inner.static_in[1][0], xs[1][:3])
+    assert [o.shape for o in out] == [(4, 2), (6, 3)]
+    assert all(torch.equal(o, 2 * x) for o, x in zip(run.eager(xs), xs))
+    assert run.nodes == 7 and run.capture_s >= 0
+    assert ops.launch_counts()["taskbench_step"] == 2  # the replay and the eager loop
+    assert len(_capture.time_runs(run, xs, reps=2)) == 2
+
+
 def test_time_runs_takes_a_tuple_of_states():
     seen = []
 

@@ -23,7 +23,13 @@ act edits and ``admit_fn``. The four rungs (``bsp``, ``bsp_scan``,
 loop bit for bit, its K1/K2 launches the bodies it runs and nothing else,
 its host calls ``host_calls_per_run``, its device kernels under
 ``torch.profiler`` ``dispatches_per_run``, its ensembles round-robin or one
-graph. Every test carries the ``gpu`` marker and skips without a card.
+graph. Row shards (D = 2, 4 shards of one card): each sharded run equal to
+its eager loop bit for bit in three runs, launching D times a shard's
+count, and within tolerance of the one-device run and the CPU plain path
+at grain 1; the ensembles; ``overlap``'s transfers under compute (> 0 us;
+0 with ``overlap=False`` at D = 2); K3 writing into ``out=``; the memory
+body's cooperative K4 grids over shards; the halo probe. Every test carries the ``gpu`` marker and skips without a
+card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1265,3 +1271,150 @@ def test_rung_ensemble_equals_its_eager_loop(cuda, backend, opts):
         np.testing.assert_allclose(a.cpu().numpy(),
                                    get_runtime(backend, device="cpu", **opts).execute(g, x.cpu()),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- row shards
+
+SHARD_CASES = [("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("overlap", {"overlap": False}),
+               ("overlap", {"halo_via": "allgather"}), ("pallas_step", {}),
+               ("pallas_step", {"steps_per_launch": 2}),
+               ("pallas_step", {"steps_per_launch": 2, "pipeline": False}),
+               ("pallas_step", {"steps_per_launch": 8, "halo_impl": "ppermute"})]
+SHARD_IDS = [f"{b}-{'-'.join(f'{k}={v}' for k, v in o.items()) or 'default'}"
+             for b, o in SHARD_CASES]
+
+
+def _sharded(backend, opts, D, cuda):
+    kw = dict(opts) if backend == "pallas_step" else dict(opts, use_kernels=True)
+    return get_runtime(backend, devices=[cuda] * D, **kw)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("pattern", ["stencil_1d", "nearest", "random_nearest", "dom"])
+@pytest.mark.parametrize("backend,opts", SHARD_CASES, ids=SHARD_IDS)
+def test_sharded_run_equals_its_eager_loop_and_d1(cuda, backend, opts, pattern, D):
+    """D shards on one card: the run (a ShardedRun over one graph, or bsp's
+    graph a superstep) equals its eager loop bit for bit, launches D times
+    the per-shard count (K3/K4: ``dispatches_per_run``; K1:
+    ``body_launches_per_run``, every shard's) in as many host calls as
+    ``host_calls_per_run``, and agrees with the one-device run at grain 1.
+    Two more runs equal the eager loop too: a race between the shards'
+    streams, or in the allocator, gives wrong bits only sometimes."""
+    g = TaskGraph(steps=9, width=64, pattern=pattern, payload=16,
+                  kernel=KernelSpec("compute_bound", 1), radius=2, seed=4)
+    rt = _sharded(backend, opts, D, cuda)
+    run = rt.build(g)
+    assert isinstance(run, _capture.ShardedRun)
+    assert isinstance(run.inner, _capture.ReplayLoop if backend == "bsp" else _capture.GraphRun)
+    x = _rand((64, 16), 9, cuda)
+    ops.reset_launch_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    counts, calls = ops.launch_counts(), ops.host_calls()
+    want = run.eager(x.clone())
+    assert torch.equal(got, want)
+    assert all(torch.equal(run(x), want) for _ in range(2))
+    assert calls == rt.host_calls_per_run(g)
+    if backend == "pallas_step":
+        S = rt._schedule_for_graph(g).steps_per_launch
+        k3 = D * (rt.dispatches_per_run(g) if S == 1 else 1)
+        assert counts["taskbench_step"] == k3
+        assert sum(counts.values()) == D * rt.dispatches_per_run(g)
+    else:
+        assert sum(counts.values()) == counts["taskbench_compute"] == rt.body_launches_per_run(g)
+    one = _sharded(backend, opts, 1, cuda).execute(g, x)
+    np.testing.assert_allclose(got.cpu().numpy(), one, rtol=1e-5, atol=1e-5)
+    cpu = get_runtime("fused", device="cpu").execute(g, x.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["bsp_scan", "overlap", "pallas_step"])
+def test_sharded_ensemble_equals_its_eager_loop(cuda, backend):
+    """A K = 3 ensemble of mixed horizons over 4 shards (pallas_step
+    stacked): each member bit for bit its eager loop, in three runs, and
+    within tolerance of its own run on the CPU."""
+    members = [TaskGraph(steps=T, width=64, pattern="stencil_1d", payload=16, seed=k,
+                         kernel=KernelSpec("compute_bound", 1)) for k, T in enumerate((7, 4, 1))]
+    ens = GraphEnsemble(members)
+    rt = _sharded(backend, {}, 4, cuda)
+    run = rt.build_ensemble(ens)
+    xs = tuple(_rand((64, 16), 30 + k, cuda) for k in range(3))
+    got = run(xs)
+    want = run.eager(tuple(x.clone() for x in xs))
+    for again in (got, run(xs), run(xs)):
+        assert all(torch.equal(a, b) for a, b in zip(again, want))
+    for g, a, x in zip(members, got, xs):
+        np.testing.assert_allclose(a.cpu().numpy(),
+                                   get_runtime("fused", device="cpu").execute(g, x.cpu()),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_transfers_run_under_the_interior(cuda, D):
+    """overlap=True over D shards: in one replay the transfers (the graph's
+    device-to-device copies) overlap compute kernels for a positive time.
+    overlap=False joins a shard's transfers before its compute; at D = 2
+    every shard waits on every transfer, so nothing overlaps them (at D =
+    4 a shard waits on its neighbours' only, and may compute under shard
+    d + 2's copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = TaskGraph(steps=4, width=2112, pattern="nearest", payload=64,
+                  kernel=KernelSpec("compute_bound", 64), radius=2, seed=0)
+    got = {}
+    for overlap in (True, False):
+        run = _sharded("overlap", {"overlap": overlap}, D, cuda).build(g)
+        x = _rand((2112, 64), 1, cuda)
+        run(x)
+        run.stage(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run.inner.graphed.replay()
+            torch.cuda.synchronize()
+        ev = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+        copies = [(a, b) for a, b, n in ev if "memcpy" in n.lower()]
+        comp = [(a, b) for a, b, n in ev if "memcpy" not in n.lower()]
+        assert len(copies) == 2 * D * (g.steps - 1)  # 2 a shard a step ("ppermute")
+        got[overlap] = sum(max(0, min(b, y) - max(a, x)) for a, b in copies for x, y in comp)
+    assert got[True] > 0
+    if D == 2:
+        assert got[False] == 0
+
+
+def test_k3_writes_into_out_on_the_card(cuda):
+    """K3 with ``out=`` (the owned rows of a halo-extended buffer) writes
+    exactly what it returns without it, and nothing outside those rows."""
+    x = _rand((1, 2116, 64), 2, cuda)
+    idx = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+    wgt = _rand((1, 2112, 5), 3, cuda)
+    kw = dict(kind="compute_bound", iterations=64, scratch=0, combine="window")
+    want = ops.taskbench_step(x, idx, wgt, **kw)
+    buf = torch.full((1, 2116, 64), float("nan"), device=cuda)
+    got = ops.taskbench_step(x, idx, wgt, out=buf[:, 2:2114], **kw)
+    assert got.data_ptr() == buf[:, 2:2114].data_ptr() and torch.equal(got, want)
+    assert torch.isnan(buf[:, :2]).all() and torch.isnan(buf[:, 2114:]).all()
+
+
+def test_sharded_probe_prices_the_exchange(cuda):
+    from repro_torch.kernels import probes
+
+    walls = probes.probe_halo_exchange_us(4, 64, device=cuda, reps=3)
+    assert sorted(walls) == ["ppermute", "xla"] and min(walls.values()) > 0
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_memory_body_takes_the_cooperative_form(cuda, D):
+    """The memory body's blocked launches take K4's cooperative form: D such
+    grids over D shards of one card, each sized to fill the card, run (as
+    one graph) and equal the one-device run bit for bit."""
+    g = TaskGraph(steps=17, width=2112, pattern="stencil_1d", payload=64,
+                  kernel=KernelSpec("memory_bound", 4, scratch=2048), seed=0)
+    x = _rand((2112, 64), 5, cuda)
+    one = get_runtime("pallas_step", device=cuda, steps_per_launch=8).execute(g, x)
+    rt = _sharded("pallas_step", {"steps_per_launch": 8}, D, cuda)
+    ops.reset_launch_counts()
+    got = rt.execute(g, x)
+    assert ops.launch_counts()["taskbench_blocked"] == D * (rt.dispatches_per_run(g) - 1)
+    assert np.array_equal(got, one)

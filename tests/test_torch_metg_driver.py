@@ -200,3 +200,35 @@ def test_cost_model_option_reads_a_cache(tmp_path):
     path = probes.save_cost_model(m, tmp_path / "cm.json")
     got, rec = calibrate(SMOKE, torch.device("cpu"), path, smoke=True)
     assert got == m and rec["source"] == str(path) and rec["model"] == m.to_dict()
+
+
+def test_smoke_sweeps_the_row_shard_rows(tmp_path):
+    """``--devices 4``: each shard schedule at D = 1 and over 4 shards
+    (labels suffixed ``[D=4]``, keys the guard never meets among its
+    cells), and the overlap gain per D and grain: the medians' gain, its
+    range over the sweeps (which holds it) and how far on's wall lies under
+    off's."""
+    out = tmp_path / "metg_d4.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    subprocess.run(
+        [sys.executable, "-m", "benchmarks.torch_metg", "--smoke", "--device", "cpu",
+         "--devices", "4", "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300, check=True)
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    metg = [r for r in records if r["kind"] == "metg"]
+    from benchmarks.torch_metg import SHARD_SCHEDULES
+
+    want = {label for label, _, _ in SHARD_SCHEDULES}
+    assert {r["runtime"] for r in metg if r["devices"] == 1} == want
+    assert {r["runtime"] for r in metg if r["devices"] == 4} == {f"{w}[D=4]" for w in want}
+    assert all(r["W"] == 8 and r["repeats"] == 2 for r in metg)
+    gains = {r["devices"]: r for r in records if r["kind"] == "overlap_gain"}
+    assert sorted(gains) == [1, 4]
+    for r in gains.values():
+        assert sorted(r["gain"]) == ["1", "16"]
+        for g, v in r["gain"].items():
+            assert v == pytest.approx(r["us_per_step_no_overlap"][g] / r["us_per_step_overlap"][g] - 1)
+            lo, hi = r["gain_range"][g]
+            assert lo <= v <= hi
+            assert r["under"][g] == pytest.approx(v / (1 + v))
+    assert records[-1]["kind"] == "summary" and records[-1]["devices"] == 4
