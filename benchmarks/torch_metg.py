@@ -80,7 +80,10 @@ PAPER preset, ``min(--repeats, 3)`` sweeps: ``bsp_scan[kernels]``,
 ``overlap[kernels]`` with ``overlap`` True and False, ``pallas_step`` S = 1
 and ``pallas_step[S=8]`` pipelined, each at D = 1 and then at D (its label
 suffixed ``[D=4]``, so the guard's keys never meet the one-device cells;
-the guard reads the full sweep's file, not this one). Granularity stays
+the guard reads the full sweep's file, not this one); then ``pallas_step``
+S = 1 on fft at W = 2048 (the stride plan: in-block strides by the XOR
+shuffle, the block strides by the XOR block exchange between shards) at D
+= 1 and at D, with the same sweeps. Granularity stays
 wall x SMs / tasks: the D shards share the card's SMs. A record
 ``"kind": "overlap_gain"`` gives, per D and grain, the step wall of
 ``overlap=False`` over ``overlap=True`` less one: what issuing the halo
@@ -145,6 +148,8 @@ SHARD_SCHEDULES = (
     ("pallas_step[S=8]", "pallas_step", {"steps_per_launch": 8}),
 )
 SHARD_OD, SHARD_REPEATS, SMOKE_SHARD_OD = 16, 3, 8
+#: the row-shard rows' stride plan: (label, backend, options, pattern)
+SHARD_PLAN_SCHEDULES = (("pallas_step", "pallas_step", {}, "fft"),)
 #: "auto" under the run's calibrated model (its cost_model option is added)
 AUTO_SCHEDULE = ("pallas_step[auto]", "pallas_step", {"steps_per_launch": "auto"})
 SWEEP_S = (1, 2, 4, 8, 16)
@@ -238,10 +243,11 @@ def metg_record(cfg: TaskBenchConfig, label: str, backend: str, options: dict,
 
 
 def shard_records(cfg: TaskBenchConfig, devices: int, repeats: int, device: torch.device,
-                  od: int = SHARD_OD):
+                  od: int = SHARD_OD, plan_width: int = FLOOR_METG_W):
     """The row-shard rows: each of SHARD_SCHEDULES at D = 1, then over
     ``devices`` shards of ``device`` (label suffixed ``[D=devices]``), W =
-    cores x ``od``, ``repeats`` sweeps; then per D the ``overlap_gain``
+    cores x ``od``, ``repeats`` sweeps; each of SHARD_PLAN_SCHEDULES on its
+    pattern at W = ``plan_width`` alike; then per D the ``overlap_gain``
     record: per grain the medians' ``gain`` (off / on - 1), its range over
     the sweeps (``gain_range``: the least and most off / on - 1 over every
     pair of sweeps) and ``under``, how far on's median wall lies under
@@ -253,6 +259,11 @@ def shard_records(cfg: TaskBenchConfig, devices: int, repeats: int, device: torc
             rec = metg_record(cfg, tag, backend, options, od, repeats, device, devices=D)
             walls[(label, D)] = rec["us_per_step"]
             yield rec
+    for label, backend, options, pattern in SHARD_PLAN_SCHEDULES:
+        for D in (1, devices):
+            tag = label if D == 1 else f"{label}[D={D}]"
+            yield metg_record(dataclasses.replace(cfg, pattern=pattern), tag, backend, options,
+                              None, repeats, device, width=plan_width, devices=D)
     for D in (1, devices):
         on, off = walls[("overlap[kernels]", D)], walls[("overlap[kernels,overlap=False]", D)]
         med_on = {g: statistics.median(w) for g, w in on.items()}
@@ -422,7 +433,7 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
 
         if devices > 1:
             for rec in shard_records(cfg, devices, min(repeats, SHARD_REPEATS), device,
-                                     SMOKE_SHARD_OD if smoke else SHARD_OD):
+                                     SMOKE_SHARD_OD if smoke else SHARD_OD, floor_metg_w):
                 emit(rec)
             emit({"kind": "summary", "preset": cfg.name, "repeats": min(repeats, SHARD_REPEATS),
                   "devices": devices, "device": str(device),

@@ -191,10 +191,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
              loop bit for bit, launching D times a shard's count in
              ``host_calls_per_run`` host calls; S = 8 pipelined, serial
              and "ppermute" equal bit for bit. Where the dataflow shows
-             (grain 1, W = 64, T = 41; fft and spread at W = 512; multi-hop
-             at W = 16, r = 2, S = 8; a K = 4 ensemble per rung and a
-             stacked pallas_step ensemble) against the CPU plain path.
-             ``probe_halo_exchange_us(4)`` per transport and its X. The
+             (grain 1, W = 64, T = 7, inside the contraction horizon: each
+             reference at least 100 x TOL from the fixed point, or the
+             phase fails; fft and spread at W = 512; multi-hop at W = 16,
+             r = 2, S = 3; a K = 4 ensemble per rung and a stacked
+             pallas_step ensemble) against the CPU plain path. At grain 64
+             every state is at the fixed point, so the comparisons below
+             check graphs, counts and bits only.
+             The stride and all-gather plans at T = 1000 (D = 4, B = 512
+             and 128): fft and tree at W = 2048 on the stride plan under
+             ``halo_impl`` "xla" and "ppermute" (in-block strides by the
+             XOR shuffle, block strides by the XOR block exchange), fft at
+             W = 512 with S = 8 (the blocked all-gather plan: D cooperative
+             K4 grids at once), spread and all_to_all at W = 512 at S = 1
+             and 8 under ``gather_impl`` "xla", "ppermute" and "chunked"
+             (all_to_all also with ``psum_mean=False``), "auto" on fft at
+             2048 and spread at 512 under the probe's D = 4 model (its
+             plan, S and reason printed), fft at 2048 and spread at 512 at
+             D = 2; each equal bit for bit to its D = 1 run (all_to_all's
+             row mean within TOL) and the transports to each other, the µs
+             a step beside D = 1's; at grain 1 (W = 64 and 512) also under
+             the other transports. ``probe_halo_exchange_us(4)`` per
+             transport and its X, and the stride, gather and
+             gather-transport probe tables at D = 4. The
              overlap measured: one replay each of a 6-step ``overlap``
              (True, False) and a 17-step pipelined ``pallas_step``
              ("ppermute") under ``torch.profiler``: the copy nodes (the
@@ -397,14 +416,36 @@ PROFILE_ISSUES = 3
 # bsp_scan, overlap (overlap=True and False, halo_via="allgather") and
 # pallas_step S = 1 and S = 8 (pipelined, serial, halo_impl "xla" and
 # "ppermute") and "auto"; the main schedules at D = 1 on stencil_1d for the
-# step walls; the grain-1 evidence at W = 64, T = 41 (fft and spread at
-# W_GATHER); multi-hop at W = 16, r = 2, S = 8; the profiled overlap runs of
-# T_PROFILED steps. Each run is compared with its eager loop three times
-# (the three timed replays): a race between streams or in the allocator
-# gives wrong bits only sometimes.
+# step walls; the grain-1 evidence at W = 64, T = T_SHARD_SMALL (fft and
+# spread at W_GATHER); multi-hop at W = 16, r = 2, S = S_SHARD_HOP; the
+# profiled overlap runs of T_PROFILED steps. Each run is compared with its
+# eager loop three times (the three timed replays): a race between streams
+# or in the allocator gives wrong bits only sometimes.
 SHARD_D = (4, 2)
 T_SHARD_D2 = 250
-W_SHARD_SMALL, T_SHARD_SMALL = 64, 41
+# The grain-1 evidence stays inside the contraction horizon: each step
+# halves a row's distance from the FMA's fixed point 0.2 (every combine is
+# convex), so after T steps the state is within 0.8 * 2**-T of it, and a
+# wrong partner, row cut or stale read shows only while that is well above
+# TOL. T = 7 = log2(64) + 1 keeps a butterfly's rows from all reaching the
+# mean too, and leaves every case at least 3e-3 from the fixed point; the
+# phase fails a case whose reference is within SHOWS_MIN of it. The K = 4
+# stacked ensemble's horizons, and the multi-hop depth (r * S = 6 > B = 4
+# at T = 2 S + 1), are cut to the same horizon.
+W_SHARD_SMALL, T_SHARD_SMALL = 64, 7
+T_SHARD_ENS = (7, 6, 4, 1)
+S_SHARD_HOP = 3
+FIXED_POINT = 0.1 / (1 - 0.5)  # bodies.cuh: x <- 0.5 x + 0.1
+SHOWS_MIN = 100 * 1e-5  # 100 x TOL
+# [shards]' stride and all-gather plans: fft and tree at W_PLAN (the stride
+# plan under both halo transports), fft at W_GATHER with S = 8 (the re-route
+# to the blocked all-gather plan), spread and all_to_all at W_GATHER at S = 1
+# and 8 under each gather transport (all_to_all also with psum_mean=False),
+# and "auto" under the D = 4 model, at D = 4; fft at W_PLAN and spread at
+# W_GATHER at D = 2; each run against its D = 1 run. T_SHARD_PLANS steps
+# each at D = 4 (the main shape's T), T_SHARD_D2 at D = 2.
+T_SHARD_PLANS = T_MAIN
+GATHER_TRANSPORTS = ("xla", "ppermute", "chunked")
 
 
 def _measure(intervals):
@@ -427,7 +468,7 @@ def _intersection(xs, ys):
 
 def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W_SHARD_SMALL,
                  T_small=T_SHARD_SMALL, W_glob=W_GATHER, T_prof=T_PROFILED, T_d2=T_SHARD_D2,
-                 issues=PROFILE_ISSUES):
+                 issues=PROFILE_ISSUES, W_plan=W_PLAN, T_plans=T_SHARD_PLANS):
     """The [shards] phase; returns the launches its runs counted (the eager
     loops' and the references' apart) and its record."""
     import torch
@@ -439,15 +480,22 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
 
     t0 = time.perf_counter()
     card = dev.type == "cuda"
-    # the probe: one exchange between 4 shards per transport, and the model;
-    # its K3 launches come before the counters' reset, apart from the runs'
+    # the probe: one exchange between 4 shards per transport (halo and
+    # stride), the gather per width and per (transport, D, width), and the
+    # model; its K3 launches come before the counters' reset, apart from the
+    # runs'
     tp = time.perf_counter()
     model = probes.run_probes(devices=4, payload=PAYLOAD, device=dev)
     probe = {"halo_exchange_us": model.halo_exchange_us, "row_step_us": model.row_step_us,
-             "X": model.exchange_row_steps, "seconds": time.perf_counter() - tp,
-             "describe": model.describe()}
+             "X": model.exchange_row_steps, "stride_exchange_us": model.stride_exchange_us,
+             "gather_us": model.gather_us, "gather_impl_us": model.gather_impl_us,
+             "seconds": time.perf_counter() - tp, "describe": model.describe()}
     print(f"[shards] probe_halo_exchange_us(4): {model.halo_exchange_us} -> X = "
           f"{model.exchange_row_steps:.3f} row-steps ({model.describe()}) | {smi}", flush=True)
+    print(f"[shards] probe_stride_exchange_us(4): {model.stride_exchange_us}; "
+          f"probe_gather_us(4): {model.gather_us}; probe_gather_impl_us(4): "
+          f"{model.gather_impl_us} (median of {probes.GATHER_IMPL_REPS} replays); "
+          f"{probe['seconds']:.3f} s | {smi}", flush=True)
     if card:
         torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -455,6 +503,7 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
     apart_calls = [0]
     rows, refused, bitwise = [], {}, []
     compared = [0]  # sharded outputs compared bit for bit with an eager loop
+    shows_dist = []  # the grain-1 references' distances from the fixed point
     expected = dict.fromkeys(_build.ENTRIES, 0)  # the launches the sharded runs make
 
     def keep_apart(d, calls):
@@ -485,15 +534,26 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
         want = dict.fromkeys(_build.ENTRIES, 0)
         if rt.name == "pallas_step":
             per = rt.dispatches_per_run(g)
-            if rt._schedule_for_graph(g).steps_per_launch == 1:
+            plan = rt._schedule_for_graph(g)
+            if plan.steps_per_launch == 1:
                 want["taskbench_step"] = D * per
-            else:
+            else:  # the memory body and the all-gather plan: K4's cooperative form
                 want["taskbench_step"] = D
-                want[K4_COOP if g.kernel.kind == "memory_bound" else K4_TILED] = D * (per - 1)
+                coop = g.kernel.kind == "memory_bound" or plan.kind == "allgather"
+                want[K4_COOP if coop else K4_TILED] = D * (per - 1)
         else:
             body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
             want[body] = rt.body_launches_per_run(g)
         return want
+
+    def dataflow_shows(label, want):
+        """Fails unless ``want`` (a grain-1 reference) lies SHOWS_MIN or
+        more from the FMA's fixed point, where a wrong dataflow shows."""
+        dist = (want - FIXED_POINT).abs().max().item()
+        if dist < SHOWS_MIN:
+            fail(f"[shards] {label}: the reference is {dist:.3g} from the fixed point "
+                 f"{FIXED_POINT}, under {SHOWS_MIN}: the run shows no dataflow")
+        shows_dist.append(dist)
 
     def run_once(label, rt, g, init, want, tol, reps=3):
         """``rt``'s run of ``g``: built (D > 1: a ShardedRun over one graph,
@@ -592,6 +652,74 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
         run_once(f"memory_bound D=4 {name}{opts or ''}", runtime(name, 4, opts), g, init, want,
                  TOL_MEMORY_RUN)
 
+    # the stride and all-gather plans (T_SHARD_PLANS): each run bit for bit
+    # its D = 1 run of the same plan (all_to_all's psum_mean row mean sums
+    # the shards' partial sums, another order: within TOL), and the gather
+    # transports bit for bit each other
+    plan_groups, plan_walls, autos = {}, [], []
+    inputs = {}  # (pattern, W, T) -> the init and fused(kernels)' run
+    ones = {}  # (pattern, W, T, plan, S, psum_mean) -> the D = 1 run's output and wall
+
+    def plan_run(pattern, width, D, opts, steps):
+        g = TaskGraph(steps=steps, width=width, pattern=pattern, payload=PAYLOAD,
+                      kernel=KernelSpec("compute_bound", GRAIN), seed=0)
+        if (pattern, width, steps) not in inputs:
+            init = rand(width, PAYLOAD)
+            inputs[(pattern, width, steps)] = (init, reference(g, init))
+        init, want = inputs[(pattern, width, steps)]
+        tag = {k: v for k, v in opts.items() if k != "cost_model"}
+        rt = runtime("pallas_step", D, opts)
+        plan = rt._schedule_for_graph(g)
+        out = run_once(f"{pattern} W={width} D={D} pallas_step{tag}", rt, g, init, want, TOL)
+        us = rows[-1]["us_per_step"]
+        S = plan.steps_per_launch
+        psum = (pattern == "all_to_all" and opts.get("psum_mean", True) and S == 1)
+        key = (pattern, width, steps, plan.kind, S, opts.get("psum_mean", True))
+        if key not in ones:
+            one_opts = {k: v for k, v in opts.items()
+                        if k not in ("halo_impl", "gather_impl", "cost_model")}
+            one_opts["steps_per_launch"] = S
+            ones[key] = (run_once(f"{pattern} W={width} D=1 pallas_step{one_opts}",
+                                  runtime("pallas_step", 1, one_opts, [dev]), g, init, want,
+                                  TOL), rows[-1]["us_per_step"])
+        one, one_us = ones[key]
+        if psum:
+            check_close(f"[shards] {pattern} W={width} D={D}{tag} against D = 1", out, one, TOL)
+        elif not torch.equal(out, one):
+            fail(f"[shards] {pattern} W={width} D={D}{tag}: differs from its D = 1 run, max "
+                 f"|difference| {(out - one).abs().max().item()}")
+        plan_groups.setdefault((pattern, width, D, plan.kind, S, psum), []).append((tag, out))
+        plan_walls.append({"run": f"{pattern} W={width} D={D}{tag}", "plan": [plan.kind, S],
+                           "us_per_step": us, "d1_us_per_step": one_us})
+        return plan
+
+    for pattern in ("fft", "tree"):
+        for impl in ("xla", "ppermute"):
+            plan_run(pattern, W_plan, 4, {"halo_impl": impl}, T_plans)
+    plan_run("fft", W_glob, 4, {"steps_per_launch": S_MAIN}, T_plans)
+    for pattern, extra in (("spread", {}), ("all_to_all", {}),
+                           ("all_to_all", {"psum_mean": False})):
+        for S in ((1,) if extra else (1, S_MAIN)):
+            for impl in GATHER_TRANSPORTS:
+                plan_run(pattern, W_glob, 4, dict(extra, steps_per_launch=S, gather_impl=impl),
+                         T_plans)
+    plan_run("fft", W_plan, 2, {}, T_d2)
+    plan_run("spread", W_glob, 2, {}, T_d2)
+    for pattern, width in (("fft", W_plan), ("spread", W_glob)):
+        plan = plan_run(pattern, width, 4, {"steps_per_launch": "auto", "cost_model": model},
+                        T_plans)
+        autos.append({"pattern": pattern, "W": width, "plan": list(plan)})
+        print(f"[shards] auto on {pattern} W={width} D=4 under the D = 4 model: "
+              f"({plan.kind}, S={plan.steps_per_launch}): {plan.reason}", flush=True)
+    for key, outs in plan_groups.items():
+        if any(not torch.equal(outs[0][1], o) for _, o in outs[1:]):
+            fail(f"[shards] {key}: the transports {[t for t, _ in outs]} differ")
+        if len(outs) > 1:
+            bitwise.append(f"{key} x{len(outs)}")
+    for row in plan_walls:
+        print(f"[shards] plans: {row['run']} {row['plan']}: {row['us_per_step']:.3f} us a step "
+              f"(D = 1: {row['d1_us_per_step']:.3f})", flush=True)
+
     # grain 1, where the dataflow shows: against the CPU plain path at D = 1
     cpu = get_runtime("fused", device="cpu")
     small = (("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("overlap", {"overlap": False}),
@@ -600,21 +728,28 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
              ("pallas_step", {"steps_per_launch": 2, "pipeline": False}),
              ("pallas_step", {"steps_per_launch": 3, "halo_impl": "ppermute"}),
              ("pallas_step", {"steps_per_launch": 3, "pipeline": False}))
+    # the stride and all-gather plans also under their other transports
+    small_plans = (("pallas_step", {"halo_impl": "ppermute"}),
+                   ("pallas_step", {"gather_impl": "chunked"}))
     n_small = 0
     cases = [(p, W_small, 2) for p in HALO_PATTERNS] + [
         (p, W_small, 2) for p in ("fft", "tree", "all_to_all", "spread")] + [
         (p, W_glob, 2) for p in ("fft", "spread")] + [("nearest", 16, 2)]
     for pattern, width, r in cases:
-        steps = 2 * S_MAIN + 1 if width == 16 else T_small
+        steps = 2 * S_SHARD_HOP + 1 if width == 16 else T_small
         g = TaskGraph(steps=steps, width=width, pattern=pattern, payload=PAYLOAD,
                       kernel=KernelSpec("compute_bound", 1), radius=r, seed=1)
         init = rand(width, PAYLOAD)
         want = torch.from_numpy(cpu.execute(g, init.cpu()))
-        runs = (("pallas_step", {"steps_per_launch": S_MAIN}),) if width == 16 else small
+        dataflow_shows(f"grain 1 {pattern} W={width} T={steps}", want)
+        runs = (("pallas_step", {"steps_per_launch": S_SHARD_HOP}),) if width == 16 else small
+        if pattern not in HALO_PATTERNS:
+            runs = runs + small_plans + ((("pallas_step", {"psum_mean": False}),)
+                                         if pattern == "all_to_all" else ())
         outs = {}
         for name, opts in runs:
             rt = runtime(name, 4, opts)
-            if not rt.supports(g)[0] or (name == "pallas_step" and rt.plan_for(g)[0] != "halo"):
+            if not rt.supports(g)[0]:
                 continue
             outs[str(opts)] = run_once(f"grain 1 {pattern} W={width} D=4 {name}{opts or ''}",
                                        rt, g, init, want, TOL)
@@ -625,13 +760,13 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
                 fail(f"[shards] grain 1 {pattern}: S = {S} pipelined != serial")
     # K = 4 ensembles of mixed patterns and horizons at grain 1, each member
     # against the CPU plain path's run of it alone; one stacked pallas_step
-    # ensemble (stencil_1d, horizons T_ENS_SHORT)
+    # ensemble (stencil_1d, horizons T_SHARD_ENS)
     ens_rows = []
     mixed = (("stencil_1d", 8), ("spread", 6), ("fft", 4), ("nearest", 1), ("dom", 5),
              ("random_nearest", 3))
     stacked = [TaskGraph(steps=t, width=W_small, pattern="stencil_1d", payload=PAYLOAD,
                          kernel=KernelSpec("compute_bound", 1), seed=20 + k)
-               for k, t in enumerate(T_ENS_SHORT)]
+               for k, t in enumerate(T_SHARD_ENS)]
     for name, opts in (("bsp", {}), ("bsp_scan", {}), ("overlap", {}), ("pallas_step", {}),
                        ("pallas_step", {"steps_per_launch": S_MAIN})):
         rt = runtime(name, 4, opts)
@@ -667,8 +802,10 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
         for k, n in d.items():
             expected[k] += 3 * n
         for k, (a, g, x) in enumerate(zip(outs, members, xs)):
-            errs.append(check_close(f"[shards] K=4 {name}{opts} member {k}", a.cpu(),
-                                    torch.from_numpy(cpu.execute(g, x.cpu())), TOL))
+            want_k = torch.from_numpy(cpu.execute(g, x.cpu()))
+            dataflow_shows(f"K=4 {name}{opts} member {k} T={g.steps}", want_k)
+            errs.append(check_close(f"[shards] K=4 {name}{opts} member {k}", a.cpu(), want_k,
+                                    TOL))
         ens_rows.append({"run": f"K=4 {name}{opts or ''}", "patterns": [g.pattern for g in members],
                          "T": [g.steps for g in members], "launches": sum(d.values()),
                          "host_calls": calls, "max_abs_err": max(errs)})
@@ -759,6 +896,7 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
                       kernel=KernelSpec("compute_bound", 1), radius=2, seed=1)
         init = rand(W_small, PAYLOAD)
         want = torch.from_numpy(cpu.execute(g, init.cpu()))
+        dataflow_shows(f"nearest across {len(cards)} cards", want)
         for name, opts in (("bsp_scan", {}), ("pallas_step", {})):
             rt = runtime(name, len(cards), opts, cards)
             out, d, _ = counted_calls(lambda: rt.build(g)(init))
@@ -788,8 +926,11 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
     shows = [r for r in rows if r["grain"] == 1 or r["kind"] == "memory_bound"]
     print(f"[shards] refused: {refused}", flush=True)
     print(f"[shards] {len(rows)} sharded runs ({len(rows) - len(shows)} at grain {GRAIN}: "
-          f"counts, graphs and bits; {len(shows)} where the dataflow shows: grain 1 against "
-          f"the CPU plain path ({n_small}), memory_bound against fused(kernels)) and "
+          f"counts, graphs and bits only, the plans' D = 1 and transport comparisons "
+          f"included, every state at the fixed point; {len(shows)} where the dataflow shows: "
+          f"grain 1 against the CPU plain path ({n_small}; every reference at least "
+          f"{min(shows_dist):.3g} from the fixed point), memory_bound against "
+          f"fused(kernels)) and "
           f"{len(ens_rows)} K=4 ensembles, each equal to its eager loop bit for bit three times "
           f"({compared[0]} comparisons), launches "
           f"D x the per-shard count, host calls as counted; pipelined = serial = ppermute bit "
@@ -797,6 +938,7 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
           f"{apart_calls[0]} host calls, apart); {time.perf_counter() - t0:.3f} s | {smi}",
           flush=True)
     record = {"runs": rows, "ensembles": ens_rows, "overlap": overlap_rows, "probe": probe,
+              "plans": plan_walls, "auto": autos,
               "refused": refused, "distinct_cards": distinct,
               "seconds": time.perf_counter() - t0}
     print(json.dumps({"shards": record}, default=str), flush=True)

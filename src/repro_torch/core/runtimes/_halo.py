@@ -50,8 +50,9 @@ means the same in both packages:
           "ppermute"  per shard, the other D - 1 blocks copied in and the
                       ring assembled in global order
           "chunked"   segments of G shards gathered first, then the
-                      segments (G: ``gather_chunk_group``, the divisor of D
-                      nearest sqrt(D), unless given)
+                      segments (G: ``schedule.choose_gather_chunk_group``,
+                      unless given: measured walls where the cost model has
+                      them, else the divisor of D nearest sqrt(D))
 
 Every transport moves exact row copies, so all of them give the same bits.
 On one card a copy is a device-to-device copy in the card's memory; across
@@ -771,12 +772,19 @@ def _gather_chunked(mesh: ShardMesh, locals_: Shards, *, row_axis: int = 0,
     """Hierarchical gather: segments of G contiguous shards gathered first
     (stage 1), then the segments (stage 2); exact row copies in global
     order, so the bits equal the monolithic gather's for every G | D.
-    ``group=None`` takes `gather_chunk_group` (the reference's analytic
-    rule; its measured ranking, ``schedule.choose_gather_chunk_group``, is
-    ROADMAP.md next port slice 15); an explicit G must divide D, and G <= 1 or
-    G >= D is the monolithic gather."""
+    ``group=None`` leaves G to the scheduling policy
+    (``schedule.choose_gather_chunk_group``: explicit > env > measured
+    grouping probes > the sqrt(D) rule, `gather_chunk_group`); an explicit
+    G must divide D, and G <= 1 or G >= D is the monolithic gather."""
     D = mesh.size
-    g = gather_chunk_group(D) if group is None else int(group)
+    if group is None:
+        # imported here, as the reference does: this module stays importable
+        # without the probes and their cache
+        from repro_torch.kernels import schedule as _schedule
+
+        group, _ = _schedule.choose_gather_chunk_group(
+            devices=D, width=locals_[0].shape[row_axis] * D)
+    g = int(group)
     if g >= 1 and D % g:
         raise ValueError(f"chunked gather group {g} does not divide D={D}")
     if g <= 1 or g >= D:

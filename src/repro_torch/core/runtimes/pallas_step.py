@@ -1,5 +1,5 @@
 """`pallas_step` runtime — fused megakernel launches, temporally blockable,
-on one GPU, and its halo plan over D row shards.
+on one GPU and over D row shards.
 
 Counterpart of ``repro.core.runtimes.pallas_step``. Every
 timestep of every plan is one launch of the single-step megakernel K3
@@ -96,9 +96,21 @@ wrap is the one-device form). S > 1 serial: per launch the deep exchange
 (B > 2*S*H): the boundary launch, the next launch's edge exchange started
 on its outputs (``_halo.exchange_edges_start`` over ``halo_impl``), the
 interior launch, which runs under the transfer; the next launch joins it,
-and the prologue exchange feeds the first. ``dispatches_per_run`` stays
-the reference's per-shard count (a run launches D times as many); the
-stacked ensembles shard alike. At D > 1 the stride and all-gather plans,
+and the prologue exchange feeds the first. The stacked ensembles shard
+alike. The stride and all-gather plans are written once, as (t0, step)
+over a list of shard states (one device: a list of one): the stride plan
+takes an in-block partner (s < B) from the shard's own block and a block
+partner (s >= B) from shard d XOR s/B through ``_halo.exchange_stride``
+over ``halo_impl``, then one K3 launch a shard; the all-gather plan gathers
+the W-row state for every shard (``_halo.gather_global`` over
+``gather_impl``) and launches K3 on it with the shard's rows of the global
+tables (cut once per build; global rows, so nothing is rebased), or,
+blocked, K4 on all W rows, each shard keeping its own B (every shard does
+all W rows' work, as the reference's); all_to_all's row mean sums the
+shards' partial sums (``_halo.global_mean``). Every transfer moves exact
+row copies, so a sharded run equals the one-device run bit for bit (the
+row mean within f32 reduction tolerance). ``dispatches_per_run`` stays the
+reference's per-shard count (a run launches D times as many). At D > 1
 tuple ensembles, the launch plans and ``member_shards`` keep the
 reference's verdicts and raise `NotImplementedError` naming ROADMAP.md's
 next port slice.
@@ -115,7 +127,7 @@ own horizon lasts), serial or pipelined as for one graph; at S = 1 a member
 past its horizon keeps its state through a ``torch.where`` on a slice of a
 static (T-1, K) table. Any other ensemble is a *tuple*: each member launches
 its own plan's kernel every step (halo members through `_operands`, stride
-and all-gather members through `_plan_step_fns`), frozen members included,
+and all-gather members through `_plan_shard_fns`), frozen members included,
 whose output the host then drops; when every member is on the halo plan,
 the shared cadence blocks too, each member serial or pipelined by its own
 gate. A member off the halo plan pins the cadence to one step a launch.
@@ -147,11 +159,15 @@ analytic); ``pipeline`` = True or False; ``gather_width_cap`` = the widest
 state the all-gather plan takes (default 512,
 `schedule.DEFAULT_GATHER_WIDTH_CAP`); ``psum_mean`` = True or False
 (all_to_all's row-mean combine); ``halo_impl`` = "xla" (default) or
-"ppermute", the pipelined edge exchange's transport at D > 1 (the same
-bits; nothing to exchange on one device); ``member_shards`` = 1 (the row x
-member mesh is ROADMAP.md's next port slice). The reference's
-``gather_impl`` (the next slice), ``block_rows`` and ``unroll`` (TPU
-tilings) are unknown options here.
+"ppermute", the transport of the pipelined edge exchange and of the stride
+plan's block exchange at D > 1 (the same bits; nothing to exchange on one
+device); ``gather_impl`` = "auto" (default: a non-default ``halo_impl``
+that names a gather transport, else `schedule.choose_gather_impl` under the
+cost model) or a ``_halo.GATHER_IMPLS`` name ("xla", "ppermute",
+"chunked"), the all-gather plan's transport at D > 1 (the same bits);
+``member_shards`` = 1 (the row x member mesh is ROADMAP.md's next port
+slice). The reference's ``block_rows`` and ``unroll`` (TPU tilings) are
+unknown options here.
 """
 from __future__ import annotations
 
@@ -301,8 +317,8 @@ def _stride_slot_tables(
     bit for bit the fused oracle's (a + b) / 2 under every combine.
     In-block strides (stride < block) address the local rows; block
     strides address a [local | partner] working buffer (partner block at
-    rows [B, 2B)), which only a multi-device run has (ROADMAP Queue 1 item
-    8). Returns (idx, wgt, off_block)."""
+    rows [B, 2B)), which only a run over row shards has. Returns (idx, wgt,
+    off_block)."""
     i = np.arange(block, dtype=np.int32)
     off_block = stride >= block
     partner = (block + i) if off_block else (i ^ stride)
@@ -565,14 +581,14 @@ class _ResolvedPlan(NamedTuple):
 
 
 #: where the D > 1 paths this slice leaves stand in ROADMAP.md
-NEXT_SLICE = "ROADMAP.md, next port slice 15 (the rest of Queue 1 item 8)"
+NEXT_SLICE = "ROADMAP.md, next port slice 16 (the rest of Queue 1 item 8)"
 
 
 @register
 class PallasStepRuntime(Runtime):
     name = "pallas_step"
     known_options = ("combine", "steps_per_launch", "pipeline", "gather_width_cap",
-                     "psum_mean", "cost_model", "halo_impl", "member_shards")
+                     "psum_mean", "cost_model", "halo_impl", "gather_impl", "member_shards")
     sharded = True
 
     def __init__(self, device="cuda", devices=None, **options):
@@ -581,6 +597,10 @@ class PallasStepRuntime(Runtime):
         if s is not None and not _schedule.is_auto(s) and int(s) < 1:
             raise ValueError(f"steps_per_launch must be >= 1 or 'auto', got {s!r}")
         self._combine_mode()
+        gi = self.options.get("gather_impl", "auto")
+        if gi != "auto" and gi not in _halo.GATHER_IMPLS:
+            raise ValueError(
+                f"unknown gather impl {gi!r}; known {sorted(_halo.GATHER_IMPLS)} or 'auto'")
         if self.options.get("member_shards", 1) != 1:
             raise NotImplementedError(
                 f"member_shards={self.options['member_shards']!r}: the row x member "
@@ -593,10 +613,10 @@ class PallasStepRuntime(Runtime):
         make and the option changes nothing."""
         return str(self.options.get("halo_impl", "xla"))
 
-    def _sharded_only_halo(self, what: str):
+    def _not_sharded_yet(self, what: str):
         raise NotImplementedError(
             f"runtime {self.name} at D = {self.num_devices}: {what} is {NEXT_SLICE}; "
-            f"the halo plan runs sharded")
+            f"the halo, stride and all-gather plans and stacked ensembles run sharded")
 
     # ------------------------------------------------------ plan dispatch
 
@@ -897,16 +917,14 @@ class PallasStepRuntime(Runtime):
     def _build_eager(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         plan = self._schedule_for_graph(graph)
         S = plan.steps_per_launch
-        if self.mesh is not None:
-            if plan.kind != PLAN_HALO:
-                self._sharded_only_halo(f"the {plan.kind} plan")
+        if self.mesh is not None and plan.kind == PLAN_HALO:
             run = self._sharded_halo_run((graph,), S)
             return lambda shards: run((shards,))[0]
         if S == 1:
             return self._build_plan_stepper(graph, plan.kind)
         if plan.kind == PLAN_ALLGATHER:
             return self._build_allgather_blocked(graph, S)
-        return self._build_blocked(graph, S)
+        return self._build_blocked(graph, S)  # the halo plan on one device
 
     def _halo_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
         """(t0, step) for the halo plan at S = 1 on (1, W, P) states: the
@@ -1165,39 +1183,69 @@ class PallasStepRuntime(Runtime):
 
     # ------------------------------------------- stride / all-gather plans
 
-    def _stride_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
-        """(t0, step) for the stride plan (butterfly) on (1, W, P) states.
+    def _per_device(self, make: Callable) -> List:
+        """``make(device)`` once per distinct device, listed per shard (read
+        only constants: shards on one card share one)."""
+        made: dict = {}
+        for dev in self.devices:
+            if dev not in made:
+                made[dev] = make(dev)
+        return [made[dev] for dev in self.devices]
 
-        ``step(s, t)`` runs timestep t: the period slot's stride, chosen
-        on the host, selects a branch, and one K3 launch combines {p,
-        partner} and runs the body. With ``pair`` the partner rows come
-        from `_xor_swap` and K3 reads [x | partner]; with the gather /
-        onehot ablations K3 reads x through the slot's (W, 2) tables. On
-        one device the block is the whole width, so every stride is
-        in-block."""
-        B = graph.width
-        dev = self.device
+    def _stride_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+        """(t0, step) for the stride plan (butterfly) over a list of D shard
+        states, each (1, B, P) (one device: [the (1, W, P) state]).
+
+        ``step(shards, t)`` runs timestep t: the period slot's stride,
+        chosen on the host, selects a branch, and one K3 launch a shard
+        combines {p, partner} and runs the body. An in-block stride (s < B,
+        every stride on one device) takes the partner rows from the shard's
+        own block (`_xor_swap`); a block stride (s >= B) takes shard d XOR
+        s/B's block through ``_halo.exchange_stride`` over ``halo_impl``.
+        With ``pair`` K3 reads [local | partner]; with the gather / onehot
+        ablations it reads the local block (in-block) or [local | partner]
+        (block strides) through the slot's (B, 2) tables. Every partner row
+        is an exact copy, so the bits are the one-device run's."""
+        mesh, B = self.mesh, self._block(graph)
         mode = self._plan_combine(PLAN_STRIDE)
         kw = self._kernel_kw(graph, combine=mode)
+        impl = self._halo_impl()
         period = graph.period
         strides = _patterns.butterfly_slot_strides(graph)
-        # pair's idx/wgt are dummies: wgt's row count declares the width
-        dummy_i = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
-        dummy_w = torch.zeros((1, B, 1), dtype=torch.float32, device=dev)
+        # pair's idx/wgt are dummies: wgt's row count declares the output
+        # width, B rows of the shard (not W)
+        dummy_i = self._per_device(lambda dev: torch.zeros((1, 1, 1), dtype=torch.int32,
+                                                           device=dev))
+        dummy_w = self._per_device(lambda dev: torch.zeros((1, B, 1), dtype=torch.float32,
+                                                           device=dev))
+
+        def partners(shards, s: int):
+            if s < B:
+                return self._map(lambda d, x: _xor_swap(x, s, row_axis=1), shards)
+            return _halo.exchange_stride(mesh, shards, (s // B,), row_axis=1, impl=impl)[0]
 
         def make_branch(s: int) -> Callable:
             if mode == "pair":
-                def branch(x):
-                    src = torch.cat([x, _xor_swap(x, s, row_axis=1)], dim=1)
-                    return _kops.taskbench_step(src, dummy_i, dummy_w, **kw)
+                def branch(shards):
+                    return self._map(lambda d, x, p: _kops.taskbench_step(
+                        torch.cat([x, p], dim=1), dummy_i[d], dummy_w[d], **kw),
+                        shards, partners(shards, s))
 
                 return branch
-            idx_np, wgt_np, _ = _stride_slot_tables(B, s)  # in-block: B = W
-            idx = torch.from_numpy(idx_np)[None].to(dev)
-            wgt = torch.from_numpy(wgt_np)[None].to(dev)
+            idx_np, wgt_np, off_block = _stride_slot_tables(B, s)
+            idx = self._per_device(lambda dev: torch.from_numpy(idx_np)[None].to(dev))
+            wgt = self._per_device(lambda dev: torch.from_numpy(wgt_np)[None].to(dev))
+            if not off_block:
+                def branch(shards):
+                    return self._map(lambda d, x: _kops.taskbench_step(x, idx[d], wgt[d], **kw),
+                                     shards)
 
-            def branch(x):
-                return _kops.taskbench_step(x, idx, wgt, **kw)
+                return branch
+
+            def branch(shards):
+                return self._map(lambda d, x, p: _kops.taskbench_step(
+                    torch.cat([x, p], dim=1), idx[d], wgt[d], **kw),
+                    shards, partners(shards, s))
 
             return branch
 
@@ -1205,17 +1253,17 @@ class PallasStepRuntime(Runtime):
         if mode == "pair":
             # t = 0 (body only) through pair itself: [x | x] halves give
             # (a + a) * 0.5 == a bit for bit
-            def t0(x):
-                return _kops.taskbench_step(torch.cat([x, x], dim=1), dummy_i,
-                                            dummy_w, **kw)
+            def t0(shards):
+                return self._map(lambda d, x: _kops.taskbench_step(
+                    torch.cat([x, x], dim=1), dummy_i[d], dummy_w[d], **kw), shards)
         else:
-            i0, w0 = (a[None] for a in _self_tables(B, dev))
+            selfs = self._per_device(lambda dev: tuple(a[None] for a in _self_tables(B, dev)))
 
-            def t0(x):
-                return _kops.taskbench_step(x, i0, w0, **kw)
+            def t0(shards):
+                return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw), shards)
 
-        def step(x, t: int):
-            return branches[strides[(t - 1) % period]](x)
+        def step(shards, t: int):
+            return branches[strides[(t - 1) % period]](shards)
 
         return t0, step
 
@@ -1245,102 +1293,169 @@ class PallasStepRuntime(Runtime):
 
         return tables_at, (lambda t: (t - 1) % period), period > 1
 
+    def _gather_impl(self, width: int) -> str:
+        """The all-gather plan's transport (``_halo.GATHER_IMPLS``), the
+        ``gather_impl`` option: an explicit name wins; "auto" (the default)
+        follows a non-default ``halo_impl`` that names a gather transport
+        too ("ppermute"), and otherwise asks `schedule.choose_gather_impl`
+        at (D, ``width``) under this runtime's cost model. Every transport
+        gives the same bits; on one device nothing is gathered. (An unknown
+        name is refused at construction.)"""
+        opt = self.options.get("gather_impl", "auto")
+        if opt != "auto":
+            return opt
+        halo = self._halo_impl()
+        if halo != "xla" and halo in _halo.GATHER_IMPLS:
+            return halo
+        return _schedule.choose_gather_impl(width=width, devices=self.num_devices,
+                                            model=self._cost_model())[0]
+
+    def _gather_fn(self, graph: TaskGraph) -> Callable[[List], List]:
+        """The all-gather plan's gather over shard lists: each shard's (1,
+        W, P) global-order buffer (`_halo.gather_global` over `_gather_impl`;
+        shards on one card share one); one device: the state itself."""
+        if self.mesh is None:
+            return lambda shards: list(shards)
+        mesh, impl, group = self.mesh, self._gather_impl(graph.width), None
+        if impl == "chunked":  # G resolved once a build, under this runtime's model
+            group = _schedule.choose_gather_chunk_group(
+                devices=self.num_devices, width=graph.width, model=self._cost_model())[0]
+        return lambda shards: _halo.gather_global(shards, mesh, row_axis=1, impl=impl,
+                                                  chunk_group=group)
+
     def _allgather_step_fns(self, graph: TaskGraph,
                             steps: Optional[int] = None) -> Tuple[Callable, Callable]:
-        """(t0, step) for the all-gather plan, per step, on (1, W, P) states.
+        """(t0, step) for the all-gather plan, per step, over a list of D
+        shard states, each (1, B, P) (one device: [the (1, W, P) state]).
 
-        ``step(s, t)``: one K3 launch on timestep t's global tables (a
-        slice of a stack built once, on the host, for t < ``steps``, by
-        default the graph's T; an ensemble's lockstep T is longer for a
-        member that freezes early). all_to_all under ``psum_mean`` (default
-        on) takes the row mean instead (see the module docstring): sum and
-        divide, then one K3 launch."""
-        W, T = graph.width, steps or graph.steps
-        dev = self.device
+        ``step(shards, t)``: the gather (`_gather_fn`), then one K3 launch a
+        shard on the gathered W-row buffer with its rows [d*B, (d+1)*B) of
+        timestep t's global tables: global rows into the gathered buffer,
+        so nothing is rebased. The tables are a stack built once, on the
+        host, for t < ``steps`` (by default the graph's T; an ensemble's
+        lockstep T is longer for a member that freezes early), and cut into
+        each shard's rows once per build. all_to_all under ``psum_mean``
+        (default on) takes the row mean instead (`_halo.global_mean`, see
+        the module docstring), then one K3 launch a shard."""
+        W, B, T = graph.width, self._block(graph), steps or graph.steps
         kw = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
-        i0, w0 = (a[None] for a in _self_tables(W, dev))
+        selfs = self._per_device(lambda dev: tuple(a[None] for a in _self_tables(B, dev)))
 
-        def t0(x):
-            return _kops.taskbench_step(x, i0, w0, **kw)
+        def t0(shards):
+            return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw), shards)
 
         if graph.pattern == "all_to_all" and bool(self.options.get("psum_mean", True)):
             # every output row gathers the one mean row at weight 1
-            i_mean = torch.zeros((1, W, 1), dtype=torch.int32, device=dev)
+            i_mean = self._per_device(lambda dev: torch.zeros((1, B, 1), dtype=torch.int32,
+                                                              device=dev))
+            mesh = self.mesh
 
-            def step(x, t: int):
-                mean = x.sum(dim=1, keepdim=True) / W
-                return _kops.taskbench_step(mean, i_mean, w0, **kw)
+            def step(shards, t: int):
+                means = ([_halo.global_mean(shards[0], W, row_axis=1)] if mesh is None
+                         else _halo.global_mean(shards, W, mesh, row_axis=1))
+                return self._map(lambda d, m: _kops.taskbench_step(
+                    m[:, None], i_mean[d], selfs[d][1], **kw), means)
 
             return t0, step
 
         tables_at, key_of, time_varying = self._global_table_fn(graph)
         ts = range(1, T) if time_varying and T > 1 else (1,)
-        idx, wgt, rows = _stack_tables(tables_at, key_of, [[t] for t in ts], dev)
+        idx, wgt, rows = _stack_tables(tables_at, key_of, [[t] for t in ts], "cpu")
         row_of = dict(zip(ts, rows))
+        # each shard's rows of every (1, W, Dt) table, cut once: (keys, 1, B, Dt)
+        mine = [tuple(a[:, :, d * B:(d + 1) * B].contiguous().to(dev) for a in (idx, wgt))
+                for d, dev in enumerate(self.devices)]
+        gather = self._gather_fn(graph)
 
-        def step(x, t: int):
+        def step(shards, t: int):
             r = row_of[t] if time_varying else 0
-            return _kops.taskbench_step(x, idx[r], wgt[r], **kw)
+            return self._map(lambda d, f: _kops.taskbench_step(
+                f, mine[d][0][r], mine[d][1][r], **kw), gather(shards))
 
         return t0, step
 
-    def _plan_step_fns(self, graph: TaskGraph, plan: str,
-                       steps: Optional[int] = None) -> Tuple[Callable, Callable]:
-        """(t0, step) of ``plan`` at S = 1 on (1, W, P) states, valid for
-        t < ``steps`` (default the graph's T)."""
-        if plan == PLAN_HALO:
-            return self._halo_step_fns(graph)
+    def _plan_shard_fns(self, graph: TaskGraph, plan: str,
+                        steps: Optional[int] = None) -> Tuple[Callable, Callable]:
+        """(t0, step) of ``plan`` at S = 1 over shard lists, valid for t <
+        ``steps`` (default the graph's T); the halo plan's on one device
+        only (its sharded run is `_sharded_halo_run`)."""
+        if plan == PLAN_HALO:  # one device: the wrap folded into K3
+            t0, step = self._halo_step_fns(graph)
+            return (lambda shards: [t0(shards[0])]), (lambda shards, t: [step(shards[0], t)])
         if plan == PLAN_STRIDE:
             return self._stride_step_fns(graph)
         return self._allgather_step_fns(graph, steps)
 
-    def _build_plan_stepper(self, graph: TaskGraph, plan: str) -> Callable:
-        """Any plan per step: one K3 launch a timestep (and the plan's glue:
-        the XOR shuffle, or all_to_all's row mean)."""
-        T = graph.steps
-        t0, step = self._plan_step_fns(graph, plan)
+    def _shard_loop(self, t0: Callable, launches: Sequence, launch: Callable) -> Callable:
+        """The run of a plan over shard lists: ``t0`` on the initial shards,
+        then ``launch(states, item)`` for each of ``launches``. One device:
+        (W, P) -> (W, P); D shards: a tuple of (B, P) shards -> a tuple,
+        their streams forked from the caller's and joined back."""
+        mesh = self.mesh
 
         def run(init):
-            state = t0(init[None])
-            for t in range(1, T):
-                state = step(state, t)
-            return state[0]
+            if mesh is None:
+                init = (init,)
+            else:
+                mesh.fork()
+            states = t0([x[None] for x in init])
+            for item in launches:
+                states = launch(states, item)
+            if mesh is None:
+                return states[0][0]
+            mesh.join(states)
+            return tuple(s[0] for s in states)
 
         return run
+
+    def _build_plan_stepper(self, graph: TaskGraph, plan: str) -> Callable:
+        """Any plan per step (the halo plan on one device): one K3 launch a
+        timestep a shard (and the plan's transfer and glue: the XOR shuffle
+        or block exchange, the gather, or all_to_all's row mean)."""
+        t0, step = self._plan_shard_fns(graph, plan)
+        return self._shard_loop(t0, range(1, graph.steps), step)
 
     def _build_allgather_blocked(self, graph: TaskGraph, S: int) -> Callable:
-        """The blocked all-gather plan: after the t = 0 K3 launch,
-        ceil((T-1)/S) K4 launches on the full W-row state, each with the S
+        """The blocked all-gather plan: after the t = 0 K3 launch a shard,
+        ceil((T-1)/S) launches, each the gather (`_gather_fn`) and one K4
+        launch a shard on the gathered (1, W, P) buffer, with the S
         timesteps' (1, S, W, D) tables (time-varying: a per-launch stack
         built once on the host, launches with the same key sharing one) or
-        the one static (1, W, D) pair. Every row advances exactly, so the
-        state is the whole output; the final launch carries the masked
-        tail. No radius is declared: K4 takes its cooperative form."""
-        T, W = graph.steps, graph.width
-        dev = self.device
+        the one static (1, W, D) pair; each shard then keeps its own B rows,
+        so every shard does all W rows' work, as the reference's does. Every
+        row advances exactly; the final launch carries the masked tail. No
+        radius is declared: K4 takes its cooperative form (at D > 1 on one
+        card, D cooperative grids at once on the shards' streams)."""
+        T, B = graph.steps, self._block(graph)
         kw0 = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
         kwb = dict(kw0, steps_per_launch=S)
-        i0, w0 = (a[None] for a in _self_tables(W, dev))
-        acts = torch.from_numpy(_act_schedule((T,), T, S)[:, 0]).to(dev)  # (L, S)
+        selfs = self._per_device(lambda dev: tuple(a[None] for a in _self_tables(B, dev)))
+        acts_np = _act_schedule((T,), T, S)[:, 0]  # (L, S)
+        acts = self._per_device(lambda dev: torch.from_numpy(acts_np).to(dev))
+
+        def t0(shards):
+            return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw0), shards)
+
+        if not len(acts_np):  # T = 1: the body alone
+            return self._shard_loop(t0, (), None)
         tables_at, key_of, time_varying = self._global_table_fn(graph)
         # first timestep of each launch, and its S timesteps
-        groups = [[1 + l * S + d for d in range(S)] for l in range(acts.shape[0])]
-        if not groups:  # T = 1: the body alone
-            return lambda init: _kops.taskbench_step(init[None], i0, w0, **kw0)[0]
+        groups = [[1 + l * S + d for d in range(S)] for l in range(len(acts_np))]
         if not time_varying:
             groups = groups[:1]
-        idx, wgt, rows = _stack_tables(tables_at, key_of, groups, dev)
+        idx, wgt, rows = _stack_tables(tables_at, key_of, groups, "cpu")
         if not time_varying:  # one (1, W, D) pair for every launch
-            idx, wgt, rows = idx[:, 0], wgt[:, 0], [0] * acts.shape[0]
+            idx, wgt, rows = idx[:, 0], wgt[:, 0], [0] * len(acts_np)
+        tables = self._per_device(lambda dev: (idx.to(dev), wgt.to(dev)))
+        gather = self._gather_fn(graph)
 
-        def run(init):
-            state = _kops.taskbench_step(init[None], i0, w0, **kw0)  # t=0
-            for a, r in zip(acts, rows):
-                state = _kops.taskbench_step(state, idx[r:r + 1], wgt[r:r + 1],
-                                             a[None], **kwb)
-            return state[0]
+        def launch(states, l: int):
+            r = rows[l]
+            return self._map(lambda d, f: _kops.taskbench_step(
+                f, tables[d][0][r:r + 1], tables[d][1][r:r + 1], acts[d][l][None],
+                **kwb)[:, d * B:(d + 1) * B], gather(states))
 
-        return run
+        return self._shard_loop(t0, range(len(acts_np)), launch)
 
     # ------------------------------------------------------------ ensembles
 
@@ -1409,7 +1524,7 @@ class PallasStepRuntime(Runtime):
         S = self._ensemble_steps_per_launch(ensemble)
         if self.mesh is not None:
             if not self._is_stacked(ensemble):
-                self._sharded_only_halo("a tuple ensemble (" + self.stacking_verdict(ensemble)[1] + ")")
+                self._not_sharded_yet("a tuple ensemble (" + self.stacking_verdict(ensemble)[1] + ")")
             return self._sharded_halo_run(ensemble.members, S)
         if self._is_stacked(ensemble):
             if S > 1:
@@ -1491,16 +1606,16 @@ class PallasStepRuntime(Runtime):
         and its output dropped on the host: t is a host int."""
         members = ensemble.members
         T = ensemble.steps
-        fns = [self._plan_step_fns(g, self.plan_for(g)[0], T) for g in members]
+        fns = [self._plan_shard_fns(g, self.plan_for(g)[0], T) for g in members]
 
-        def run(inits):
-            states = [t0(x[None]) for (t0, _), x in zip(fns, inits)]
+        def run(inits):  # each member's state a list of one shard
+            states = [t0([x[None]]) for (t0, _), x in zip(fns, inits)]
             for t in range(1, T):
                 for k, (g, (_, step)) in enumerate(zip(members, fns)):
                     nxt = step(states[k], t)
                     if t < g.steps:
                         states[k] = nxt
-            return tuple(s[0] for s in states)
+            return tuple(s[0][0] for s in states)
 
         return run
 
@@ -1547,7 +1662,7 @@ class PallasStepRuntime(Runtime):
         measured model, None under the analytic one."""
         self._require_ensemble_support(ensemble)
         if self.mesh is not None:
-            self._sharded_only_halo("the host-stepped launch plan")
+            self._not_sharded_yet("the host-stepped launch plan")
         if self._is_stacked(ensemble):
             return self._launch_plan_stacked(
                 ensemble, self._ensemble_steps_per_launch(ensemble))
@@ -1614,10 +1729,10 @@ class PallasStepRuntime(Runtime):
         ``acts`` as for the stacked plan. Nothing is captured."""
         members = ensemble.members
         T = ensemble.steps
-        fns = [self._plan_step_fns(g, self.plan_for(g)[0], T) for g in members]
+        fns = [self._plan_shard_fns(g, self.plan_for(g)[0], T) for g in members]
 
-        def init_fn(inits):
-            return tuple(t0(x[None]) for (t0, _), x in zip(fns, inits))
+        def init_fn(inits):  # each member's state a list of one shard
+            return tuple(t0([x[None]]) for (t0, _), x in zip(fns, inits))
 
         def launch_fn(carry, act_row, t0):
             act = np.asarray(act_row)
@@ -1629,13 +1744,13 @@ class PallasStepRuntime(Runtime):
 
         def admit_fn(carry, slot, init):
             out = list(carry)
-            out[slot] = fns[slot][0](init[None])
+            out[slot] = fns[slot][0]([init[None]])
             return tuple(out)
 
         return EnsembleLaunchPlan(
             steps_per_launch=1, member_steps=tuple(ensemble.member_steps),
             acts=_act_schedule(ensemble.member_steps, T, 1), init_fn=init_fn,
-            launch_fn=launch_fn, finalize=lambda carry: tuple(s[0] for s in carry),
+            launch_fn=launch_fn, finalize=lambda carry: tuple(s[0][0] for s in carry),
             admit_fn=admit_fn,
             expected_launch_us=_schedule.expected_launch_wall_us(
                 rows=sum(g.width for g in members), steps_per_launch=1,

@@ -12,11 +12,16 @@ exchange-cost constant; this module measures what the card costs:
                            row shards (D on one card unless the caller
                            names distinct devices); on one device a
                            self-wrap that launches nothing: {"self": 0.0}
-  probe_stride_exchange_us the XOR block exchange; {} below 2 devices, and
-                           across shards not probed yet
+  probe_stride_exchange_us the XOR block exchange (stride 1) per transport
+                           between D shards; {} below 2 devices and at D
+                           not a power of two
   probe_gather_us          the all-gather plan's gather per width; on one
-                           device the gathered buffer is the state: 0.0;
-                           across shards not probed yet
+                           device the gathered buffer is the state: 0.0
+  probe_gather_impl_us     the gather per (transport, device count, width),
+                           and per chunk group ("chunked:gG"): the table
+                           behind `schedule.choose_gather_impl` and
+                           `schedule.choose_gather_chunk_group`, the median
+                           of its replays
 
 Every run of the port is one CUDA graph replay, so a launch costs what it
 costs as a graph node: each probe captures N chained launches in one graph,
@@ -49,7 +54,16 @@ pays off and "auto" on one device runs the serial schedule. Across D > 1
 row shards (``run_probes(devices=D)``) the halo probe times a real
 exchange between D shards of the card (each transport started and joined,
 as CUDA graph nodes), so X prices "auto"'s pipeline gate
-(``schedule.pipeline_interior_covers_exchange``) by what the card pays.
+(``schedule.pipeline_interior_covers_exchange``) by what the card pays; the
+stride, gather and gather-transport probes time their transfers the same
+way, and price the stride plan against the gathered one
+(``schedule.gathered_beats_strides``) and the gather transports.
+
+The transport-choice probe (`probe_gather_impl_us`) takes the median of its
+replays, as the reference's does: a transport chosen for every launch is
+ranked by the wall a launch typically pays, not by the best one. On the card
+each of its replays is timed with its own pair of CUDA events, all queued
+behind one device sleep.
 
 ``default_cost_model`` is the resolution every scheduling decision goes
 through when no model is passed explicitly; precedence:
@@ -63,10 +77,11 @@ through when no model is passed explicitly; precedence:
   analytic         schedule.PIPELINE_EXCHANGE_ROW_STEPS, no absolute costs,
                    plans not rankable
 
-CLI (calibrate on the card and persist)::
+CLI (calibrate on the card and persist; ``--devices D`` calibrates D
+shards of the card, the ``|dD|`` entry)::
 
     PYTHONPATH=src python -m repro_torch.kernels.probes \
-        --out artifacts/bench_torch/cost_model.json
+        --out artifacts/bench_torch/cost_model.json [--devices 4]
 
 Nothing is timed or built when this module is imported; the probes import
 the kernels inside their functions.
@@ -76,9 +91,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 from repro_torch.kernels import schedule as _schedule
 
@@ -118,6 +134,10 @@ SMOKE_ROW_WIDTHS = (64, 256, 512)
 SMOKE_NODES = 4
 #: The all-gather plan's widths the gather probe reports.
 GATHER_WIDTHS = (64, 256, 512)
+#: The stride probe's rows a shard.
+STRIDE_BLOCK = 32
+#: Replays the transport-choice probe takes the median of (smoke: 5).
+GATHER_IMPL_REPS = 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +155,8 @@ class CostModel:
     stride_exchange_us: Dict[str, float] = dataclasses.field(default_factory=dict)
     gather_us: Dict[int, float] = dataclasses.field(default_factory=dict)
     #: impl -> devices -> width -> us: the devices-dimension gather probes
-    #: (multi-device, ROADMAP Queue 1 item 8); empty here, kept for the codec
+    #: behind `schedule.choose_gather_impl` (and, under "chunked:gG" keys,
+    #: `schedule.choose_gather_chunk_group`); empty on one device
     gather_impl_us: Dict[str, Dict[int, Dict[int, float]]] = (
         dataclasses.field(default_factory=dict))
     platform: str = ""
@@ -179,6 +200,21 @@ class CostModel:
         """Measured gather wall at ``width``, interpolated per
         :meth:`_interp_width`. None when the model has no gather probes."""
         return self._interp_width(self.gather_us, width)
+
+    def gather_walls_at(self, width: int,
+                        devices: Optional[int] = None) -> Dict[str, float]:
+        """Per-transport gather walls at (devices, width) from the
+        devices-dimension probes: impl -> interpolated us, only for the
+        transports probed at exactly ``devices`` (default the model's own
+        count): a wall measured at another D says nothing of this one's
+        rendezvous. Empty when nothing was probed at that count."""
+        d = int(devices) if devices is not None else self.devices
+        out: Dict[str, float] = {}
+        for impl, by_devices in self.gather_impl_us.items():
+            us = self._interp_width(by_devices.get(d, {}), width)
+            if us is not None:
+                out[impl] = us
+        return out
 
     def stride_us_for(self, impl: str = "xla") -> Optional[float]:
         """One XOR block-exchange wall for ``impl``, falling back to any
@@ -417,11 +453,50 @@ def row_step_floor_us(payload: int) -> float:
     return ROW_STEP_FLOOR_FRACTION * 8 * payload / HBM_BYTES_PER_S * 1e6
 
 
-def _launch_us(step: Callable, x, nodes: int, reps: int, device=None) -> float:
+def _replay_walls_ms(replay: Callable[[], object], n: int) -> list:
+    """Device time of each of ``n`` calls of ``replay``, in ms: each call
+    between its own pair of CUDA events, all queued behind one device sleep
+    long enough to cover their enqueue (taken again behind a sleep twice as
+    long where it was not, as `attention_times.gpu_ms` does)."""
+    import torch
+
+    from repro_torch.launch.attention_times import COVER_ATTEMPTS
+
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(max(200_000_000, 4e6 * host_ms * n))
+    for attempt in range(COVER_ATTEMPTS):
+        asleep = torch.cuda.Event(enable_timing=True)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        t0 = time.perf_counter()
+        asleep.record()
+        torch.cuda._sleep(cycles << attempt)
+        for i in range(n):
+            marks[i].record()
+            replay()
+        marks[n].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        marks[n].synchronize()
+        if enqueue_ms < asleep.elapsed_time(marks[0]):
+            return [marks[i].elapsed_time(marks[i + 1]) for i in range(n)]
+    raise RuntimeError(
+        f"enqueueing {n} replays took {enqueue_ms:.3f} ms, longer than the device "
+        f"sleep meant to cover it, {COVER_ATTEMPTS} times")
+
+
+def _launch_us(step: Callable, x, nodes: int, reps: int, device=None,
+               stat: str = "mean") -> float:
     """Wall of one of ``nodes`` chained ``x = step(x)`` launches, in us: on
     the card the chain captured as one CUDA graph, ``reps`` replays queued
-    back to back behind a device sleep and timed with CUDA events; on the
-    CPU best of ``reps`` host walls of the chain."""
+    back to back behind a device sleep and timed with CUDA events (their
+    mean; ``stat="median"``: each replay timed alone, the median); on the
+    CPU the best (``stat="median"``: the median) of ``reps`` host walls of
+    the chain."""
     def chain():
         y = x
         for _ in range(nodes):
@@ -442,16 +517,18 @@ def _launch_us(step: Callable, x, nodes: int, reps: int, device=None) -> float:
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = Graphed(chain, stream)
         try:
+            if stat == "median":
+                return statistics.median(_replay_walls_ms(graph.replay, max(1, reps))) * 1e3 / nodes
             return gpu_ms(graph.replay, max(1, reps)) * 1e3 / nodes
         finally:
             graph.close()
     chain()
-    best = float("inf")
+    walls = []
     for _ in range(max(1, reps)):
         t0 = time.perf_counter()
         chain()
-        best = min(best, time.perf_counter() - t0)
-    return best * 1e6 / nodes
+        walls.append(time.perf_counter() - t0)
+    return (statistics.median(walls) if stat == "median" else min(walls)) * 1e6 / nodes
 
 
 def _step_call(width: int, payload: int, device):
@@ -496,22 +573,28 @@ def probe_row_step_us(payload: int = 64, *,
     return max(row_step_floor_us(payload), slope)
 
 
-def _probe_mesh(devices, device=None):
+def _probe_mesh(devices, device=None, count: Optional[int] = None):
     """The probe's `_halo.ShardMesh`: ``devices`` shards on the probes'
-    device (a count), or on the devices named (a sequence)."""
+    device (a count), or on the devices named (a sequence); ``count``: the
+    first ``count`` of them."""
     from repro_torch.core.runtimes import _halo
 
     if isinstance(devices, int):
-        return _halo.ShardMesh([_device(device)] * devices)
-    return _halo.ShardMesh([_device(d) for d in devices])
+        return _halo.ShardMesh([_device(device)] * (count or devices))
+    devs = [_device(d) for d in devices]
+    return _halo.ShardMesh(devs[:count or len(devs)])
+
+
+def _device_count(devices) -> int:
+    return devices if isinstance(devices, int) else len(devices)
 
 
 def _sharded_wall_us(step: Callable, mesh, rows_per_device: int, payload: int,
-                     reps: int, nodes: int) -> float:
+                     reps: int, nodes: int, stat: str = "mean") -> float:
     """Wall of one ``step(shards)`` over D (rows, payload) f32 shards, as
     one of ``nodes`` chained steps in one CUDA graph on the card (each
     step's shard streams forked from the capture and joined back), host
-    walls on the CPU (`_launch_us`)."""
+    walls on the CPU (`_launch_us`, ``stat`` its aggregate)."""
     import torch
 
     xs = [torch.zeros((rows_per_device, payload), dtype=torch.float32, device=d)
@@ -523,7 +606,7 @@ def _sharded_wall_us(step: Callable, mesh, rows_per_device: int, payload: int,
         mesh.join()
         return out
 
-    return _launch_us(one, xs, nodes, reps, device=mesh.devices[0])
+    return _launch_us(one, xs, nodes, reps, device=mesh.devices[0], stat=stat)
 
 
 def probe_halo_exchange_us(devices=1, payload: int = 64, *, depth: int = 8,
@@ -557,44 +640,163 @@ def probe_halo_exchange_us(devices=1, payload: int = 64, *, depth: int = 8,
     return out
 
 
-def probe_stride_exchange_us(devices: int = 1, payload: int = 64) -> Dict[str, float]:
-    """One XOR block exchange per transport: {} below 2 devices (every
-    stride is in-block there) and at device counts that are not powers of
-    two, as the reference's; across shards not probed yet (ROADMAP.md,
-    next port slice 15), so {} there too."""
-    del devices, payload
-    return {}
+def probe_stride_exchange_us(devices=1, payload: int = 64, *, block: int = STRIDE_BLOCK,
+                             reps: int = 5, device=None,
+                             nodes: int = LAUNCH_NODES) -> Dict[str, float]:
+    """One XOR block exchange (stride 1: shard d takes shard d XOR 1's
+    block) per STRIDE_ASYNC_IMPLS transport, started and joined, between
+    ``devices`` row shards (a count on the probes' device, or a sequence of
+    devices) of ``block`` rows. {} below 2 devices (every stride is
+    in-block there) and at device counts that are not powers of two (the
+    transport refuses them), as the reference's."""
+    from repro_torch.core.runtimes import _halo
 
-
-def probe_gather_us(devices: int = 1, payload: int = 64, *,
-                    widths: Sequence[int] = GATHER_WIDTHS) -> Dict[int, float]:
-    """The all-gather plan's gather per width. On one device the gathered
-    buffer is the state itself (the plan gathers nothing): 0.0 at each
-    width. Across shards the plan runs in the next slice, and its gather is
-    probed there (ROADMAP.md, next port slice 15): {} until then."""
-    if devices != 1:
+    D = _device_count(devices)
+    if D < 2 or D & (D - 1):
         return {}
-    return {int(w): 0.0 for w in sorted(set(widths))}
+    mesh = _probe_mesh(devices, device)
+    out: Dict[str, float] = {}
+    for impl in sorted(_halo.STRIDE_ASYNC_IMPLS):
+        def step(xs, impl=impl):
+            _halo.exchange_stride_start(mesh, xs, (1,), impl=impl).join()
+            return xs
+
+        out[impl] = _sharded_wall_us(step, mesh, block, payload, reps, nodes)
+    return out
+
+
+def _gather_wall_us(mesh, width: int, payload: int, reps: int, nodes: int, *,
+                    impl: str = "xla", group: Optional[int] = None,
+                    stat: str = "mean") -> float:
+    """Wall of one ``gather_global`` of a (width, payload) state over
+    ``mesh``'s shards, joined: every shard's global-order buffer made."""
+    from repro_torch.core.runtimes import _halo
+
+    def step(xs):
+        _halo.gather_global_start(mesh, xs, impl=impl, chunk_group=group).join()
+        return xs
+
+    return _sharded_wall_us(step, mesh, width // mesh.size, payload, reps, nodes, stat)
+
+
+def probe_gather_us(devices=1, payload: int = 64, *,
+                    widths: Sequence[int] = GATHER_WIDTHS, reps: int = 5,
+                    device=None, nodes: int = LAUNCH_NODES) -> Dict[int, float]:
+    """The all-gather plan's gather (the default "xla" transport) per
+    width, between ``devices`` row shards; widths that D does not divide
+    are skipped, as the plan never runs them. On one device the gathered
+    buffer is the state itself (the plan gathers nothing): 0.0 at each
+    width."""
+    D = _device_count(devices)
+    ws = sorted(set(int(w) for w in widths))
+    if D == 1:
+        return {w: 0.0 for w in ws}
+    mesh = _probe_mesh(devices, device)
+    return {w: _gather_wall_us(mesh, w, payload, reps, nodes)
+            for w in ws if w >= D and w % D == 0}
+
+
+def _gather_probe_device_counts(devices: int) -> Tuple[int, ...]:
+    """The devices-dimension grid: the calibration count and its /2 and /4
+    where they divide it (meshes over a prefix of the same devices), all
+    >= 2."""
+    counts = []
+    for d in (devices, devices // 2, devices // 4):
+        if d >= 2 and devices % d == 0 and d not in counts:
+            counts.append(d)
+    return tuple(counts)
+
+
+def _chunk_group_candidates(devices: int) -> Tuple[int, ...]:
+    """The proper divisors 1 < G < D: every grouping the chunked gather runs
+    without falling back to the monolithic one."""
+    return tuple(g for g in range(2, devices) if devices % g == 0)
+
+
+def probe_gather_impl_us(devices=1, payload: int = 64, *,
+                         widths: Sequence[int] = GATHER_WIDTHS,
+                         impls: Sequence[str] = ("xla", "chunked"),
+                         device_counts: Optional[Sequence[int]] = None,
+                         reps: int = GATHER_IMPL_REPS,
+                         chunk_groups: Union[str, Sequence[int], None] = "auto",
+                         device=None, nodes: int = LAUNCH_NODES,
+                         ) -> Dict[str, Dict[int, Dict[int, float]]]:
+    """``gather_global``'s wall per (transport, device count, width): the
+    table behind `schedule.choose_gather_impl`, the median of ``reps``
+    replays. Each count of ``device_counts`` (default
+    `_gather_probe_device_counts`) runs on the first that many shards;
+    widths a count does not divide are skipped for it, and so is "chunked"
+    where it falls back to the monolithic gather (the analytic group 1 or
+    D), so the table never ranks a transport against itself.
+
+    ``chunk_groups`` adds the chunked transport's grouping rows under
+    pseudo-transport keys "chunked:g{G}" (`schedule.choose_gather_chunk_group`
+    ranks them; `choose_gather_impl` leaves them out): "auto" probes every
+    proper divisor of each count, a sequence its members that divide it,
+    None none; a count with fewer than two groupings has nothing to rank
+    and is skipped."""
+    from repro_torch.core.runtimes import _halo
+
+    for impl in impls:
+        if impl not in _halo.GATHER_IMPLS:
+            raise ValueError(
+                f"unknown gather impl {impl!r}; known {sorted(_halo.GATHER_IMPLS)}")
+    D = _device_count(devices)
+    counts = tuple(device_counts) if device_counts is not None \
+        else _gather_probe_device_counts(D)
+    out: Dict[str, Dict[int, Dict[int, float]]] = {}
+
+    def measure(key, impl, mesh, width, group=None):
+        us = _gather_wall_us(mesh, width, payload, reps, nodes, impl=impl, group=group,
+                             stat="median")
+        out.setdefault(key, {}).setdefault(mesh.size, {})[width] = us
+
+    for d in counts:
+        mesh = _probe_mesh(devices, device, count=d)
+        ws = [w for w in sorted(set(int(w) for w in widths)) if w >= d and w % d == 0]
+        for impl in impls:
+            if impl == "chunked" and _halo.gather_chunk_group(d) in (1, d):
+                continue  # the monolithic gather at this count
+            for w in ws:
+                measure(impl, impl, mesh, w)
+        if chunk_groups is None or "chunked" not in impls:
+            continue
+        groups = _chunk_group_candidates(d) if chunk_groups == "auto" else tuple(
+            int(g) for g in chunk_groups if 1 < int(g) < d and d % int(g) == 0)
+        if len(groups) < 2:
+            continue
+        for g in groups:
+            for w in ws:
+                measure(f"chunked:g{g}", "chunked", mesh, w, group=g)
+    return out
 
 
 def run_probes(devices: Optional[int] = None, payload: int = 64, *,
                reps: int = 5, smoke: bool = False, device=None) -> CostModel:
     """All probes -> one measured CostModel (not yet persisted), on the card
-    unless ``device="cpu"`` (the plain path, for the tests). ``smoke``
-    shrinks reps, widths and graph lengths; the schema and the derivation
-    are identical."""
+    unless ``device="cpu"`` (the plain path, for the tests), over
+    ``devices`` row shards of it (default 1). ``smoke`` shrinks reps,
+    widths and graph lengths, and probes the gather transports at the
+    calibration count alone (a full run adds its /2 and /4); the schema and
+    the derivation are identical."""
     dev = _device(device)
     devices = 1 if devices is None else int(devices)
     row_widths, nodes = ROW_WIDTHS, (LAUNCH_NODES, ROW_NODES)
+    impl_reps = max(reps, GATHER_IMPL_REPS)
     if smoke:
         reps = min(reps, 3)
         row_widths, nodes = SMOKE_ROW_WIDTHS, (SMOKE_NODES, SMOKE_NODES)
+        impl_reps = max(reps, 5)
     launch = probe_launch_us(payload, reps=reps, device=dev, nodes=nodes[0])
     row_step = probe_row_step_us(payload, widths=row_widths, reps=reps,
                                  device=dev, nodes=nodes[1])
     halo = probe_halo_exchange_us(devices, payload, reps=reps, device=dev, nodes=nodes[0])
-    stride = probe_stride_exchange_us(devices, payload)
-    gather = probe_gather_us(devices, payload)
+    stride = probe_stride_exchange_us(devices, payload, reps=reps, device=dev,
+                                      nodes=nodes[0])
+    gather = probe_gather_us(devices, payload, reps=reps, device=dev, nodes=nodes[0])
+    gather_impl = probe_gather_impl_us(
+        devices, payload, device_counts=(devices,) if smoke else None, reps=impl_reps,
+        device=dev, nodes=nodes[0]) if devices >= 2 else {}
     # The covers/pays-off unit: one exchange in row-steps. Tested for a
     # measurement, not for truth: a measured 0.0 exchange gives X = 1.
     exch = halo.get("xla", min(halo.values()) if halo else None)
@@ -608,6 +810,9 @@ def run_probes(devices: Optional[int] = None, payload: int = 64, *,
         halo_exchange_us={k: float(v) for k, v in halo.items()},
         stride_exchange_us={k: float(v) for k, v in stride.items()},
         gather_us={k: float(v) for k, v in gather.items()},
+        gather_impl_us={impl: {d: {w: float(us) for w, us in curve.items()}
+                               for d, curve in by_d.items()}
+                        for impl, by_d in gather_impl.items()},
         platform=_platform(dev),
         devices=devices,
         payload=int(payload),
@@ -622,6 +827,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--devices", type=int, default=1,
+                    help="row shards of the one device to calibrate for (the |dD| entry)")
     ap.add_argument("--payload", type=int, default=64)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--smoke", action="store_true",
@@ -632,8 +839,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="print the model as JSON on stdout")
     args = ap.parse_args(argv)
-    model = run_probes(payload=args.payload, reps=args.reps, smoke=args.smoke,
-                       device=args.device)
+    model = run_probes(devices=args.devices, payload=args.payload, reps=args.reps,
+                       smoke=args.smoke, device=args.device)
     if args.out != "-":
         path = save_cost_model(model, args.out)
         print(f"cost model [{model.cache_key()}] -> {path}")

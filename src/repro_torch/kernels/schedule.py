@@ -18,8 +18,10 @@ policy, and the runtime, the benchmarks and the tests agree on one rule.
 The policy is the reference's, line for line: `CANDIDATES`, the covers
 and pays-off rules (`pipeline_interior_covers_exchange`,
 `gathered_pays_off`), the plan ranking (`gathered_beats_strides`), the
-choosers' deepest-first walk and the deadlines (`expected_launch_wall_us`,
-`launch_deadline_us`); the reason strings are the reference's too. Every
+choosers' deepest-first walk, the gather transport and chunk-group
+choosers (`choose_gather_impl`, `choose_gather_chunk_group`) and the
+deadlines (`expected_launch_wall_us`, `launch_deadline_us`); the reason
+strings are the reference's too. Every
 rule is priced against a cost model (``kernels/probes.py``'s `CostModel`):
 resolvers take ``model=``, and None resolves the default (env constant >
 cached probe calibration > analytic fallback). The model decides which
@@ -43,6 +45,7 @@ it is kept for parity with the reference's plan dispatch, and the
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 #: Depths the auto-tuner considers (deepest first), the reference's.
@@ -319,6 +322,111 @@ def gathered_beats_strides(
         f"replication={width - block} rows x "
         f"{model.row_step_us:.3f}us)")
     return verdict, reason
+
+
+#: below this device count a single rendezvous is already minimal and the
+#: chunked gather's second stage is pure overhead; at or above it the two
+#: ~sqrt(D)-party segment gathers win structurally (the reference's rule)
+DEFAULT_CHUNKED_GATHER_MIN_DEVICES = 16
+
+
+def choose_gather_impl(*, width: int, devices: int,
+                       model=None) -> Tuple[str, str]:
+    """Rank the gather_global transports at (devices, width).
+
+    Every gather transport moves exact row copies, so the choice is one of
+    cost alone. A measured model with the devices-dimension gather probes
+    (``gather_impl_us``) ranks by the interpolated walls at this exact (D,
+    W), the "chunked:gG" grouping keys left out (they rank the chunk group,
+    `choose_gather_chunk_group`); otherwise the structural rule applies:
+    "chunked" at D >= DEFAULT_CHUNKED_GATHER_MIN_DEVICES, "xla" below.
+    Returns (impl, reason), the reason naming the numbers."""
+    if devices <= 2:
+        return "xla", (f"{devices} device(s): one rendezvous is already "
+                       f"minimal, nothing to chunk")
+    model = _resolve_model(model)
+    walls = {}
+    if getattr(model, "gather_walls_at", None) is not None:
+        walls = model.gather_walls_at(width, devices) or {}
+    walls = {k: v for k, v in walls.items() if ":" not in k}
+    if len(walls) >= 2:
+        impl = min(walls, key=walls.get)
+        detail = ", ".join(
+            f"{k}={v:.1f}us" for k, v in sorted(walls.items()))
+        return impl, (f"measured gather walls at D={devices}, "
+                      f"W={width}: {detail}")
+    if devices >= DEFAULT_CHUNKED_GATHER_MIN_DEVICES:
+        return "chunked", (
+            f"structural: D={devices} >= "
+            f"{DEFAULT_CHUNKED_GATHER_MIN_DEVICES}, two ~sqrt(D)-party "
+            f"segment gathers beat one {devices}-wide rendezvous "
+            f"(no measured devices-dimension probes to overrule)")
+    return "xla", (
+        f"structural: D={devices} < "
+        f"{DEFAULT_CHUNKED_GATHER_MIN_DEVICES}, monolithic all-gather "
+        f"(no measured devices-dimension probes to overrule)")
+
+
+_GATHER_CHUNK_GROUP_ENV = "REPRO_GATHER_CHUNK_GROUP"
+
+
+def choose_gather_chunk_group(*, devices: int, width: Optional[int] = None,
+                              model=None,
+                              explicit: Optional[int] = None
+                              ) -> Tuple[int, str]:
+    """The chunked gather's segment size G at (devices, width).
+
+    The two-stage gather splits D shards into D/G segments of G; every G
+    that divides D gives the same bits, so G is a choice of cost alone.
+    Precedence: ``explicit`` > the ``REPRO_GATHER_CHUNK_GROUP`` env > the
+    measured grouping walls at this exact (D, W) (``gather_impl_us`` keys
+    "chunked:g{G}", at least two candidates to rank) > the analytic rule,
+    the divisor of D nearest sqrt(D) (``_halo.gather_chunk_group``). An
+    explicit or env G that does not divide D is refused loudly. Returns
+    (group, reason)."""
+    def _validated(value, origin: str) -> int:
+        try:
+            g = int(value)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"{origin} chunk group {value!r} is not an integer")
+        if g < 1 or devices % g:
+            raise ValueError(
+                f"{origin} chunk group {g} does not divide D={devices} "
+                f"(the two-stage segment gather needs G | D)")
+        return g
+
+    if explicit is not None:
+        g = _validated(explicit, "explicit")
+        return g, f"explicit chunk group G={g}"
+    raw = os.environ.get(_GATHER_CHUNK_GROUP_ENV)
+    if raw is not None and raw.strip():
+        g = _validated(raw.strip(), f"env {_GATHER_CHUNK_GROUP_ENV}")
+        return g, f"env {_GATHER_CHUNK_GROUP_ENV}={g}"
+    model = _resolve_model(model)
+    if width is not None and getattr(model, "gather_walls_at", None):
+        walls = model.gather_walls_at(width, devices) or {}
+        grouped = {}
+        for impl, us in walls.items():
+            if not impl.startswith("chunked:g"):
+                continue
+            try:
+                g = int(impl.split(":g", 1)[1])
+            except ValueError:
+                continue
+            if 1 < g < devices and devices % g == 0:
+                grouped[g] = us
+        if len(grouped) >= 2:
+            best = min(grouped, key=lambda g: (grouped[g], g))
+            detail = ", ".join(
+                f"g{g}={us:.1f}us" for g, us in sorted(grouped.items()))
+            return best, (f"measured chunked-gather grouping walls at "
+                          f"D={devices}, W={width}: {detail}")
+    from repro_torch.core.runtimes import _halo
+
+    g = _halo.gather_chunk_group(devices)
+    return g, (f"analytic: divisor of D={devices} nearest sqrt(D) -> G={g} "
+               f"(no measured grouping probes at this D, W to overrule)")
 
 
 # --------------------------------------------------------------- deadlines

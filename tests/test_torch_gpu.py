@@ -28,8 +28,12 @@ its eager loop bit for bit in three runs, launching D times a shard's
 count, and within tolerance of the one-device run and the CPU plain path
 at grain 1; the ensembles; ``overlap``'s transfers under compute (> 0 us;
 0 with ``overlap=False`` at D = 2); K3 writing into ``out=``; the memory
-body's cooperative K4 grids over shards; the halo probe. Every test carries the ``gpu`` marker and skips without a
-card.
+body's cooperative K4 grids over shards; the halo probe; the stride and
+all-gather plans over shards (fft, tree, spread, all_to_all under each
+transport, blocked too), each bit for bit its eager loop and its D = 1 run
+(all_to_all's row mean within tolerance); the stride, gather and
+gather-transport probes. Every test carries the ``gpu`` marker and skips
+without a card.
 
 Run on a machine with an NVIDIA card (the kernels build with nvcc at first
 use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1418,3 +1422,67 @@ def test_sharded_memory_body_takes_the_cooperative_form(cuda, D):
     got = rt.execute(g, x)
     assert ops.launch_counts()["taskbench_blocked"] == D * (rt.dispatches_per_run(g) - 1)
     assert np.array_equal(got, one)
+
+
+SHARD_PLAN_CASES = [("fft", {}), ("fft", {"halo_impl": "ppermute"}), ("tree", {}),
+                    ("fft", {"steps_per_launch": 8}), ("fft", {"combine": "gather"}),
+                    ("spread", {}), ("spread", {"steps_per_launch": 4}),
+                    ("spread", {"gather_impl": "ppermute"}), ("spread", {"gather_impl": "chunked"}),
+                    ("all_to_all", {}), ("all_to_all", {"psum_mean": False}),
+                    ("all_to_all", {"steps_per_launch": 4, "gather_impl": "chunked"})]
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("pattern,opts", SHARD_PLAN_CASES,
+                         ids=[f"{p}-{'-'.join(f'{k}={v}' for k, v in o.items()) or 'default'}"
+                              for p, o in SHARD_PLAN_CASES])
+def test_sharded_plans_equal_their_eager_loop_and_d1(cuda, pattern, opts, D):
+    """The stride and all-gather plans over D shards of one card (W = 64:
+    at D = 4 the strides from 16 on are block exchanges): the run, one
+    graph, equals its eager loop bit for bit in three runs; it launches D
+    times a shard's K3 (and, blocked, cooperative K4) count; it equals the
+    one-device run bit for bit (all_to_all's row mean within tolerance) and
+    the CPU plain path within tolerance at grain 1."""
+    g = TaskGraph(steps=9, width=64, pattern=pattern, payload=16,
+                  kernel=KernelSpec("compute_bound", 1), seed=4)
+    rt = _sharded("pallas_step", opts, D, cuda)
+    run = rt.build(g)
+    assert isinstance(run, _capture.ShardedRun) and isinstance(run.inner, _capture.GraphRun)
+    x = _rand((64, 16), 9, cuda)
+    ops.reset_launch_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = run.eager(x.clone())
+    assert torch.equal(got, want)
+    assert all(torch.equal(run(x), want) for _ in range(2))
+    per = rt.dispatches_per_run(g)
+    plan = rt._schedule_for_graph(g)
+    if plan.steps_per_launch == 1:
+        assert counts["taskbench_step"] == D * per == sum(counts.values())
+    else:
+        assert plan.kind == "allgather"
+        assert (counts["taskbench_step"], counts["taskbench_blocked"]) == (D, D * (per - 1))
+    one = _sharded("pallas_step", opts, 1, cuda).execute(g, x)
+    if pattern == "all_to_all" and opts.get("psum_mean", True) and plan.steps_per_launch == 1:
+        np.testing.assert_allclose(got.cpu().numpy(), one, rtol=1e-5, atol=1e-6)
+    else:
+        assert np.array_equal(got.cpu().numpy(), one)
+    cpu = get_runtime("fused", device="cpu").execute(g, x.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_probes_time_the_stride_and_gather_transports(cuda):
+    from repro_torch.kernels import probes, schedule
+
+    stride = probes.probe_stride_exchange_us(4, 64, device=cuda, reps=3)
+    gather = probes.probe_gather_us(4, 64, device=cuda, reps=3)
+    table = probes.probe_gather_impl_us(4, 64, device=cuda, reps=5, nodes=20)
+    assert sorted(stride) == ["ppermute", "xla"] and min(stride.values()) > 0
+    assert sorted(gather) == list(probes.GATHER_WIDTHS) and min(gather.values()) > 0
+    assert sorted(table) == ["chunked", "xla"] and sorted(table["xla"]) == [2, 4]
+    m = probes.CostModel.from_dict(dict(source="measured", exchange_row_steps=1.0,
+                                        gather_impl_us={k: {str(d): c for d, c in v.items()}
+                                                        for k, v in table.items()},
+                                        devices=4))
+    assert schedule.choose_gather_impl(width=512, devices=4, model=m)[1].startswith("measured")

@@ -202,20 +202,26 @@ def test_cost_model_option_reads_a_cache(tmp_path):
     assert got == m and rec["source"] == str(path) and rec["model"] == m.to_dict()
 
 
-def test_smoke_sweeps_the_row_shard_rows(tmp_path):
-    """``--devices 4``: each shard schedule at D = 1 and over 4 shards
-    (labels suffixed ``[D=4]``, keys the guard never meets among its
-    cells), and the overlap gain per D and grain: the medians' gain, its
-    range over the sweeps (which holds it) and how far on's wall lies under
-    off's."""
-    out = tmp_path / "metg_d4.json"
+@pytest.fixture(scope="module")
+def shard_smoke(tmp_path_factory):
+    """The records of one ``--smoke --device cpu --devices 4`` run."""
+    out = tmp_path_factory.mktemp("shards") / "metg_d4.json"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     subprocess.run(
         [sys.executable, "-m", "benchmarks.torch_metg", "--smoke", "--device", "cpu",
          "--devices", "4", "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
         text=True, timeout=300, check=True)
-    records = [json.loads(line) for line in out.read_text().splitlines()]
-    metg = [r for r in records if r["kind"] == "metg"]
+    return [json.loads(line) for line in out.read_text().splitlines()]
+
+
+def test_smoke_sweeps_the_row_shard_rows(shard_smoke):
+    """``--devices 4``: each shard schedule at D = 1 and over 4 shards
+    (labels suffixed ``[D=4]``, keys the guard never meets among its
+    cells), and the overlap gain per D and grain: the medians' gain, its
+    range over the sweeps (which holds it) and how far on's wall lies under
+    off's."""
+    records = shard_smoke
+    metg = [r for r in records if r["kind"] == "metg" and r["pattern"] == "stencil_1d"]
     from benchmarks.torch_metg import SHARD_SCHEDULES
 
     want = {label for label, _, _ in SHARD_SCHEDULES}
@@ -232,3 +238,20 @@ def test_smoke_sweeps_the_row_shard_rows(tmp_path):
             assert lo <= v <= hi
             assert r["under"][g] == pytest.approx(v / (1 + v))
     assert records[-1]["kind"] == "summary" and records[-1]["devices"] == 4
+
+
+def test_smoke_sweeps_the_stride_plan_over_shards(shard_smoke):
+    """``--devices 4`` also sweeps ``pallas_step`` S = 1 on fft (the stride
+    plan: at W = 16 over 4 shards the strides from 4 on are block
+    exchanges) at D = 1 and over 4 shards, the same sweeps as the other
+    shard rows, each launching T K3 a shard."""
+    from benchmarks.torch_metg import SHARD_PLAN_SCHEDULES, SMOKE_FLOOR_METG_W
+
+    fft = [r for r in shard_smoke if r["kind"] == "metg" and r["pattern"] == "fft"]
+    assert [(r["runtime"], r["devices"]) for r in fft] == [
+        (label if D == 1 else f"{label}[D=4]", D)
+        for label, _, _, _ in SHARD_PLAN_SCHEDULES for D in (1, 4)]
+    for r in fft:
+        assert r["W"] == SMOKE_FLOOR_METG_W and r["od"] is None and r["repeats"] == 2
+        assert r["dispatches_per_run"] == r["steps"] and r["options"] == {}
+        assert sorted(r["us_per_step_median"]) == ["1", "16"]

@@ -690,3 +690,212 @@ def test_analytic_fallback_is_the_suite_default():
     m = get_runtime("pallas_step", device="cpu", steps_per_launch="auto")._cost_model(8)
     assert m.source == "analytic" and dataclasses.asdict(m) == dataclasses.asdict(
         probes.analytic_cost_model())
+
+
+# ------------------------------------------- the gather choosers and probes
+
+#: Models with the devices-dimension gather probes: at D = 4 (one grouping,
+#: so no grouping rows), at D = 8 (groupings 2 and 4; chunked ahead), and a
+#: D = 8 table with one grouping row only (too few to rank) where xla leads.
+SHARD_MODELS = {
+    "d4": dict(MODELS["measured-mesh"], gather_impl_us={
+        "xla": {"4": {"64": 12.0, "512": 30.0}, "2": {"64": 8.0, "512": 9.0}},
+        "chunked": {"4": {"64": 14.0, "512": 22.0}}}),
+    "d8": dict(MODELS["measured-mesh"], devices=8, gather_impl_us={
+        "xla": {"8": {"64": 40.0, "256": 44.0, "512": 60.0}},
+        "chunked": {"8": {"64": 35.0, "256": 41.0, "512": 45.0}},
+        "chunked:g2": {"8": {"64": 36.0, "512": 50.0}},
+        "chunked:g4": {"8": {"64": 33.0, "512": 52.0}}}),
+    "d8-one-group": dict(MODELS["measured-mesh"], devices=8, gather_impl_us={
+        "xla": {"8": {"64": 20.0, "512": 25.0}},
+        "chunked": {"8": {"64": 30.0, "512": 35.0}},
+        "chunked:g4": {"8": {"64": 10.0, "512": 10.0}}}),
+}
+CHOOSER_MODELS = ["analytic", "measured-mesh", *SHARD_MODELS]
+
+
+def _shard_models(name):
+    d = SHARD_MODELS.get(name) or MODELS[name]
+    return probes.CostModel.from_dict(d), ref_probes.CostModel.from_dict(d)
+
+
+def _same_outcome(ours, theirs):
+    """Both calls' results, or both calls' ValueErrors with one message."""
+    try:
+        want = theirs()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            ours()
+        assert str(got.value) == str(e)
+        return None
+    assert ours() == want
+    return want
+
+
+@pytest.mark.parametrize("name", CHOOSER_MODELS)
+def test_choose_gather_impl_equals_the_reference(name):
+    """Transport and reason alike over device counts and widths: the
+    measured walls at exactly (D, W) (grouping rows left out), else the
+    structural rule."""
+    ours, ref = _shard_models(name)
+    seen = set()
+    for D in (1, 2, 3, 4, 8, 16, 32):
+        for W in (32, 64, 100, 256, 512, 1024):
+            got = schedule.choose_gather_impl(width=W, devices=D, model=ours)
+            assert got == ref_schedule.choose_gather_impl(width=W, devices=D, model=ref)
+            seen.add(got[0])
+    assert seen == ({"xla", "chunked"})
+    assert schedule.DEFAULT_CHUNKED_GATHER_MIN_DEVICES == \
+        ref_schedule.DEFAULT_CHUNKED_GATHER_MIN_DEVICES
+
+
+@pytest.mark.parametrize("name", CHOOSER_MODELS)
+def test_choose_gather_chunk_group_equals_the_reference(name, monkeypatch):
+    """Group and reason alike: explicit > env > measured grouping walls (two
+    candidates at least) > the divisor nearest sqrt(D); a G that does not
+    divide D, or is no integer, refused with the reference's message at the
+    explicit and the env tier; a blank env ignored."""
+    ours, ref = _shard_models(name)
+    env = schedule._GATHER_CHUNK_GROUP_ENV
+    assert env == ref_schedule._GATHER_CHUNK_GROUP_ENV
+    measured = []
+    for raw in (None, "4", " 2 ", "3", "x", "  "):
+        if raw is None:
+            monkeypatch.delenv(env, raising=False)
+        else:
+            monkeypatch.setenv(env, raw)
+        for D in (1, 2, 4, 6, 8, 9, 16, 32):
+            for W in (None, 64, 512):
+                for explicit in (None, 2, 3, 4, "8", "y"):
+                    kw = dict(devices=D, width=W, explicit=explicit)
+                    got = _same_outcome(
+                        lambda: schedule.choose_gather_chunk_group(model=ours, **kw),
+                        lambda: ref_schedule.choose_gather_chunk_group(model=ref, **kw))
+                    if got and got[1].startswith("measured"):
+                        measured.append((D, W, got[0]))
+    if name == "d8":
+        assert (8, 64, 4) in measured and (8, 512, 2) in measured
+    else:
+        assert not measured
+
+
+@pytest.mark.parametrize("name", CHOOSER_MODELS)
+def test_gather_walls_and_the_codec_cross_both_packages(name):
+    ours, ref = _shard_models(name)
+    assert ours.to_dict() == ref.to_dict()
+    assert ref_probes.CostModel.from_dict(ours.to_dict()) == ref
+    for D in (None, 2, 4, 8, 16):
+        for W in (16, 64, 100, 512, 4096):
+            assert ours.gather_walls_at(W, D) == pytest.approx(
+                ref.gather_walls_at(W, D), rel=1e-12)
+    if name == "d8":
+        assert sorted(ours.gather_walls_at(256)) == ["chunked", "chunked:g2", "chunked:g4",
+                                                    "xla"]
+        assert ours.gather_walls_at(256, 4) == {}
+
+
+def test_probe_grids_equal_the_reference():
+    for D in range(1, 33):
+        assert probes._gather_probe_device_counts(D) == ref_probes._gather_probe_device_counts(D)
+        assert probes._chunk_group_candidates(D) == ref_probes._chunk_group_candidates(D)
+
+
+@pytest.mark.parametrize("D", [4, 8])
+def test_run_probes_across_shards_fills_the_transport_tables(D, tmp_path):
+    """``run_probes(devices=D)`` on the plain path times the stride
+    exchange per transport, the gather per width and the gather per
+    (transport, D, width), the grouping rows where D has two groupings;
+    the choosers then read measured walls."""
+    m = probes.run_probes(devices=D, payload=8, device="cpu", smoke=True)
+    assert sorted(m.stride_exchange_us) == ["ppermute", "xla"]
+    assert sorted(m.gather_us) == list(probes.GATHER_WIDTHS)
+    groups = [f"chunked:g{g}" for g in probes._chunk_group_candidates(D)] if D == 8 else []
+    assert sorted(m.gather_impl_us) == sorted(["chunked", "xla", *groups])
+    assert all(sorted(by_d) == [D] and sorted(by_d[D]) == list(probes.GATHER_WIDTHS)
+               for by_d in m.gather_impl_us.values())
+    assert all(v > 0 for v in list(m.stride_exchange_us.values()) + list(m.gather_us.values()))
+    assert schedule.choose_gather_impl(width=64, devices=D, model=m)[1].startswith(
+        "measured gather walls")
+    g, why = schedule.choose_gather_chunk_group(devices=D, width=64, model=m)
+    assert why.startswith("measured" if D == 8 else "analytic") and D % g == 0
+    assert m.can_rank_plans and m.stride_us_for("xla") == m.stride_exchange_us["xla"]
+    path = probes.save_cost_model(m, tmp_path / "cm.json")
+    assert probes.load_cost_model(path)[f"cpu|d{D}|p8"] == m
+    # the reference's contract: nothing at D = 1 or a D not a power of two
+    assert probes.probe_stride_exchange_us(1) == probes.probe_stride_exchange_us(
+        3, device="cpu") == {}
+    assert probes.probe_gather_us(4, 8, widths=(6, 64), reps=1, device="cpu",
+                                  nodes=1).keys() == {64}
+
+
+def test_probes_cli_calibrates_shards(tmp_path, capsys):
+    out = tmp_path / "cm.json"
+    assert probes.main(["--smoke", "--device", "cpu", "--devices", "4", "--payload", "8",
+                        "--out", str(out)]) == 0
+    assert "cpu|d4|p8" in capsys.readouterr().out
+    (entry,) = probes.load_cost_model(out).values()
+    assert entry.devices == 4 and entry.gather_impl_us and entry.stride_exchange_us
+
+
+#: "auto" on a butterfly at D = 4 under a measured model: the reference
+#: re-routes to the blocked all-gather plan where ``gathered_beats_strides``
+#: says so ("reroute": cheap launches, cheap replication), and keeps the
+#: stride plan where replication costs more than the strides ("keep").
+AUTO_MODELS = {
+    "keep": dict(MODELS["measured-mesh"], row_step_us=5.0, stride_exchange_us={
+        "xla": 4.0, "ppermute": 3.0}),
+    "reroute": dict(MODELS["measured-mesh"], stride_exchange_us={"xla": 400.0}),
+}
+AUTO_CASES = [dict(key=f"auto-{p}-{m}-W{w}", runtime="pallas_step", D=4, reason=True,
+                   options=dict(steps_per_launch="auto", cost_model=AUTO_MODELS[m]),
+                   graph=dict(steps=12, width=w, pattern=p, payload=8, radius=2, seed=3,
+                              kernel=dict(kind="compute_bound", iterations=1, scratch=30)))
+              for p in ("fft", "tree") for m in AUTO_MODELS for w in (32, 64)]
+
+
+@pytest.fixture(scope="module")
+def ref_auto(tmp_path_factory):
+    from test_torch_shards_rungs import run_reference
+
+    return run_reference(AUTO_CASES, 4, tmp_path_factory.mktemp("ref_auto"))
+
+
+@pytest.mark.parametrize("case", AUTO_CASES, ids=[c["key"] for c in AUTO_CASES])
+def test_auto_on_a_butterfly_across_shards(case, ref_auto):
+    """At D = 4 the port's "auto" sees the measured stride and gather walls
+    through `gathered_beats_strides`, whose verdict on the shards' shape
+    (B = W / 4, the off-block strides) equals the reference's on the same
+    model. Where the reference keeps the stride plan the port resolves its
+    (plan, S); where the reference re-routes, the port's fit rule finds no
+    blocked depth for the all-gather plan (its K4 launch declares no
+    radius) and keeps the stride plan, the reason naming the rule. Either
+    way the run is within tolerance of the reference's and bit for bit its
+    explicit twin."""
+    arrays, meta = ref_auto
+    key = case["key"]
+    g = TaskGraph(kernel=KernelSpec("compute_bound", 1, 30),
+                  **{k: v for k, v in case["graph"].items() if k != "kernel"})
+    rt = get_runtime("pallas_step", devices=["cpu"] * 4, **case["options"])
+    got = rt._schedule_for_graph(g)
+    want_kind, want_S, _ = meta[key]["plan"]
+    model = probes.CostModel.from_dict(case["options"]["cost_model"])
+    strides = ps._patterns.butterfly_slot_strides(g)
+    B = g.width // 4
+    kw = dict(width=g.width, block=B, steps_per_launch=max(want_S, 8), period=len(strides),
+              off_block_strides=sum(1 for s in strides if s >= B), impl="xla")
+    verdict = schedule.gathered_beats_strides(model=model, **kw)
+    assert verdict == ref_schedule.gathered_beats_strides(
+        model=ref_probes.CostModel.from_dict(model.to_dict()), **kw)
+    if "keep" in key:
+        assert (got.kind, got.steps_per_launch) == (want_kind, want_S) == ("stride", 1)
+        assert not verdict[0]
+    else:
+        assert want_kind == "allgather" and want_S == 8 and verdict[0]
+        assert (got.kind, got.steps_per_launch) == ("stride", 1)
+        assert "declares no radius" in got.reason
+    assert rt.dispatches_per_run(g) == g.steps
+    init = arrays[f"{key}/init"]
+    out = rt.execute(g, init)
+    np.testing.assert_allclose(out, arrays[f"{key}/out"], **COMPUTE_TOL)
+    twin = get_runtime("pallas_step", devices=["cpu"] * 4, steps_per_launch=1)
+    np.testing.assert_array_equal(out, twin.execute(g, init))
