@@ -111,7 +111,9 @@ class EnsembleLaunchPlan:
     #: device) -> carry (the t = 0 body-only launch)
     init_fn: Callable[[Sequence[torch.Tensor]], Any]
     #: (carry, act row (K, S) numpy array, launch's first lockstep timestep)
-    #: -> next carry
+    #: -> next carry; a stacked plan also takes the act row as a float32
+    #: tensor already on the card, which it reads there (a caller that
+    #: stages the rows ahead keeps the host-to-card copy out of the launch)
     launch_fn: Callable[[Any, np.ndarray, int], Any]
     #: carry -> tuple of per-member (W_k, P_k) final states
     finalize: Callable[[Any], Tuple[torch.Tensor, ...]]
@@ -199,15 +201,16 @@ class Runtime(abc.ABC):
 
     # -- row shards --------------------------------------------------------
 
-    def _split(self, x):
+    def _split(self, x, devices: Optional[Sequence[torch.device]] = None):
         """The global (W, payload) state, or an ensemble's tuple of them, as
-        D separate shard tensors each: shard d a copy of rows [d*B, (d+1)*B)
-        on ``devices[d]``."""
+        separate shard tensors over ``devices`` (default the D row shards'):
+        shard d a copy of rows [d*B, (d+1)*B) on ``devices[d]``."""
         if not isinstance(x, torch.Tensor):
-            return tuple(self._split(m) for m in x)
-        B = x.shape[0] // self.num_devices
+            return tuple(self._split(m, devices) for m in x)
+        devices = self.devices if devices is None else devices
+        B = x.shape[0] // len(devices)
         return tuple(x.narrow(0, d * B, B).to(dev, copy=True)
-                     for d, dev in enumerate(self.devices))
+                     for d, dev in enumerate(devices))
 
     def _gather(self, shards):
         """The inverse of `_split`: the shards concatenated on ``device``."""
@@ -215,32 +218,43 @@ class Runtime(abc.ABC):
             return tuple(self._gather(m) for m in shards)
         return torch.cat([s.to(self.device) for s in shards])
 
-    def _on(self, d: int):
-        """A context in which shard d's work is issued (its stream)."""
-        return self.mesh.on(d) if self.mesh is not None else contextlib.nullcontext()
+    def _on(self, d: int, mesh: Optional[_halo.ShardMesh] = None):
+        """A context in which shard d's work is issued (its stream on
+        ``mesh``, by default the row mesh)."""
+        mesh = self.mesh if mesh is None else mesh
+        return mesh.on(d) if mesh is not None else contextlib.nullcontext()
 
-    def _map(self, fn: Callable, *lists) -> List:
-        """``fn(d, *args)`` for each shard d, issued on shard d's stream."""
+    def _map(self, fn: Callable, *lists, mesh: Optional[_halo.ShardMesh] = None) -> List:
+        """``fn(d, *args)`` for each shard d, issued on shard d's stream (of
+        ``mesh``, by default the row mesh)."""
         out = []
         for d, args in enumerate(zip(*lists)):
-            with self._on(d):
+            with self._on(d, mesh):
                 out.append(fn(d, *args))
         return out
 
-    def _sharded_run(self, eager, example):
+    def _sharded_run(self, eager, example, split: Optional[Callable] = None):
         """At D > 1: the shards' eager loop ``eager`` over ``example``'s
         shard tuple(s), captured as one CUDA graph where every shard sits on
         one card and run eagerly on the CPU or across distinct cards,
-        wrapped to take and give the global state (`ShardedRun`)."""
+        wrapped to take and give the global state (`ShardedRun`, splitting
+        with ``split``, by default `_split`)."""
         inner = eager
         if self.device.type == "cuda" and self.mesh.one_card:
             inner = GraphRun(eager, example)
-        return ShardedRun(inner, self._split, self._gather)
+        return ShardedRun(inner, split or self._split, self._gather)
 
-    def _zero_shards(self, graph: TaskGraph):
-        B = self._block(graph)
+    def _zero_shards(self, graph: TaskGraph,
+                     devices: Optional[Sequence[torch.device]] = None):
+        devices = self.devices if devices is None else devices
+        B = graph.width // len(devices)
         return tuple(torch.zeros((B, graph.payload), dtype=torch.float32, device=dev)
-                     for dev in self.devices)
+                     for dev in devices)
+
+    def _member_devices(self, ensemble: GraphEnsemble) -> List[List[torch.device]]:
+        """The devices each ensemble member's rows are split over at D > 1:
+        every row shard's, unless the backend shards the members too."""
+        return [self.devices] * len(ensemble.members)
 
     # -- capabilities ------------------------------------------------------
 
@@ -318,8 +332,10 @@ class Runtime(abc.ABC):
         self._require_ensemble_support(ensemble)
         eager = self._build_ensemble_eager(ensemble)
         if self.mesh is not None:
-            return self._sharded_run(eager, tuple(self._zero_shards(g)
-                                                  for g in ensemble.members))
+            cols = self._member_devices(ensemble)
+            return self._sharded_run(
+                eager, tuple(self._zero_shards(g, c) for g, c in zip(ensemble.members, cols)),
+                lambda xs: tuple(self._split(x, c) for x, c in zip(xs, cols)))
         if self.device.type != "cuda":
             return eager
         return GraphRun(eager, tuple(

@@ -96,9 +96,18 @@ wrap is the one-device form). S > 1 serial: per launch the deep exchange
 (B > 2*S*H): the boundary launch, the next launch's edge exchange started
 on its outputs (``_halo.exchange_edges_start`` over ``halo_impl``), the
 interior launch, which runs under the transfer; the next launch joins it,
-and the prologue exchange feeds the first. The stacked ensembles shard
-alike. The stride and all-gather plans are written once, as (t0, step)
-over a list of shard states (one device: a list of one): the stride plan
+and the prologue exchange feeds the first. The halo plan is written once
+over a ring of shards, as a (t0, launch) pair for K stacked members
+(`_halo_shard_steps`; a graph is K = 1), which the stacked and tuple
+ensembles and the launch plans reuse; the one-device schedules keep the
+folded wrap (K3's ``wrap=H``) and share the phase slicing and the
+pipelined phases with it. One device keeps its own blocked schedules: on a
+ring of one shard the pair gives the same bits and K4 launches in slower
+steps (more graph nodes, and a pipelined interior that waits for the
+boundary on one stream; ``benchmarks/torch_pipeline_trace.py --only
+ring``). The stride and all-gather plans are written
+once, as (t0, step) over a list of shard states (one device: a list of
+one): the stride plan
 takes an in-block partner (s < B) from the shard's own block and a block
 partner (s >= B) from shard d XOR s/B through ``_halo.exchange_stride``
 over ``halo_impl``, then one K3 launch a shard; the all-gather plan gathers
@@ -110,10 +119,21 @@ all W rows' work, as the reference's); all_to_all's row mean sums the
 shards' partial sums (``_halo.global_mean``). Every transfer moves exact
 row copies, so a sharded run equals the one-device run bit for bit (the
 row mean within f32 reduction tolerance). ``dispatches_per_run`` stays the
-reference's per-shard count (a run launches D times as many). At D > 1
-tuple ensembles, the launch plans and ``member_shards`` keep the
-reference's verdicts and raise `NotImplementedError` naming ROADMAP.md's
-next port slice.
+reference's per-shard count (a run launches D times as many).
+
+Ensembles over D shards. A tuple ensemble runs each member's own plan over
+the D shards (B_k = W_k / D): halo members through the pair at K = 1,
+the others through their (t0, step). A stacked ensemble runs on the 2D
+(row, member) mesh (``launch/mesh.py``) when ``member_shards`` = Dk > 1:
+the D devices reshape to (Dr, Dk), row axis first, member slice j (K/Dk
+members) runs on ring j of Dr shards at B = W / Dr, its exchanges inside
+that ring, each ring's shards on streams of their own; member k's rows live
+on its ring's devices only (`_member_devices`). The run and the stacked
+launch plan build on one `_MemberSlices` per mesh. Every row a run moves is an
+exact copy, so a member-sharded run equals the replicated run on Dr (and on
+D) devices bit for bit. The pipeline gate of a member slice reads its block
+W / Dr, and ``ensemble_dispatches_per_run`` counts those launches (the
+reference's count reads W / D there, though its run pipelines too).
 
 Ensembles (``build_ensemble``; the reference's ensemble section). An
 ensemble is *stacked* when its members share (width, payload) and one
@@ -133,7 +153,9 @@ the shared cadence blocks too, each member serial or pipelined by its own
 gate. A member off the halo plan pins the cadence to one step a launch.
 ``build_ensemble_launches`` gives the host-steppable form
 (`EnsembleLaunchPlan`): the stacked one captures its launch once on the
-card and replays it per launch, with the act row staged into the graph.
+card and replays it per launch, with the act row staged into the graph (at
+D > 1 the launch over every ring of the (row, member) mesh, on static shard
+carries); the stepwise one issues the tuple's member fns eagerly.
 
 Depth under ``steps_per_launch="auto"`` (or 0, "0"; `kernels/schedule.py`
 and `kernels/probes.py`, the reference's policy): the halo plan takes the
@@ -165,9 +187,10 @@ device); ``gather_impl`` = "auto" (default: a non-default ``halo_impl``
 that names a gather transport, else `schedule.choose_gather_impl` under the
 cost model) or a ``_halo.GATHER_IMPLS`` name ("xla", "ppermute",
 "chunked"), the all-gather plan's transport at D > 1 (the same bits);
-``member_shards`` = 1 (the row x member mesh is ROADMAP.md's next port
-slice). The reference's ``block_rows`` and ``unroll`` (TPU tilings) are
-unknown options here.
+``member_shards`` = 1 (default), an int Dk dividing K and D, or "auto" (0,
+"0": `schedule.choose_member_shards` under the cost model), the stacked
+ensembles' row x member mesh at D > 1 (the same bits). The reference's
+``block_rows`` and ``unroll`` (TPU tilings) are unknown options here.
 """
 from __future__ import annotations
 
@@ -198,6 +221,7 @@ from repro_torch.kernels.taskbench_step import (
     prepare_step_operands,
     wrap_rows,
 )
+from repro_torch.launch.mesh import RowMemberMesh, make_row_member_mesh
 
 #: Execution-plan kinds the pattern -> plan dispatch resolves to.
 PLAN_HALO = "halo"
@@ -463,16 +487,26 @@ class _PhaseTables(NamedTuple):
 
 def _phase_tables(idx: torch.Tensor, wgt: torch.Tensor, depth: int,
                   mode: str) -> _PhaseTables:
-    """Wrap the tables once and slice them per pipeline phase.
+    """One device: the tables wrapped once (`wrap_rows`, depth rows a side)
+    and sliced per pipeline phase (`_phase_slices`)."""
+    return _phase_slices(None if mode == "window" else wrap_rows(idx, depth),
+                         wrap_rows(wgt, depth), depth, mode)
 
-    All tensors carry a leading K axis; rows live on axis 1. The extended
-    table has B + 2*depth rows covering global rows [-depth, B + depth):
-    the interior buffer is ext[depth : depth + B], the left boundary buffer
-    ext[:3*depth], the right one ext[B - depth:]. Gather/onehot offsets are
-    rebased per buffer AFTER slicing: each phase's idx addresses its own
-    working buffer.
+
+def _phase_slices(ext_idx: Optional[torch.Tensor], ext_wgt: torch.Tensor, depth: int,
+                  mode: str) -> _PhaseTables:
+    """Halo-extended tables sliced per pipeline phase.
+
+    All tensors carry a leading K axis; rows live on axis 1. ``ext_wgt``
+    (and, for gather / onehot, ``ext_idx``, signed offsets; None in window
+    mode) holds B + 2*depth rows, the block's rows [-depth, B + depth): on
+    one device the tables wrapped (`_phase_tables`), on a shard its rows of
+    the global tables (`_shard_tables`). The interior buffer is
+    ext[depth : depth + B], the left boundary buffer ext[:3*depth], the
+    right one ext[B - depth:]. Gather/onehot offsets are rebased per buffer
+    AFTER slicing: each phase's idx addresses its own working buffer.
     """
-    K, B = wgt.shape[0], wgt.shape[1]
+    K, B = ext_wgt.shape[0], ext_wgt.shape[1] - 2 * depth
 
     def phases(ext):
         interior = ext[:, depth:depth + B]
@@ -480,40 +514,52 @@ def _phase_tables(idx: torch.Tensor, wgt: torch.Tensor, depth: int,
                              dim=1)
         return interior.contiguous(), boundary
 
-    w_int, w_bnd = phases(wrap_rows(wgt, depth))
+    w_int, w_bnd = phases(ext_wgt)
     if mode == "window":  # the kernel reads no idx
-        i_int = torch.zeros((K, 1, 1), dtype=torch.int32, device=wgt.device)
+        i_int = torch.zeros((K, 1, 1), dtype=torch.int32, device=ext_wgt.device)
         i_bnd = i_int
     else:
-        rel_int, rel_bnd = phases(wrap_rows(idx, depth))
+        rel_int, rel_bnd = phases(ext_idx)
         i_int = _rebase_rows(rel_int, row_axis=1)
         i_bnd = _rebase_rows(rel_bnd, row_axis=1)
     return _PhaseTables(i_int, w_int, i_bnd, w_bnd)
 
 
-def _pipelined_launch(s, hl, hr, a, ph: _PhaseTables, depth: int, kwb: dict,
-                      side: Optional["torch.cuda.Stream"] = None):
-    """One software-pipelined blocked launch on stacked (K, B, payload)
-    state: the boundary phase on the halo received for THIS launch
-    (``hl``/``hr``), then the interior phase, which depends on neither the
-    halo nor the boundary launch. On one device the next launch's exchange
-    is a self-wrap: the left halo is the right boundary output and the
-    right halo the left one. With ``side`` (a CUDA stream) the interior
-    runs there, ordered after the state it reads and before the
-    concatenation that reads it; without, both phases run in order.
-
-    Returns (s_next, hl_next, hr_next).
-    """
+def _boundary_launch(s, hl, hr, a, ph: _PhaseTables, depth: int, kwb: dict):
+    """A pipelined launch's boundary phase on stacked (K, B, payload) state:
+    one K4 launch on both 3*depth-row edge buffers, each the halo received
+    for this launch (``hl``/``hr``) and the block's first (last) 2*depth
+    rows. Returns the (left, right) depth-row outputs, the rows the next
+    launch's exchange sends."""
     B = s.shape[1]
     bl = torch.cat([hl, s[:, :2 * depth]], dim=1)
     br = torch.cat([s[:, B - 2 * depth:], hr], dim=1)
+    return _kops.taskbench_boundary(bl, br, ph.i_bnd, ph.w_bnd, a, depth=depth, **kwb)
+
+
+def _interior_launch(s, a, ph: _PhaseTables, depth: int, kwb: dict):
+    """A pipelined launch's interior phase: one K4 launch on the owned
+    block, which needs neither the halo nor the boundary phase."""
+    return _kops.taskbench_interior(s, ph.i_int, ph.w_int, a, depth=depth, **kwb)
+
+
+def _pipelined_launch(s, hl, hr, a, ph: _PhaseTables, depth: int, kwb: dict,
+                      side: Optional["torch.cuda.Stream"] = None):
+    """One software-pipelined blocked launch on one device: the boundary
+    phase, then the interior phase. The next launch's exchange is a
+    self-wrap: the left halo is the right boundary output and the right
+    halo the left one. With ``side`` (a CUDA stream) the interior runs
+    there, ordered after the state it reads and before the concatenation
+    that reads it; without, both phases run in order.
+
+    Returns (s_next, hl_next, hr_next).
+    """
     if side is not None:
         main = torch.cuda.current_stream(s.device)
         side.wait_stream(main)
-    bl_out, br_out = _kops.taskbench_boundary(
-        bl, br, ph.i_bnd, ph.w_bnd, a, depth=depth, **kwb)
+    bl_out, br_out = _boundary_launch(s, hl, hr, a, ph, depth, kwb)
     with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
-        mid = _kops.taskbench_interior(s, ph.i_int, ph.w_int, a, depth=depth, **kwb)
+        mid = _interior_launch(s, a, ph, depth, kwb)
     if side is not None:
         main.wait_stream(side)
         # the caching allocator must not hand these blocks to another
@@ -570,6 +616,62 @@ def _time_varying(graph: TaskGraph) -> bool:
     return graph.pattern == "spread" or graph.period > 1
 
 
+def _act_row(act_row) -> torch.Tensor:
+    """A stacked launch's (K, S) act row as a float32 tensor: a host array
+    converted on the host, a tensor (already on the card) as it is."""
+    if torch.is_tensor(act_row):
+        return act_row
+    return torch.as_tensor(np.asarray(act_row, dtype=np.float32))
+
+
+def _stacked(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Members' (B, payload) states stacked on a leading K axis (one member:
+    a view)."""
+    return torch.stack(tuple(xs)) if len(xs) > 1 else xs[0][None]
+
+
+class _ShardSteps(NamedTuple):
+    """The halo plan's run over one ring of shards for K stacked members
+    (`PallasStepRuntime._halo_shard_steps`), as lists over the ring's
+    shards. ``t0(inits)``: each shard's (K, B, payload) initial state ->
+    the carry after the t = 0 launch. ``launch(carry, item)`` -> the carry
+    after one launch, ``item`` a list over the shards: at S = 1 None (every
+    member steps) or each shard's (K, 1, 1) bool, the members that take
+    the step (the others keep their state); at S > 1 each shard's (K, S)
+    act rows. ``states(carry)``: each shard's (K, B, payload) state.
+    ``admit(carry, slot, shards)``: member ``slot``'s rows replaced, in
+    place, by the t = 0 launch on a fresh member's (B, payload) shards."""
+
+    t0: Callable
+    launch: Callable
+    states: Callable
+    admit: Callable
+
+
+class _MemberSlices(NamedTuple):
+    """K stacked members over the (row, member) mesh ``mesh`` of Dk member
+    slices (`PallasStepRuntime._member_slices`): slice j, members [j*kj,
+    (j+1)*kj), runs on ring j as one `_ShardSteps` pair. ``t0(inits)``:
+    each member's shard tuple (over its ring's devices) -> the rings'
+    carries. ``launch(carries, items)`` -> the next carries, ``items[j]``
+    ring j's item (None: every member steps). ``split(x, axis)``: ring j's
+    members of tensor ``x`` (member axis ``axis``) on each of its shards'
+    devices, the rings' items. ``states(carries)``: each ring's shard
+    states; ``members(states)``: each member's shard tuple.
+    ``admit(carries, slot, init)``: a fresh member's global init written
+    into ``slot`` on the ring that owns it, in place. ``t0`` and ``launch``
+    issue on the rings' streams: call them between a fork and a join."""
+
+    mesh: RowMemberMesh
+    kj: int
+    t0: Callable
+    launch: Callable
+    split: Callable
+    states: Callable
+    members: Callable
+    admit: Callable
+
+
 class _ResolvedPlan(NamedTuple):
     """What one graph will actually run: a plan kind and a launch depth;
     ``reason`` names why a plan was re-routed (empty for structural
@@ -578,10 +680,6 @@ class _ResolvedPlan(NamedTuple):
     kind: str
     steps_per_launch: int
     reason: str = ""
-
-
-#: where the D > 1 paths this slice leaves stand in ROADMAP.md
-NEXT_SLICE = "ROADMAP.md, next port slice 16 (the rest of Queue 1 item 8)"
 
 
 @register
@@ -601,10 +699,7 @@ class PallasStepRuntime(Runtime):
         if gi != "auto" and gi not in _halo.GATHER_IMPLS:
             raise ValueError(
                 f"unknown gather impl {gi!r}; known {sorted(_halo.GATHER_IMPLS)} or 'auto'")
-        if self.options.get("member_shards", 1) != 1:
-            raise NotImplementedError(
-                f"member_shards={self.options['member_shards']!r}: the row x member "
-                f"mesh is {NEXT_SLICE}")
+        self._meshes: dict = {}  # Dk -> its (row, member) mesh, made once
 
     def _halo_impl(self) -> str:
         """The pipelined edge exchange's transport (``_halo.HALO_ASYNC_IMPLS``):
@@ -612,11 +707,6 @@ class PallasStepRuntime(Runtime):
         direction); the same bits. On one device there is no exchange to
         make and the option changes nothing."""
         return str(self.options.get("halo_impl", "xla"))
-
-    def _not_sharded_yet(self, what: str):
-        raise NotImplementedError(
-            f"runtime {self.name} at D = {self.num_devices}: {what} is {NEXT_SLICE}; "
-            f"the halo, stride and all-gather plans and stacked ensembles run sharded")
 
     # ------------------------------------------------------ plan dispatch
 
@@ -882,12 +972,13 @@ class PallasStepRuntime(Runtime):
             return 1
         return 1 + -(-(total_steps - 1) // s)
 
-    def _operands(self, graph: TaskGraph, halo: int):
+    def _operands(self, graph: TaskGraph, halo: int, block: Optional[int] = None):
         """Host-built (idx, wgt, idx0, wgt0) for one graph, over its W
         global rows: the t >= 1 operands in the selected combine mode
-        (gather / onehot as positions in the shard's halo-extended block),
-        and the t = 0 (body only) 1-column self operands."""
-        B = self._block(graph)
+        (gather / onehot as positions in the shard's halo-extended block of
+        ``block`` rows, by default W / D), and the t = 0 (body only)
+        1-column self operands."""
+        B = block or self._block(graph)
         if self._combine_mode() == "window":
             idx, wgt = _window_operands(graph, halo)
         else:
@@ -895,7 +986,7 @@ class PallasStepRuntime(Runtime):
         idx0, wgt0 = _self_operands(graph.width, B)
         return idx, wgt, idx0, wgt0
 
-    def _blocked_operands(self, graph: TaskGraph, halo: int):
+    def _blocked_operands(self, graph: TaskGraph, halo: int, block: Optional[int] = None):
         """Host-built (idx, wgt, idx0, wgt0) for the blocked path: window
         mode reuses the per-global-row weight table; gather/onehot switch
         to SIGNED offsets (`_rel_dep_operands`), which wrap like state and
@@ -904,7 +995,7 @@ class PallasStepRuntime(Runtime):
             idx, wgt = _window_operands(graph, halo)
         else:
             idx, wgt = _rel_dep_operands(graph)
-        idx0, wgt0 = _self_operands(graph.width, self._block(graph))
+        idx0, wgt0 = _self_operands(graph.width, block or self._block(graph))
         return idx, wgt, idx0, wgt0
 
     def _kernel_kw(self, graph: TaskGraph, combine: Optional[str] = None) -> dict:
@@ -918,7 +1009,7 @@ class PallasStepRuntime(Runtime):
         plan = self._schedule_for_graph(graph)
         S = plan.steps_per_launch
         if self.mesh is not None and plan.kind == PLAN_HALO:
-            run = self._sharded_halo_run((graph,), S)
+            run = self._sharded_stacked_run((graph,), S)
             return lambda shards: run((shards,))[0]
         if S == 1:
             return self._build_plan_stepper(graph, plan.kind)
@@ -1006,7 +1097,8 @@ class PallasStepRuntime(Runtime):
 
     # -------------------------------------------------- the halo plan, D > 1
 
-    def _shard_tables(self, table: np.ndarray, depth: int, d: int, B: int,
+    @staticmethod
+    def _shard_tables(table: np.ndarray, depth: int, d: int, B: int, device,
                       rebase: bool = False) -> torch.Tensor:
         """Shard d's rows of a (K, W, Dt) global table, halo-extended by
         ``depth`` rows a side: global rows [d*B - depth, (d+1)*B + depth)
@@ -1019,178 +1111,255 @@ class PallasStepRuntime(Runtime):
         t = torch.from_numpy(np.ascontiguousarray(table[:, rows]))
         if rebase:
             t = _rebase_rows(t, row_axis=1)
-        return t.to(self.devices[d])
+        return t.to(device)
 
-    def _sharded_halo_run(self, members: Sequence[TaskGraph], S: int) -> Callable:
-        """The halo plan over D row shards, for K members stacked into one
-        (K, B, payload) state a shard (a graph: K = 1). The run takes and
-        gives a tuple of K members' shard tuples; each shard computes on its
-        own stream (`_halo.ShardMesh`).
+    def _halo_shard_steps(self, members: Sequence[TaskGraph], S: int,
+                          mesh: _halo.ShardMesh, steps: Optional[int] = None,
+                          pipelined: Optional[bool] = None) -> _ShardSteps:
+        """The halo plan over the shards of ``mesh`` (a ring of Dr shards,
+        B = W / Dr rows each) for K members stacked into one (K, B, payload)
+        state a shard, as a `_ShardSteps` (t0, launch) pair; every shard
+        computes on its own stream of ``mesh``. ``steps``: the run's
+        lockstep T (default the members' longest); ``pipelined``: the
+        schedule at S > 1 (default the gate, `_pipeline_active` at B).
 
         S = 1: each shard keeps two persistent (K, H + B + H) extended
-        buffers and alternates between them. Per timestep the ring exchange
-        of H rows (``_halo.exchange_halos``, the "ppermute" transport, the
-        reference's ``_extend_state``) writes the neighbours' edge rows
-        into the current buffer's head and tail, and one K3 launch reads
-        that buffer, unfolded (``wrap`` is the one-device form), and writes
-        the owned rows of the other (``out=``; for K > 1 members, whose
-        owned rows are not contiguous, or a frozen member, a copy). S > 1,
-        serial: per launch the deep exchange of S*H rows
-        (multi-hop past the block), the extended buffer, one K4 launch on
-        it and the owned rows sliced out. S > 1, pipelined (B > 2*S*H): per
-        launch the boundary K4 launch on both 3*S*H-row edge buffers, the
-        next launch's edge exchange started on its outputs
+        buffers, the carry, and alternates between them. A launch is the
+        ring exchange of H rows (``_halo.exchange_halos``, the "ppermute"
+        transport, the reference's ``_extend_state``), which writes the
+        neighbours' edge rows into the current buffer's head and tail, and
+        one K3 launch that reads that buffer, unfolded (``wrap`` is the
+        one-device form), and writes the owned rows of the other (``out=``;
+        for K > 1 members, whose owned rows are not contiguous, or a frozen
+        member, a copy). S > 1, serial: per launch the deep exchange of S*H
+        rows (multi-hop past the block), the extended buffer, one K4 launch
+        on it and the owned rows sliced out. S > 1, pipelined (B > 2*S*H):
+        per launch the boundary K4 launch on both 3*S*H-row edge buffers,
+        the next launch's edge exchange started on its outputs
         (``exchange_edges_start`` over ``halo_impl``), then the interior K4
-        launch, which runs under the transfer; the next launch joins it.
-        The t = 0 launch is K3 on the self operands. Members past their own
-        horizon keep their state (``torch.where`` at S = 1, the act rows at
-        S > 1)."""
-        mesh, devs = self.mesh, self.devices
-        D, K = len(devs), len(members)
+        launch, which runs under the transfer; the next launch joins it (the
+        one-device phase slicing and phases, `_phase_slices`,
+        `_boundary_launch`, `_interior_launch`). The t = 0 launch is K3 on
+        the self operands."""
+        devs, K = mesh.devices, len(members)
         g0 = members[0]
-        B, T = self._block(g0), max(g.steps for g in members)
+        B, P = g0.width // mesh.size, g0.payload
+        T = steps or max(g.steps for g in members)
         H = max(_patterns.halo_radius(g) for g in members)
         kw0 = self._kernel_kw(g0)
-        blocked = S > 1
-        build = self._blocked_operands if blocked else self._operands
-        idx, wgt, idx0, wgt0 = _stack_operands([build(g, H) for g in members])
-        rows = lambda d: slice(d * B, (d + 1) * B)  # noqa: E731
-        t0_ops = [(torch.from_numpy(np.ascontiguousarray(idx0[:, rows(d)])).to(dev),
-                   torch.from_numpy(np.ascontiguousarray(wgt0[:, rows(d)])).to(dev))
-                  for d, dev in enumerate(devs)]
-        heterogeneous = len({g.steps for g in members}) > 1
-        window = self._combine_mode() == "window"
+        mode = self._combine_mode()
+        window = mode == "window"
+        build = self._blocked_operands if S > 1 else self._operands
+        idx, wgt, idx0, wgt0 = _stack_operands([build(g, H, block=B) for g in members])
 
-        def extend(states, lefts, rights):
-            return self._map(lambda d, s, l, r: torch.cat([l, s, r], dim=1),
-                             states, lefts, rights)
+        def mp(fn, *lists):
+            return self._map(fn, *lists, mesh=mesh)
 
-        if not blocked:
-            i_d = [torch.from_numpy(np.ascontiguousarray(idx[:, rows(d)] if not window
-                                                         else idx[:, :B])).to(dev)
-                   for d, dev in enumerate(devs)]
-            w_d = [torch.from_numpy(np.ascontiguousarray(wgt[:, rows(d)])).to(dev)
-                   for d, dev in enumerate(devs)]
-            live = ([torch.from_numpy(GraphEnsemble(members).active_table()[:, :, None, None])
-                     .to(dev) for dev in devs] if heterogeneous else None)
+        def cut(table: np.ndarray, d: int, dev) -> torch.Tensor:  # shard d's B rows
+            return self._shard_tables(table, 0, d, B, dev)
+
+        t0_ops = [(cut(idx0, d, dev), cut(wgt0, d, dev)) for d, dev in enumerate(devs)]
+
+        def body0(d, x, slots=slice(None), out=None):
+            """The t = 0 K3 (the body alone) on shard d's (k, B, P) ``x``,
+            members ``slots`` of the stack."""
+            return _kops.taskbench_step(x, t0_ops[d][0][slots], t0_ops[d][1][slots], out=out,
+                                        **kw0)
+
+        def admit(carry, slot, shards):
+            mp(lambda d, s, x: s[slot:slot + 1].copy_(body0(d, x[None], slice(slot, slot + 1))),
+               states(carry), shards)
+            return carry
+
+        if S == 1:
+            i_d = [cut(idx, 0 if window else d, dev) for d, dev in enumerate(devs)]
+            w_d = [cut(wgt, d, dev) for d, dev in enumerate(devs)]
 
             def step_into(x, ops, dst, keep=None):
                 """K3 on ``x`` into ``dst``, the owned rows of the next buffer
-                (``keep``: the frozen members' rows)."""
+                (``keep``: the members that take the step, and their rows)."""
                 direct = keep is None and dst.is_contiguous()
                 nxt = _kops.taskbench_step(x, *ops, out=dst if direct else None, **kw0)
                 if not direct:
                     dst.copy_(nxt if keep is None else torch.where(keep[0], nxt, keep[1]))
 
-            def run_one(inits):
-                mesh.fork()
-                bufs = [self._map(lambda d, x: x.new_empty((K, B + 2 * H, x.shape[-1])),
-                                  inits[0]) for _ in range(2)]
-                self._map(lambda d, y, *xs: step_into(  # t = 0: the body alone
-                    torch.stack(xs) if K > 1 else xs[0][None], t0_ops[d], y[:, H:H + B]),
-                    bufs[0], *inits)
-                for t in range(1, T):
-                    cur, nxt = bufs[(t - 1) % 2], bufs[t % 2]
-                    if H:
-                        _halo.exchange_halos([c[:, H:H + B] for c in cur], H, mesh, row_axis=1,
-                                             out=([c[:, :H] for c in cur],
-                                                  [c[:, H + B:] for c in cur]))
-                    self._map(lambda d, x, y: step_into(
-                        x, (i_d[d], w_d[d]), y[:, H:H + B],
-                        None if live is None else (live[d][t], x[:, H:H + B])), cur, nxt)
-                final = [y[:, H:H + B] for y in bufs[(T - 1) % 2]]
-                mesh.join(final)
-                return tuple(tuple(s[k] for s in final) for k in range(K))
+            def t0(inits):
+                bufs = tuple(mp(lambda d, x: x.new_empty((K, B + 2 * H, P)), inits)
+                             for _ in range(2))
+                mp(lambda d, x, y: step_into(x, t0_ops[d], y[:, H:H + B]), inits, bufs[0])
+                return bufs
 
-            return run_one
+            def launch(carry, keep=None):
+                cur, nxt = carry
+                if H:
+                    _halo.exchange_halos([c[:, H:H + B] for c in cur], H, mesh, row_axis=1,
+                                         out=([c[:, :H] for c in cur],
+                                              [c[:, H + B:] for c in cur]))
+                mp(lambda d, x, y: step_into(
+                    x, (i_d[d], w_d[d]), y[:, H:H + B],
+                    None if keep is None else (keep[d], x[:, H:H + B])), cur, nxt)
+                return nxt, cur
+
+            def states(carry):
+                return [c[:, H:H + B] for c in carry[0]]
+
+            return _ShardSteps(t0, launch, states, admit)
 
         depth = S * H
         kwb = dict(kw0, steps_per_launch=S, radius=H)
-        acts_np = _act_schedule([g.steps for g in members], T, S)  # (L, K, S)
-        acts = [torch.from_numpy(acts_np).to(dev) for dev in devs]
-        pipelined = self._pipeline_active(B, S, H, g0.payload)
-        impl = self._halo_impl()
-        ext_i = [self._shard_tables(idx, depth, d, B, rebase=not window)
-                 if not window else torch.from_numpy(idx[:, :1]).to(dev)
-                 for d, dev in enumerate(devs)]
-        ext_w = [self._shard_tables(wgt, depth, d, B) for d in range(D)]
+        ext_w = [self._shard_tables(wgt, depth, d, B, dev) for d, dev in enumerate(devs)]
+        if pipelined is None:
+            pipelined = self._pipeline_active(B, S, H, P)
         if pipelined:
-            def phases(ext):
-                return (ext[:, depth:depth + B].contiguous(),
-                        torch.cat([ext[:, :3 * depth], ext[:, B - depth:B + 2 * depth]],
-                                  dim=1))
+            ph = [_phase_slices(None if window else self._shard_tables(idx, depth, d, B, dev),
+                                ext_w[d], depth, mode) for d, dev in enumerate(devs)]
+            impl = self._halo_impl()
 
-            ph = []
-            for d, dev in enumerate(devs):
-                w_int, w_bnd = phases(ext_w[d])
-                if window:
-                    i_int = i_bnd = torch.zeros((K, 1, 1), dtype=torch.int32, device=dev)
-                else:
-                    r_int, r_bnd = phases(self._shard_tables(idx, depth, d, B))
-                    i_int = _rebase_rows(r_int, row_axis=1)
-                    i_bnd = _rebase_rows(r_bnd, row_axis=1)
-                ph.append(_PhaseTables(i_int, w_int, i_bnd, w_bnd))
+            def t0(inits):
+                states_ = mp(lambda d, x: body0(d, x), inits)
+                if T <= 1:
+                    return states_, None
+                return states_, _halo.exchange_edges_start(  # the prologue exchange
+                    mesh, [s[:, :depth] for s in states_], [s[:, B - depth:] for s in states_],
+                    row_axis=1, impl=impl)
 
-        def launch(carry, l):
-            if not pipelined:
-                states = carry
-                if depth:
-                    lefts, rights = _halo.exchange_halos(states, depth, mesh, row_axis=1)
-                    src = extend(states, lefts, rights)
-                else:
-                    src = states
-                return self._map(
-                    lambda d, x: _kops.taskbench_step(
-                        x, ext_i[d], ext_w[d], acts[d][l], **kwb)[:, depth:depth + B],
-                    src)
-            states, handle = carry
-            lefts, rights = handle.join()
+            def launch(carry, a):
+                states_, handle = carry
+                lefts, rights = handle.join()
+                outs = mp(lambda d, s, hl, hr: _boundary_launch(s, hl, hr, a[d], ph[d], depth,
+                                                                kwb), states_, lefts, rights)
+                nxt = _halo.exchange_edges_start(mesh, [o[0] for o in outs],
+                                                 [o[1] for o in outs], row_axis=1, impl=impl)
+                mids = mp(lambda d, s: _interior_launch(s, a[d], ph[d], depth, kwb), states_)
+                return mp(lambda d, o, m: torch.cat([o[0], m, o[1]], dim=1), outs, mids), nxt
 
-            def edges(d, s, hl, hr):
-                bl = torch.cat([hl, s[:, :2 * depth]], dim=1)
-                br = torch.cat([s[:, B - 2 * depth:], hr], dim=1)
-                return _kops.taskbench_boundary(bl, br, ph[d].i_bnd, ph[d].w_bnd,
-                                                acts[d][l], depth=depth, **kwb)
+            def states(carry):
+                return carry[0]
 
-            outs = self._map(edges, states, lefts, rights)
-            nxt = _halo.exchange_edges_start(mesh, [o[0] for o in outs],
-                                             [o[1] for o in outs], row_axis=1, impl=impl)
-            mids = self._map(
-                lambda d, s: _kops.taskbench_interior(s, ph[d].i_int, ph[d].w_int,
-                                                      acts[d][l], depth=depth, **kwb),
-                states)
-            return (self._map(lambda d, o, m: torch.cat([o[0], m, o[1]], dim=1),
-                              outs, mids), nxt)
+            return _ShardSteps(t0, launch, states, admit)
+
+        ext_i = [self._shard_tables(idx, depth, d, B, dev, rebase=True) if not window
+                 else torch.from_numpy(idx[:, :1]).to(dev) for d, dev in enumerate(devs)]
+
+        def t0(inits):
+            return mp(lambda d, x: body0(d, x), inits)
+
+        def launch(states_, a):
+            src = states_
+            if depth:
+                lefts, rights = _halo.exchange_halos(states_, depth, mesh, row_axis=1)
+                src = mp(lambda d, s, l, r: torch.cat([l, s, r], dim=1), states_, lefts, rights)
+            return mp(lambda d, x: _kops.taskbench_step(
+                x, ext_i[d], ext_w[d], a[d], **kwb)[:, depth:depth + B], src)
+
+        def states(carry):
+            return carry
+
+        return _ShardSteps(t0, launch, states, admit)
+
+    def _stacked_shards(self, ring: _halo.ShardMesh, members) -> List[torch.Tensor]:
+        """Each shard of ``ring``'s (K, B, payload) stack of ``members``'
+        shard tuples, stacked on the shard's own stream (after a fork, so
+        the shard's launches come after it)."""
+        return self._map(lambda d, *xs: _stacked(xs), *members, mesh=ring)
+
+    def _row_member_mesh(self, dk: int) -> RowMemberMesh:
+        """The (row, member) mesh of this runtime's D devices at Dk = ``dk``
+        (Dk = 1: the row mesh itself), made once per Dk, so every build
+        issues on the same streams."""
+        if dk == 1:
+            return RowMemberMesh([self.mesh])
+        if dk not in self._meshes:
+            self._meshes[dk] = make_row_member_mesh(self.devices, dk)
+        return self._meshes[dk]
+
+    def _member_slices(self, members: Sequence[TaskGraph], S: int, dk: int,
+                       steps: int, pipelined: Optional[bool] = None) -> _MemberSlices:
+        """The halo plan over D row shards for K members stacked into one
+        state, on the (row, member) mesh of ``dk`` member slices, as a
+        `_MemberSlices`: slice j runs on ring j at B = W/Dr
+        (`_halo_shard_steps` at lockstep T ``steps``, ``pipelined`` its
+        schedule at S > 1), its exchanges inside that ring; every shard on
+        its own stream. The run and the stacked launch plan over shards
+        are both built on it."""
+        rmesh = self._row_member_mesh(dk)
+        rings, kj = rmesh.rings, len(members) // dk
+        Dr = rings[0].size
+        pairs = [self._halo_shard_steps(members[j * kj:(j + 1) * kj], S, ring, steps, pipelined)
+                 for j, ring in enumerate(rings)]
+
+        def t0(inits):
+            return tuple(p.t0(self._stacked_shards(ring, inits[j * kj:(j + 1) * kj]))
+                         for j, (p, ring) in enumerate(zip(pairs, rings)))
+
+        def launch(carries, items=None):
+            items = [None] * dk if items is None else items
+            return tuple(p.launch(c, it) for p, c, it in zip(pairs, carries, items))
+
+        def split(x: torch.Tensor, axis: int = 0):
+            return [self._per_device(lambda dev, j=j: x.narrow(axis, j * kj, kj).to(dev),
+                                     ring.devices) for j, ring in enumerate(rings)]
+
+        def states(carries):
+            return [p.states(c) for p, c in zip(pairs, carries)]
+
+        def by_member(finals):
+            return tuple(tuple(finals[k // kj][d][k % kj] for d in range(Dr))
+                         for k in range(len(members)))
+
+        def admit(carries, slot, init):
+            j, local = divmod(slot, kj)
+            shards = self._split(init, rings[j].devices)
+            self._issued(rings[j], lambda: pairs[j].admit(carries[j], local, shards))
+            return carries
+
+        return _MemberSlices(rmesh, kj, t0, launch, split, states, by_member, admit)
+
+    def _sharded_stacked_run(self, members: Sequence[TaskGraph], S: int,
+                             dk: int = 1) -> Callable:
+        """The halo plan over D row shards for K members stacked into one
+        state (a graph: K = 1), on the (row, member) mesh of ``dk`` member
+        slices (`_member_slices`). The run takes and gives a tuple of K
+        members' shard tuples, member k's over its ring's Dr devices; the
+        rings' launches are issued in turn each launch, every shard on its
+        own stream. Members past their own horizon keep their state (a
+        ``torch.where`` at S = 1, the act rows at S > 1)."""
+        T = max(g.steps for g in members)
+        sl = self._member_slices(members, S, dk, T)
+        if S == 1:
+            L = T - 1
+            live = (GraphEnsemble(members).active_table()[1:, :, None, None]
+                    if len({g.steps for g in members}) > 1 else None)  # (T - 1, K, 1, 1)
+        else:
+            live = _act_schedule([g.steps for g in members], T, S)  # (L, K, S)
+            L = live.shape[0]
+        items = None if live is None else sl.split(
+            torch.from_numpy(np.ascontiguousarray(live)), axis=1)
 
         def run(inits):
-            mesh.fork()
-            states = self._map(  # t = 0: the body alone
-                lambda d, *xs: _kops.taskbench_step(
-                    torch.stack(xs) if K > 1 else xs[0][None], *t0_ops[d], **kw0), *inits)
-            carry = states
-            L = acts_np.shape[0]
-            if pipelined and L:
-                carry = (states, _halo.exchange_edges_start(
-                    mesh, [s[:, :depth] for s in states], [s[:, B - depth:] for s in states],
-                    row_axis=1, impl=impl))  # the prologue exchange
+            sl.mesh.fork()
+            carries = sl.t0(inits)
             for l in range(L):
-                carry = launch(carry, l)
-            final = carry[0] if pipelined and L else carry
-            mesh.join(final)
-            return tuple(tuple(s[k] for s in final) for k in range(K))
+                carries = sl.launch(carries, None if items is None else
+                                    [[x[l] for x in ring] for ring in items])
+            finals = sl.states(carries)
+            sl.mesh.join(finals)
+            return sl.members(finals)
 
         return run
 
     # ------------------------------------------- stride / all-gather plans
 
-    def _per_device(self, make: Callable) -> List:
-        """``make(device)`` once per distinct device, listed per shard (read
-        only constants: shards on one card share one)."""
+    def _per_device(self, make: Callable, devices: Optional[Sequence] = None) -> List:
+        """``make(device)`` once per distinct device of ``devices`` (default
+        the row shards'), listed per shard (read only constants: shards on
+        one card share one)."""
         made: dict = {}
-        for dev in self.devices:
+        devices = self.devices if devices is None else devices
+        for dev in devices:
             if dev not in made:
                 made[dev] = make(dev)
-        return [made[dev] for dev in self.devices]
+        return [made[dev] for dev in devices]
 
     def _stride_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
         """(t0, step) for the stride plan (butterfly) over a list of D shard
@@ -1378,7 +1547,7 @@ class PallasStepRuntime(Runtime):
                         steps: Optional[int] = None) -> Tuple[Callable, Callable]:
         """(t0, step) of ``plan`` at S = 1 over shard lists, valid for t <
         ``steps`` (default the graph's T); the halo plan's on one device
-        only (its sharded run is `_sharded_halo_run`)."""
+        only (its sharded run is `_halo_shard_steps`)."""
         if plan == PLAN_HALO:  # one device: the wrap folded into K3
             t0, step = self._halo_step_fns(graph)
             return (lambda shards: [t0(shards[0])]), (lambda shards, t: [step(shards[0], t)])
@@ -1513,6 +1682,54 @@ class PallasStepRuntime(Runtime):
     def _is_stacked(self, ensemble: GraphEnsemble) -> bool:
         return self.stacking_verdict(ensemble)[0]
 
+    def _member_shards(self, ensemble: GraphEnsemble) -> int:
+        """Dk, the member slices of a stacked ensemble (the ``member_shards``
+        option; default 1, the 1D row mesh): "auto" (or 0, "0") asks
+        `schedule.choose_member_shards` to price the (Dr, Dk) split under
+        this runtime's cost model. An explicit Dk that does not divide K,
+        or the device count, is refused loudly, with the reference's
+        words."""
+        raw = self.options.get("member_shards", 1)
+        K, D = len(ensemble.members), self.num_devices
+        if _schedule.is_auto(raw):
+            return self._auto_member_shards(ensemble)[0]
+        dk = int(raw)
+        if dk < 1:
+            raise ValueError(f"member_shards must be >= 1, got {dk}")
+        if dk == 1:
+            return 1
+        if K % dk:
+            raise ValueError(
+                f"member_shards={dk} does not divide this ensemble's "
+                f"K={K} members — each member-axis shard needs an equal "
+                f"K/Dk slice of the stacked (K, B, payload) state. Pass "
+                f"member_shards=1 (or a divisor of {K}) to fall back to "
+                f"the replicated 1D row mesh.")
+        if D % dk:
+            make_row_member_mesh(self.devices, dk)  # raises, naming the fallback
+        return dk
+
+    def _auto_member_shards(self, ensemble: GraphEnsemble) -> Tuple[int, str]:
+        """(Dk, reason) of ``member_shards="auto"`` for a stacked ensemble
+        (`schedule.choose_member_shards` at the ensemble's launch depth and
+        largest radius)."""
+        g = ensemble.members[0]
+        return _schedule.choose_member_shards(
+            devices=self.num_devices, num_members=len(ensemble.members), width=g.width,
+            steps_per_launch=self._ensemble_steps_per_launch(ensemble),
+            radius=max(_patterns.halo_radius(m) for m in ensemble.members),
+            model=self._cost_model(g.payload))
+
+    def _member_devices(self, ensemble: GraphEnsemble) -> List[List[torch.device]]:
+        """At Dk > 1 member k's rows live on its ring's Dr devices only (the
+        ring of member slice k // (K/Dk)); otherwise on every row shard."""
+        if self.mesh is None or not self._is_stacked(ensemble):
+            return super()._member_devices(ensemble)
+        dk = self._member_shards(ensemble)
+        rings = self._row_member_mesh(dk).rings
+        kj = len(ensemble.members) // dk
+        return [list(rings[k // kj].devices) for k in range(len(ensemble.members))]
+
     def _stacked_operands(self, ensemble: GraphEnsemble, H: int, blocked: bool):
         """The members' (idx, wgt, idx0, wgt0) at the shared halo H, stacked
         (`_stack_operands`) and moved to the device."""
@@ -1522,11 +1739,10 @@ class PallasStepRuntime(Runtime):
 
     def _build_ensemble_eager(self, ensemble: GraphEnsemble) -> Callable:
         S = self._ensemble_steps_per_launch(ensemble)
-        if self.mesh is not None:
-            if not self._is_stacked(ensemble):
-                self._not_sharded_yet("a tuple ensemble (" + self.stacking_verdict(ensemble)[1] + ")")
-            return self._sharded_halo_run(ensemble.members, S)
         if self._is_stacked(ensemble):
+            dk = self._member_shards(ensemble)
+            if self.mesh is not None:
+                return self._sharded_stacked_run(ensemble.members, S, dk)
             if S > 1:
                 return self._build_ensemble_stacked_blocked(ensemble, S)
             return self._build_ensemble_stacked(ensemble)
@@ -1599,53 +1815,112 @@ class PallasStepRuntime(Runtime):
 
         return run
 
+    def _shard_list(self, x) -> List[torch.Tensor]:
+        """A member's state as a list of (1, B, payload) shards: on one
+        device [the (1, W, payload) state]; over D shards its shard tuple,
+        or a global state split first."""
+        if self.mesh is None:
+            return [x[None]]
+        if isinstance(x, torch.Tensor):
+            x = self._split(x)
+        return [s[None] for s in x]
+
+    def _member_out(self, shards: Sequence[torch.Tensor], gather: bool = False):
+        """The inverse of `_shard_list`: one device's state, or the shard
+        tuple (``gather``: the global state)."""
+        if self.mesh is None:
+            return shards[0][0]
+        out = tuple(s[0] for s in shards)
+        return self._gather(out) if gather else out
+
+    @staticmethod
+    def _issued(mesh, fn: Callable, mark: bool = False):
+        """``fn()`` with the shards' streams of ``mesh`` (a `ShardMesh` or a
+        `RowMemberMesh`; None on one device) forked from the caller's
+        stream before it and joined back after it; ``mark``: ``fn`` gives
+        states over the shards (a list of shard lists), which the join marks
+        as used on the caller's stream."""
+        if mesh is None:
+            return fn()
+        mesh.fork()
+        out = fn()
+        mesh.join(*(out if mark else ()))
+        return out
+
+    def _member_fns(self, graph: TaskGraph, steps: int) -> Tuple[Callable, Callable, Callable]:
+        """(t0, step, states) of one tuple member, one step a launch, over
+        shard lists (`_shard_list`) valid for t < ``steps``: ``step(carry,
+        t)``. A halo member over D shards runs the stacked pair at K = 1
+        (`_halo_shard_steps`), its carry the pair's; any other member its
+        plan's (t0, step) (`_plan_shard_fns`), its carry the shard list."""
+        plan = self.plan_for(graph)[0]
+        if plan == PLAN_HALO and self.mesh is not None:
+            pair = self._halo_shard_steps([graph], 1, self.mesh, steps)
+            return pair.t0, (lambda carry, t: pair.launch(carry)), pair.states
+        t0, step = self._plan_shard_fns(graph, plan, steps)
+        return t0, step, (lambda carry: carry)
+
     def _build_ensemble_tuple(self, ensemble: GraphEnsemble) -> Callable:
         """Mixed specs, shapes or plans, one step a launch: every member's
-        (t0, step) of its own plan, each member launched every lockstep
-        step. A frozen member is launched too (the reference's accounting)
-        and its output dropped on the host: t is a host int."""
-        members = ensemble.members
-        T = ensemble.steps
-        fns = [self._plan_shard_fns(g, self.plan_for(g)[0], T) for g in members]
+        (t0, step) of its own plan over its own shards (`_member_fns`; B_k
+        = W_k / D), each member launched every lockstep step. A frozen
+        member is launched too (the reference's accounting) and its output
+        dropped on the host: t is a host int."""
+        members, T, mesh = ensemble.members, ensemble.steps, self.mesh
+        fns = [self._member_fns(g, T) for g in members]
 
-        def run(inits):  # each member's state a list of one shard
-            states = [t0([x[None]]) for (t0, _), x in zip(fns, inits)]
-            for t in range(1, T):
-                for k, (g, (_, step)) in enumerate(zip(members, fns)):
-                    nxt = step(states[k], t)
-                    if t < g.steps:
-                        states[k] = nxt
-            return tuple(s[0][0] for s in states)
+        def run(inits):
+            def issue():
+                carries = [t0(self._shard_list(x)) for (t0, _, _), x in zip(fns, inits)]
+                for t in range(1, T):
+                    for k, (g, (_, step, _)) in enumerate(zip(members, fns)):
+                        nxt = step(carries[k], t)
+                        if t < g.steps:
+                            carries[k] = nxt
+                return [states(c) for (_, _, states), c in zip(fns, carries)]
+
+            return tuple(self._member_out(f) for f in self._issued(mesh, issue, mark=True))
 
         return run
+
+    def _member_blocked(self, graph: TaskGraph, S: int, steps: int):
+        """(t0, launch, states) of one halo member's blocked launches over
+        shard lists, under the member's own pipeline gate: ``launch(carry,
+        a)`` with ``a`` each shard's (1, S) act rows. Over D shards the
+        stacked pair at K = 1; on one device `_blocked_launches` after the
+        t = 0 K3 launch."""
+        h = _patterns.halo_radius(graph)
+        if self.mesh is not None:
+            pair = self._halo_shard_steps([graph], S, self.mesh, steps)
+            return pair.t0, pair.launch, pair.states
+        kw0 = self._kernel_kw(graph)
+        idx, wgt, idx0, wgt0 = (torch.from_numpy(a)[None].to(self.device)
+                                for a in self._blocked_operands(graph, h))
+        begin, launch = self._blocked_launches(
+            idx, wgt, graph.width, S, h, dict(kw0, steps_per_launch=S, radius=h),
+            self._pipeline_active(graph.width, S, h, graph.payload))
+        return ((lambda shards: begin(_kops.taskbench_step(shards[0], idx0, wgt0, **kw0))),
+                (lambda carry, a: launch(carry, a[0])), (lambda carry: [carry[0]]))
 
     def _build_ensemble_tuple_blocked(self, ensemble: GraphEnsemble, S: int) -> Callable:
         """Mixed specs or shapes, every member on the halo plan, blocked:
         one S-step launch per member per lockstep launch (the cadence and
         the act schedule shared), each member serial or pipelined by its
         own gate (one with no interior at depth S * h_k stays serial)."""
-        members = ensemble.members
-        T = ensemble.steps
-        acts = torch.from_numpy(
-            _act_schedule(ensemble.member_steps, T, S)).to(self.device)  # (L, K, S)
-        t0s, runners = [], []
-        for g in members:
-            h = _patterns.halo_radius(g)
-            kw0 = self._kernel_kw(g)
-            idx, wgt, idx0, wgt0 = (torch.from_numpy(a)[None].to(self.device)
-                                    for a in self._blocked_operands(g, h))
-            t0s.append((idx0, wgt0, kw0))
-            runners.append(self._blocked_launches(
-                idx, wgt, g.width, S, h, dict(kw0, steps_per_launch=S, radius=h),
-                self._pipeline_active(g.width, S, h, g.payload)))
+        members, T, mesh = ensemble.members, ensemble.steps, self.mesh
+        acts_np = _act_schedule(ensemble.member_steps, T, S)  # (L, K, S)
+        acts = self._per_device(lambda dev: torch.from_numpy(acts_np).to(dev))
+        runners = [self._member_blocked(g, S, T) for g in members]
 
         def run(inits):
-            carries = [begin(_kops.taskbench_step(x[None], i0, w0, **kw0))
-                       for x, (i0, w0, kw0), (begin, _) in zip(inits, t0s, runners)]
-            for a in acts:
-                for k, (_, launch) in enumerate(runners):
-                    carries[k] = launch(carries[k], a[k:k + 1])
-            return tuple(c[0][0] for c in carries)
+            def issue():
+                carries = [t0(self._shard_list(x)) for (t0, _, _), x in zip(runners, inits)]
+                for l in range(acts[0].shape[0]):
+                    for k, (_, launch, _) in enumerate(runners):
+                        carries[k] = launch(carries[k], [a[l, k:k + 1] for a in acts])
+                return [states(c) for (_, _, states), c in zip(runners, carries)]
+
+            return tuple(self._member_out(f) for f in self._issued(mesh, issue, mark=True))
 
         return run
 
@@ -1654,18 +1929,20 @@ class PallasStepRuntime(Runtime):
     def build_ensemble_launches(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
         """The ensemble's launch structure, stepped from the host: a
         stacked ensemble keeps its blocked cadence on the serial schedule
-        (equal to the pipelined one bit for bit); any other runs the tuple
-        path's step fns one step a launch. Each launch is a deterministic
+        (equal to the pipelined one bit for bit), over D shards on its
+        (row, member) mesh; any other runs the tuple path's step fns one
+        step a launch. Each launch is a deterministic
         function of (carry, act row). ``expected_launch_us`` is the cost
         model's wall of one launch (`schedule.expected_launch_wall_us` over
         K x W rows, or the members' rows summed at S = 1): a number under a
         measured model, None under the analytic one."""
         self._require_ensemble_support(ensemble)
-        if self.mesh is not None:
-            self._not_sharded_yet("the host-stepped launch plan")
         if self._is_stacked(ensemble):
-            return self._launch_plan_stacked(
-                ensemble, self._ensemble_steps_per_launch(ensemble))
+            S = self._ensemble_steps_per_launch(ensemble)
+            dk = self._member_shards(ensemble)
+            if self.mesh is not None:
+                return self._launch_plan_stacked_sharded(ensemble, S, dk)
+            return self._launch_plan_stacked(ensemble, S)
         return self._launch_plan_stepwise(ensemble)
 
     def _launch_plan_stacked(self, ensemble: GraphEnsemble, S: int) -> EnsembleLaunchPlan:
@@ -1702,7 +1979,7 @@ class PallasStepRuntime(Runtime):
 
         def launch_fn(carry, act_row, t0):
             del t0  # the stacked halo tables are time-invariant
-            a = torch.as_tensor(np.asarray(act_row, dtype=np.float32))
+            a = _act_row(act_row)
             if graphed is None:
                 return launch((carry, a.to(dev)))
             return graphed((carry, a))
@@ -1721,39 +1998,104 @@ class PallasStepRuntime(Runtime):
                 impl=self._exchange_impl()),
             kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
 
-    def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
-        """One step a launch for mixed ensembles: the tuple path's (t0,
-        step) fns, issued eagerly from the host at each launch (t picks each
-        member's branch or table slice), every member launched and a frozen
-        one's output dropped by its act row, so eviction is the same edit of
-        ``acts`` as for the stacked plan. Nothing is captured."""
+    def _launch_plan_stacked_sharded(self, ensemble: GraphEnsemble, S: int,
+                                     dk: int) -> EnsembleLaunchPlan:
+        """The stacked launch plan over D row shards: member slice j on ring
+        j of the (row, member) mesh of ``dk`` slices, each ring's launch
+        the serial schedule of `_halo_shard_steps` (at S = 1 one K3 step, a
+        member taking it while its act row's column 0 is 1). On one card the
+        launch over every ring is captured once, over static shard carries
+        and a static act row, and each call stages both and replays it, so
+        editing ``acts`` or admitting a member captures nothing; each ring
+        reads its members' rows of the act row. ``admit_fn`` writes the t =
+        0 K3 of the fresh member's rows into its slot, on the member slice
+        that owns the slot only, in place. The plan takes and gives global
+        (W, payload) states."""
         members = ensemble.members
-        T = ensemble.steps
-        fns = [self._plan_shard_fns(g, self.plan_for(g)[0], T) for g in members]
+        K, W, P, T = len(members), members[0].width, members[0].payload, ensemble.steps
+        sl = self._member_slices(members, S, dk, T, pipelined=False)
+        rings = sl.mesh.rings
 
-        def init_fn(inits):  # each member's state a list of one shard
-            return tuple(t0([x[None]]) for (t0, _), x in zip(fns, inits))
+        def launch(xs):
+            carries, a = xs
+            if S == 1:
+                a = a[:, :1, None] > 0
+            items = sl.split(a)  # each ring's rows of the act row, before the fork
+            return self._issued(sl.mesh, lambda: sl.launch(carries, items))
+
+        def init_fn(inits):
+            cols = [self._split(x, rings[k // sl.kj].devices) for k, x in enumerate(inits)]
+            return self._issued(sl.mesh, lambda: sl.t0(cols))
+
+        dev = self.device
+        graphed = None
+        if dev.type == "cuda" and self.mesh.one_card:
+            with _build.building():  # a static carry: the t = 0 launch on zeros
+                example = init_fn([torch.zeros((W, P), device=dev) for _ in members])
+            graphed = GraphRun(launch, (example, torch.zeros((K, S), device=dev)))
+
+        def launch_fn(carry, act_row, t0):
+            del t0  # the stacked halo tables are time-invariant
+            a = _act_row(act_row)
+            if graphed is None:
+                return launch((carry, a.to(dev)))
+            return graphed((carry, a))
+
+        def finalize(carry):
+            return tuple(self._gather(shards) for shards in sl.members(sl.states(carry)))
+
+        return EnsembleLaunchPlan(
+            steps_per_launch=S, member_steps=tuple(ensemble.member_steps),
+            acts=_act_schedule(ensemble.member_steps, T, S), init_fn=init_fn,
+            launch_fn=launch_fn, finalize=finalize, admit_fn=sl.admit,
+            expected_launch_us=_schedule.expected_launch_wall_us(
+                rows=sl.kj * (W // rings[0].size), steps_per_launch=S,
+                model=self._cost_model(P),
+                impl=self._exchange_impl()),
+            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
+
+    def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
+        """One step a launch for mixed ensembles: the tuple path's member
+        fns (`_member_fns`), issued eagerly from the host at each launch (t
+        picks each member's branch or table slice), every member launched
+        and a frozen one's output dropped by its act row, so eviction is the
+        same edit of ``acts`` as for the stacked plan. Nothing is captured.
+        The plan takes and gives global (W, payload) states."""
+        members, T, mesh = ensemble.members, ensemble.steps, self.mesh
+        fns = [self._member_fns(g, T) for g in members]
+
+        def init_fn(inits):
+            shards = [self._shard_list(x) for x in inits]  # split before the fork
+            return self._issued(mesh, lambda: tuple(
+                t0(x) for (t0, _, _), x in zip(fns, shards)))
 
         def launch_fn(carry, act_row, t0):
             act = np.asarray(act_row)
-            out = []
-            for k, (s, (_, step)) in enumerate(zip(carry, fns)):
-                nxt = step(s, t0)  # launched also when frozen
-                out.append(nxt if act[k, 0] > 0 else s)
-            return tuple(out)
+
+            def issue():
+                out = []
+                for k, (c, (_, step, _)) in enumerate(zip(carry, fns)):
+                    nxt = step(c, t0)  # launched also when frozen
+                    out.append(nxt if act[k, 0] > 0 else c)
+                return tuple(out)
+
+            return self._issued(mesh, issue)
 
         def admit_fn(carry, slot, init):
             out = list(carry)
-            out[slot] = fns[slot][0]([init[None]])
+            shards = self._shard_list(init)  # split before the fork
+            out[slot] = self._issued(mesh, lambda: fns[slot][0](shards))
             return tuple(out)
 
         return EnsembleLaunchPlan(
             steps_per_launch=1, member_steps=tuple(ensemble.member_steps),
             acts=_act_schedule(ensemble.member_steps, T, 1), init_fn=init_fn,
-            launch_fn=launch_fn, finalize=lambda carry: tuple(s[0][0] for s in carry),
+            launch_fn=launch_fn,
+            finalize=lambda carry: tuple(self._member_out(states(c), gather=True)
+                                         for (_, _, states), c in zip(fns, carry)),
             admit_fn=admit_fn,
             expected_launch_us=_schedule.expected_launch_wall_us(
-                rows=sum(g.width for g in members), steps_per_launch=1,
+                rows=sum(self._block(g) for g in members), steps_per_launch=1,
                 model=self._cost_model(members[0].payload), impl=self._exchange_impl()),
             kind="stepwise", compile_counter=lambda: _build.CAPTURES["graphs"])
 
@@ -1792,9 +2134,11 @@ class PallasStepRuntime(Runtime):
         members = ensemble.members
         if self._is_stacked(ensemble):
             H = max(_patterns.halo_radius(g) for g in members)
-            piped = self._pipeline_active(self._block(members[0]), S, H, members[0].payload)
+            dk = self._member_shards(ensemble) if self.mesh is not None else 1
+            B = members[0].width // (self.num_devices // dk)
+            piped = self._pipeline_active(B, S, H, members[0].payload)
             return 1 + (2 if piped else 1) * (L - 1)
         return sum(
-            1 + (2 if self._pipeline_active(g.width, S, _patterns.halo_radius(g), g.payload)
-                 else 1)
+            1 + (2 if self._pipeline_active(self._block(g), S, _patterns.halo_radius(g),
+                                            g.payload) else 1)
             * (L - 1) for g in members)

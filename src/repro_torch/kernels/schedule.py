@@ -19,12 +19,13 @@ The policy is the reference's, line for line: `CANDIDATES`, the covers
 and pays-off rules (`pipeline_interior_covers_exchange`,
 `gathered_pays_off`), the plan ranking (`gathered_beats_strides`), the
 choosers' deepest-first walk, the gather transport and chunk-group
-choosers (`choose_gather_impl`, `choose_gather_chunk_group`) and the
-deadlines (`expected_launch_wall_us`, `launch_deadline_us`); the reason
-strings are the reference's too. Every
-rule is priced against a cost model (``kernels/probes.py``'s `CostModel`):
-resolvers take ``model=``, and None resolves the default (env constant >
-cached probe calibration > analytic fallback). The model decides which
+choosers (`choose_gather_impl`, `choose_gather_chunk_group`), the
+(row, member) split (`choose_member_shards`) and the deadlines
+(`expected_launch_wall_us`, `launch_deadline_us`); the reason strings are
+the reference's too. Every rule is priced against a cost model
+(``kernels/probes.py``'s `CostModel`): resolvers take ``model=``, and None
+resolves the default (env constant > cached probe calibration > analytic
+fallback). The model decides which
 schedule runs, never what it computes.
 
 What differs is the fit rule. The reference sizes a depth against a TPU
@@ -427,6 +428,61 @@ def choose_gather_chunk_group(*, devices: int, width: Optional[int] = None,
     g = _halo.gather_chunk_group(devices)
     return g, (f"analytic: divisor of D={devices} nearest sqrt(D) -> G={g} "
                f"(no measured grouping probes at this D, W to overrule)")
+
+
+def choose_member_shards(*, devices: int, num_members: int, width: int,
+                         steps_per_launch: int = 1, radius: int = 1,
+                         model=None) -> Tuple[int, str]:
+    """Price the (Dr, Dk) split of the 2D (row, member) mesh
+    (``launch/mesh.py``) for a stacked ensemble of ``num_members`` members.
+
+    A shard's compute does not depend on the split, (K/Dk) members x (W/Dr)
+    rows = K*W/D rows whatever it is, so the split is priced on its
+    exchanges alone: sharding K divides every deep-halo exchange's rows by
+    Dk, and the longer blocks W/Dr cut the hops ceil(S*r / B). Candidates
+    are the common divisors Dk of (devices, num_members) that keep a row
+    ring (Dr = devices/Dk >= 2) and W % Dr == 0. A measured model prices
+    each as
+
+      hops(Dk) * min(halo_exchange_us) + (K/Dk) * 2*S*r * row_step_us
+
+    and the cheapest wins; under the analytic model Dk = 1 is kept (the
+    replicated 1D row mesh). Returns (Dk, reason), the reference's."""
+    depth = max(1, int(steps_per_launch)) * max(0, int(radius))
+    candidates = []
+    for dk in range(1, min(devices, num_members) + 1):
+        if devices % dk or num_members % dk:
+            continue
+        dr = devices // dk
+        if dr < 2 and devices > 1:
+            continue
+        if width % dr:
+            continue
+        candidates.append(dk)
+    if not candidates or candidates == [1]:
+        return 1, (f"no viable (Dr, Dk) split: D={devices}, K={num_members} "
+                   f"share no divisor keeping Dr >= 2 and W % Dr == 0")
+    model = _resolve_model(model)
+    halo_us = getattr(model, "halo_exchange_us", None) or {}
+    row_step_us = getattr(model, "row_step_us", None)
+    launch_us = getattr(model, "launch_us", None)
+    if not halo_us or row_step_us is None or launch_us is None:
+        return 1, ("member-shard pricing needs a measured model; "
+                   f"verdict source: {model.describe()} — keeping the "
+                   "replicated 1D row mesh")
+    ex_us = min(halo_us.values())
+
+    def price(dk: int) -> float:
+        block = width // (devices // dk)
+        hops = max(1, -(-depth // max(1, block)))
+        return hops * ex_us + (num_members / dk) * 2 * depth * row_step_us
+
+    best = min(candidates, key=price)
+    return best, (
+        f"measured: Dk={best} prices {price(best):.1f}us/launch vs "
+        f"Dk=1 at {price(1):.1f}us "
+        f"(exchange={ex_us:.1f}us, row-step={row_step_us:.3f}us, "
+        f"depth={depth}, K={num_members}, D={devices})")
 
 
 # --------------------------------------------------------------- deadlines

@@ -12,7 +12,7 @@ overhead measurement, where a "task" is one decode step of one sequence.
 Each decode step's wall ends with a ``torch.cuda.synchronize()``. Weights
 are random, drawn from ``seed``; prompts from ``seed + 1``; sampling (when
 not greedy) from ``seed + 2``. The reference's ``mesh`` option is not
-ported yet (ROADMAP Queue 1 item 8).
+ported yet (ROADMAP Queue 1 item 12).
 
 On the card each decode step after the first is one CUDA graph replay, the
 counterpart of the reference's jitted decode step: the step reads and

@@ -452,6 +452,9 @@ def test_launch_plan_stepped_on_the_host(name, members, S, kind):
     if kind == "stacked" or rt._ensemble_steps_per_launch(ens) == 1:
         for a, b in zip(outs, rt.build_ensemble(ens)(xs)):
             assert torch.equal(a, b)
+    if kind == "stacked":  # the act rows staged as tensors ahead: the same bits
+        for a, b in zip(_step_plan(lp, xs, torch.from_numpy(lp.acts)), outs):
+            assert torch.equal(a, b)
     for g, a, b in zip(ens.members, outs, _ref_step_plan(ref_lp, inits)):
         np.testing.assert_allclose(a.numpy(), b, **_tol(g))
 

@@ -1486,3 +1486,103 @@ def test_sharded_probes_time_the_stride_and_gather_transports(cuda):
                                                         for k, v in table.items()},
                                         devices=4))
     assert schedule.choose_gather_impl(width=512, devices=4, model=m)[1].startswith("measured")
+
+
+# ------------------------------------------- ensembles across row shards
+
+SHARD_STACKED = [TaskGraph(steps=T, width=64, pattern=p, payload=16, radius=2, seed=k,
+                           kernel=KernelSpec("compute_bound", 1))
+                 for k, (p, T) in enumerate((("stencil_1d", 7), ("nearest", 6),
+                                             ("stencil_1d", 4), ("nearest", 1)))]
+
+
+def _sharded_ensemble_vs_eager(rt, ens, seed):
+    """``rt``'s ensemble run over its shards (a ShardedRun over one graph)
+    in three runs, each member bit for bit the eager loop's, and the
+    launches of the counted run."""
+    run = rt.build_ensemble(ens)
+    assert isinstance(run, _capture.ShardedRun) and isinstance(run.inner, _capture.GraphRun)
+    xs = tuple(_rand((g.width, g.payload), seed + k, rt.device)
+               for k, g in enumerate(ens.members))
+    ops.reset_launch_counts()
+    got = run(xs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = run.eager(tuple(x.clone() for x in xs))
+    for again in (got, run(xs), run(xs)):
+        assert all(torch.equal(a, b) for a, b in zip(again, want))
+    return xs, got, counts
+
+
+@pytest.mark.parametrize("dk", [2, 4])
+@pytest.mark.parametrize("opts", [{}, {"steps_per_launch": 3},
+                                  {"steps_per_launch": 3, "pipeline": False}],
+                         ids=["S1", "S3", "S3serial"])
+def test_sharded_ensemble_on_the_row_member_mesh(cuda, dk, opts):
+    """K = 4 stacked members over D = 4 shards of the card at Dk = 2 and 4
+    (the rings' streams forked and joined inside one capture): equal to
+    the eager loop in three runs, 4 x ``ensemble_dispatches_per_run``
+    launches, bit for bit the replicated run on Dr = 4 / Dk shards, and
+    within tolerance of the CPU plain path."""
+    ens = GraphEnsemble(SHARD_STACKED)
+    rt = get_runtime("pallas_step", devices=[cuda] * 4, member_shards=dk, **opts)
+    xs, got, counts = _sharded_ensemble_vs_eager(rt, ens, 50)
+    assert sum(counts.values()) == 4 * rt.ensemble_dispatches_per_run(ens)
+    twin = get_runtime("pallas_step", devices=[cuda] * (4 // dk), **opts)
+    assert all(torch.equal(a, b) for a, b in zip(got, twin.build_ensemble(ens)(xs)))
+    for g, a, x in zip(ens.members, got, xs):
+        np.testing.assert_allclose(a.cpu().numpy(),
+                                   get_runtime("fused", device="cpu").execute(g, x.cpu()),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("specs,opts", [(TUPLE, {}), (TUPLE, {"steps_per_launch": 3}),
+                                        (PLANS[:3], {})], ids=["halo-S1", "halo-S3", "plans"])
+def test_sharded_ensemble_tuple_equals_one_device(cuda, specs, opts):
+    """A tuple ensemble (mixed widths, kernels and plans) over D = 4 shards
+    of the card: equal to its eager loop in three runs, 4 x the per-shard
+    count launched, and bit for bit its one-device run."""
+    ens = _ensemble(specs)
+    rt = get_runtime("pallas_step", devices=[cuda] * 4, **opts)
+    assert not rt._is_stacked(ens)
+    xs, got, counts = _sharded_ensemble_vs_eager(rt, ens, 60)
+    assert sum(counts.values()) == 4 * rt.ensemble_dispatches_per_run(ens)
+    one = get_runtime("pallas_step", device=cuda, **opts).build_ensemble(ens)(xs)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+@pytest.mark.parametrize("specs,opts", [
+    (SHARD_STACKED, {}), (SHARD_STACKED, {"steps_per_launch": 3}),
+    (SHARD_STACKED, {"member_shards": 2}),
+    (SHARD_STACKED, {"member_shards": 2, "steps_per_launch": 3}), (PLANS[:3], {})],
+    ids=["stacked-S1", "stacked-S3", "stacked-dk2-S1", "stacked-dk2-S3", "stepwise"])
+def test_sharded_ensemble_launch_plan_captures_nothing_under_churn(cuda, specs, opts):
+    """The launch plans over D = 4 shards of the card: stepped on the host,
+    equal to ``build_ensemble`` bit for bit; evicting member 0 from launch
+    1 and admitting a fresh member into a finished slot capture nothing."""
+    ens = GraphEnsemble(specs) if isinstance(specs[0], TaskGraph) else _ensemble(specs)
+    rt = get_runtime("pallas_step", devices=[cuda] * 4, **opts)
+    lp = rt.build_ensemble_launches(ens)
+    xs = tuple(_rand((g.width, g.payload), 70 + k, cuda) for k, g in enumerate(ens.members))
+
+    def step(acts, admit=None):
+        carry = lp.init_fn(xs)
+        for l in range(lp.num_launches):
+            if admit is not None and l == admit[0]:
+                carry = lp.admit_fn(carry, admit[1], admit[2])
+            carry = lp.launch_fn(carry, acts[l], lp.launch_t0(l))
+        return lp.finalize(carry)
+
+    outs = step(lp.acts)
+    want = rt.build_ensemble(ens)(xs)
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    before = lp.compile_counter()
+    acts = lp.acts.copy()
+    acts[1:, 0, :] = 0
+    slot = min(range(len(ens)), key=lambda k: ens.members[k].steps)
+    g = ens.members[slot]
+    churned = step(acts, admit=(lp.num_launches - 1, slot,
+                                _rand((g.width, g.payload), 80, cuda)))
+    torch.cuda.synchronize()
+    assert lp.compile_counter() == before == _build.CAPTURES["graphs"]
+    assert not torch.equal(churned[0], outs[0])

@@ -780,6 +780,27 @@ def test_choose_gather_chunk_group_equals_the_reference(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", CHOOSER_MODELS)
+def test_choose_member_shards_equals_the_reference(name):
+    """Dk and reason alike over (D, K, W, S, r): the common divisors of D
+    and K that keep a row ring and divide W, priced under a measured model
+    by hops x the cheapest exchange + (K/Dk) x 2*S*r row-steps; Dk = 1
+    under the analytic model."""
+    ours, ref = _shard_models(name)
+    seen = set()
+    for D in (1, 2, 4, 8):
+        for K in (1, 2, 3, 4, 8):
+            for W in (16, 24, 2112):
+                for S in (1, 3, 16):
+                    for r in (0, 1, 2):
+                        kw = dict(devices=D, num_members=K, width=W, steps_per_launch=S,
+                                  radius=r)
+                        got = schedule.choose_member_shards(model=ours, **kw)
+                        assert got == ref_schedule.choose_member_shards(model=ref, **kw), kw
+                        seen.add(got[0])
+    assert seen == ({1} if name == "analytic" else {1, 2, 4})
+
+
+@pytest.mark.parametrize("name", CHOOSER_MODELS)
 def test_gather_walls_and_the_codec_cross_both_packages(name):
     ours, ref = _shard_models(name)
     assert ours.to_dict() == ref.to_dict()

@@ -58,10 +58,32 @@ for c in cases:
         meta[key] = {"ok": ok, "why": why}
         if ok:
             inits = [np.asarray(initial_state(g.width, g.payload, g.seed)) for g in ens.members]
-            outs = rt.execute_ensemble(ens, [jnp.asarray(x) for x in inits])
+            if "plan" in c:  # the launch plan stepped on the host, with its edits
+                lp = rt.build_ensemble_launches(ens)
+                acts = np.array(lp.acts)
+                evict, admit = c["plan"].get("evict"), c["plan"].get("admit")
+                if evict:
+                    acts[evict[0]:, evict[1], :] = 0
+                if admit:
+                    g = ens.members[admit[1]]
+                    arrays[f"{key}/fresh"] = np.asarray(initial_state(g.width, g.payload, admit[2]))
+                carry = lp.init_fn(tuple(jnp.asarray(x) for x in inits))
+                for l in range(lp.num_launches):
+                    if admit and l == admit[0]:
+                        carry = lp.admit_fn(carry, admit[1], jnp.asarray(arrays[f"{key}/fresh"]))
+                    carry = lp.launch_fn(carry, jnp.asarray(acts[l]),
+                                         jnp.asarray(lp.launch_t0(l), jnp.int32))
+                outs = lp.finalize(carry)
+                meta[key]["plan"] = {"kind": lp.kind, "S": lp.steps_per_launch,
+                                     "launches": lp.num_launches, "acts": acts.tolist()}
+            else:
+                outs = rt.execute_ensemble(ens, [jnp.asarray(x) for x in inits])
             for k, (x, o) in enumerate(zip(inits, outs)):
                 arrays[f"{key}/init{k}"], arrays[f"{key}/out{k}"] = x, np.asarray(o)
             meta[key]["dispatches"] = rt.ensemble_dispatches_per_run(ens)
+            if c["runtime"] == "pallas_step" and rt._is_stacked(ens):
+                meta[key]["member_shards"] = rt._member_shards(ens)
+                meta[key]["steps_per_launch"] = rt._ensemble_steps_per_launch(ens)
         continue
     g = graph(c["graph"])
     ok, why = rt.supports(g)

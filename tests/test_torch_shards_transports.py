@@ -343,13 +343,22 @@ def test_runtimes_refuse_shards_they_cannot_run():
         assert rt.supports(g)[0]
         np.testing.assert_array_equal(
             rt.execute(g), get_runtime("pallas_step", device="cpu").execute(g))
+    # a tuple ensemble, a launch plan and the row x member mesh run sharded
+    # too, each bit for bit its one-device (or replicated) twin
+    one = get_runtime("pallas_step", device="cpu")
     ens = GraphEnsemble([_graph(width=32), _graph("fft", width=32)])
-    with pytest.raises(NotImplementedError, match="next port slice 16"):
-        rt.execute_ensemble(ens)
-    with pytest.raises(NotImplementedError, match="next port slice 16"):
-        rt.build_ensemble_launches(GraphEnsemble([_graph(width=32)] * 2))
-    with pytest.raises(NotImplementedError, match="next port slice 16"):
-        get_runtime("pallas_step", devices=["cpu"] * 4, member_shards=2)
+    for a, b in zip(rt.execute_ensemble(ens), one.execute_ensemble(ens)):
+        np.testing.assert_array_equal(a, b)
+    stacked = GraphEnsemble([_graph(width=32)] * 2)
+    lp = rt.build_ensemble_launches(stacked)
+    carry = lp.init_fn(rt._ensemble_inits(stacked))
+    for l in range(lp.num_launches):
+        carry = lp.launch_fn(carry, lp.acts[l], lp.launch_t0(l))
+    for a, b in zip(lp.finalize(carry), one.execute_ensemble(stacked)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    dk2 = get_runtime("pallas_step", devices=["cpu"] * 4, member_shards=2)
+    for a, b in zip(dk2.execute_ensemble(stacked), rt.execute_ensemble(stacked)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_the_probe_prices_a_real_exchange():
