@@ -246,6 +246,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``overlap=True``, exactly 0 for ``overlap=False``. Across
              distinct cards only where there are two (else one line says
              it was not run).
+  7c. trace the traced twin of each backend (``trace=True``,
+             ``Runtime.trace_once``, ``repro_torch.obs``) on the card at
+             full width: ``pallas_step`` on stencil_1d at W = 2112, T =
+             1000, grain 64 at S = 1, serial S = 8 and pipelined S = 8; fft
+             at W = 2048 (the stride plan) and spread at W = 512 (the
+             all-gather plan); ``fused``, ``bsp``, ``bsp_scan`` and
+             ``overlap`` with the kernels at W = 2112; ``serialized`` at W
+             = 132, T = 50; and over D = 4 shards of the card S = 1,
+             pipelined S = 8 and fft. Each traced run equals the build's
+             replay bit for bit, launches exactly what its eager loop
+             launches (its warm-up and probes counted apart), has fractions
+             summing to 1 and, for ``pallas_step``, its ``schedule.resolve``
+             record; each prints ``obs.summarize``'s wall and category
+             walls beside the replay's best wall (what host-stepping costs),
+             the pipelined runs their overlap verdict and probes (at D = 1
+             "unavailable": the self-wrap moves no rows), and the D = 4
+             pipelined trace is written as Chrome JSON to
+             ``artifacts/bench_torch/trace_pipelined_d4.json``.
   8. metg    grains 1..16384, stencil_1d, T = 1000, 5 reps, W in {132,
              2112} (one task per SM times overdecomposition 1 and 16), on
              both backends and on ``pallas_step(steps_per_launch=8)``
@@ -1317,6 +1335,136 @@ def shard_ensembles(dev, rand, smi, counted_calls, model, *, W=W_MAIN, T=T_MAIN,
               "evicted_bitwise": evicted_bitwise, "seconds": time.perf_counter() - t0}
     return {"expected": expected, "apart": apart, "apart_calls": apart_calls[0],
             "compared": compared[0], "shows_dist": shows_dist, "record": record}
+
+
+# [trace]: serialized at [rungs]' size; the pipelined D = 4 run's Chrome trace
+TRACE_CHROME = "artifacts/bench_torch/trace_pipelined_d4.json"
+
+
+def trace_phase(dev, rand, smi, *, W=W_MAIN, T=T_MAIN, W_plan=W_PLAN, W_glob=W_GATHER,
+                W_ser=SMS, T_ser=T_SER, D=4, chrome: Optional[Path] = None):
+    """The [trace] phase; returns its record. Reads the launch counters
+    around each run itself, so it leaves nothing for another phase to
+    account."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes._capture import time_runs
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    card = dev.type == "cuda"
+    chrome = ROOT / TRACE_CHROME if chrome is None else chrome
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        sync()
+        before = ops.launch_counts()
+        out = fn()
+        sync()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def graph(pattern, width, steps=T, grain=GRAIN):
+        return TaskGraph(steps=steps, width=width, pattern=pattern, payload=PAYLOAD,
+                         kernel=KernelSpec("compute_bound", grain))
+
+    S8 = {"steps_per_launch": S_MAIN}
+    cases = [
+        ("pallas_step S=1", "pallas_step", 1, {}, graph("stencil_1d", W)),
+        ("pallas_step S=8 serial", "pallas_step", 1, dict(S8, pipeline=False),
+         graph("stencil_1d", W)),
+        ("pallas_step S=8 pipelined", "pallas_step", 1, S8, graph("stencil_1d", W)),
+        ("pallas_step fft stride", "pallas_step", 1, {}, graph("fft", W_plan)),
+        ("pallas_step spread all-gather", "pallas_step", 1, {}, graph("spread", W_glob)),
+        ("fused", "fused", 1, {"use_kernels": True}, graph("stencil_1d", W)),
+        ("bsp", "bsp", 1, {"use_kernels": True}, graph("stencil_1d", W)),
+        ("bsp_scan", "bsp_scan", 1, {"use_kernels": True}, graph("stencil_1d", W)),
+        ("overlap", "overlap", 1, {"use_kernels": True}, graph("stencil_1d", W)),
+        ("serialized", "serialized", 1, {"use_kernels": True},
+         graph("stencil_1d", W_ser, T_ser)),
+        (f"pallas_step S=1 D={D}", "pallas_step", D, {}, graph("stencil_1d", W)),
+        (f"pallas_step S=8 pipelined D={D}", "pallas_step", D, S8, graph("stencil_1d", W)),
+        (f"pallas_step fft D={D}", "pallas_step", D, {}, graph("fft", W_plan)),
+    ]
+    rows = []
+    for label, name, nd, opts, g in cases:
+        rt = get_runtime(name, devices=[dev] * nd, trace=True, **opts)
+        x = rand(g.width, PAYLOAD)
+        run = rt.build(g)
+        want, _ = counted(lambda: run(x.clone()))
+        eager = getattr(run, "eager", run)
+        _, d_eager = counted(lambda: eager(x.clone()))
+        walls = time_runs(run, x, reps=3)
+        got, d_traced = counted(lambda: rt.trace_once(g, x))
+        spans = rt.tracer.spans
+        if not torch.equal(torch.from_numpy(got), want.cpu()):
+            fail(f"[trace] {label}: the traced run differs from the build's replay, max "
+                 f"|diff| {(torch.from_numpy(got) - want.cpu()).abs().max().item():.3g}")
+        if d_traced != d_eager:
+            fail(f"[trace] {label}: the traced run launched {d_traced}, its eager loop "
+                 f"{d_eager}")
+        if dev.type == "cuda" and not d_traced:
+            fail(f"[trace] {label}: the traced run launched no kernel")
+        summary = obs.summarize(spans)
+        if abs(sum(summary["fractions"].values()) - 1.0) > 1e-9:
+            fail(f"[trace] {label}: the fractions sum to {sum(summary['fractions'].values())}")
+        if not summary["fractions"]["dispatch"] > 0:
+            fail(f"[trace] {label}: no dispatch wall")
+        decisions = summary["decisions"]
+        if (name == "pallas_step") != bool(decisions) or (
+                decisions and decisions[0]["name"] != "schedule.resolve"):
+            fail(f"[trace] {label}: decision records {decisions}")
+        verdict = summary["overlap"]
+        if "pipelined" in label:
+            probes = obs.probe_costs(spans)
+            phases = {"boundary", "interior"} | ({"exchange"} if nd > 1 else set())
+            if set(probes) != phases or not all(v > 0 for v in probes.values()):
+                fail(f"[trace] {label}: probes {probes}, want {sorted(phases)} above 0")
+            if nd == 1 and verdict.get("verdict") != "unavailable":
+                fail(f"[trace] {label}: one device's verdict {verdict}")
+            if nd > 1 and verdict.get("verdict") not in ("hidden", "visible"):
+                fail(f"[trace] {label}: verdict {verdict}")
+            if nd > 1:
+                chrome.parent.mkdir(parents=True, exist_ok=True)
+                obs.write_chrome_trace(str(chrome), spans, process_name=f"{label} | {smi}")
+        row = {"run": label, "runtime": name, "D": nd, "W": g.width, "T": g.steps,
+               "pattern": g.pattern, "options": opts, "wall_us": summary["wall_us"],
+               "categories_us": summary["categories_us"],
+               "fractions": summary["fractions"], "span_count": summary["span_count"],
+               "replay_best_us": min(walls) * 1e6,
+               "host_stepping_ratio": summary["wall_us"] / (min(walls) * 1e6),
+               "launches": d_traced,
+               "plan": decisions[0]["plan"] if decisions else None,
+               "steps_per_launch": decisions[0]["steps_per_launch"] if decisions else None,
+               "overlap": verdict}
+        rows.append(row)
+        cats = ", ".join(f"{k} {v:.3f}" for k, v in summary["categories_us"].items() if v)
+        over = ""
+        if verdict:
+            over = (f"; overlap {verdict['verdict']}" + (
+                f", hidden_fraction {verdict['hidden_fraction']:.4f}, per launch: exchange "
+                f"{verdict['exchange_per_launch_us']:.3f} us, boundary "
+                f"{verdict['boundary_per_launch_us']:.3f} us, interior "
+                f"{verdict['interior_per_launch_us']:.3f} us, launch "
+                f"{verdict['combined_launch_us'] / verdict['launches']:.3f} us"
+                if "hidden_fraction" in verdict else
+                f" ({verdict['reason']}); probes per launch "
+                f"{ {k: round(v, 3) for k, v in obs.probe_costs(spans).items()} } us"))
+        print(f"[trace] {label} W={g.width} T={g.steps}: traced wall "
+              f"{summary['wall_us']:.3f} us against the replay's {min(walls) * 1e6:.3f} us "
+              f"(x{row['host_stepping_ratio']:.3f}); us by category: {cats}{over}; "
+              f"{summary['span_count']} spans, launches {d_traced} | {smi}", flush=True)
+    print(f"[trace] {len(rows)} traced runs, each bit for bit its replay and launching its "
+          f"eager loop's kernels; Chrome trace {chrome.relative_to(ROOT) if chrome.is_relative_to(ROOT) else chrome}; "
+          f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    record = {"trace": {"runs": rows, "chrome": str(chrome), "card": smi}}
+    print(json.dumps(record), flush=True)
+    return record
 
 
 def fail(msg: str) -> None:
@@ -3082,6 +3230,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- shards
     launches_shards, _ = shards_phase(dev, rand, smi, counted_calls)
+
+    # ---------------------------------------------------------------- trace
+    trace_phase(dev, rand, smi)
 
     # ----------------------------------------------------------------- METG
     t0 = time.perf_counter()

@@ -14,17 +14,17 @@ top of the device's work.
   * step-METG: the smallest per-step useful work that would keep the fleet
     >= 50% efficient given the measured overhead — the paper's METG applied
     to the production loop,
-  * token throughput (``tokens_per_step``; the serving loop's currency).
-
-The reference's span ``tracer`` hook (``repro.obs``) is not ported yet
-(ROADMAP Queue 1 item 9).
+  * token throughput (``tokens_per_step``; the serving loop's currency),
+  * per-category wall fractions when a span ``tracer`` is attached
+    (``repro_torch.obs``): the decomposed view of the same wall the records
+    sum.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -72,6 +72,8 @@ class OverheadReport:
     step_metg_us: Optional[float]
     sustained_flops_per_s: float
     tokens_per_s: float = 0.0
+    #: category -> fraction of traced wall (only when a tracer is attached)
+    category_fractions: Optional[Dict[str, float]] = None
     #: steps whose wall blew a deadline (resilience.DeadlineDetector)
     flagged_steps: int = 0
     #: steps whose output failed a health check (NaN logits etc.)
@@ -91,6 +93,11 @@ class OverheadReport:
             out.append(f"tokens/s              : {self.tokens_per_s:.1f}")
         if self.step_metg_us is not None:
             out.append(f"step-METG(50%)        : {self.step_metg_us:.1f} us")
+        if self.category_fractions:
+            cats = "  ".join(
+                f"{k}={v * 100:.1f}%"
+                for k, v in sorted(self.category_fractions.items()) if v > 0)
+            out.append(f"wall by category      : {cats}")
         if self.flagged_steps or self.poisoned_steps:
             out.append(f"faulted steps         : "
                        f"{self.flagged_steps} past deadline, "
@@ -109,6 +116,7 @@ class OverheadProfiler:
         tokens_per_step: int = 0,
         threshold: float = DEFAULT_THRESHOLD,
         device: str = "cuda",
+        tracer=None,
     ):
         self.devices = max(devices, 1)
         self.tasks_per_step = max(tasks_per_step, 1)
@@ -118,6 +126,10 @@ class OverheadProfiler:
         self.records: List[StepRecord] = []
         #: where `dispatch_overhead` is measured
         self.device = str(device)
+        #: optional span recorder (``repro_torch.obs.Tracer``); when
+        #: attached, the report carries the per-category decomposition of
+        #: the same wall
+        self.tracer = tracer
         self._dispatch: Optional[float] = None
         #: step indices flagged by a deadline detector / health check
         #: (launch/serve.py feeds these; the report carries the counts)
@@ -138,6 +150,13 @@ class OverheadProfiler:
         if self._dispatch is None:
             self._dispatch = measure_dispatch_overhead(device=self.device)
         return self._dispatch
+
+    def _category_fractions(self) -> Optional[Dict[str, float]]:
+        if self.tracer is None or not getattr(self.tracer, "spans", None):
+            return None
+        from repro_torch.obs import summarize
+
+        return summarize(self.tracer.spans)["fractions"]
 
     def report(self, skip_warmup: int = 1) -> OverheadReport:
         recs = self.records[skip_warmup:] or self.records
@@ -172,6 +191,7 @@ class OverheadProfiler:
             step_metg_us=metg_us,
             sustained_flops_per_s=flops,
             tokens_per_s=tps,
+            category_fractions=self._category_fractions(),
             flagged_steps=len(self.flagged),
             poisoned_steps=len(self.poisoned),
         )

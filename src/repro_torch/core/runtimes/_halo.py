@@ -73,9 +73,13 @@ then land in ``heads[d]`` and ``tails[d]``, buffers of shard d (the head
 and tail rows of a persistent halo-extended buffer), and the handle's
 receive lists are those buffers.
 
-Each transport's start runs inside ``transport_span``, the reference's
-call site for the tracer, which is not ported yet (ROADMAP.md Queue 1 item
-9): for now the span records nothing.
+Tracing (``obs``). Every transport's start takes ``tracer=`` (default None:
+it records nothing, and runs as it always does) and ``span=``, a dict of
+the span's extra attributes (a "name" entry renames it). Only the traced
+executors (``Runtime.trace_once``) pass one: the start then runs inside
+``transport_span`` and is synchronous, joined and drained (`ShardMesh.drain`)
+before the span closes, so the span covers the rows' arrival on every
+shard. A production run, captured as a CUDA graph, never passes a tracer.
 """
 from __future__ import annotations
 
@@ -263,6 +267,14 @@ class ShardMesh:
             for d, t in enumerate(shards):
                 t.record_stream(torch.cuda.current_stream(self.devices[d]))
 
+    def drain(self) -> None:
+        """Wait, on the host, until the work issued so far on every device
+        of the mesh has finished, every shard's and transfer stream's (the
+        end of a traced span); nothing to wait for on the CPU."""
+        if self.cuda:
+            for dev in self.distinct:
+                torch.cuda.synchronize(dev)
+
     def sent(self, shards: Sequence[int]) -> "_Transfer":
         """A transfer of rows that shards ``shards`` have issued so far."""
         return _Transfer(self, shards)
@@ -392,12 +404,34 @@ def ring_perms(num_devices: int, axis: str = "shard"):
 
 
 def transport_span(tracer, kind: str, *, impl: str, depth: int = 0, **attrs):
-    """The one span every transport's start goes through (``kind``:
-    "halo_exchange", "stride_exchange" or "gather_global"). The tracer is
-    not ported yet (ROADMAP.md Queue 1 item 9): the starts pass None and
-    the span records nothing."""
-    del tracer, kind, impl, depth, attrs
-    return contextlib.nullcontext()
+    """The one span every traced transport goes through (the reference's).
+
+    Centralizing the category choice and the ``impl``/``depth`` tagging here
+    keeps the attribution uniform across the three transport families (ring
+    halo, stride/XOR partner, global gather), whichever runtime issues
+    them: ``kind`` is the span name ("halo_exchange", "stride_exchange",
+    "gather_global", ...); a kind containing "gather" lands in the
+    ``gather`` category, every other in ``exchange``. A null or absent
+    tracer records nothing."""
+    if tracer is None or not tracer.enabled:
+        return contextlib.nullcontext()
+    category = "gather" if "gather" in kind else "exchange"
+    return tracer.span(kind, category, impl=impl, depth=depth, **attrs)
+
+
+def _started(start: Callable, mesh: ShardMesh, tracer, kind: str,
+             span: Optional[dict], **attrs):
+    """``start()``, a transport's start, inside ``transport_span``
+    (``span``'s attributes added, its "name" entry, if any, in place of
+    ``kind``), giving its handle; with a tracer the start is synchronous:
+    the handle joined and the mesh drained before the span closes."""
+    extra = dict(span or {})
+    with transport_span(tracer, extra.pop("name", kind), **attrs, **extra):
+        handle = start()
+        if tracer is not None and tracer.enabled:
+            handle.join()
+            mesh.drain()
+    return handle
 
 
 def _mesh_of(mesh, what: str) -> ShardMesh:
@@ -490,7 +524,8 @@ HALO_ASYNC_IMPLS: Dict[str, Callable[..., HaloHandle]] = {
 
 
 def exchange_edges_start(mesh: ShardMesh, firsts: Shards, lasts: Shards, *,
-                         row_axis: int = 0, impl: str = "xla", out=None) -> HaloHandle:
+                         row_axis: int = 0, impl: str = "xla", out=None, tracer=None,
+                         span: Optional[dict] = None) -> HaloHandle:
     """Start a ring exchange of pre-sliced edge rows: ``firsts[d]`` and
     ``lasts[d]`` are shard d's leading and trailing r rows along
     ``row_axis`` (e.g. a pipelined launch's boundary outputs, the rows the
@@ -504,13 +539,14 @@ def exchange_edges_start(mesh: ShardMesh, firsts: Shards, lasts: Shards, *,
         raise ValueError(
             f"unknown halo async impl {impl!r}; known {sorted(HALO_ASYNC_IMPLS)}"
         ) from None
-    with transport_span(None, "halo_exchange", impl=impl,
-                        depth=firsts[0].shape[row_axis]):
-        return start(mesh, firsts, lasts, row_axis=row_axis, out=out)
+    return _started(lambda: start(mesh, firsts, lasts, row_axis=row_axis, out=out), mesh,
+                    tracer, "halo_exchange", span, impl=impl,
+                    depth=firsts[0].shape[row_axis])
 
 
 def exchange_halos_start(mesh: ShardMesh, locals_: Shards, r: int, *,
-                         row_axis: int = 0, impl: str = "xla", out=None) -> HaloHandle:
+                         row_axis: int = 0, impl: str = "xla", out=None, tracer=None,
+                         span: Optional[dict] = None) -> HaloHandle:
     """Start a ring exchange of r rows each way for every shard; join for
     the results (in ``out=(heads, tails)``, where given). Past a block
     (r > B) the whole chain of block shifts: hop h brings the block h
@@ -523,10 +559,11 @@ def exchange_halos_start(mesh: ShardMesh, locals_: Shards, r: int, *,
         return exchange_edges_start(
             mesh, [_slice(x, 0, r, row_axis) for x in locals_],
             [_slice(x, n - r, r, row_axis) for x in locals_],
-            row_axis=row_axis, impl=impl, out=out)
+            row_axis=row_axis, impl=impl, out=out, tracer=tracer, span=span)
     D = mesh.size
     hops = -(-r // n)  # ceil: whole-block shifts per direction
-    with transport_span(None, "halo_exchange", impl="ppermute", depth=r, hops=hops):
+
+    def start():
         tx = mesh.sent(range(D))
         blocks = []
         for d in range(D):
@@ -535,7 +572,10 @@ def exchange_halos_start(mesh: ShardMesh, locals_: Shards, r: int, *,
                             for h in range(hops, 0, -1)],
                            [tx.move(locals_[(d + h) % D], d, (d + h) % D)
                             for h in range(1, hops + 1)]))
-    return _ChainHandle([], [], tx.done(), blocks, r, hops * n, row_axis, mesh, out)
+        return _ChainHandle([], [], tx.done(), blocks, r, hops * n, row_axis, mesh, out)
+
+    return _started(start, mesh, tracer, "halo_exchange", span, impl="ppermute", depth=r,
+                    hops=hops)
 
 
 @dataclasses.dataclass
@@ -573,7 +613,8 @@ def exchange_halos_join(handle: HaloHandle) -> Tuple[List[torch.Tensor], List[to
     return handle.join()
 
 
-def exchange_halos(local, r: int, mesh=1, *, row_axis: int = 0, out=None):
+def exchange_halos(local, r: int, mesh=1, *, row_axis: int = 0, out=None, tracer=None,
+                   span: Optional[dict] = None):
     """The r rows that sit immediately left and right of each block in
     global order, wrapped at the ends (the combine masks the wrap off for
     non-periodic patterns).
@@ -584,7 +625,7 @@ def exchange_halos(local, r: int, mesh=1, *, row_axis: int = 0, out=None):
     their `ShardMesh`: the synchronous spelling, start and join back to
     back on the "ppermute" transport (the reference pins it there for the
     rungs and the serial schedule), returning per-shard lists (``out``'s
-    buffers, where given)."""
+    buffers, where given); ``tracer`` and ``span`` as for the starts."""
     if isinstance(local, torch.Tensor):
         _one_device(mesh)
         B = local.shape[row_axis]
@@ -594,7 +635,8 @@ def exchange_halos(local, r: int, mesh=1, *, row_axis: int = 0, out=None):
         return (local.index_select(row_axis, rows[:r]),
                 local.index_select(row_axis, rows[B + r:]))
     return exchange_halos_join(
-        exchange_halos_start(mesh, local, r, row_axis=row_axis, impl="ppermute", out=out))
+        exchange_halos_start(mesh, local, r, row_axis=row_axis, impl="ppermute", out=out,
+                             tracer=tracer, span=span))
 
 
 # ---------------------------------------------------------------- strides
@@ -655,7 +697,8 @@ STRIDE_ASYNC_IMPLS: Dict[str, Callable[..., StrideHandle]] = {
 
 
 def exchange_stride_start(mesh: ShardMesh, locals_: Shards, block_strides, *,
-                          row_axis: int = 0, impl: str = "xla") -> StrideHandle:
+                          row_axis: int = 0, impl: str = "xla", tracer=None,
+                          span: Optional[dict] = None) -> StrideHandle:
     """Start an XOR block exchange for each stride in ``block_strides``.
 
     The device count must be a power of two (d XOR bs is a permutation of
@@ -680,8 +723,8 @@ def exchange_stride_start(mesh: ShardMesh, locals_: Shards, block_strides, *,
             f"unknown stride async impl {impl!r}; "
             f"known {sorted(STRIDE_ASYNC_IMPLS)}") from None
     strides = tuple(int(b) for b in block_strides)
-    with transport_span(None, "stride_exchange", impl=impl, strides=strides):
-        return start(mesh, locals_, strides, row_axis=row_axis)
+    return _started(lambda: start(mesh, locals_, strides, row_axis=row_axis), mesh, tracer,
+                    "stride_exchange", span, impl=impl, strides=strides)
 
 
 def exchange_stride_join(handle: StrideHandle) -> Tuple[List[torch.Tensor], ...]:
@@ -690,10 +733,12 @@ def exchange_stride_join(handle: StrideHandle) -> Tuple[List[torch.Tensor], ...]
 
 
 def exchange_stride(mesh: ShardMesh, locals_: Shards, block_strides, *,
-                    row_axis: int = 0, impl: str = "xla") -> Tuple[List[torch.Tensor], ...]:
+                    row_axis: int = 0, impl: str = "xla", tracer=None,
+                    span: Optional[dict] = None) -> Tuple[List[torch.Tensor], ...]:
     """Synchronous spelling: start and join back to back."""
     return exchange_stride_join(exchange_stride_start(
-        mesh, locals_, block_strides, row_axis=row_axis, impl=impl))
+        mesh, locals_, block_strides, row_axis=row_axis, impl=impl, tracer=tracer,
+        span=span))
 
 
 # ---------------------------------------------------------------- gathers
@@ -832,7 +877,8 @@ def register_transport_impl(kind: str, name: str, start, *, replace: bool = Fals
 
 
 def gather_global_start(mesh: ShardMesh, locals_: Shards, *, row_axis: int = 0,
-                        impl: str = "xla", chunk_group: Optional[int] = None) -> GatherHandle:
+                        impl: str = "xla", chunk_group: Optional[int] = None, tracer=None,
+                        span: Optional[dict] = None) -> GatherHandle:
     """Start an all-gather; join for each shard's global-order state."""
     _mesh_of(mesh, "gather_global")
     try:
@@ -840,14 +886,13 @@ def gather_global_start(mesh: ShardMesh, locals_: Shards, *, row_axis: int = 0,
     except KeyError:
         raise ValueError(
             f"unknown gather impl {impl!r}; known {sorted(GATHER_IMPLS)}") from None
-    with transport_span(None, "gather_global", impl=impl):
-        if chunk_group is not None and impl == "chunked":
-            return start(mesh, locals_, row_axis=row_axis, group=chunk_group)
-        return start(mesh, locals_, row_axis=row_axis)
+    kw = {"group": chunk_group} if chunk_group is not None and impl == "chunked" else {}
+    return _started(lambda: start(mesh, locals_, row_axis=row_axis, **kw), mesh, tracer,
+                    "gather_global", span, impl=impl)
 
 
 def gather_global(local, mesh=1, *, row_axis: int = 0, impl: str = "xla",
-                  chunk_group: Optional[int] = None):
+                  chunk_group: Optional[int] = None, tracer=None, span: Optional[dict] = None):
     """The full global-order state for every shard (the all-gather plan):
     one tensor on one device is the state itself; D shards with their
     `ShardMesh` give a list, shard d's in a receive buffer of shard d
@@ -856,7 +901,7 @@ def gather_global(local, mesh=1, *, row_axis: int = 0, impl: str = "xla",
         _one_device(mesh)
         return local
     return gather_global_start(mesh, local, row_axis=row_axis, impl=impl,
-                               chunk_group=chunk_group).join()
+                               chunk_group=chunk_group, tracer=tracer, span=span).join()
 
 
 def global_mean(local, width: int, mesh=1, *, row_axis: int = 0):

@@ -50,9 +50,20 @@ the shards sit on one card the shards' run is captured as on one device
 distinct cards a capture would span devices, so the shards' run is the
 eager loop (`ShardedRun` over it), every operation issued from the host.
 
-Not ported yet (ROADMAP.md): the ``trace=`` option (Queue 1 item 9) and
-``execute_ensemble_resilient``, which needs the resilience engine (Queue 1
-item 10).
+Tracing (the reference's ``trace=`` option; ``repro_torch.obs``): every
+backend takes ``trace=`` (None or False: the shared ``NULL_TRACER``, which
+records nothing; True, "on" or 1: a fresh ``Tracer``; or a tracer to share)
+and ``trace_probe_reps`` (pallas_step's phase probes, 16 by default).
+``trace_once`` runs the traced twin of the run (``_build_traced``): the
+eager loop's operations, issued from the host, with a device synchronize at
+each span's end (at D > 1 every shard's device), so the spans attribute the
+wall to dispatch, exchange, gather and compute; it never captures a graph,
+and ``build``, ``measure`` and their launch accounting do not read the
+tracer. Its warm-up run counts as a build (``_build.BUILD_LAUNCHES``), so a
+trace's delta of the launch counters is one traced run's.
+
+Not ported yet (ROADMAP.md): ``execute_ensemble_resilient``, which needs the
+resilience engine (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -70,6 +81,11 @@ from repro_torch.core.metg import GrainSample, combine_grain_samples
 from repro_torch.core.runtimes import _halo
 from repro_torch.core.runtimes._capture import GraphRun, ShardedRun, time_runs
 from repro_torch.core.task_kernels import initial_state, state_from_reference
+from repro_torch.kernels import _build
+from repro_torch.obs import coerce_tracer
+
+#: Options every backend reads: the tracer and pallas_step's probe depth.
+TRACE_OPTIONS = ("trace", "trace_probe_reps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,12 +190,16 @@ class Runtime(abc.ABC):
         self.mesh = _halo.ShardMesh(devices) if len(devices) > 1 else None
         self.devices = list(self.mesh.devices) if self.mesh else [torch.device(devices[0])]
         self.device = self.devices[0]
-        unknown = sorted(set(options) - set(self.known_options))
+        known = self.known_options + TRACE_OPTIONS
+        unknown = sorted(set(options) - set(known))
         if unknown:
             raise ValueError(
-                f"runtime {self.name}: unknown options {unknown}; known "
-                f"{list(self.known_options)}")
+                f"runtime {self.name}: unknown options {unknown}; known {list(known)}")
         self.options = options
+        #: the span recorder `trace_once` writes into (the ``trace=``
+        #: option; by default the shared NULL_TRACER): `build` and
+        #: `measure` never read it
+        self.tracer = coerce_tracer(options.get("trace"))
 
     @property
     def num_devices(self) -> int:
@@ -395,6 +415,76 @@ class Runtime(abc.ABC):
         raise NotImplementedError(
             f"runtime {self.name} has no launch-granular schedule; resilient "
             f"execution needs pallas_step")
+
+    # -- tracing -----------------------------------------------------------
+
+    def _drain(self) -> None:
+        """Wait, on the host, until the work issued so far on every device
+        of the run has finished (the end of a traced span): at D > 1 every
+        shard's device (`_halo.ShardMesh.drain`); nothing on the CPU."""
+        if self.mesh is not None:
+            self.mesh.drain()
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _build_traced(self, graph: TaskGraph) -> Callable:
+        """The traced twin of the run: an executor over what the eager loop
+        takes (the state, or at D > 1 its shard tuple) that records spans
+        into ``self.tracer`` as it runs.
+
+        Default (``fused``, ``bsp_scan``, ``overlap``, whose run is one
+        graph replay with no host boundary inside): the eager loop under
+        two run-level spans, ``run_dispatch`` (dispatch: the host issuing
+        every operation) and ``device_drain`` (compute.interior: the wait
+        for the device to finish what is still queued). The backends with
+        host boundaries (``bsp``, ``serialized``, ``pallas_step``) override
+        it with spans a step, a launch or a phase."""
+        eager = self._build_eager(graph)
+        tr = self.tracer
+        dispatches = self.dispatches_per_run(graph)
+
+        def run(x):
+            with tr.span("run_dispatch", "dispatch", runtime=self.name,
+                         dispatches=dispatches):
+                out = eager(x)
+            with tr.span("device_drain", "compute.interior", runtime=self.name):
+                self._drain()
+            return out
+
+        return run
+
+    def trace_once(self, graph: TaskGraph, init=None) -> np.ndarray:
+        """Run the graph once recording spans, a separate execution from
+        `measure` (the timed path stays untouched); returns the final
+        (width, payload) state, as `execute` does, bit for bit.
+
+        The traced executor runs once first as a warm-up (counted as a
+        build, `_build.building`) and that run's spans are dropped, while
+        the decision records made when it was built stay. The input is
+        staged (at D > 1 split into the shards) and drained before the
+        first span, and the output gathered after the last. With the null
+        tracer this is `execute`."""
+        tr = self.tracer
+        if not tr.enabled:
+            return self.execute(graph, init)
+        self._require_support(graph)
+        x = self._init(graph, init)
+        fn = self._build_traced(graph)
+
+        def staged():
+            s = x.clone() if self.mesh is None else self._split(x)
+            self._drain()
+            return s
+
+        mark = len(tr.spans)
+        with _build.building():
+            fn(staged())
+        self._drain()
+        del tr.spans[mark:]
+        out = fn(staged())
+        if self.mesh is not None:
+            out = self._gather(out)
+        return out.cpu().numpy()
 
     # -- measurement -------------------------------------------------------
 

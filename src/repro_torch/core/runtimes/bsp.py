@@ -58,7 +58,7 @@ import torch
 from repro_torch.core import patterns as _patterns
 from repro_torch.core.graph import GraphEnsemble, TaskGraph
 from repro_torch.core.runtimes import _halo
-from repro_torch.core.runtimes._capture import HostLoop, ReplayLoop, ShardedRun
+from repro_torch.core.runtimes._capture import HostLoop, ReplayLoop, ShardedRun, clone_states
 from repro_torch.core.runtimes.base import Runtime, register
 from repro_torch.core.runtimes.fused import _body_ops
 from repro_torch.core.task_kernels import apply_kernel
@@ -416,6 +416,32 @@ class BspRuntime(_BspBase):
 
     def _build_ensemble_eager(self, ensemble: GraphEnsemble) -> HostLoop:
         return self._host_loop(ensemble.members)
+
+    def _build_traced(self, graph: TaskGraph) -> Callable:
+        """Spans a superstep over the host loop (`_host_loop`), its programs
+        called eagerly: ``dispatch`` is the host call issuing one superstep
+        (``t0_dispatch``, then ``superstep_dispatch``), ``compute.interior``
+        the wait for it to finish on every shard (``t0_compute``, then
+        ``superstep``). The exchange runs inside the superstep (MPI's
+        exchange and compute are one call here by construction), so its wall
+        lands in the compute span, as in the reference."""
+        loop = self._build_eager(graph)
+        tr = self.tracer
+
+        def run(x):
+            loop.stage(x)
+            self._drain()
+            for t, i in enumerate(loop.order):
+                with tr.span("superstep_dispatch" if t else "t0_dispatch", "dispatch",
+                             step=t):
+                    loop.programs[i]()
+                attrs = {"pattern": graph.pattern} if t else {}
+                with tr.span("superstep" if t else "t0_compute", "compute.interior",
+                             step=t, **attrs):
+                    self._drain()
+            return clone_states(loop.output())
+
+        return run
 
     def _replayed(self, loop: HostLoop):
         """On the card each distinct superstep captured as its own CUDA

@@ -189,8 +189,17 @@ cost model) or a ``_halo.GATHER_IMPLS`` name ("xla", "ppermute",
 "chunked"), the all-gather plan's transport at D > 1 (the same bits);
 ``member_shards`` = 1 (default), an int Dk dividing K and D, or "auto" (0,
 "0": `schedule.choose_member_shards` under the cost model), the stacked
-ensembles' row x member mesh at D > 1 (the same bits). The reference's
-``block_rows`` and ``unroll`` (TPU tilings) are unknown options here.
+ensembles' row x member mesh at D > 1 (the same bits); ``trace`` and
+``trace_probe_reps``, as on every backend. The reference's ``block_rows``
+and ``unroll`` (TPU tilings) are unknown options here.
+
+Tracing (``trace_once``; the tracing section below): the traced twin of
+every plan path at D = 1 and over row shards, built from the eager pieces.
+Each step or launch that moves rows is a `_Phased` move then compute, and
+the production loops call the composition, so the twin times the same
+operations apart; the pipelined launch stays one span, its phases priced
+by probes. The schedule's ``schedule.resolve`` record comes first, and an
+ensemble off the stacked path records why (`_record_stacking_degradation`).
 """
 from __future__ import annotations
 
@@ -630,6 +639,37 @@ def _stacked(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(tuple(xs)) if len(xs) > 1 else xs[0][None]
 
 
+class _Phased(NamedTuple):
+    """One step or launch as its two phases, which the traced twin times
+    apart (`PallasStepRuntime._build_traced`): ``move(state, tracer=None,
+    span=None)``, the transfer that brings the rows of other shards (or one
+    device's deep wrap), which hands ``tracer`` and ``span`` to its
+    transport (`_halo`); None where no rows move (the one-device wrap folded
+    into K3, an in-block stride, the gather on one device, halo 0). Then
+    ``compute(state, moved, item)``, the launches on what it moved. Called
+    with (state, item), it is the step itself: the production loops call it
+    so, and the traced twin calls the two phases in turn."""
+
+    move: Optional[Callable]
+    compute: Callable
+
+    def __call__(self, state, item=None):
+        return self.compute(state, None if self.move is None else self.move(state), item)
+
+
+class _Blocked(NamedTuple):
+    """The halo plan's blocked launches on one device
+    (`PallasStepRuntime._blocked_launches`): ``begin(state)`` gives the
+    carry and ``launch(carry, a)`` runs one launch under the (K, S) act
+    rows ``a``: serial, a `_Phased` (the deep wrap, then K4 on the wrapped
+    state); pipelined, one unit (boundary and interior phases), whose phase
+    tables are ``phases``."""
+
+    begin: Callable
+    launch: Callable
+    phases: Optional["_PhaseTables"] = None
+
+
 class _ShardSteps(NamedTuple):
     """The halo plan's run over one ring of shards for K stacked members
     (`PallasStepRuntime._halo_shard_steps`), as lists over the ring's
@@ -640,12 +680,20 @@ class _ShardSteps(NamedTuple):
     the step (the others keep their state); at S > 1 each shard's (K, S)
     act rows. ``states(carry)``: each shard's (K, B, payload) state.
     ``admit(carry, slot, shards)``: member ``slot``'s rows replaced, in
-    place, by the t = 0 launch on a fresh member's (B, payload) shards."""
+    place, by the t = 0 launch on a fresh member's (B, payload) shards.
+    For the traced twin: ``launch`` is a `_Phased` at S = 1 and serial, one
+    unit when pipelined; ``t0`` is ``body`` followed, on the pipelined
+    schedule, by ``prologue(carry, tracer=None, span=None)``, the prologue
+    exchange (None elsewhere); ``phases``: each shard's pipelined phase
+    tables."""
 
     t0: Callable
     launch: Callable
     states: Callable
     admit: Callable
+    body: Optional[Callable] = None
+    prologue: Optional[Callable] = None
+    phases: Optional[List["_PhaseTables"]] = None
 
 
 class _MemberSlices(NamedTuple):
@@ -1036,14 +1084,15 @@ class PallasStepRuntime(Runtime):
         return t0, step
 
     def _blocked_launches(self, idx, wgt, B: int, S: int, H: int, kwb: dict,
-                          pipelined: bool) -> Tuple[Callable, Callable]:
-        """(begin, launch) for the halo plan's blocked launches on a stacked
-        (K, B, payload) state with (K, B, D) tables: ``begin(state)`` gives
-        the carry, ``launch(carry, a)`` runs one blocked launch under the
-        (K, S) act rows ``a`` and gives the next; the state is ``carry[0]``.
+                          pipelined: bool) -> _Blocked:
+        """The halo plan's blocked launches (`_Blocked`) on a stacked (K, B,
+        payload) state with (K, B, D) tables: ``begin(state)`` gives the
+        carry, ``launch(carry, a)`` runs one blocked launch under the (K, S)
+        act rows ``a`` and gives the next; the state is ``carry[0]``.
         Pipelined: boundary + interior phases (two K4 launches, the interior
-        on a second stream on the card). Serial: one deep wrap and one K4
-        launch on the wrapped state, the owned rows sliced out after it."""
+        on a second stream on the card). Serial: one deep wrap (the
+        one-device exchange, a row gather of the state) and one K4 launch on
+        the wrapped state, the owned rows sliced out after it."""
         depth = S * H
         mode = self._combine_mode()
         if pipelined:
@@ -1057,21 +1106,28 @@ class PallasStepRuntime(Runtime):
             def launch(carry, a):
                 return _pipelined_launch(*carry, a, ph, depth, kwb, side)
 
-            return begin, launch
+            return _Blocked(begin, launch, ph)
         iext, wext = _extend_tables(idx, wgt, depth, mode, row_axis=1)
         rows = halo_rows(B, depth, self.device) if depth else None
 
-        def launch(carry, a):
-            nf = _kops.taskbench_step(_extend_state(carry[0], rows), iext, wext, a, **kwb)
-            return (nf[:, depth:depth + B],)
+        def wrap(carry, tracer=None, span=None):
+            with _halo.transport_span(tracer, "deep_exchange", impl=_probes.SELF_EXCHANGE,
+                                      depth=depth, **(span or {})):
+                ext = _extend_state(carry[0], rows)
+                if tracer is not None and tracer.enabled:
+                    self._drain()
+            return ext
 
-        return (lambda state: (state,)), launch
+        def kernel(carry, ext, a):
+            src = carry[0] if ext is None else ext
+            return (_kops.taskbench_step(src, iext, wext, a, **kwb)[:, depth:depth + B],)
 
-    def _build_blocked(self, graph: TaskGraph, S: int) -> Callable:
-        """ceil((T-1)/S) launches of K4 after the t = 0 K3 launch. When the
-        pipeline applies, each launch splits into boundary + interior
-        phases (two K4 launches); otherwise one deep wrap and one K4 launch
-        on the wrapped state."""
+        return _Blocked(lambda state: (state,), _Phased(wrap if depth else None, kernel))
+
+    def _blocked_parts(self, graph: TaskGraph, S: int):
+        """(t0, acts, launches, kwb) of the halo plan's blocked run on one
+        device: the t = 0 K3 launch on a (1, W, P) state, the (L, 1, S) act
+        rows, the `_Blocked` launches and their K4 keywords."""
         H = _patterns.halo_radius(graph)
         T = graph.steps
         kw0 = self._kernel_kw(graph)
@@ -1083,14 +1139,22 @@ class PallasStepRuntime(Runtime):
             torch.from_numpy(a)[None].to(self.device)
             for a in self._blocked_operands(graph, H))
         acts = torch.from_numpy(_act_schedule((T,), T, S)).to(self.device)  # (L, 1, S)
-        begin, launch = self._blocked_launches(
+        blk = self._blocked_launches(
             idx, wgt, graph.width, S, H, kwb,
             self._pipeline_active(graph.width, S, H, graph.payload))
+        return (lambda x: _kops.taskbench_step(x, idx0, wgt0, **kw0)), acts, blk, kwb
+
+    def _build_blocked(self, graph: TaskGraph, S: int) -> Callable:
+        """ceil((T-1)/S) launches of K4 after the t = 0 K3 launch. When the
+        pipeline applies, each launch splits into boundary + interior
+        phases (two K4 launches); otherwise one deep wrap and one K4 launch
+        on the wrapped state."""
+        t0, acts, blk, _ = self._blocked_parts(graph, S)
 
         def run(init):
-            carry = begin(_kops.taskbench_step(init[None], idx0, wgt0, **kw0))  # t=0
+            carry = blk.begin(t0(init[None]))  # t=0
             for a in acts:
-                carry = launch(carry, a)
+                carry = blk.launch(carry, a)
             return carry[0][0]
 
         return run
@@ -1189,12 +1253,15 @@ class PallasStepRuntime(Runtime):
                 mp(lambda d, x, y: step_into(x, t0_ops[d], y[:, H:H + B]), inits, bufs[0])
                 return bufs
 
-            def launch(carry, keep=None):
+            def move(carry, tracer=None, span=None):
+                """The ring exchange into the current buffers' heads and tails."""
+                cur = carry[0]
+                _halo.exchange_halos([c[:, H:H + B] for c in cur], H, mesh, row_axis=1,
+                                     out=([c[:, :H] for c in cur], [c[:, H + B:] for c in cur]),
+                                     tracer=tracer, span=span)
+
+            def compute(carry, _, keep=None):
                 cur, nxt = carry
-                if H:
-                    _halo.exchange_halos([c[:, H:H + B] for c in cur], H, mesh, row_axis=1,
-                                         out=([c[:, :H] for c in cur],
-                                              [c[:, H + B:] for c in cur]))
                 mp(lambda d, x, y: step_into(
                     x, (i_d[d], w_d[d]), y[:, H:H + B],
                     None if keep is None else (keep[d], x[:, H:H + B])), cur, nxt)
@@ -1203,7 +1270,7 @@ class PallasStepRuntime(Runtime):
             def states(carry):
                 return [c[:, H:H + B] for c in carry[0]]
 
-            return _ShardSteps(t0, launch, states, admit)
+            return _ShardSteps(t0, _Phased(move if H else None, compute), states, admit, body=t0)
 
         depth = S * H
         kwb = dict(kw0, steps_per_launch=S, radius=H)
@@ -1215,13 +1282,18 @@ class PallasStepRuntime(Runtime):
                                 ext_w[d], depth, mode) for d, dev in enumerate(devs)]
             impl = self._halo_impl()
 
-            def t0(inits):
-                states_ = mp(lambda d, x: body0(d, x), inits)
+            def body(inits):
+                return mp(lambda d, x: body0(d, x), inits)
+
+            def prologue(states_, tracer=None, span=None):
                 if T <= 1:
                     return states_, None
-                return states_, _halo.exchange_edges_start(  # the prologue exchange
+                return states_, _halo.exchange_edges_start(
                     mesh, [s[:, :depth] for s in states_], [s[:, B - depth:] for s in states_],
-                    row_axis=1, impl=impl)
+                    row_axis=1, impl=impl, tracer=tracer, span=span)
+
+            def t0(inits):
+                return prologue(body(inits))
 
             def launch(carry, a):
                 states_, handle = carry
@@ -1236,7 +1308,8 @@ class PallasStepRuntime(Runtime):
             def states(carry):
                 return carry[0]
 
-            return _ShardSteps(t0, launch, states, admit)
+            return _ShardSteps(t0, launch, states, admit, body=body, prologue=prologue,
+                               phases=ph)
 
         ext_i = [self._shard_tables(idx, depth, d, B, dev, rebase=True) if not window
                  else torch.from_numpy(idx[:, :1]).to(dev) for d, dev in enumerate(devs)]
@@ -1244,18 +1317,23 @@ class PallasStepRuntime(Runtime):
         def t0(inits):
             return mp(lambda d, x: body0(d, x), inits)
 
-        def launch(states_, a):
+        def move(states_, tracer=None, span=None):
+            """The deep exchange: each shard's (left, right) halos."""
+            return _halo.exchange_halos(states_, depth, mesh, row_axis=1, tracer=tracer,
+                                        span=span)
+
+        def compute(states_, halos, a):
             src = states_
-            if depth:
-                lefts, rights = _halo.exchange_halos(states_, depth, mesh, row_axis=1)
-                src = mp(lambda d, s, l, r: torch.cat([l, s, r], dim=1), states_, lefts, rights)
+            if halos is not None:
+                src = mp(lambda d, s, l, r: torch.cat([l, s, r], dim=1), states_, *halos)
             return mp(lambda d, x: _kops.taskbench_step(
                 x, ext_i[d], ext_w[d], a[d], **kwb)[:, depth:depth + B], src)
 
         def states(carry):
             return carry
 
-        return _ShardSteps(t0, launch, states, admit)
+        return _ShardSteps(t0, _Phased(move if depth else None, compute), states, admit,
+                           body=t0)
 
     def _stacked_shards(self, ring: _halo.ShardMesh, members) -> List[torch.Tensor]:
         """Each shard of ``ring``'s (K, B, payload) stack of ``members``'
@@ -1363,11 +1441,16 @@ class PallasStepRuntime(Runtime):
 
     def _stride_step_fns(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
         """(t0, step) for the stride plan (butterfly) over a list of D shard
-        states, each (1, B, P) (one device: [the (1, W, P) state]).
+        states, each (1, B, P) (one device: [the (1, W, P) state]): ``step
+        (shards, t)`` runs timestep t's branch (`_stride_branches`)."""
+        t0, branch_at = self._stride_branches(graph)
+        return t0, (lambda shards, t: branch_at(t)(shards))
 
-        ``step(shards, t)`` runs timestep t: the period slot's stride,
-        chosen on the host, selects a branch, and one K3 launch a shard
-        combines {p, partner} and runs the body. An in-block stride (s < B,
+    def _stride_branches(self, graph: TaskGraph) -> Tuple[Callable, Callable]:
+        """(t0, branch_at) for the stride plan over shard lists:
+        ``branch_at(t)`` is timestep t's branch, a `_Phased` step. The
+        period slot's stride, chosen on the host from t, selects it, and
+        one K3 launch a shard combines {p, partner} and runs the body. An in-block stride (s < B,
         every stride on one device) takes the partner rows from the shard's
         own block (`_xor_swap`); a block stride (s >= B) takes shard d XOR
         s/B's block through ``_halo.exchange_stride`` over ``halo_impl``.
@@ -1388,35 +1471,40 @@ class PallasStepRuntime(Runtime):
         dummy_w = self._per_device(lambda dev: torch.zeros((1, B, 1), dtype=torch.float32,
                                                            device=dev))
 
-        def partners(shards, s: int):
-            if s < B:
-                return self._map(lambda d, x: _xor_swap(x, s, row_axis=1), shards)
-            return _halo.exchange_stride(mesh, shards, (s // B,), row_axis=1, impl=impl)[0]
+        def exchange(s: int) -> Callable:
+            """A block stride's move: shard d XOR s/B's block for each shard."""
+            def move(shards, tracer=None, span=None):
+                return _halo.exchange_stride(mesh, shards, (s // B,), row_axis=1, impl=impl,
+                                             tracer=tracer, span=span)[0]
 
-        def make_branch(s: int) -> Callable:
+            return move
+
+        def make_branch(s: int) -> _Phased:
+            move = exchange(s) if s >= B else None  # an in-block stride moves no rows
             if mode == "pair":
-                def branch(shards):
+                def compute(shards, partners, _=None):
+                    if partners is None:  # in-block: the XOR shuffle of the shard's rows
+                        partners = self._map(lambda d, x: _xor_swap(x, s, row_axis=1), shards)
                     return self._map(lambda d, x, p: _kops.taskbench_step(
                         torch.cat([x, p], dim=1), dummy_i[d], dummy_w[d], **kw),
-                        shards, partners(shards, s))
+                        shards, partners)
 
-                return branch
+                return _Phased(move, compute)
             idx_np, wgt_np, off_block = _stride_slot_tables(B, s)
             idx = self._per_device(lambda dev: torch.from_numpy(idx_np)[None].to(dev))
             wgt = self._per_device(lambda dev: torch.from_numpy(wgt_np)[None].to(dev))
             if not off_block:
-                def branch(shards):
+                def compute(shards, _p, _=None):
                     return self._map(lambda d, x: _kops.taskbench_step(x, idx[d], wgt[d], **kw),
                                      shards)
 
-                return branch
+                return _Phased(None, compute)
 
-            def branch(shards):
+            def compute(shards, partners, _=None):
                 return self._map(lambda d, x, p: _kops.taskbench_step(
-                    torch.cat([x, p], dim=1), idx[d], wgt[d], **kw),
-                    shards, partners(shards, s))
+                    torch.cat([x, p], dim=1), idx[d], wgt[d], **kw), shards, partners)
 
-            return branch
+            return _Phased(move, compute)
 
         branches = {s: make_branch(s) for s in sorted(set(strides))}
         if mode == "pair":
@@ -1431,10 +1519,7 @@ class PallasStepRuntime(Runtime):
             def t0(shards):
                 return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw), shards)
 
-        def step(shards, t: int):
-            return branches[strides[(t - 1) % period]](shards)
-
-        return t0, step
+        return t0, (lambda t: branches[strides[(t - 1) % period]])
 
     def _global_table_fn(self, graph: TaskGraph):
         """(tables_at, key_of, time_varying): the global-table policy,
@@ -1479,25 +1564,31 @@ class PallasStepRuntime(Runtime):
         return _schedule.choose_gather_impl(width=width, devices=self.num_devices,
                                             model=self._cost_model())[0]
 
-    def _gather_fn(self, graph: TaskGraph) -> Callable[[List], List]:
-        """The all-gather plan's gather over shard lists: each shard's (1,
-        W, P) global-order buffer (`_halo.gather_global` over `_gather_impl`;
-        shards on one card share one); one device: the state itself."""
-        if self.mesh is None:
-            return lambda shards: list(shards)
+    def _gather_fn(self, graph: TaskGraph) -> Callable[..., List]:
+        """The all-gather plan's gather over D > 1 shards, a `_Phased` move:
+        each shard's (1, W, P) global-order buffer (`_halo.gather_global`
+        over `_gather_impl`; shards on one card share one). One device
+        gathers nothing: the state is the buffer."""
         mesh, impl, group = self.mesh, self._gather_impl(graph.width), None
         if impl == "chunked":  # G resolved once a build, under this runtime's model
             group = _schedule.choose_gather_chunk_group(
                 devices=self.num_devices, width=graph.width, model=self._cost_model())[0]
-        return lambda shards: _halo.gather_global(shards, mesh, row_axis=1, impl=impl,
-                                                  chunk_group=group)
+        return lambda shards, tracer=None, span=None: _halo.gather_global(
+            shards, mesh, row_axis=1, impl=impl, chunk_group=group, tracer=tracer, span=span)
+
+    def _psum_mean(self, graph: TaskGraph) -> bool:
+        """Whether the all-gather plan combines ``graph`` through the row
+        mean (all_to_all under ``psum_mean``, default on)."""
+        return graph.pattern == "all_to_all" and bool(self.options.get("psum_mean", True))
 
     def _allgather_step_fns(self, graph: TaskGraph,
-                            steps: Optional[int] = None) -> Tuple[Callable, Callable]:
+                            steps: Optional[int] = None) -> Tuple[Callable, _Phased]:
         """(t0, step) for the all-gather plan, per step, over a list of D
-        shard states, each (1, B, P) (one device: [the (1, W, P) state]).
+        shard states, each (1, B, P) (one device: [the (1, W, P) state]);
+        ``step`` is a `_Phased` step.
 
-        ``step(shards, t)``: the gather (`_gather_fn`), then one K3 launch a
+        ``step(shards, t)``: the gather (`_gather_fn`; its move at D > 1,
+        none on one device), then one K3 launch a
         shard on the gathered W-row buffer with its rows [d*B, (d+1)*B) of
         timestep t's global tables: global rows into the gathered buffer,
         so nothing is rebased. The tables are a stack built once, on the
@@ -1513,19 +1604,19 @@ class PallasStepRuntime(Runtime):
         def t0(shards):
             return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw), shards)
 
-        if graph.pattern == "all_to_all" and bool(self.options.get("psum_mean", True)):
+        if self._psum_mean(graph):
             # every output row gathers the one mean row at weight 1
             i_mean = self._per_device(lambda dev: torch.zeros((1, B, 1), dtype=torch.int32,
                                                               device=dev))
             mesh = self.mesh
 
-            def step(shards, t: int):
+            def mean_step(shards, _, t: int):
                 means = ([_halo.global_mean(shards[0], W, row_axis=1)] if mesh is None
                          else _halo.global_mean(shards, W, mesh, row_axis=1))
                 return self._map(lambda d, m: _kops.taskbench_step(
                     m[:, None], i_mean[d], selfs[d][1], **kw), means)
 
-            return t0, step
+            return t0, _Phased(None, mean_step)
 
         tables_at, key_of, time_varying = self._global_table_fn(graph)
         ts = range(1, T) if time_varying and T > 1 else (1,)
@@ -1534,14 +1625,12 @@ class PallasStepRuntime(Runtime):
         # each shard's rows of every (1, W, Dt) table, cut once: (keys, 1, B, Dt)
         mine = [tuple(a[:, :, d * B:(d + 1) * B].contiguous().to(dev) for a in (idx, wgt))
                 for d, dev in enumerate(self.devices)]
-        gather = self._gather_fn(graph)
-
-        def step(shards, t: int):
+        def compute(shards, fulls, t: int):
             r = row_of[t] if time_varying else 0
             return self._map(lambda d, f: _kops.taskbench_step(
-                f, mine[d][0][r], mine[d][1][r], **kw), gather(shards))
+                f, mine[d][0][r], mine[d][1][r], **kw), shards if fulls is None else fulls)
 
-        return t0, step
+        return t0, _Phased(None if self.mesh is None else self._gather_fn(graph), compute)
 
     def _plan_shard_fns(self, graph: TaskGraph, plan: str,
                         steps: Optional[int] = None) -> Tuple[Callable, Callable]:
@@ -1585,7 +1674,14 @@ class PallasStepRuntime(Runtime):
         return self._shard_loop(t0, range(1, graph.steps), step)
 
     def _build_allgather_blocked(self, graph: TaskGraph, S: int) -> Callable:
-        """The blocked all-gather plan: after the t = 0 K3 launch a shard,
+        """The blocked all-gather plan's run (`_allgather_blocked_parts`)."""
+        t0, L, launch = self._allgather_blocked_parts(graph, S)
+        return self._shard_loop(t0, range(L), launch)
+
+    def _allgather_blocked_parts(self, graph: TaskGraph, S: int):
+        """(t0, L, launch) of the blocked all-gather plan over shard lists,
+        ``launch(states, l)`` a `_Phased` step (None at T = 1): after the
+        t = 0 K3 launch a shard,
         ceil((T-1)/S) launches, each the gather (`_gather_fn`) and one K4
         launch a shard on the gathered (1, W, P) buffer, with the S
         timesteps' (1, S, W, D) tables (time-varying: a per-launch stack
@@ -1606,7 +1702,7 @@ class PallasStepRuntime(Runtime):
             return self._map(lambda d, x: _kops.taskbench_step(x, *selfs[d], **kw0), shards)
 
         if not len(acts_np):  # T = 1: the body alone
-            return self._shard_loop(t0, (), None)
+            return t0, 0, None
         tables_at, key_of, time_varying = self._global_table_fn(graph)
         # first timestep of each launch, and its S timesteps
         groups = [[1 + l * S + d for d in range(S)] for l in range(len(acts_np))]
@@ -1616,15 +1712,15 @@ class PallasStepRuntime(Runtime):
         if not time_varying:  # one (1, W, D) pair for every launch
             idx, wgt, rows = idx[:, 0], wgt[:, 0], [0] * len(acts_np)
         tables = self._per_device(lambda dev: (idx.to(dev), wgt.to(dev)))
-        gather = self._gather_fn(graph)
 
-        def launch(states, l: int):
+        def compute(states, fulls, l: int):
             r = rows[l]
             return self._map(lambda d, f: _kops.taskbench_step(
                 f, tables[d][0][r:r + 1], tables[d][1][r:r + 1], acts[d][l][None],
-                **kwb)[:, d * B:(d + 1) * B], gather(states))
+                **kwb)[:, d * B:(d + 1) * B], states if fulls is None else fulls)
 
-        return self._shard_loop(t0, range(len(acts_np)), launch)
+        move = None if self.mesh is None else self._gather_fn(graph)
+        return t0, len(acts_np), _Phased(move, compute)
 
     # ------------------------------------------------------------ ensembles
 
@@ -1746,9 +1842,28 @@ class PallasStepRuntime(Runtime):
             if S > 1:
                 return self._build_ensemble_stacked_blocked(ensemble, S)
             return self._build_ensemble_stacked(ensemble)
+        self._record_stacking_degradation(ensemble, S, "tuple")
         if S > 1:
             return self._build_ensemble_tuple_blocked(ensemble, S)
         return self._build_ensemble_tuple(ensemble)
+
+    def _record_stacking_degradation(self, ensemble: GraphEnsemble, S: int,
+                                     plan_kind: str) -> None:
+        """The decision record of a multi-member ensemble off the stacked
+        path (the tuple fallback, the stepwise launch plan): one
+        ``schedule.resolve`` instant naming the failed requirement
+        (`stacking_verdict`'s reason), the reference's record. Nothing with
+        tracing off."""
+        if len(ensemble.members) <= 1 or not self.tracer.enabled:
+            return
+        ok, why = self.stacking_verdict(ensemble)
+        if ok:
+            return
+        _schedule.record_resolution(
+            self.tracer, plan=plan_kind, steps_per_launch=S, pipeline=False,
+            model=self._cost_model(ensemble.members[0].payload),
+            reason=f"ensemble off the stacked fast path: {why}", runtime=self.name,
+            members=len(ensemble.members), stacked=False)
 
     def _build_ensemble_stacked(self, ensemble: GraphEnsemble) -> Callable:
         """All K members' combines and bodies in one K3 launch a timestep,
@@ -1804,7 +1919,7 @@ class PallasStepRuntime(Runtime):
         idx, wgt, idx0, wgt0 = self._stacked_operands(ensemble, H, blocked=True)
         acts = torch.from_numpy(
             _act_schedule(ensemble.member_steps, T, S)).to(self.device)  # (L, K, S)
-        begin, launch = self._blocked_launches(
+        begin, launch, _ = self._blocked_launches(
             idx, wgt, W, S, H, kwb, self._pipeline_active(W, S, H, members[0].payload))
 
         def run(inits):
@@ -1896,7 +2011,7 @@ class PallasStepRuntime(Runtime):
         kw0 = self._kernel_kw(graph)
         idx, wgt, idx0, wgt0 = (torch.from_numpy(a)[None].to(self.device)
                                 for a in self._blocked_operands(graph, h))
-        begin, launch = self._blocked_launches(
+        begin, launch, _ = self._blocked_launches(
             idx, wgt, graph.width, S, h, dict(kw0, steps_per_launch=S, radius=h),
             self._pipeline_active(graph.width, S, h, graph.payload))
         return ((lambda shards: begin(_kops.taskbench_step(shards[0], idx0, wgt0, **kw0))),
@@ -1943,6 +2058,7 @@ class PallasStepRuntime(Runtime):
             if self.mesh is not None:
                 return self._launch_plan_stacked_sharded(ensemble, S, dk)
             return self._launch_plan_stacked(ensemble, S)
+        self._record_stacking_degradation(ensemble, 1, "stepwise")
         return self._launch_plan_stepwise(ensemble)
 
     def _launch_plan_stacked(self, ensemble: GraphEnsemble, S: int) -> EnsembleLaunchPlan:
@@ -1960,13 +2076,13 @@ class PallasStepRuntime(Runtime):
         if S > 1:
             H = max(_patterns.halo_radius(g) for g in members)
             idx, wgt, _, _ = self._stacked_operands(ensemble, H, blocked=True)
-            _, blocked = self._blocked_launches(
+            blocked = self._blocked_launches(
                 idx, wgt, B, S, H, dict(self._kernel_kw(members[0]), steps_per_launch=S,
                                         radius=H), False)
 
             def launch(xs):
                 s, a = xs
-                return blocked((s,), a)[0]
+                return blocked.launch((s,), a)[0]
         else:
             def launch(xs):
                 s, a = xs
@@ -2098,6 +2214,309 @@ class PallasStepRuntime(Runtime):
                 rows=sum(self._block(g) for g in members), steps_per_launch=1,
                 model=self._cost_model(members[0].payload), impl=self._exchange_impl()),
             kind="stepwise", compile_counter=lambda: _build.CAPTURES["graphs"])
+
+    # ------------------------------------------------------------- tracing
+    #
+    # The traced twin (`Runtime.trace_once`) runs each schedule from the
+    # host with a device synchronize at the end of every span (at D > 1 on
+    # every shard's device), so span boundaries exist: the production run
+    # is one CUDA graph replay, opaque to host timing. It is built from the
+    # eager pieces, never from a captured run. Two rules carry over from the
+    # reference:
+    #
+    #   1. it computes what production computes: the same operands, kernels
+    #      and transports (the production step is the composition of the
+    #      `_Phased` move and compute the twin times apart), only the loop
+    #      stepped from the host; on the card its output equals the replay's
+    #      bit for bit;
+    #   2. the pipelined launch stays one unit: its boundary K4, edge
+    #      exchange and interior K4 run concurrently, so timing them apart
+    #      would serialize the overlap being measured. The launch is one
+    #      "launch" span and its phases are priced by separate probes
+    #      (``probe.boundary``, ``probe.exchange``, ``probe.interior``: R =
+    #      ``trace_probe_reps`` loop-carried repetitions each, after the
+    #      launch loop), from which `obs.decompose` splits each launch wall
+    #      and derives the overlap verdict.
+    #
+    # The port records the operations it performs. On one device no rows
+    # move between shards, so where the one-device form moves none there is
+    # no transport span: the S = 1 step (the wrap folded into K3), the
+    # pipelined prologue and edge exchange (views of the state; so no
+    # exchange probe, and the verdict says "unavailable") and the gather
+    # (the state itself). The serial schedule's deep wrap is a row gather,
+    # and keeps its ``deep_exchange`` span. The extended tables are cut once
+    # per build, so no run records the reference's ``table_exchange``.
+
+    def _record_schedule(self, graph: TaskGraph, plan: _ResolvedPlan,
+                         pipelined: bool) -> None:
+        _schedule.record_resolution(
+            self.tracer, plan=plan.kind, steps_per_launch=plan.steps_per_launch,
+            pipeline=pipelined, model=self._cost_model(graph.payload), reason=plan.reason,
+            runtime=self.name, pattern=graph.pattern, width=graph.width,
+            launches=self._launches(graph.steps, plan.steps_per_launch))
+
+    def _build_traced(self, graph: TaskGraph) -> Callable:
+        """The traced twin of `_build_eager`'s run, over the same input (the
+        state, or at D > 1 its shard tuple), chosen among the plan paths as
+        `_build_eager` chooses; the schedule's decision record first."""
+        self._require_support(graph)
+        plan = self._schedule_for_graph(graph)
+        S = plan.steps_per_launch
+        pipelined = plan.kind == PLAN_HALO and S > 1 and self._pipeline_active(
+            self._block(graph), S, _patterns.halo_radius(graph), graph.payload)
+        self._record_schedule(graph, plan, pipelined)
+        if plan.kind == PLAN_STRIDE:
+            return self._trace_stride_steps(graph)
+        if plan.kind == PLAN_ALLGATHER:
+            if S > 1:
+                return self._trace_allgather_blocked(graph, S)
+            return self._trace_allgather_steps(graph)
+        if self.mesh is not None:
+            return self._trace_halo_shards(graph, S, pipelined)
+        if S > 1:
+            return self._trace_blocked(graph, S, pipelined)
+        return self._trace_halo_steps(graph)
+
+    @contextlib.contextmanager
+    def _phase(self, name: str, category: str, **attrs):
+        """A span that ends once the work issued inside it has finished."""
+        with self.tracer.span(name, category, **attrs):
+            yield
+            self._drain()
+
+    def _trace_t0(self, t0: Callable, x):
+        """The t = 0 launch: ``t0_launch`` (dispatch) while the host issues
+        it, ``t0_kernel`` (compute.interior) while the device finishes it."""
+        with self.tracer.span("t0_launch", "dispatch", step=0):
+            st = t0(x)
+        with self.tracer.span("t0_kernel", "compute.interior", step=0):
+            self._drain()
+        return st
+
+    def _trace_steps(self, t0: Callable, items: Sequence, phased_at: Callable,
+                     kernel: str, move: Optional[str], attrs_at: Callable) -> Callable:
+        """The traced twin of a `_shard_loop` run: the t = 0 launch, then for
+        each of ``items`` the `_Phased` step ``phased_at(item)``: its move,
+        where rows move, as the transport's span ``move`` (the transport
+        records it, joined and drained), and its compute as the span
+        ``kernel`` (category gather where the name says so, else
+        compute.interior), each with ``attrs_at(item)``."""
+        tr, mesh = self.tracer, self.mesh
+        category = "gather" if "gather" in kernel else "compute.interior"
+
+        def run(init):
+            if mesh is None:
+                init = (init,)
+            else:
+                mesh.fork()
+            st = self._trace_t0(t0, [x[None] for x in init])
+            for item in items:
+                step, attrs = phased_at(item), attrs_at(item)
+                moved = None if step.move is None else step.move(
+                    st, tracer=tr, span=dict(attrs, name=move))
+                with self._phase(kernel, category, **attrs):
+                    st = step.compute(st, moved, item)
+            if mesh is None:
+                return st[0][0]
+            mesh.join(st)
+            return tuple(s[0] for s in st)
+
+        return run
+
+    def _trace_halo_steps(self, graph: TaskGraph) -> Callable:
+        """One device, S = 1: a ``megakernel`` span a step, the K3 launch
+        with the halo wrap folded in (no exchange span: no rows move)."""
+        t0, step = self._plan_shard_fns(graph, PLAN_HALO)
+        phased = _Phased(None, lambda shards, _, t: step(shards, t))
+        return self._trace_steps(t0, range(1, graph.steps), lambda t: phased, "megakernel",
+                                 None, lambda t: dict(step=t, pattern=graph.pattern))
+
+    def _trace_stride_steps(self, graph: TaskGraph) -> Callable:
+        """The stride plan: a step's stride picks, on the host, an in-block
+        XOR shuffle (in the ``stride_kernel`` span) or, at D > 1, a block
+        exchange (its ``stride_exchange`` span), then the K3 span."""
+        t0, branch_at = self._stride_branches(graph)
+        strides, period = _patterns.butterfly_slot_strides(graph), graph.period
+        return self._trace_steps(t0, range(1, graph.steps), branch_at, "stride_kernel",
+                                 "stride_exchange",
+                                 lambda t: dict(step=t, stride=strides[(t - 1) % period]))
+
+    def _trace_allgather_steps(self, graph: TaskGraph) -> Callable:
+        """The per-step all-gather plan: at D > 1 a ``gather_global`` span
+        (the transport) and a ``global_kernel`` span a step; on one device
+        the kernel span alone. all_to_all under ``psum_mean``: one
+        ``gather_psum_mean`` span a step (category gather), the row mean and
+        its K3 launch, as the reference records its reduction step."""
+        t0, step = self._allgather_step_fns(graph)
+        W = graph.width
+        if self._psum_mean(graph):
+            return self._trace_steps(t0, range(1, graph.steps), lambda t: step,
+                                     "gather_psum_mean", None,
+                                     lambda t: dict(step=t, width=W, impl="psum"))
+        return self._trace_steps(t0, range(1, graph.steps), lambda t: step, "global_kernel",
+                                 "gather_global", lambda t: dict(step=t, width=W))
+
+    def _trace_allgather_blocked(self, graph: TaskGraph, S: int) -> Callable:
+        """The blocked all-gather plan: a launch's ``gather_global`` span
+        (D > 1) and its ``blocked_global_kernel`` span, K4 on the gathered
+        state."""
+        t0, L, launch = self._allgather_blocked_parts(graph, S)
+        return self._trace_steps(t0, range(L), lambda l: launch, "blocked_global_kernel",
+                                 "gather_global",
+                                 lambda l: dict(launch=l, steps_per_launch=S,
+                                                width=graph.width))
+
+    def _trace_blocked(self, graph: TaskGraph, S: int, pipelined: bool) -> Callable:
+        """The halo plan's blocked schedules on one device. Serial: per
+        launch the deep wrap (``deep_exchange``) and the K4 launch
+        (``blocked_kernel``), the pair the pipelined schedule exists to
+        break. Pipelined: per launch one ``pipelined_launch`` span (category
+        launch: the boundary and interior K4), then the boundary and
+        interior probes (`_trace_probes`; the self-wrap moves no rows, so
+        there is no exchange probe)."""
+        t0, acts, blk, kwb = self._blocked_parts(graph, S)
+        depth = S * _patterns.halo_radius(graph)
+        tr, impl = self.tracer, self._exchange_impl()
+
+        def run(init):
+            carry = blk.begin(self._trace_t0(t0, init[None]))
+            for l, a in enumerate(acts):
+                if pipelined:
+                    with self._phase("pipelined_launch", "launch", launch=l,
+                                     steps_per_launch=S, impl=impl, depth=depth,
+                                     kernel_launches=2):
+                        carry = blk.launch(carry, a)
+                    continue
+                step = blk.launch
+                moved = None if step.move is None else step.move(
+                    carry, tracer=tr, span=dict(launch=l))
+                with self._phase("blocked_kernel", "compute.interior", launch=l,
+                                 steps_per_launch=S):
+                    carry = step.compute(carry, moved, a)
+            if pipelined and len(acts):
+                s, hl, hr = carry
+                self._trace_probes([s], [hl], [hr], [acts[0]], [blk.phases], depth, kwb, impl)
+            return carry[0][0]
+
+        return run
+
+    def _trace_halo_shards(self, graph: TaskGraph, S: int, pipelined: bool) -> Callable:
+        """The halo plan over D row shards (`_halo_shard_steps`, the run
+        `_sharded_stacked_run` makes for one graph). Each span covers a
+        phase across every shard: it ends when every shard's device has
+        finished it. S = 1: per step the ring exchange (``halo_exchange``,
+        the transport's span) and the K3 launch a shard (``megakernel``).
+        Serial: per launch the deep exchange (``deep_exchange``) and the K4
+        launch a shard, on the buffer it extends (``blocked_kernel``).
+        Pipelined: the prologue exchange (``prologue_exchange``), a
+        ``pipelined_launch`` span a launch (the boundary K4, the next edge
+        exchange started on its outputs, the interior K4 under it), then
+        the exchange, boundary and interior probes (`_trace_probes`)."""
+        T, H, mesh, tr = graph.steps, _patterns.halo_radius(graph), self.mesh, self.tracer
+        steps = self._halo_shard_steps([graph], S, mesh)
+        depth, impl = S * H, self._halo_impl()
+        if S == 1:
+            items: List = [None] * (T - 1)
+        else:
+            live = _act_schedule((T,), T, S)  # (L, 1, S)
+            acts = self._per_device(lambda dev: torch.from_numpy(live).to(dev))
+            items = [[a[l] for a in acts] for l in range(live.shape[0])]
+
+        def run(shards):
+            mesh.fork()
+            carry = self._trace_t0(steps.body, self._map(lambda d, x: x[None], shards))
+            if steps.prologue is not None:
+                carry = steps.prologue(carry, tracer=tr,
+                                       span=dict(name="prologue_exchange", setup=True))
+            for l, item in enumerate(items):
+                key = dict(step=l + 1) if S == 1 else dict(launch=l, steps_per_launch=S)
+                if pipelined:
+                    with self._phase("pipelined_launch", "launch", impl=impl, depth=depth,
+                                     kernel_launches=2, **key):
+                        carry = steps.launch(carry, item)
+                    continue
+                step = steps.launch
+                moved = None if step.move is None else step.move(
+                    carry, tracer=tr,
+                    span=dict(key, name="halo_exchange" if S == 1 else "deep_exchange"))
+                with self._phase("megakernel" if S == 1 else "blocked_kernel",
+                                 "compute.interior", **key):
+                    carry = step.compute(carry, moved, item)
+            if pipelined and items:
+                lefts, rights = carry[1].join()
+                self._trace_probes(carry[0], lefts, rights, items[0], steps.phases, depth,
+                                   dict(self._kernel_kw(graph), steps_per_launch=S, radius=H),
+                                   impl)
+            finals = steps.states(carry)
+            mesh.join(finals)
+            return tuple(s[0] for s in finals)
+
+        return run
+
+    def _trace_probes(self, states: Sequence[torch.Tensor], lefts, rights, act,
+                      phases: Sequence[_PhaseTables], depth: int, kwb: dict,
+                      impl: str) -> None:
+        """The pipelined launch's phase probes, after the launch loop, over
+        the shards' final states, halos received and first act rows: at D >
+        1 ``probe.exchange`` (the edge exchange's start and join, at the
+        launch's depth, over ``halo_impl``), then ``probe.boundary`` (the
+        boundary K4 on both edge buffers) and ``probe.interior`` (the
+        interior K4 on the block). Each is R = ``trace_probe_reps`` (16)
+        repetitions whose outputs feed the next one's inputs, so no
+        repetition can be skipped or hoisted, timed as the best of 2
+        (`probes.time_best_us`: on the card each R-repetition chain one CUDA
+        graph replay between CUDA events), and recorded with ``probe=True``,
+        its ``phase`` and ``per_launch_us``, the best over R."""
+        R = int(self.options.get("trace_probe_reps", 16))
+        mesh, tr, B = self.mesh, self.tracer, states[0].shape[1]
+
+        def chained(step, carry):
+            def thunk():
+                if mesh is not None:
+                    mesh.fork()
+                c = carry
+                for _ in range(R):
+                    c = step(c)
+                if mesh is not None:
+                    mesh.join()
+                return c
+
+            return thunk
+
+        def exchange(c):
+            return _halo.exchange_edges_start(mesh, c[0], c[1], row_axis=1, impl=impl).join()
+
+        def boundary(c):
+            out = []
+            for d, (bl, br) in enumerate(c):
+                with self._on(d):
+                    lo, ro = _kops.taskbench_boundary(bl, br, phases[d].i_bnd, phases[d].w_bnd,
+                                                      act[d], depth=depth, **kwb)
+                    out.append((torch.cat([lo, ro, lo], dim=1), torch.cat([ro, lo, ro], dim=1)))
+            return out
+
+        def interior(c):
+            out = []
+            for d, s in enumerate(c):
+                with self._on(d):
+                    mid = _interior_launch(s, act[d], phases[d], depth, kwb)
+                    out.append(torch.cat([s[:, :depth], mid, s[:, B - depth:]], dim=1))
+            return out
+
+        edges = [(torch.cat([hl, s[:, :2 * depth]], dim=1),
+                  torch.cat([s[:, B - 2 * depth:], hr], dim=1))
+                 for s, hl, hr in zip(states, lefts, rights)]
+        self._drain()
+        probes = [("boundary", "compute.boundary", chained(boundary, edges)),
+                  ("interior", "compute.interior", chained(interior, list(states)))]
+        if mesh is not None:
+            probes.insert(0, ("exchange", "exchange",
+                              chained(exchange, (list(lefts), list(rights)))))
+        for phase, category, thunk in probes:
+            start = tr.now_us()
+            best = _probes.time_best_us(thunk, self.device, reps=2)
+            tr.add(f"probe.{phase}", category, start, tr.now_us(), probe=True, phase=phase,
+                   per_launch_us=best / R, reps=R, impl=impl, depth=depth)
 
     # ---------------------------------------------------------- accounting
 

@@ -118,6 +118,31 @@ class SerializedRuntime(Runtime):
 
         return run
 
+    def _build_traced(self, graph: TaskGraph) -> Callable:
+        """Spans a timestep (spans a task would record W x T entries of
+        recorder noise; the ``tasks`` attribute keeps the count): the
+        ``dispatch`` span covers the host loop issuing the timestep's W task
+        calls, the quantity this backend exists to show, and the
+        ``compute.interior`` span the drain of what the device still holds
+        (``t0_dispatch``/``t0_compute``, then ``task_dispatch``/
+        ``task_drain``), through the run's own `_TaskDispatcher`."""
+        disp = _TaskDispatcher(graph, self._use_kernels())
+        tr, W = self.tracer, graph.width
+
+        def run(init):
+            with tr.span("t0_dispatch", "dispatch", step=0, tasks=W):
+                state = disp.initial(init)
+            with tr.span("t0_compute", "compute.interior", step=0):
+                self._drain()
+            for t in range(1, graph.steps):
+                with tr.span("task_dispatch", "dispatch", step=t, tasks=W):
+                    state = disp.advance(state, t)
+                with tr.span("task_drain", "compute.interior", step=t):
+                    self._drain()
+            return torch.stack(state)
+
+        return run
+
     def build(self, graph: TaskGraph) -> Callable[[torch.Tensor], torch.Tensor]:
         """The eager per-task loop, on either device: no graph may span two
         tasks."""

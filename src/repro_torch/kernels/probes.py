@@ -489,6 +489,43 @@ def _replay_walls_ms(replay: Callable[[], object], n: int) -> list:
         f"sleep meant to cover it, {COVER_ATTEMPTS} times")
 
 
+def time_best_us(fn: Callable[[], object], device, reps: int = 2) -> float:
+    """Best of ``reps`` walls of ``fn()``, in us: the reference's
+    ``_time_best_us``, which prices the traced runs' phase probes. On the
+    card ``fn`` (work issued on the current stream of ``device``, or forked
+    from it and joined back) runs once as a warm-up, is captured as one CUDA
+    graph, and each of ``reps`` replays is timed between its own CUDA events
+    (`_replay_walls_ms`); the warm-up and the capture count as a build and
+    the replays are not counted, so a probe leaves the launch counters as
+    they were. On the CPU the best of ``reps`` host walls after one
+    warm-up call."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        fn()
+        best = float("inf")
+        for _ in range(max(1, reps)):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e6
+    from repro_torch.core.runtimes._capture import Graphed
+    from repro_torch.kernels import _build
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with _build.building(), torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = Graphed(fn, stream)
+    try:
+        with torch.cuda.device(dev):
+            return min(_replay_walls_ms(graph.graph.replay, max(1, reps))) * 1e3
+    finally:
+        graph.close()
+
+
 def _launch_us(step: Callable, x, nodes: int, reps: int, device=None,
                stat: str = "mean") -> float:
     """Wall of one of ``nodes`` chained ``x = step(x)`` launches, in us: on

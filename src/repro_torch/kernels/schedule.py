@@ -22,7 +22,8 @@ choosers' deepest-first walk, the gather transport and chunk-group
 choosers (`choose_gather_impl`, `choose_gather_chunk_group`), the
 (row, member) split (`choose_member_shards`) and the deadlines
 (`expected_launch_wall_us`, `launch_deadline_us`); the reason strings are
-the reference's too. Every rule is priced against a cost model
+the reference's too, and so is the decision record a traced run carries
+(`record_resolution`). Every rule is priced against a cost model
 (``kernels/probes.py``'s `CostModel`): resolvers take ``model=``, and None
 resolves the default (env constant > cached probe calibration > analytic
 fallback). The model decides which
@@ -88,6 +89,31 @@ def _resolve_model(model):
 
         return probes.default_cost_model()
     return model
+
+
+def record_resolution(tracer, *, plan: str, steps_per_launch: int,
+                      pipeline: bool, model=None, reason: str = "",
+                      **attrs) -> None:
+    """Emit one decision record for a completed schedule resolution: the
+    ``schedule.resolve`` instant span (the reference's record, key for key)
+    with the plan kind, the chosen S, whether the pipelined form runs,
+    which cost model backed the ranking (its description, source and
+    exchange constant) and the resolver's reason. A null or absent tracer
+    makes it a no-op, so the resolvers cost nothing with tracing off."""
+    if tracer is None or not getattr(tracer, "enabled", False):
+        return
+    m = _resolve_model(model)
+    tracer.instant(
+        "schedule.resolve",
+        plan=plan,
+        steps_per_launch=int(steps_per_launch),
+        pipeline=bool(pipeline),
+        cost_model=m.describe(),
+        cost_model_source=m.source,
+        exchange_row_steps=float(m.exchange_row_steps),
+        reason=reason or "structural",
+        **attrs,
+    )
 
 
 def exchange_row_steps(model=None):
