@@ -147,6 +147,48 @@ Phases, in order; any failure ends the run with a non-zero exit:
              host stall; each launch's walls beside the
              expected one; under the analytic
              model ``expected_launch_us`` is None.
+  6a. resilience  ``Runtime.execute_ensemble_resilient`` (``repro_torch.
+             resilience``, the launch plan stepped from the host under the
+             cost model measured in [schedule]): K = 4 stacked stencil_1d at
+             W = 2112, S = 1 (K3) and S = 8 (K4 tiled), grain 64 at T up to
+             1000 and grain 1 at T <= 7 (the dataflow shows), a mixed-plan
+             stepwise ensemble at grain 1, and grain 1 over D = 4 shards of
+             the card. The clean run equals the ``build_ensemble`` replay
+             bit for bit; under a plan of every fault class (a transport
+             fault twice, a launch that raises, a poisoned launch, a member
+             eviction with re-admission, a frozen eviction at the last
+             launch, a 150 ms straggler) the survivors equal the clean run,
+             the evicted and the re-admitted members their same-K oracle
+             (one ``build_ensemble`` replay), bit for bit; the events equal
+             the plan; the straggler is flagged against the detector's
+             deadline; the K3 and K4 launches equal the clean run's plus
+             one launch for each poisoned or evicting replay and the t = 0
+             K3 of each admission; D = 4 equals D = 1 bit for bit. The
+             clean walls at T = 1000 beside the replay's and
+             ``measure_launch_plan``'s (the host-stepping tax), recovery
+             walls by class, the detection overshoot, and the launches the
+             default policy flags in clean runs.
+  6b. serving  ``repro_torch.serving.ServingFabric`` over ``pallas_step``
+             at W = 2112, S = 8, four slots, under ``LaunchClock``: 12
+             requests in two cohorts (stencil_1d, nearest), mixed T, two
+             priorities, one explicit deadline that evicts; every outcome
+             bit for bit its same-K serial oracle (run after serving), no
+             capture between a cohort's first launch and its end, the
+             census (founders, admissions, evictions) equal to ``pack``'s
+             prediction, K4 launches equal to the launches run and K3 to
+             the inits and admissions; the same checks at grain 1, T <= 7,
+             S = 2 (the dataflow shows; admissions and an eviction within
+             the horizon); one ``WallClock`` pass on the default deadline
+             factor: latency p50/p95/p99, slot utilization and the requests
+             priced deadlines evict.
+  6c. restart  ``checkpoint.elastic.run_with_restarts`` over the stacked S =
+             8 launch plan at W = 2112 (grain 64, T = 1000, one launch a
+             step), a checkpoint every 25 launches, ``keep=2``, failures at
+             two launches, the newest checkpoint corrupted before the
+             second, so the restore falls back to the one before; the
+             final state equal to the uninterrupted plan bit for bit; the
+             same at grain 1, T = 7, S = 2; save and restore ms of the 2.16
+             MB state, in a temporary directory removed after.
   7. rungs   the paper's other four rungs, each with the kernels
              (``use_kernels=True``; the launch counters and host calls
              zeroed just before the phase, the eager loops' and the
@@ -1465,6 +1507,658 @@ def trace_phase(dev, rand, smi, *, W=W_MAIN, T=T_MAIN, W_plan=W_PLAN, W_glob=W_G
     record = {"trace": {"runs": rows, "chrome": str(chrome), "card": smi}}
     print(json.dumps(record), flush=True)
     return record
+
+
+# [resilience], [serving], [restart]: the host-stepped launch plans under the
+# resilience engine, the serving fabric and the restart loop, at the main
+# width. K = 4 stacked stencil_1d members, grain 64 at the horizons T_RES
+# (launch plan S = 1: 999 launches, S = 8: 125), and where the dataflow shows:
+# grain 1 at T_RES_SHORT (inside the contraction horizon, see T_SHARD_SMALL;
+# 6 launches at S = 1, one at S = 8). The straggler stalls STRAGGLER_S past
+# its launch. Where a launch is one replay the faulted runs' policy puts the
+# detector's deadline at RES_DEADLINE_US under the measured model: under the
+# stall, and above a host-stepped launch's issue and synchronize, which a
+# shared host stretches past 500 us at times ([schedule]'s host stalls), and
+# above a fresh plan's first launches (their outputs' first allocations; the
+# phase prints a fresh plan's walls), ~20 ms once over D = 4 shards.
+# The stepwise plan's eager launches (0.8-2.7 ms on the H100) are not
+# priced: its deadline is the default factor x the observed median. The
+# clean runs of the host-stepping tax run on the default policy, and the
+# phase prints the launches it flags.
+K_RES = 4
+T_RES, T_RES_SHORT = (1000, 900, 800, 700), (7, 7, 6, 5)
+STRAGGLER_S, RES_DEADLINE_US = 0.15, 40000.0
+# [serving]: 12 requests at the main width, 6 stencil_1d and 6 nearest
+# (radius 2), two priorities, one explicit deadline (rid 3, in LaunchClock
+# launches) that evicts; the grain-1 pass at T <= 7 and S = S_ENS_SHORT
+SERVE_T = (97, 161, 33, 250, 65, 129, 201, 41, 113, 81, 145, 57)
+SERVE_T_SHORT = (7, 7, 6, 7, 3, 4, 7, 3, 7, 5, 3, 4)
+SERVE_DEADLINE_RID, SERVE_DEADLINE = 3, 5.0
+# [restart]: a checkpoint every RESTART_EVERY launches, failures at the
+# launches RESTART_FAIL_AT (the newest checkpoint corrupted before the last)
+RESTART_EVERY, RESTART_FAIL_AT = 25, (60, 110)
+
+
+def _plan_events(plan):
+    """The events a fault plan should leave, as (kind, launch, action,
+    member, attempts, mode), sorted."""
+    out = []
+    for s in plan.specs:
+        if s.kind == "transport":
+            out.append(("transport", s.launch, "retried", -1, s.times, ""))
+        elif s.kind == "launch":
+            out.append(("launch", s.launch, "replayed", -1, 0, s.mode))
+        elif s.kind == "member":
+            out.append(("member", s.launch, "evicted", s.member, 0, ""))
+        else:
+            out.append(("straggler", s.launch, "flagged", -1, 0, ""))
+    return sorted(out)
+
+
+def _counter(dev):
+    """(sync, counted, apart, kept) over the launch counters: ``counted(fn)``
+    gives fn's result and the launches it made (a synchronize before and
+    after); ``apart(fn)`` does the same and adds the launches to ``kept``,
+    the oracles' launches that are not the phase's path."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    kept = dict.fromkeys(ops.launch_counts(), 0)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        sync()
+        before = ops.launch_counts()
+        out = fn()
+        sync()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def apart(fn):
+        out, d = counted(fn)
+        for k, n in d.items():
+            kept[k] += n
+        return out
+
+    return sync, counted, apart, kept
+
+
+def resilience_phase(dev, rand, smi, model=None, *, W=W_MAIN, T=T_RES,
+                     T_short=T_RES_SHORT, W_plan=W_PLAN, W_glob=W_GATHER, D=4):
+    """The [resilience] phase; returns the launches of its resilient runs
+    (the oracles' kept apart). ``model``: the cost model the runtimes
+    price launches with (None: the default tier, analytic on the CPU)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes._capture import time_runs
+    from repro_torch.core.task_kernels import initial_state
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import (READMIT_SEED_OFFSET, FaultPlan, FaultSpec,
+                                        RecoveryPolicy)
+
+    t0 = time.perf_counter()
+    card = dev.type == "cuda"
+    ops.reset_launch_counts()
+    sync, counted, apart, kept = _counter(dev)
+    opts = {} if model is None else {"cost_model": model}
+    rows = []
+
+    def ens_of(steps, width=W, grain=GRAIN, pattern="stencil_1d", radius=1):
+        return GraphEnsemble([TaskGraph(steps=t, width=width, pattern=pattern, payload=PAYLOAD,
+                                        radius=radius, seed=k,
+                                        kernel=KernelSpec("compute_bound", grain))
+                              for k, t in enumerate(steps)])
+
+    def policy_for(lp, **kw):
+        f = RES_DEADLINE_US / lp.deadline_expected_us if lp.deadline_expected_us else None
+        return RecoveryPolicy(**kw) if f is None else RecoveryPolicy(
+            deadline_factor=max(f, 1.5), **kw)
+
+    def outputs_of(res):
+        return [torch.from_numpy(o) for o in res.outputs]
+
+    def case(label, rt, ens, xs, plan, readmit, evidence):
+        """The clean resilient run against the build_ensemble replay, then
+        the faulted run: survivors against the clean run, evicted and
+        re-admitted members against one same-K oracle replay, the events
+        against the plan, the launches against the clean run's."""
+        lp = rt.build_ensemble_launches(ens)
+        L = lp.num_launches
+        run = rt.build_ensemble(ens)
+        want = [w.cpu() for w in apart(lambda: run(xs))]
+        policy = policy_for(lp, readmit=readmit)
+        clean, d_clean = counted(lambda: rt.execute_ensemble_resilient(
+            ens, policy=policy, inits=xs))
+        for k, (a, b) in enumerate(zip(outputs_of(clean), want)):
+            if not torch.equal(a, b):
+                fail(f"[resilience] {label}: the clean run's member {k} differs from the "
+                     f"build_ensemble replay, max |difference| {(a - b).abs().max().item()}")
+        if clean.events:
+            fail(f"[resilience] {label}: the clean run recorded {clean.events}")
+        res, d_fault = counted(lambda: rt.execute_ensemble_resilient(
+            ens, plan=plan, policy=policy, inits=xs))
+        got = outputs_of(res)
+        events = sorted((e.kind, e.launch, e.action, e.member, e.attempts, e.mode)
+                        for e in res.events)
+        if events != _plan_events(plan):
+            fail(f"[resilience] {label}: events {events} != the plan's "
+                 f"{_plan_events(plan)} ({plan.describe()})")
+        # the oracle: the evicted members truncated at their frozen step, a
+        # re-admitted member as its fresh run (its seed, its effective T)
+        members, inits = list(ens.members), list(xs)
+        for k, frozen in res.evicted.items():
+            members[k] = dataclasses.replace(members[k], steps=frozen)
+        for k, info in res.readmitted.items():
+            g = members[k]
+            if info["seed"] != g.seed + READMIT_SEED_OFFSET:
+                fail(f"[resilience] {label}: re-admitted seed {info['seed']}")
+            members[k] = dataclasses.replace(g, steps=info["steps"], seed=info["seed"])
+            inits[k] = initial_state(g.width, g.payload, info["seed"], device=dev)
+        touched = set(res.evicted) | set(res.readmitted)
+        oracle = [w.cpu() for w in apart(
+            lambda: rt.build_ensemble(GraphEnsemble(members))(tuple(inits)))]
+        for k, (a, b, c) in enumerate(zip(got, want, oracle)):
+            ref_ = c if k in touched else b
+            if not torch.equal(a, ref_):
+                fail(f"[resilience] {label}: member {k} "
+                     f"({'evicted/re-admitted' if k in touched else 'survivor'}) differs from "
+                     f"its oracle, max |difference| {(a - ref_).abs().max().item()}")
+            if k not in touched and not torch.equal(a, c):
+                fail(f"[resilience] {label}: the survivor {k} differs from the oracle replay")
+        dist = None
+        if evidence:
+            dist = min(dataflow_distance("resilience", f"{label} member {k}", o)
+                       for k, o in enumerate(oracle))
+        # launches: the clean run's, one launch more for each poisoned or
+        # evicting replay (the faulted launch ran, then its replay), and
+        # the t = 0 K3 of each admission (a raise replays a launch that
+        # never ran; a transport retry launches nothing)
+        _, d_init = counted(lambda: lp.init_fn(xs))
+        _, d_admit = counted(lambda: lp.admit_fn(lp.init_fn(xs), 0, xs[0])) \
+            if res.readmitted else (None, dict.fromkeys(d_clean, 0))
+        relaunch = sum(1 for e in res.events
+                       if e.kind == "member" or (e.kind == "launch" and e.mode == "poison"))
+        for k in d_clean:
+            per = (d_clean[k] - d_init[k]) / L
+            want_k = d_clean[k] + relaunch * per + len(res.readmitted) * (d_admit[k] - d_init[k])
+            if d_fault[k] != want_k:
+                fail(f"[resilience] {label}: kernel {k} launched {d_fault[k]} under faults, "
+                     f"expected {want_k} (clean {d_clean[k]}, {relaunch} relaunches, "
+                     f"{len(res.readmitted)} admissions)")
+        for k in d_init:  # the init and admission probes are not the path
+            kept[k] += d_init[k] + (d_admit[k] if res.readmitted else 0)
+        flagged = [e for e in res.events if e.kind == "straggler"]
+        rec = {k: sum(e.wall_us for e in res.events
+                      if (e.kind, e.mode) == k) for k in {(e.kind, e.mode) for e in res.events}}
+        rows.append({
+            "run": label, "launches": L, "S": lp.steps_per_launch, "kind": lp.kind,
+            "plan": plan.describe(), "wall_s": res.wall_s, "clean_wall_s": clean.wall_s,
+            "retries": res.retries, "replays": res.replays, "evicted": res.evicted,
+            "readmitted": res.readmitted, "deadline_us": res.deadline_us,
+            "deadline_source": res.deadline_source,
+            "overshoot_us": [e.overshoot_us for e in flagged],
+            "recovery_us": {f"{k}{'/' + m if m else ''}": v for (k, m), v in rec.items()},
+            "evidence_distance": dist,
+            "kernel_launches": {k: n for k, n in d_fault.items() if n},
+            "clean_kernel_launches": {k: n for k, n in d_clean.items() if n}})
+        print(f"  {label}: {L} launches ({lp.kind}, S={lp.steps_per_launch}), "
+              f"{plan.describe()}: clean {clean.wall_s * 1e3:.3f} ms, faulted "
+              f"{res.wall_s * 1e3:.3f} ms; deadline {res.deadline_us} us "
+              f"({res.deadline_source}), overshoot "
+              f"{[round(e.overshoot_us, 3) for e in flagged]} us; recovery us "
+              f"{rows[-1]['recovery_us']}; launches {rows[-1]['kernel_launches']}"
+              + (f"; evidence {dist:.3g} from the fixed point" if dist is not None else ""),
+              flush=True)
+        return clean, res
+
+    # grain 64 at T_RES: every class, the re-admission mid-run and a frozen
+    # eviction at the last launch
+    taxes = {}
+    # clean runs on the default policy: (launches flagged, launches run,
+    # deadline us, its source)
+    default_flags = {}
+
+    def on_default(label, runs, L):
+        default_flags[label] = (sum(r.stragglers for r in runs), L * len(runs),
+                                runs[-1].deadline_us, runs[-1].deadline_source)
+    for S in (1, S_MAIN):
+        ens = ens_of(T)
+        xs = tuple(rand(W, PAYLOAD) for _ in ens.members)
+        rt = get_runtime("pallas_step", devices=[dev], steps_per_launch=S, **opts)
+        L = rt.build_ensemble_launches(ens).num_launches
+        plan = FaultPlan((FaultSpec("transport", 3, times=2), FaultSpec("launch", 10),
+                          FaultSpec("launch", 20, mode="poison"),
+                          FaultSpec("straggler", 30, delay_s=STRAGGLER_S),
+                          FaultSpec("member", 40, member=1),
+                          FaultSpec("member", L - 1, member=0)))
+        case(f"grain {GRAIN} S={S} T={T}", rt, ens, xs, plan, True, False)
+        # the host-stepping tax: the clean resilient run, the build's
+        # replay and measure_launch_plan, best of 3 each
+        res_runs = [apart(lambda: rt.execute_ensemble_resilient(ens, inits=xs))
+                    for _ in range(3)]
+        on_default(f"grain {GRAIN} S={S}", res_runs, L)
+        res_walls = [r.wall_s for r in res_runs]
+        replay = min(apart(lambda: time_runs(rt.build_ensemble(ens), xs, reps=3)))
+        _, st = apart(lambda: rt.measure_launch_plan(ens, reps=3))
+        taxes[S] = {"resilient_s": min(res_walls), "replay_s": replay,
+                    "measure_launch_plan_s": st.best, "launches": L}
+        print(f"[resilience] the host-stepping tax, K={K_RES} S={S} grain {GRAIN}: clean "
+              f"resilient {min(res_walls) * 1e3:.3f} ms, the build's replay "
+              f"{replay * 1e3:.3f} ms, measure_launch_plan {st.best * 1e3:.3f} ms "
+              f"({L} launches: {(min(res_walls) - replay) / L * 1e6:.3f} us a launch over the "
+              f"replay) | {smi}", flush=True)
+    # grain 1 at T_short: S = 1 (six launches: every class at its own
+    # launch) and S = 8 (one launch: two plans)
+    short = ens_of(T_short, grain=1)
+    xs1 = tuple(rand(W, PAYLOAD) for _ in short.members)
+    rt1 = get_runtime("pallas_step", devices=[dev], steps_per_launch=1, **opts)
+    plan_a = FaultPlan((FaultSpec("transport", 0, times=2), FaultSpec("launch", 1),
+                        FaultSpec("launch", 2, mode="poison"),
+                        FaultSpec("straggler", 3, delay_s=STRAGGLER_S),
+                        FaultSpec("member", 4, member=1), FaultSpec("member", 5, member=0)))
+    case(f"grain 1 S=1 T={T_short}", rt1, short, xs1, plan_a, True, True)
+    rt8 = get_runtime("pallas_step", devices=[dev], steps_per_launch=S_MAIN, **opts)
+    # (one site a plan per class: a member fault replays its launch before
+    # a poisoned output is scanned, and a stall is flagged on the committed
+    # wall only)
+    for plan in (FaultPlan((FaultSpec("transport", 0, times=2),
+                            FaultSpec("launch", 0, mode="poison"))),
+                 FaultPlan((FaultSpec("member", 0, member=1),)),
+                 FaultPlan((FaultSpec("launch", 0), FaultSpec("straggler", 0,
+                                                             delay_s=STRAGGLER_S)))):
+        case(f"grain 1 S={S_MAIN} T={T_short}", rt8, short, xs1, plan, True, True)
+    # a mixed-plan ensemble (halo, stride, all-gather members): the
+    # stepwise plan, one step a launch, eager
+    mixed = GraphEnsemble([
+        TaskGraph(steps=t, width=w, pattern=p, payload=PAYLOAD, seed=k,
+                  kernel=KernelSpec("compute_bound", 1))
+        for k, (t, w, p) in enumerate(((T_ENS_SHORT[3], W, "stencil_1d"),
+                                       (T_ENS_SHORT[0], W_plan, "fft"),
+                                       (T_ENS_SHORT[1], W_glob, "spread"),
+                                       (T_ENS_SHORT[2], W_glob, "all_to_all")))])
+    xm = tuple(rand(g.width, PAYLOAD) for g in mixed.members)
+    plan_e = FaultPlan((FaultSpec("transport", 0, times=2), FaultSpec("launch", 1),
+                        FaultSpec("launch", 2, mode="poison"),
+                        FaultSpec("straggler", 3, delay_s=STRAGGLER_S),
+                        FaultSpec("member", 4, member=1)))
+    case(f"grain 1 mixed-plan stepwise T={T_ENS_SHORT}", rt1, mixed, xm, plan_e, False, True)
+    on_default("grain 1 mixed-plan stepwise", [
+        apart(lambda: rt1.execute_ensemble_resilient(mixed, inits=xm)) for _ in range(3)],
+        rt1.build_ensemble_launches(mixed).num_launches)
+    # over D row shards of the card
+    rtD = get_runtime("pallas_step", devices=[dev] * D, steps_per_launch=1, **opts)
+    clean_d, _ = case(f"grain 1 S=1 T={T_short} D={D}", rtD, short, xs1, plan_a, True, True)
+    one = apart(lambda: rt1.execute_ensemble_resilient(short, inits=xs1))
+    for k, (a, b) in enumerate(zip(clean_d.outputs, one.outputs)):
+        a, b = torch.from_numpy(a), torch.from_numpy(b)
+        if not torch.equal(a, b):
+            fail(f"[resilience] D={D} member {k} differs from D = 1, max |difference| "
+                 f"{(a - b).abs().max().item()}")
+    on_default(f"grain 1 S=1 D={D}", [
+        apart(lambda: rtD.execute_ensemble_resilient(short, inits=xs1)) for _ in range(3)],
+        rtD.build_ensemble_launches(short).num_launches)
+    # a fresh plan's launches, host wall with a synchronize each, on one
+    # device and over D shards, 3 plans each: the first launches of a plan
+    # allocate their outputs
+    cold = {}
+
+    def fresh_walls(rt_):
+        walls_ = []
+        for _ in range(3):
+            lp_ = rt_.build_ensemble_launches(short)
+            rows_ = lp_.act_rows()
+            rows_[0]
+            carry = lp_.init_fn(xs1)
+            sync()
+            ws = []
+            for l in range(lp_.num_launches):
+                t1 = time.perf_counter()
+                carry = lp_.launch_fn(carry, rows_[l], lp_.launch_t0(l))
+                sync()
+                ws.append((time.perf_counter() - t1) * 1e6)
+            walls_.append(ws)
+        return walls_
+
+    for label, rt_ in (("D=1", rt1), (f"D={D}", rtD)):
+        cold[label] = apart(lambda: fresh_walls(rt_))
+    print("[resilience] a fresh S=1 plan's launch walls (us, host, a synchronize each; 3 plans): "
+          + "; ".join(f"{k}: " + ", ".join(str([round(w, 1) for w in ws]) for ws in v)
+                      for k, v in cold.items()) + f" | {smi}", flush=True)
+    flagged = sum(n for n, _, _, _ in default_flags.values())
+    print(f"[resilience] clean runs on the default policy (factor "
+          f"{RecoveryPolicy().deadline_factor}): {flagged} of "
+          f"{sum(n for _, n, _, _ in default_flags.values())} launches flagged; "
+          + "; ".join(f"{k}: {n} of {m} (deadline {d} us, {src})"
+                      for k, (n, m, d, src) in default_flags.items()) + f" | {smi}", flush=True)
+    sync()
+    total = ops.launch_counts()
+    launches = {k: n - kept[k] for k, n in total.items()}
+    for k, n in launches.items():
+        if card and (n == 0) == (k in ("taskbench_step", K4_TILED)):
+            fail(f"[resilience] kernel {k}: {n} launches on the resilient runs")
+    print(f"[resilience] {len(rows)} resilient runs (K={K_RES} stacked stencil_1d at W={W}, "
+          f"S=1 and {S_MAIN}, grain {GRAIN} at T={T} and grain 1 at T={T_short}; a "
+          f"mixed-plan stepwise ensemble; D={D} shards): each clean run equal to its "
+          f"build_ensemble replay, survivors equal to it and evicted/re-admitted members to "
+          f"their same-K oracle bit for bit, the events the plans', every straggler flagged, "
+          f"launches the clean run's plus the relaunches and admissions; D={D} bit for bit "
+          f"D = 1; launches {launches} (and {kept} by the oracles); "
+          f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({"resilience": {"runs": rows, "host_stepping_tax": taxes,
+                                     "default_policy_flags": default_flags,
+                                     "fresh_plan_walls_us": cold,
+                                     "card": smi}}), flush=True)
+    return launches
+
+
+def serving_phase(dev, rand, smi, model=None, *, W=W_MAIN, S=S_MAIN,
+                  S_short=S_ENS_SHORT, T=SERVE_T, T_short=SERVE_T_SHORT, slots=K_RES):
+    """The [serving] phase; returns the launches of the fabric's serving
+    (each pass's oracles, run after serving, kept apart)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GraphEnsemble, KernelSpec, get_runtime
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (LaunchClock, ServingFabric, WallClock, cohort_key,
+                                     make_request, pack)
+
+    t0 = time.perf_counter()
+    card = dev.type == "cuda"
+    ops.reset_launch_counts()
+    sync, counted, apart, kept = _counter(dev)
+    opts = {} if model is None else {"cost_model": model}
+    passes = []
+
+    def requests(steps, grain, deadline):
+        return [make_request(
+            rid, steps=t, width=W, payload=PAYLOAD,
+            pattern="stencil_1d" if rid < 6 else "nearest", radius=1 if rid < 6 else 2,
+            kernel=KernelSpec("compute_bound", grain), seed=rid, priority=int(rid % 2 == 0),
+            deadline_s=deadline if rid == SERVE_DEADLINE_RID else None)
+            for rid, t in enumerate(steps)]
+
+    def served(label, depth, reqs, evidence):
+        rt = get_runtime("pallas_step", devices=[dev], steps_per_launch=depth, **opts)
+        # priced deadlines far out: the one explicit deadline is the only
+        # eviction, so the census is pack's
+        fabric = ServingFabric(rt, max_slots=slots, clock=LaunchClock(), deadline_factor=1e6)
+        rep, d = counted(lambda: fabric.serve(reqs))
+        fabric.verify = True
+        apart(lambda: fabric._verify(rep.outcomes, rep.cohorts))  # serve(verify=True)'s step
+        if rep.bit_identical is not True:
+            fail(f"[serving] {label}: outcomes not bit for bit their oracles: "
+                 f"{[(o.rid, o.bit_identical) for o in rep.outcomes]}")
+        if any(c.recompiles != 0 for c in rep.cohorts):
+            fail(f"[serving] {label}: captures mid-cohort {[c.recompiles for c in rep.cohorts]}")
+        # the census pack predicts: per cohort key in admission order, the
+        # first group founds the cohort and the key's later groups are
+        # admitted into freed slots; the explicit deadline evicts once
+        groups = pack(rt, reqs, max_slots=slots)
+        keys = list(dict.fromkeys(repr(cohort_key(rt, g[0].graph)) for g in groups))
+        if [c.key for c in rep.cohorts] != keys:
+            fail(f"[serving] {label}: cohorts {[c.key for c in rep.cohorts]}, pack {keys}")
+        for c in rep.cohorts:
+            mine = [g for g in groups if repr(cohort_key(rt, g[0].graph)) == c.key]
+            outs = [o for o in rep.outcomes if o.cohort == c.index]
+            founders = sorted(o.rid for o in outs if not o.admitted_mid_run)
+            admitted = sorted(o.rid for o in outs if o.admitted_mid_run)
+            if founders != sorted(r.rid for r in mine[0]) or admitted != sorted(
+                    r.rid for g in mine[1:] for r in g) or c.requests != len(outs):
+                fail(f"[serving] {label}: cohort {c.index} founders {founders}, admitted "
+                     f"{admitted}; pack {[[r.rid for r in g] for g in mine]}")
+        evicted = [o.rid for o in rep.outcomes if o.status == "deadline_evicted"]
+        if evicted != [SERVE_DEADLINE_RID] or sum(c.deadline_evictions
+                                                  for c in rep.cohorts) != 1:
+            fail(f"[serving] {label}: evicted {evicted}")
+        ev = {o.rid: o for o in rep.outcomes}[SERVE_DEADLINE_RID]
+        if not ev.effective_steps < ev.graph.steps:
+            fail(f"[serving] {label}: the evicted request ran {ev.effective_steps} steps")
+        # launches: K4 (S > 1) a dispatched launch, K3 each cohort's init
+        # and each admission
+        runs = sum(c.launches_run for c in rep.cohorts)
+        admits = sum(c.admitted_mid_run for c in rep.cohorts)
+        want = dict.fromkeys(d, 0)
+        want["taskbench_step"] = len(rep.cohorts) + admits
+        want[K4_TILED] = runs
+        if card and d != want:
+            fail(f"[serving] {label}: launches {d}, expected {want}")
+        dist = None
+        if evidence:
+            dist = min(dataflow_distance("serving", f"{label} rid {o.rid}",
+                                         torch.from_numpy(o.output)) for o in rep.outcomes)
+        passes.append({"pass": label, "S": depth, "requests": len(reqs),
+                       "cohorts": [dataclasses.asdict(c) for c in rep.cohorts],
+                       "launches": {k: n for k, n in d.items() if n},
+                       "evidence_distance": dist})
+        print(f"  {label}: {len(rep.cohorts)} cohorts {[c.kind for c in rep.cohorts]}, "
+              f"{runs} launches run, {admits} admitted mid-run, evicted {evicted} at "
+              f"{ev.effective_steps} of {ev.graph.steps} steps, slot utilization "
+              f"{[round(c.slot_utilization, 4) for c in rep.cohorts]}, recaptures "
+              f"{[c.recompiles for c in rep.cohorts]}; launches "
+              f"{passes[-1]['launches']}"
+              + (f"; evidence {dist:.3g} from the fixed point" if dist is not None else ""),
+              flush=True)
+        return rt
+
+    rt = served(f"grain {GRAIN} S={S}", S, requests(T, GRAIN, SERVE_DEADLINE), False)
+    served(f"grain 1 S={S_short}", S_short, requests(T_short, 1, 1.0), True)
+    # WallClock passes: the latency a request sees, host-stepped, each
+    # cohort's plan built (its launch captured) inside the pass; priced
+    # deadlines do not count the build. On the default deadline factor,
+    # the requests the priced deadlines evict; with them set aside (factor
+    # 1e6), every request completes: its latency from arrival and its
+    # service from admission (a cohort's founders are admitted once the
+    # plan is built)
+    reqs = requests(T, GRAIN, None)
+    wall = {}
+    for label, factor in (("default", None), ("unpriced", 1e6)):
+        fabric = (ServingFabric(rt, max_slots=slots, clock=WallClock()) if factor is None else
+                  ServingFabric(rt, max_slots=slots, clock=WallClock(), deadline_factor=factor))
+        rep = apart(lambda: fabric.serve(reqs))
+        service = [o.finished_s - o.admitted_s for o in rep.completed]
+        wall[label] = {
+            "deadline_factor": fabric.deadline_factor, "latency_s": rep.latency_percentiles_s(),
+            "service_s": {f"p{q}": float(np.percentile(service, q)) if service else None
+                          for q in (50, 95, 99)},
+            "slot_utilization": [c.slot_utilization for c in rep.cohorts],
+            "evicted": {o.rid: o.effective_steps for o in rep.outcomes
+                        if o.status == "deadline_evicted"},
+            "wall_s": rep.wall_s, "launches": sum(c.launches_run for c in rep.cohorts)}
+    # one cohort's set-up inside that wall: its launch plan's build (operand
+    # tables, the launch's capture), best of 3; then its t = 0 launch, its
+    # first launch and the median of 16 more, each with a synchronize
+    first = GraphEnsemble(tuple(r.graph for r in pack(rt, reqs, max_slots=slots)[0]))
+    plan_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        lp_first = apart(lambda: rt.build_ensemble_launches(first))
+        plan_s.append(time.perf_counter() - t1)
+    xs_first = [rand(g.width, PAYLOAD) for g in first.members]
+    rows_first = lp_first.act_rows()
+
+    def timed(fn):
+        t1 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t1
+
+    def steps():
+        carry, init_s = timed(lambda: lp_first.init_fn(xs_first))
+        walls = []
+        for l in range(17):
+            carry, w = timed(lambda: lp_first.launch_fn(carry, rows_first[l],
+                                                        lp_first.launch_t0(l)))
+            walls.append(w)
+        return init_s, walls
+
+    init_s, launch_s = apart(steps)
+    unit_us = lp_first.deadline_expected_us
+    for label, w in wall.items():
+        pct, svc = w["latency_s"], w["service_s"]
+        print(f"[serving] WallClock pass, {len(reqs)} requests at grain {GRAIN}, S={S}, "
+              f"deadline factor {w['deadline_factor']} x {unit_us} us a launch: "
+              f"{len(w['evicted'])} priced-deadline evictions (rid: steps run "
+              f"{w['evicted']}); latency of the {len(reqs) - len(w['evicted'])} completed p50 "
+              f"{pct['p50'] * 1e3:.3f} ms, p95 {pct['p95'] * 1e3:.3f}, p99 "
+              f"{pct['p99'] * 1e3:.3f}; service p50 "
+              + (f"{svc['p50'] * 1e3:.3f} ms, p95 {svc['p95'] * 1e3:.3f}, p99 "
+                 f"{svc['p99'] * 1e3:.3f}" if svc["p50"] is not None else "none")
+              + f"; slot utilization {[round(u, 4) for u in w['slot_utilization']]}; wall "
+              f"{w['wall_s'] * 1e3:.3f} ms for {w['launches']} launches | {smi}", flush=True)
+    print(f"[serving] a cohort's set-up: launch plan build {min(plan_s) * 1e3:.3f} ms (best of "
+          f"3), t = 0 launch {init_s * 1e3:.3f} ms, first launch {launch_s[0] * 1e6:.3f} us, "
+          f"then median {sorted(launch_s[1:])[8] * 1e6:.3f} us a launch (host wall, a "
+          f"synchronize each; priced {unit_us} us) | {smi}", flush=True)
+    sync()
+    total = ops.launch_counts()
+    launches = {k: n - kept[k] for k, n in total.items()}
+    for k, n in launches.items():
+        if card and (n == 0) == (k in ("taskbench_step", K4_TILED)):
+            fail(f"[serving] kernel {k}: {n} launches on the fabric's passes")
+    print(f"[serving] {len(passes)} LaunchClock passes: every outcome bit for bit its same-K "
+          f"oracle, no capture mid-cohort, the census pack's; launches {launches} (and "
+          f"{kept} by the oracles and the WallClock pass); {time.perf_counter() - t0:.3f} s "
+          f"| {smi}", flush=True)
+    print(json.dumps({"serving": {"passes": passes, "wallclock": wall, "setup": {
+        "plan_build_s": plan_s, "init_s": init_s, "launch_s": launch_s,
+        "priced_launch_us": unit_us}, "card": smi}}), flush=True)
+    return launches
+
+
+def restart_phase(dev, rand, smi, *, W=W_MAIN, T=T_MAIN, S=S_MAIN, every=RESTART_EVERY,
+                  fail_at=RESTART_FAIL_AT, T_short=T_RES_SHORT, S_short=S_ENS_SHORT,
+                  reps=5):
+    """The [restart] phase; returns the launches of its restart loops (the
+    uninterrupted oracles kept apart)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.checkpoint.elastic import FailureInjector, run_with_restarts
+    from repro_torch.core import GraphEnsemble, KernelSpec, TaskGraph, get_runtime
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    card = dev.type == "cuda"
+    ops.reset_launch_counts()
+    sync, counted, apart, kept = _counter(dev)
+    rows = []
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_restart_")
+    try:
+        for label, steps, grain, depth, ev, fails in (
+                (f"grain {GRAIN} S={S} T={T}", (T,) * K_RES, GRAIN, S, every, fail_at),
+                (f"grain 1 S={S_short} T={T_short}", T_short, 1, S_short, 1, (1, 2))):
+            ens = GraphEnsemble([TaskGraph(steps=t, width=W, pattern="stencil_1d",
+                                           payload=PAYLOAD, seed=k,
+                                           kernel=KernelSpec("compute_bound", grain))
+                                 for k, t in enumerate(steps)])
+            xs = tuple(rand(W, PAYLOAD) for _ in steps)
+            rt = get_runtime("pallas_step", devices=[dev], steps_per_launch=depth)
+            lp = rt.build_ensemble_launches(ens)
+            L = lp.num_launches
+            act_rows = lp.act_rows()  # staged on the card in one copy
+            calls = {"init": 0, "step": 0}
+
+            def init_state():
+                calls["init"] += 1
+                return {"carry": lp.init_fn(xs)}
+
+            def step_fn(state, l):
+                calls["step"] += 1
+                return {"carry": lp.launch_fn(state["carry"], act_rows[l], lp.launch_t0(l))}
+
+            ckpt = Checkpointer(os.path.join(tmp.name, f"run{len(rows)}"), keep=2)
+            corrupted = []
+
+            class CorruptingInjector(FailureInjector):
+                def maybe_fail(self, step):
+                    if step == fails[-1] and step not in self.fired:
+                        newest = ckpt.latest_step()
+                        path = os.path.join(ckpt.dir, f"step_{newest:08d}", "arrays.npz")
+                        with open(path, "r+b") as f:
+                            f.seek(64)
+                            f.write(b"\xde\xad\xbe\xef")
+                        corrupted.append(newest)
+                    super().maybe_fail(step)
+
+            (final, restarts), d = counted(lambda: run_with_restarts(
+                total_steps=L, ckpt=ckpt, ckpt_every=ev, init_state=init_state,
+                step_fn=step_fn, injector=CorruptingInjector(fails)))
+            want = [w.cpu() for w in apart(lambda: rt.build_ensemble(ens)(xs))]
+            got = [w.cpu() for w in lp.finalize(final["carry"])]
+            for k, (a, b) in enumerate(zip(got, want)):
+                if not torch.equal(a, b):
+                    fail(f"[restart] {label}: member {k} differs from the uninterrupted run, "
+                         f"max |difference| {(a - b).abs().max().item()}")
+            if restarts != len(fails) or not corrupted:
+                fail(f"[restart] {label}: {restarts} restarts, corrupted {corrupted}")
+            # the restore after the corruption fell back past it: the loop
+            # ran the launches after the second-newest checkpoint again
+            redo = calls["step"] - L
+            fell_back = fails[-1] - (corrupted[0] - ev)
+            expect_redo = (fails[0] - (fails[0] // ev) * ev) + fell_back
+            if redo != expect_redo:
+                fail(f"[restart] {label}: {redo} launches run again, expected {expect_redo} "
+                     f"(the fallback past step {corrupted[0]})")
+            # launches: K3 for each init (the first, and the structure donor of
+            # each restore tried), K4 for each launch run
+            want_d = dict.fromkeys(d, 0)
+            want_d.update({"taskbench_step": calls["init"], K4_TILED: calls["step"]})
+            if card and d != want_d:
+                fail(f"[restart] {label}: launches {d}, expected {want_d} ({calls})")
+            dist = (min(dataflow_distance("restart", f"{label} member {k}", w)
+                        for k, w in enumerate(want)) if grain == 1 else None)
+            # save and restore walls of the state, on the card
+            state = {"carry": apart(lambda: lp.init_fn(xs))}
+            nbytes = state["carry"].numel() * state["carry"].element_size()
+            probe = Checkpointer(os.path.join(tmp.name, f"probe{len(rows)}"), keep=1)
+            save_ms, restore_ms = [], []
+            for i in range(reps):
+                sync()
+                t1 = time.perf_counter()
+                probe.save(i, state)
+                save_ms.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                back, _ = probe.restore(state)
+                sync()
+                restore_ms.append((time.perf_counter() - t1) * 1e3)
+                if not torch.equal(back["carry"], state["carry"]):
+                    fail(f"[restart] {label}: the restored state differs")
+            rows.append({"run": label, "launches": L, "every": ev, "fail_at": list(fails),
+                         "corrupted": corrupted, "restarts": restarts, "calls": calls,
+                         "kernel_launches": {k: n for k, n in d.items() if n},
+                         "state_bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms,
+                         "evidence_distance": dist})
+            print(f"  {label}: {L} launches, checkpoints every {ev} (keep 2), failures at "
+                  f"{list(fails)}, step {corrupted[0]} corrupted: {restarts} restarts, "
+                  f"{redo} launches run again, final state bit for bit the uninterrupted "
+                  f"run; {nbytes} B state: save {min(save_ms):.3f} ms (median "
+                  f"{sorted(save_ms)[reps // 2]:.3f}), restore {min(restore_ms):.3f} ms "
+                  f"(median {sorted(restore_ms)[reps // 2]:.3f}); launches {rows[-1]['kernel_launches']}"
+                  + (f"; evidence {dist:.3g} from the fixed point" if dist is not None else ""),
+                  flush=True)
+    finally:
+        tmp.cleanup()
+    sync()
+    total = ops.launch_counts()
+    launches = {k: n - kept[k] for k, n in total.items()}
+    print(f"[restart] {len(rows)} restart loops, each bit for bit its uninterrupted run after "
+          f"falling back past a corrupt checkpoint; launches {launches} (and {kept} by the "
+          f"uninterrupted oracles); {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({"restart": {"runs": rows, "card": smi}}), flush=True)
+    return launches
 
 
 def fail(msg: str) -> None:
@@ -2888,6 +3582,13 @@ def main() -> int:
                         "host_stalls": host_stalls}}}),
         flush=True)
 
+    # ------------------------------------------- resilience, serving, restart
+    # the launch plans stepped from the host: the resilience engine under
+    # every fault class, the serving fabric, the restart loop
+    launches_res = resilience_phase(dev, rand, smi, model)
+    launches_serving = serving_phase(dev, rand, smi, model)
+    launches_restart = restart_phase(dev, rand, smi)
+
     # ---------------------------------------------------------------- rungs
     # the paper's other four rungs, each with the kernels: bsp (one graph
     # replay a superstep), bsp_scan and overlap (the run one graph replay),
@@ -3597,6 +4298,9 @@ def main() -> int:
             "launches_by_path": {"main": launches[kname], "plans": launches_plans[kname],
                                  "ensemble": launches_ens[kname],
                                  "schedule": launches_sched[kname],
+                                 "resilience": launches_res[kname],
+                                 "serving": launches_serving[kname],
+                                 "restart": launches_restart[kname],
                                  "rungs": launches_rungs[kname],
                                  "shards": launches_shards[kname]},
         })

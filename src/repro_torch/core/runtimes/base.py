@@ -62,8 +62,10 @@ and ``build``, ``measure`` and their launch accounting do not read the
 tracer. Its warm-up run counts as a build (``_build.BUILD_LAUNCHES``), so a
 trace's delta of the launch counters is one traced run's.
 
-Not ported yet (ROADMAP.md): ``execute_ensemble_resilient``, which needs the
-resilience engine (Queue 1 item 10).
+Resilience (``repro_torch.resilience``): ``execute_ensemble_resilient`` runs
+an ensemble's launch plan under the resilience engine, which detects,
+retries and replays at launch boundaries; a backend without a launch plan
+recovers by whole-run restart (``checkpoint.elastic.run_with_restarts``).
 """
 from __future__ import annotations
 
@@ -109,8 +111,9 @@ class EnsembleLaunchPlan:
 
     Counterpart of the reference's ``EnsembleLaunchPlan``: the launch
     boundaries of an ensemble run, visible to the host, for the resilience
-    engine and the serving loop (Queue 1 item 10), which detect, retry or
-    replay at a boundary. Every ``launch_fn`` call is a deterministic
+    engine (``resilience.engine``) and the serving fabric
+    (``serving.fabric``), which detect, retry, replay, evict or admit at a
+    boundary. Every ``launch_fn`` call is a deterministic
     function of (carry, act row), so a replay from the pre-launch carry
     gives the same bits. ``acts`` is the host (L, K, S) activity schedule;
     a caller edits its own copy to evict a member (zero its (K, S) slot from
@@ -147,14 +150,58 @@ class EnsembleLaunchPlan:
     #: (``_build.CAPTURES``): editing ``acts`` or admitting a member must
     #: not make it grow (no re-capture under membership churn)
     compile_counter: Optional[Callable[[], int]] = None
+    #: where ``launch_fn`` reads its act rows (`act_rows`): the runtime's
+    #: device for a stacked plan; None for a stepwise one (host arrays)
+    act_device: Optional[torch.device] = None
+    #: whether one launch is one CUDA graph replay, the work the cost model
+    #: prices; an eagerly issued launch (the stepwise plan, row shards over
+    #: several cards, the CPU) also pays the host's issue of each operation
+    replayed: bool = False
 
     @property
     def num_launches(self) -> int:
         return int(self.acts.shape[0])
 
+    @property
+    def deadline_expected_us(self) -> Optional[float]:
+        """The expected wall a deadline holds one host-stepped launch to:
+        ``expected_launch_us`` where a launch is one replay; None where it
+        is issued eagerly, which the model does not price (a
+        `DeadlineDetector` then self-calibrates from the observed walls)."""
+        return self.expected_launch_us if self.replayed else None
+
     def launch_t0(self, launch: int) -> int:
         """First lockstep timestep executed by launch ``launch``."""
         return 1 + launch * self.steps_per_launch
+
+    def act_rows(self, acts: Optional[np.ndarray] = None) -> "ActRows":
+        """The rows of ``acts`` (the plan's own by default; a caller's
+        edited copy) staged as ``launch_fn`` reads them."""
+        return ActRows(self.acts if acts is None else acts, self.act_device)
+
+
+class ActRows:
+    """A launch plan's act rows as its ``launch_fn`` reads them: on a device,
+    rows of a float32 table staged there in one copy, so no host-to-card
+    copy lands inside a launch; without one, host arrays. ``edited()``
+    after a change to ``acts`` (an eviction, an admission, a longer
+    horizon) stages the table again at the next row asked for."""
+
+    def __init__(self, acts: np.ndarray, device: Optional[torch.device]):
+        self.acts, self.device = acts, device
+        self._table: Optional[torch.Tensor] = None
+
+    def edited(self, acts: Optional[np.ndarray] = None) -> None:
+        if acts is not None:
+            self.acts = acts
+        self._table = None
+
+    def __getitem__(self, launch: int):
+        if self.device is None:
+            return np.array(self.acts[launch], dtype=np.float32, copy=True)
+        if self._table is None:
+            self._table = torch.tensor(self.acts, dtype=torch.float32, device=self.device)
+        return self._table[launch]
 
 
 class Runtime(abc.ABC):
@@ -410,11 +457,28 @@ class Runtime(abc.ABC):
 
     def build_ensemble_launches(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
         """A host-steppable launch schedule (`EnsembleLaunchPlan`). A backend
-        whose run is one opaque program has no launch boundaries to expose;
+        whose run is one opaque program has no launch boundaries to expose:
+        fault recovery for it is whole-run restart (``checkpoint/elastic.py``).
         ``pallas_step`` overrides this."""
         raise NotImplementedError(
             f"runtime {self.name} has no launch-granular schedule; resilient "
-            f"execution needs pallas_step")
+            f"execution needs pallas_step (or whole-run restart via "
+            f"checkpoint.elastic.run_with_restarts)")
+
+    def execute_ensemble_resilient(self, ensemble: GraphEnsemble, *, plan=None,
+                                   policy=None, inits=None):
+        """Run the ensemble under the resilience engine
+        (`resilience.run_resilient`), launch by launch from the host.
+
+        ``plan`` is a `resilience.FaultPlan` (None: no injection; the
+        engine's per-launch hook is one predicate check, so the no-fault
+        path adds no work beyond the host-stepped dispatch). ``inits`` as
+        for `execute_ensemble`. Returns a `resilience.ResilientResult`
+        whose ``outputs`` match ``execute_ensemble``."""
+        from repro_torch.resilience import run_resilient
+
+        self._require_ensemble_support(ensemble)
+        return run_resilient(self, ensemble, plan=plan, policy=policy, inits=inits)
 
     # -- tracing -----------------------------------------------------------
 

@@ -2112,7 +2112,8 @@ class PallasStepRuntime(Runtime):
             expected_launch_us=_schedule.expected_launch_wall_us(
                 rows=K * B, steps_per_launch=S, model=self._cost_model(P),
                 impl=self._exchange_impl()),
-            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
+            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"],
+            act_device=dev, replayed=graphed is not None)
 
     def _launch_plan_stacked_sharded(self, ensemble: GraphEnsemble, S: int,
                                      dk: int) -> EnsembleLaunchPlan:
@@ -2168,7 +2169,8 @@ class PallasStepRuntime(Runtime):
                 rows=sl.kj * (W // rings[0].size), steps_per_launch=S,
                 model=self._cost_model(P),
                 impl=self._exchange_impl()),
-            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"])
+            kind="stacked", compile_counter=lambda: _build.CAPTURES["graphs"],
+            act_device=dev, replayed=graphed is not None)
 
     def _launch_plan_stepwise(self, ensemble: GraphEnsemble) -> EnsembleLaunchPlan:
         """One step a launch for mixed ensembles: the tuple path's member

@@ -1586,3 +1586,152 @@ def test_sharded_ensemble_launch_plan_captures_nothing_under_churn(cuda, specs, 
     torch.cuda.synchronize()
     assert lp.compile_counter() == before == _build.CAPTURES["graphs"]
     assert not torch.equal(churned[0], outs[0])
+
+
+# ------------------------------------ resilience, serving, restart on the card
+
+
+def _plan_events(plan):
+    want = {"transport": lambda s: ("transport", s.launch, "retried", -1, s.times, ""),
+            "launch": lambda s: ("launch", s.launch, "replayed", -1, 0, s.mode),
+            "member": lambda s: ("member", s.launch, "evicted", s.member, 0, ""),
+            "straggler": lambda s: ("straggler", s.launch, "flagged", -1, 0, "")}
+    return sorted(want[s.kind](s) for s in plan.specs)
+
+
+def _res_plan(S, L):
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    if S == 1:  # every class at its own launch; the stall after 3 clean walls
+        return FaultPlan((FaultSpec("transport", 0, times=2), FaultSpec("launch", 1),
+                          FaultSpec("launch", 2, mode="poison"),
+                          FaultSpec("straggler", 3, delay_s=0.1),
+                          FaultSpec("member", 4, member=1),
+                          FaultSpec("member", L - 1, member=0)))
+    return FaultPlan((FaultSpec("launch", 0), FaultSpec("member", 0, member=1),
+                      FaultSpec("transport", 1, times=2), FaultSpec("launch", 1, mode="poison")))
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("S", [1, 4])
+def test_resilient_run_recovers_bit_for_bit_on_the_card(cuda, S, D):
+    """``execute_ensemble_resilient`` on the stacked launch plan (K3 at S =
+    1, K4 tiled at S = 4), grain 1, T <= 7 (the states at least 1e-3 from
+    the FMA's fixed point 0.2, so a wrong replay shows): the clean run
+    equals the ``build_ensemble`` replay bit for bit; under a plan of every
+    class the survivors equal it, the evicted and re-admitted members their
+    same-K oracle; the events are the plan's; the launches the clean run's
+    plus one a poisoned or evicting replay and each admission's t = 0 K3."""
+    import dataclasses
+
+    from repro_torch.core.task_kernels import initial_state
+    from repro_torch.resilience import RecoveryPolicy
+
+    ens = GraphEnsemble([TaskGraph(steps=t, width=64, pattern="stencil_1d", payload=16,
+                                   seed=k, kernel=KernelSpec("compute_bound", 1))
+                         for k, t in enumerate((7, 7, 6))])
+    rt = get_runtime("pallas_step", devices=[cuda] * D, steps_per_launch=S)
+    xs = tuple(_rand((64, 16), 90 + k, cuda) for k in range(3))
+    lp = rt.build_ensemble_launches(ens)
+    want = rt.build_ensemble(ens)(xs)
+    ops.reset_launch_counts()
+    clean = rt.execute_ensemble_resilient(ens, inits=xs)
+    torch.cuda.synchronize()
+    d_clean = ops.launch_counts()
+    assert all(torch.equal(torch.from_numpy(a), b.cpu()) for a, b in zip(clean.outputs, want))
+    plan = _res_plan(S, lp.num_launches)
+    ops.reset_launch_counts()
+    # the deadline 30 x the clean walls' median: a shared host's stalls
+    # stay under it, the 100 ms stall does not
+    res = rt.execute_ensemble_resilient(
+        ens, plan=plan, policy=RecoveryPolicy(readmit=True, deadline_factor=30.0), inits=xs)
+    torch.cuda.synchronize()
+    d_fault = ops.launch_counts()
+    assert sorted((e.kind, e.launch, e.action, e.member, e.attempts, e.mode)
+                  for e in res.events) == _plan_events(plan)
+    members, inits = list(ens.members), list(xs)
+    for k, frozen in res.evicted.items():
+        members[k] = dataclasses.replace(members[k], steps=frozen)
+    for k, info in res.readmitted.items():
+        members[k] = dataclasses.replace(members[k], steps=info["steps"], seed=info["seed"])
+        inits[k] = initial_state(64, 16, info["seed"], device=cuda)
+    oracle = rt.build_ensemble(GraphEnsemble(members))(tuple(inits))
+    assert min((w.cpu() - 0.2).abs().max().item() for w in list(want) + list(oracle)) >= 1e-3
+    for k, (a, b, c) in enumerate(zip(res.outputs, want, oracle)):
+        assert torch.equal(torch.from_numpy(a), c.cpu()), k
+        if k not in res.evicted:
+            assert torch.equal(torch.from_numpy(a), b.cpu()), k
+    relaunch = sum(e.kind == "member" or e.mode == "poison" for e in res.events)
+    admitted = len(res.readmitted)
+    if S == 1:  # D K3 a launch, at the init and at each admission
+        assert d_fault["taskbench_step"] == d_clean["taskbench_step"] + D * (relaunch + admitted)
+        assert res.stragglers == 1 and res.deadline_source == "observed"
+    else:  # D K4 tiled a launch; D K3 at the init and at each admission
+        assert d_fault["taskbench_blocked_tiled"] == (d_clean["taskbench_blocked_tiled"]
+                                                      + D * relaunch)
+        assert d_fault["taskbench_step"] == d_clean["taskbench_step"] + D * admitted
+        assert d_clean["taskbench_step"] == D
+
+
+def test_serving_fabric_on_the_card(cuda):
+    """The fabric over the card's launch plans under ``LaunchClock``: a
+    stacked cohort that admits mid-run, a stepwise cohort and a nearest
+    cohort; grain 1, T <= 7 (the outputs at least 1e-3 from the FMA's
+    fixed point 0.2); every outcome bit for bit its same-K oracle, no
+    capture mid-cohort."""
+    from repro_torch.serving import LaunchClock, ServingFabric, make_request
+
+    rt = get_runtime("pallas_step", device=cuda, steps_per_launch=2)
+    g1 = KernelSpec("compute_bound", 1)
+    reqs = [make_request(0, steps=7, width=64, seed=1, kernel=g1),
+            make_request(1, steps=5, width=64, seed=2, kernel=g1),
+            make_request(2, steps=7, width=64, seed=3, arrival_s=1.0, kernel=g1),
+            make_request(3, steps=7, width=64, seed=4, arrival_s=1.0, deadline_s=2.0, kernel=g1),
+            make_request(4, steps=4, width=32, pattern="all_to_all", arrival_s=2.0, kernel=g1),
+            make_request(5, steps=6, width=64, pattern="nearest", radius=2, arrival_s=2.0,
+                         seed=5, kernel=g1)]
+    rep = ServingFabric(rt, max_slots=2, verify=True, clock=LaunchClock()).serve(reqs)
+    assert min(np.abs(o.output - 0.2).max() for o in rep.outcomes) >= 1e-3
+    assert rep.bit_identical is True
+    assert all(c.recompiles == 0 for c in rep.cohorts)
+    assert sum(c.admitted_mid_run for c in rep.cohorts) >= 1
+    assert sorted(c.kind for c in rep.cohorts).count("stepwise") == 1
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_restart_over_a_launch_plan_on_the_card(cuda, S, tmp_path):
+    """``run_with_restarts`` with one launch a step, two failures and the
+    newest checkpoint corrupted before the second: the final state equals
+    the uninterrupted replay bit for bit, restored onto the card."""
+    import os
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.checkpoint.elastic import FailureInjector, run_with_restarts
+
+    ens = GraphEnsemble([TaskGraph(steps=t, width=64, pattern="nearest", radius=2, payload=16,
+                                   seed=k, kernel=KernelSpec("compute_bound", 1))
+                         for k, t in enumerate((25, 21, 17, 9))])
+    rt = get_runtime("pallas_step", device=cuda, steps_per_launch=S)
+    xs = tuple(_rand((64, 16), 110 + k, cuda) for k in range(4))
+    lp = rt.build_ensemble_launches(ens)
+    rows = lp.act_rows()  # staged on the card in one copy
+    L = lp.num_launches
+    ckpt = Checkpointer(str(tmp_path), keep=2)
+    fails = (L // 2, L - 1)
+
+    class Corrupting(FailureInjector):
+        def maybe_fail(self, step):
+            if step == fails[1] and step not in self.fired:
+                path = os.path.join(ckpt.dir, f"step_{ckpt.latest_step():08d}", "arrays.npz")
+                with open(path, "r+b") as f:
+                    f.seek(64)
+                    f.write(b"\xde\xad\xbe\xef")
+            super().maybe_fail(step)
+
+    final, restarts = run_with_restarts(
+        total_steps=L, ckpt=ckpt, ckpt_every=2, init_state=lambda: {"c": lp.init_fn(xs)},
+        step_fn=lambda s, l: {"c": lp.launch_fn(s["c"], rows[l], lp.launch_t0(l))},
+        injector=Corrupting(fails))
+    assert restarts == 2 and final["c"].device.type == "cuda"
+    want = rt.build_ensemble(ens)(xs)
+    assert all(torch.equal(a, b) for a, b in zip(lp.finalize(final["c"]), want))

@@ -213,9 +213,17 @@ def test_transports_refuse_what_the_reference_refuses():
     assert _halo.TRANSPORT_REGISTRIES == {"halo": _halo.HALO_ASYNC_IMPLS,
                                           "stride": _halo.STRIDE_ASYNC_IMPLS,
                                           "gather": _halo.GATHER_IMPLS}
-    assert sorted(_halo.HALO_ASYNC_IMPLS) == sorted(ref_halo.HALO_ASYNC_IMPLS)
-    assert sorted(_halo.STRIDE_ASYNC_IMPLS) == sorted(ref_halo.STRIDE_ASYNC_IMPLS)
-    assert sorted(_halo.GATHER_IMPLS) == sorted(ref_halo.GATHER_IMPLS)
+    # the production transports; a test may have installed either package's
+    # "chaos+<base>" wrappers (resilience.install_chaos_impls) in this process
+    def production(registry):
+        return sorted(n for n in registry if not n.startswith("chaos+"))
+
+    assert production(_halo.HALO_ASYNC_IMPLS) == production(ref_halo.HALO_ASYNC_IMPLS)
+    assert production(_halo.STRIDE_ASYNC_IMPLS) == production(ref_halo.STRIDE_ASYNC_IMPLS)
+    assert production(_halo.GATHER_IMPLS) == production(ref_halo.GATHER_IMPLS)
+    assert production(_halo.GATHER_IMPLS) == ["chunked", "ppermute", "xla"]
+    assert production(_halo.HALO_ASYNC_IMPLS) == production(_halo.STRIDE_ASYNC_IMPLS) == [
+        "ppermute", "xla"]
 
 
 def test_received_rows_are_copies_in_their_own_buffers():
