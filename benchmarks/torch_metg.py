@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m benchmarks.torch_metg [--repeats 5] [--out PATH]
         [--ensemble 2,4,8] [--cost-model PATH]
     PYTHONPATH=src python -m benchmarks.torch_metg --devices 4 [--out PATH]
+    PYTHONPATH=src python -m benchmarks.torch_metg --fft-only [--devices 4] [--out PATH]
     PYTHONPATH=src python -m benchmarks.torch_metg --smoke --device cpu [--devices 4]
 
 The port's counterpart of ``benchmarks/table2_metg.py`` (METG(50%) per
@@ -88,6 +89,12 @@ wall x SMs / tasks: the D shards share the card's SMs. A record
 ``"kind": "overlap_gain"`` gives, per D and grain, the step wall of
 ``overlap=False`` over ``overlap=True`` less one: what issuing the halo
 transfer under the interior gains, the paper's latency hiding on one card.
+
+``--fft-only``: fft's rows at W = 2048 alone, as the sweep above takes
+them (at D = 1 ``fused[kernels]`` and ``pallas_step``; with ``--devices
+D``, ``pallas_step`` at D = 1 and at D), each preceded by a ``"kind":
+"auto_resolution"`` record: the (plan, S) and reason ``steps_per_launch=
+"auto"`` resolves there under the analytic model, at D = 1 and at D.
 
 Every record carries the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``). Records print as
@@ -407,11 +414,37 @@ def calibrate(cfg: TaskBenchConfig, device: torch.device, cost_model: Optional[P
                    "model": model.to_dict(), "seconds": time.perf_counter() - t0}
 
 
+def fft_records(cfg: TaskBenchConfig, repeats: int, device: torch.device, width: int,
+                devices: int = 1):
+    """fft's rows at W = ``width`` as the full sweep takes them (D = 1:
+    FLOOR_SCHEDULES; D > 1: SHARD_PLAN_SCHEDULES at D = 1 and D), each D's
+    preceded by what "auto" resolves there."""
+    fft = dataclasses.replace(cfg, pattern="fft")
+    for D in sorted({1, devices}):
+        rt = get_runtime("pallas_step", devices=[device] * D, steps_per_launch="auto",
+                         cost_model=probes.analytic_cost_model())
+        plan = rt._schedule_for_graph(_graph(fft, width, 1))
+        yield {"kind": "auto_resolution", "pattern": "fft", "W": width, "devices": D,
+               "plan": plan.kind, "steps_per_launch": plan.steps_per_launch,
+               "reason": plan.reason}
+    if devices == 1:
+        for label, backend, options in FLOOR_SCHEDULES:
+            yield metg_record(fft, label, backend, options, None, repeats, device,
+                              width=width)
+        return
+    for label, backend, options, pattern in SHARD_PLAN_SCHEDULES:
+        for D in (1, devices):
+            tag = label if D == 1 else f"{label}[D={D}]"
+            yield metg_record(dataclasses.replace(cfg, pattern=pattern), tag, backend,
+                              options, None, min(repeats, SHARD_REPEATS), device,
+                              width=width, devices=D)
+
+
 def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
         sweep_s=SWEEP_S, eager_s=EAGER_S, rounds: int = ROUNDS,
         floor_cases=FLOOR_CASES, floor_metg_w: int = FLOOR_METG_W,
         ensembles=None, ensemble_ods=ENSEMBLE_ODS, cost_model: Optional[Path] = None,
-        smoke: bool = False, devices: int = 1) -> List[dict]:
+        smoke: bool = False, devices: int = 1, fft_only: bool = False) -> List[dict]:
     """Every record of the sweep, emitted as it is taken; ``ensembles``
     (default the preset's ``ensemble_sizes`` above 1) are the K of the
     ensemble rows; "auto" runs under the model `calibrate` gives. With
@@ -431,6 +464,13 @@ def run(cfg: TaskBenchConfig, repeats: int, device: torch.device, out: Path,
             f.write(line + "\n")
             f.flush()
 
+        if fft_only:
+            for rec in fft_records(cfg, repeats, device, floor_metg_w, devices):
+                emit(rec)
+            emit({"kind": "summary", "preset": cfg.name, "repeats": repeats,
+                  "devices": devices, "device": str(device), "fft_only": True,
+                  "seconds": time.perf_counter() - t0})
+            return records
         if devices > 1:
             for rec in shard_records(cfg, devices, min(repeats, SHARD_REPEATS), device,
                                      SMOKE_SHARD_OD if smoke else SHARD_OD, floor_metg_w):
@@ -487,6 +527,8 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", type=int, default=1,
                     help="D > 1: the row-shard rows over D shards of the card instead "
                          "of the sweep (PAPER preset, W = SMs x 16, 3 sweeps)")
+    ap.add_argument("--fft-only", action="store_true",
+                    help="fft's rows at W = 2048 alone (with --devices D: at D = 1 and D)")
     ap.add_argument("--ensemble", default=None,
                     help="comma-separated ensemble sizes K > 1 of the ensemble rows "
                          "(default: the preset's above 1); 'none' for none")
@@ -505,12 +547,12 @@ def main(argv=None) -> int:
         run(SMOKE, min(args.repeats, 2), device, out, sweep_s=(1, 2), eager_s=(1, 2),
             rounds=1, floor_cases=SMOKE_FLOOR, floor_metg_w=SMOKE_FLOOR_METG_W,
             ensembles=ensembles, ensemble_ods=(1,), cost_model=args.cost_model, smoke=True,
-            devices=args.devices)
+            devices=args.devices, fft_only=args.fft_only)
     else:
         default = DEFAULT_OUT if args.devices == 1 else DEFAULT_OUT.with_name(
             f"metg_d{args.devices}.json")
         run(PAPER, args.repeats, device, args.out or default, ensembles=ensembles,
-            cost_model=args.cost_model, devices=args.devices)
+            cost_model=args.cost_model, devices=args.devices, fft_only=args.fft_only)
     return 0
 
 

@@ -6,8 +6,8 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
   1. build   nvcc builds the kernels (K1 FMA body, K2 memory sweep, K3
-             single-step megakernel, K4 temporal-blocked megakernel in two
-             forms, tiled and cooperative, K5 flash attention in two
+             single-step megakernel, K4 temporal-blocked megakernel in three
+             forms, tiled, resident and cooperative, K5 flash attention in two
              forms, bf16 on the tensor cores and f32, K6 decode attention,
              K7 SSD intra-chunk, K8 RMSNorm) from ``src/``, one nvcc
              process per source, all started together.
@@ -23,18 +23,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
              equal bit for bit to K3 on the row-gathered halo extension,
              every combine and body, H in {1, 2}, W in {2112, 132, 1, 2,
              3}, gather and onehot indices past both ends of the extended
-             length; K4's cooperative form
-             at the blocked main path's buffer (M = 2144 rows) for every
-             combine, random fixed and time-varying tables, every body, S
-             in {2, 8}, an act mask with a masked tail and a frozen member;
-             K4's tiled form on tables of reach <= 2 (window, gather,
+             length; K4 in every form that applies (the resident and the
+             cooperative form for the compute and empty bodies, the
+             cooperative form alone for the memory body; each pinned with
+             ``form=`` and counted on its own counter), each held to the
+             plain version and the forms to each other bit for bit: at the
+             blocked main path's buffer (M = 2144 rows) for every combine,
+             random fixed and time-varying tables, every body, S in {2, 8},
+             an act mask with a masked tail and a frozen member; with the
+             tiled form too on tables of reach <= 2 (window, gather,
              onehot), compute and empty bodies, S in {2, 8}, M = 2144 and
-             301, held to the plain version and equal to the cooperative
-             form bit for bit; the pipelined phases stitched together equal
-             to one full K4 launch, bit for bit, in both forms; K3 gather
-             and onehot at W = D = 512 (all_to_all's slots at the gather
-             cap); K4's time-varying tables at M = 512 and 2048, S = 8, D =
-             3 and 512 (the blocked all-gather plan's shapes);
+             301; the pipelined phases stitched together equal to one full
+             K4 launch, bit for bit, in each form; K3 gather and onehot at
+             W = D = 512 (all_to_all's slots at the gather cap); K4's
+             time-varying tables at M = 512 and 2048, S = 8, D = 3 and 512
+             (the blocked all-gather plan's shapes);
              K5 (both forms) at the serving prefill (8 x 16 heads x 1024 x
              128, causal) and a windowed ragged case, K6 (one cluster
              launch) at the serving decode (q 8 x 16
@@ -74,7 +77,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              tree at W = 2048 on the stride plan (K3 ``pair``; gather and
              onehot) and at an explicit S = 8 over the cap (per step), at
              W = 512 with S = 8 (re-routed to the blocked all-gather plan:
-             K4's cooperative form on time-varying tables); spread and
+             K4's resident form on time-varying tables); spread and
              all_to_all at W = 512 at S = 1 and 8, all_to_all with the row
              mean on and off; spread at W = 2048 under a raised cap; one
              memory_bound run on each plan; W = 1 fft; then each plan at
@@ -344,9 +347,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              FMA's dependent latency, read by a clock-mark probe, x each
              element's chain; derived, under "bounds" in the JSON); K3 at
              the plans' shapes (pair on a W = 2048 stride step, gather at W
-             = D = 512) and K4's cooperative form on a blocked fft launch's
-             time-varying tables (under "plans_shapes");
-             K4 in both forms as one full
+             = D = 512) and K4's resident and cooperative forms on a blocked
+             fft launch's time-varying tables at W = 512 and 2048 and on
+             all_to_all's static (512, 512) table (under "plans_shapes");
+             K4's cooperative form on the memory body at the main path's
+             memory_bound run (S = 8), beside S x K2's shared-memory bound;
+             K4 in all three forms as one full
              launch at S = 2 and S = 8 and as the pipelined phases, and one
              whole pipelined launch with its interior on the same stream
              or a second one, queued and as graph nodes; K5 at internlm2's and hymba's prefill
@@ -409,11 +415,29 @@ T_PROFILED = 6  # steps of the S = 1 run traced in [main], and of the fft run in
 # row's distance from the FMA's fixed point), each reference held to lie
 # SHOWS_MIN or more from it
 W_PLAN, W_GATHER, T_PLANS_SHORT = 2048, 512, 7
+# The Task Bench kernels the main path launches (K4's resident form runs on
+# the all-gather plan's path, [plans], [schedule] and [shards], instead)
 TASKBENCH_KERNELS = ("taskbench_compute", "memory_bound", "taskbench_step",
                      "taskbench_blocked", "taskbench_blocked_tiled")
 # K4's launch counters by form: the main path's fixed-table compute runs
-# take the tiled form, its memory_bound run the cooperative one.
-K4_TILED, K4_COOP = "taskbench_blocked_tiled", "taskbench_blocked"
+# take the tiled form, its memory_bound run the cooperative one, and the
+# blocked all-gather plan's compute runs (no radius, any table) the
+# resident one.
+K4_TILED, K4_COOP, K4_RES = ("taskbench_blocked_tiled", "taskbench_blocked",
+                             "taskbench_blocked_resident")
+
+
+def k4_entry(form: str) -> str:
+    """The launch counter of K4's ``form`` (tiled, resident, cooperative)."""
+    return {"tiled": K4_TILED, "resident": K4_RES, "cooperative": K4_COOP}[form]
+
+
+def k4_form(memory: bool, allgather: bool) -> str:
+    """The K4 counter a pallas_step run's blocked launches count on: the
+    cooperative form for the memory body, the resident form on the
+    all-gather plan (its launch declares no radius), the tiled form on the
+    halo plan."""
+    return K4_COOP if memory else K4_RES if allgather else K4_TILED
 # K2 at ragged shapes, (rows, payload, scratch): a payload of 3 and of 40
 # 16-byte words, a scratch not a multiple of the payload, and the scalar
 # path (a payload or a scratch not a multiple of 4).
@@ -628,10 +652,11 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
             plan = rt._schedule_for_graph(g)
             if plan.steps_per_launch == 1:
                 want["taskbench_step"] = D * per
-            else:  # the memory body and the all-gather plan: K4's cooperative form
+            else:  # the halo plan tiled, the all-gather plan resident, the
+                # memory body cooperative
                 want["taskbench_step"] = D
-                coop = g.kernel.kind == "memory_bound" or plan.kind == "allgather"
-                want[K4_COOP if coop else K4_TILED] = D * (per - 1)
+                want[k4_form(g.kernel.kind == "memory_bound",
+                             plan.kind == "allgather")] = D * (per - 1)
         else:
             body = "taskbench_compute" if g.kernel.kind == "compute_bound" else "memory_bound"
             want[body] = rt.body_launches_per_run(g)
@@ -1006,7 +1031,8 @@ def shards_phase(dev, rand, smi, counted_calls, *, W=W_MAIN, T=T_MAIN, W_small=W
     sync()
     total = ops.launch_counts()
     launches = {k: n - apart[k] for k, n in total.items()}
-    for k in ("taskbench_compute", "memory_bound", "taskbench_step", K4_TILED, K4_COOP):
+    for k in ("taskbench_compute", "memory_bound", "taskbench_step", K4_TILED, K4_COOP,
+              K4_RES):
         if launches[k] == 0:
             fail(f"[shards] kernel {k}: no launch on the sharded runs")
     if launches != expected:
@@ -2313,6 +2339,36 @@ def main() -> int:
     def rand(*shape):
         return torch.rand(shape, device=dev, generator=gen) * 0.9 + 0.1
 
+    def k4_forms(case, src, idx, wgt, act, S, kw, radius=None):
+        """K4 in every form that applies to these operands, each pinned
+        (the tiled one with ``radius``; the memory body only cooperative):
+        each launches once on its own counter, is held to the plain version
+        within TOL, and all are equal bit for bit. Returns the first."""
+        memory = kw["kind"] == "memory_bound"
+        pins = [("cooperative", dict(form="cooperative"))]
+        if not memory:
+            pins.insert(0, ("resident", dict(form="resident")))
+            if radius is not None:
+                pins.insert(0, ("tiled", dict(radius=radius)))
+        want = taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
+        outs = []
+        for form, pin in pins:
+            entry = k4_entry(form)
+            before = ops.launch_counts()
+            got = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw, **pin)
+            after = ops.launch_counts()
+            moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if moved != {entry: 1}:
+                fail(f"{case} ({form}): launches {moved}")
+            errs[entry] = max(errs[entry], check_close(f"{case} ({form})", got, want, TOL))
+            if outs and not torch.equal(got, outs[0][1]):
+                d = (got - outs[0][1]).abs()
+                i = int(d.flatten().argmax())
+                fail(f"{case}: {form} != {outs[0][0]} at flat index {i} "
+                     f"({got.flatten()[i].item()} vs {outs[0][1].flatten()[i].item()})")
+            outs.append((form, got))
+        return outs[0][1]
+
     for rows, p in ((37, 13), (SMS, PAYLOAD), (W_MAIN, PAYLOAD), (W_WIDE, PAYLOAD)):
         x = rand(rows, p)
         for it in (0, 1, 16, 1024):
@@ -2428,10 +2484,8 @@ def main() -> int:
         for combine in combines:
             for kind, it in (("compute_bound", GRAIN), ("empty", 0)):
                 kw = dict(kind=kind, iterations=it, combine=combine)
-                errs["taskbench_blocked"] = max(errs["taskbench_blocked"], check_close(
-                    f"K4 time-varying M={M} D={D} S={S_MAIN} {combine} {kind}",
-                    ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S_MAIN, **kw),
-                    taskbench_step_blocked_plain(src, idx, wgt, act, **kw), TOL))
+                k4_forms(f"K4 time-varying M={M} D={D} S={S_MAIN} {combine} {kind}",
+                         src, idx, wgt, act, S_MAIN, kw)
     # K4 at the blocked main path's buffer: W + 2 * S * r rows (r = 2)
     M, K, D = W_MAIN + 2 * S_MAIN * 2, 3, 5
     for S in (2, S_MAIN):
@@ -2448,16 +2502,13 @@ def main() -> int:
             idx[..., ::2, 1] = idx[..., ::2, 0]
             for kind, it in kinds:
                 kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
-                got = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw)
                 case = f"K4 S={S} {combine}{' time-varying' if tv else ''} {kind}"
-                errs["taskbench_blocked"] = max(errs["taskbench_blocked"], check_close(
-                    case, got, taskbench_step_blocked_plain(src, idx, wgt, act, **kw),
-                    TOL))
+                got = k4_forms(case, src, idx, wgt, act, S, kw)
                 if not torch.equal(got[K - 1], src[K - 1]):
                     fail(f"{case}: the frozen member changed")
     # K4's tiled form on tables of reach <= 2: against the plain version and
-    # bit for bit the cooperative form, at the main path's buffer and at one
-    # that is not a multiple of the tile
+    # bit for bit the resident and cooperative forms, at the main path's
+    # buffer and at one that is not a multiple of the tile
     for M, S, tail in itertools.product((W_MAIN + 2 * S_MAIN * 2, 301), (2, S_MAIN),
                                         (False, True)):
         act = torch.ones((K, S), device=dev)  # every depth active ...
@@ -2476,24 +2527,8 @@ def main() -> int:
             # in its input toward the FMA's fixed point
             for kind, it in (("empty", 0), ("compute_bound", GRAIN)):
                 kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine)
-                before = ops.launch_counts()
-                tiled = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S,
-                                           radius=2, **kw)
-                coop = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw)
-                after = ops.launch_counts()
-                case = (f"K4 tiled M={M} S={S} {combine} {kind}"
-                        f"{' masked tail' if tail else ''}")
-                if (after[K4_TILED] - before[K4_TILED],
-                        after[K4_COOP] - before[K4_COOP]) != (1, 1):
-                    fail(f"{case}: launches {after} after {before}")
-                errs[K4_TILED] = max(errs[K4_TILED], check_close(
-                    case, tiled, taskbench_step_blocked_plain(src, idx, wgt, act, **kw),
-                    TOL))
-                if not torch.equal(tiled, coop):
-                    d = (tiled - coop).abs()
-                    i = int(d.flatten().argmax())
-                    fail(f"{case}: tiled != cooperative at flat index {i} "
-                         f"({tiled.flatten()[i].item()} vs {coop.flatten()[i].item()})")
+                k4_forms(f"K4 M={M} S={S} {combine} {kind}{' masked tail' if tail else ''}",
+                         src, idx, wgt, act, S, kw, radius=2)
     # the pipelined phases, stitched, against one full launch (bit for bit)
     g = TaskGraph(steps=T_MAIN, width=W_MAIN, pattern="random_nearest",
                   payload=PAYLOAD, kernel=KernelSpec("compute_bound", 1), radius=2)
@@ -2511,9 +2546,14 @@ def main() -> int:
             iext, wext = ps_mod._extend_tables(idx, wgt, depth, combine, row_axis=1)
             ph = ps_mod._phase_tables(idx, wgt, depth, combine)
             fulls = []
-            for radius in (None, 2):  # the cooperative form, then the tiled one
+            # each form that applies: the cooperative, the resident and (the
+            # compute body, radius 2) the tiled one
+            forms = [dict(form="cooperative"), dict(radius=2)]
+            if kind != "memory_bound":
+                forms.insert(1, dict(form="resident"))
+            for pin in forms:
                 kw = dict(kind=kind, iterations=it, scratch=2048, combine=combine,
-                          steps_per_launch=S_MAIN, radius=radius)
+                          steps_per_launch=S_MAIN, **pin)
                 full = ops.taskbench_step(wrap_rows(state, depth), iext, wext, act,
                                           **kw)[:, depth:depth + W_MAIN]
                 fulls.append(full)
@@ -2522,10 +2562,10 @@ def main() -> int:
                         state, hl, hr, act, ph, depth, kw, stream)
                     torch.cuda.synchronize()
                     if not torch.equal(stitched, full):
-                        fail(f"K4 phases ({combine} {kind}, radius {radius}, side "
+                        fail(f"K4 phases ({combine} {kind}, {pin}, side "
                              f"stream {stream is not None}): stitched != full launch")
-            if not torch.equal(*fulls):
-                fail(f"K4 phases ({combine} {kind}): tiled != cooperative full launch")
+            if not all(torch.equal(fulls[0], f) for f in fulls[1:]):
+                fail(f"K4 phases ({combine} {kind}): the forms' full launches differ")
     # K5 at the serving prefill and a windowed ragged case; K6 at the
     # serving decode, lengths from empty to past the capacity
     def normal(*shape, dtype):
@@ -2624,9 +2664,9 @@ def main() -> int:
                     f"K8 ({rows}, {d}) offset {offset} {dtype} w {wdt}",
                     ops.rmsnorm(x, w, 1e-5), ref.rmsnorm_plain(x, w, 1e-5)))
     torch.cuda.synchronize()
-    print(f"[parity] K1-K8 (K4 and K5 in both forms) agree with their plain versions, "
+    print(f"[parity] K1-K8 (K4 in three forms, K5 in two) agree with their plain versions, "
           f"K3 with the wrap folded in equals the row gather + K3 in {wrap_cases} cases, "
-          f"K4's tiled form equals its cooperative form and its phases stitched equal "
+          f"K4's forms equal each other bit for bit and their phases stitched equal "
           f"one launch, in {time.perf_counter() - t0:.3f} s; "
           f"max abs errors {errs}", flush=True)
 
@@ -2817,8 +2857,9 @@ def main() -> int:
     def plan_run(label: str, g: TaskGraph, init, opts: dict):
         """pallas_step(**opts) on ``g``: one graph replay equal to its eager
         loop, its launches equal to dispatches_per_run and to the plan's
-        kernels (T K3 per step; 1 K3 + ceil((T-1)/S) K4 in the cooperative
-        form when blocked). Returns the final state on the host."""
+        kernels (T K3 per step; 1 K3 + ceil((T-1)/S) K4 when blocked, in
+        the resident form, or the cooperative one for the memory body).
+        Returns the final state on the host."""
         rt = get_runtime("pallas_step", **opts)
         plan = rt._schedule_for_graph(g)
         out, d = graphed(f"{label} pallas_step {opts}", rt, g, init)
@@ -2826,7 +2867,8 @@ def main() -> int:
         blocked = plan.kind == ps_mod.PLAN_ALLGATHER and plan.steps_per_launch > 1
         if blocked:
             want["taskbench_step"] = 1
-            want[K4_COOP] = -(-(g.steps - 1) // plan.steps_per_launch)
+            want[k4_form(g.kernel.kind == "memory_bound", True)] = \
+                -(-(g.steps - 1) // plan.steps_per_launch)
         else:
             want["taskbench_step"] = g.steps
         if d != want or sum(d.values()) != rt.dispatches_per_run(g):
@@ -2975,11 +3017,11 @@ def main() -> int:
     torch.cuda.synchronize()
     total = ops.launch_counts()
     launches_plans = {k: n - check_launches[k] for k, n in total.items()}
-    for k in ("taskbench_step", K4_COOP):
+    for k in ("taskbench_step", K4_RES, K4_COOP):
         if launches_plans[k] == 0:
             fail(f"kernel {k}: no launches on the plans' path")
     for k, n in launches_plans.items():
-        if n and k not in ("taskbench_step", K4_COOP):
+        if n and k not in ("taskbench_step", K4_RES, K4_COOP):
             fail(f"kernel {k}: {n} launches on the plans' path")
     print(f"[plans] {len(plan_runs)} pallas_step runs on the stride and all-gather "
           f"plans (T={T_MAIN} at W={W_PLAN} and {W_GATHER}, grain {GRAIN}; grain 1 at "
@@ -3458,16 +3500,31 @@ def main() -> int:
               f"replays, best of 15) " + ", ".join(
                   f"{key} {us:.4f}" for key, us in walls[grain].items()) + f" | {smi}",
               flush=True)
-    # the other plans at [plans]' widths
-    for pattern, W, want in (("fft", W_PLAN, "stride"), ("tree", W_PLAN, "stride"),
-                             ("fft", W_GATHER, "stride"), ("spread", W_GATHER, "allgather"),
-                             ("all_to_all", W_GATHER, "allgather")):
+    # the other plans at [plans]' widths: the all-gather plan's launch fits
+    # when it takes K4's resident form, so "auto" blocks spread and
+    # all_to_all at the deepest candidate under T - 1 (on one card every
+    # depth pays off); a butterfly under the cap re-routes to that plan where
+    # the measured model ranks it ahead (`gathered_beats_strides` on one
+    # card: no stride leaves the block), and stays per step over the cap
+    for pattern, W in (("fft", W_PLAN), ("tree", W_PLAN), ("fft", W_GATHER),
+                       ("spread", W_GATHER), ("all_to_all", W_GATHER)):
         g = TaskGraph(steps=T_MAIN, width=W, pattern=pattern, payload=PAYLOAD,
                       kernel=KernelSpec("compute_bound", GRAIN), seed=0)
+        want = ("allgather", S_AUTO_MAIN)
+        if W > sched.DEFAULT_GATHER_WIDTH_CAP:
+            want = ("stride", 1)
+        elif pattern == "fft":
+            strides = ps_mod._patterns.butterfly_slot_strides(g)
+            beats, _ = sched.gathered_beats_strides(
+                width=W, block=W, steps_per_launch=S_AUTO_MAIN, period=len(strides),
+                off_block_strides=sum(1 for st in strides if st >= W), model=model,
+                impl=probes.SELF_EXCHANGE)
+            want = want if beats else ("stride", 1)
         _, plan = auto_run(f"{pattern} W={W}", g, rand(W, PAYLOAD), {})
-        if plan[:2] != (want, 1):
-            fail(f"[schedule] {pattern} W={W}: auto resolved {plan}, expected {want} S=1")
-        if want == "allgather" and "declares no radius" not in plan.reason:
+        if plan[:2] != want:
+            fail(f"[schedule] {pattern} W={W}: auto resolved {plan}, expected {want}")
+        if plan.kind == "allgather" and pattern != "fft" \
+                and "resident form" not in plan.reason:
             fail(f"[schedule] {pattern}: the reason names no rule: {plan.reason}")
     # the K = 4 stacked ensemble: its run, and its launch plan under a deadline
     ens_k4 = ens_of([(T_MAIN, W_MAIN, "stencil_1d", "compute_bound", GRAIN, 1)] * K_ENS)
@@ -3553,7 +3610,7 @@ def main() -> int:
     total = ops.launch_counts()
     launches_sched = {k: n - check_launches[k] for k, n in total.items()}
     for k, n in launches_sched.items():
-        if (n == 0) == (k in ("taskbench_step", K4_TILED)):
+        if (n == 0) == (k in ("taskbench_step", K4_TILED, K4_RES)):
             fail(f"kernel {k}: {n} launches on the schedule path")
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     print(f"[schedule] launch plan of the K={K_ENS} stacked ensemble at S={S_ens} "
@@ -4268,10 +4325,12 @@ def main() -> int:
         return ((2 * rows * PAYLOAD + rows * Db + S_MAIN) * 4,
                 S_MAIN * rows * PAYLOAD * (2 * Db + 2 * GRAIN))
 
-    # K4's two forms: the tiled one (the main path's, radius 2 declared) and
-    # the cooperative one (no radius)
-    k4_kw = {K4_TILED: dict(blk_kw, radius=Hb), K4_COOP: blk_kw}
-    for kname, tag in ((K4_TILED, "K4 tiled"), (K4_COOP, "K4 cooperative")):
+    # K4's three forms at the same launch: the tiled one (the main path's,
+    # radius 2 declared), the cooperative and the resident one (each pinned)
+    k4_kw = {K4_TILED: dict(blk_kw, radius=Hb), K4_COOP: dict(blk_kw, form="cooperative"),
+             K4_RES: dict(blk_kw, form="resident")}
+    for kname, tag in ((K4_TILED, "K4 tiled"), (K4_COOP, "K4 cooperative"),
+                       (K4_RES, "K4 resident")):
         cases.append(
             (kname, tag, "src/repro_torch/kernels/csrc/taskbench_blocked.cu",
              "src/repro/kernels/taskbench_step.py:275",
@@ -4289,9 +4348,13 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS_PER_S * 1e3
         per_run = blocked_launches.get(kname, {}) if k4_case else T_MAIN
+        path_launches = launches[kname]
+        if kname == K4_RES:  # its path: the blocked all-gather plan's runs
+            per_run = {"allgather": -(-(T_MAIN - 1) // S_MAIN)}
+            path_launches = launches_plans[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": errs[kname],
+            "launches": path_launches, "max_abs_err": errs[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_run": per_run,
@@ -4381,12 +4444,12 @@ def main() -> int:
           f"on a stream: ratio {k3_us / wall_us:.4f}")
     # K4's pipelined phases at their shapes, the boundary buffer (6 * depth
     # rows) and the interior (the owned W rows), and its cost per depth (the
-    # full buffer at S = 2 beside S = S_MAIN), in both forms
+    # full buffer at S = 2 beside S = S_MAIN), in each form
     ph = ps_mod._phase_tables(None, wb, depth, "window")
     state = rand(1, W_MAIN, PAYLOAD)
     bl, br = rand(1, 3 * depth, PAYLOAD), rand(1, 3 * depth, PAYLOAD)
     act2 = torch.ones((1, 2), device=dev)
-    k4s = {K4_TILED: kernels[3], K4_COOP: kernels[4]}
+    k4s = {K4_TILED: kernels[3], K4_COOP: kernels[4], K4_RES: kernels[5]}
     for kname, k4 in k4s.items():
         kw = k4_kw[kname]
         for phase, fn, rows in (
@@ -4452,22 +4515,19 @@ def main() -> int:
     # K3 and K4 as the plans launch them, beside their bounds: K3 in its pair
     # mode on the [x | partner] halves of a W_PLAN-row stride step; K3
     # gathering D = 512 slots (all_to_all at the cap without the row mean);
-    # K4's cooperative form on the time-varying (1, S, 512, 2) tables of a
-    # blocked fft launch (its first launch's, as the runtime builds them)
+    # K4's resident and cooperative forms on the time-varying (1, S, W, 2)
+    # tables of a blocked fft launch (its first launch's, as the runtime
+    # builds them) at W = 512 and 2048, and on all_to_all's static (1, 512,
+    # 512) table at the cap (D = W)
     pair_src = rand(1, 2 * W_PLAN, PAYLOAD)
     pair_w = torch.zeros((1, W_PLAN, 1), device=dev)
     a2a = tb_graph("all_to_all", W_GATHER)
     a2a_i, a2a_w = (torch.from_numpy(a[:1]).to(dev)
                     for a in ps_mod._global_slot_operands(a2a))
     a2a_src = rand(1, W_GATHER, PAYLOAD)
-    bfly = tb_graph("fft", W_GATHER)
-    tables_at, key_of, _ = get_runtime("pallas_step")._global_table_fn(bfly)
-    tv_i, tv_w, _ = ps_mod._stack_tables(tables_at, key_of, [list(range(1, S_MAIN + 1))],
-                                         dev)
-    tv_src = rand(1, W_GATHER, PAYLOAD)
     tv_act = torch.ones((1, S_MAIN), device=dev)
     P_ = PAYLOAD
-    plan_cases = (
+    plan_cases = [
         (kernels[2], "pair", f"K3 pair W={W_PLAN}",
          lambda: ops.taskbench_step(pair_src, None, pair_w, **dict(step_kw, combine="pair")),
          lambda: taskbench_step_plain(pair_src, None, pair_w, **dict(step_kw, combine="pair")),
@@ -4478,14 +4538,27 @@ def main() -> int:
                                       **dict(step_kw, combine="gather")),
          (2 * W_GATHER * P_ + 2 * W_GATHER * W_GATHER) * 4,
          W_GATHER * P_ * (2 * W_GATHER + 2 * GRAIN)),
-        (kernels[4], "time_varying", f"K4 cooperative time-varying M={W_GATHER} D=2",
-         lambda: ops.taskbench_step(tv_src, tv_i, tv_w, tv_act,
-                                    **dict(blk_kw, combine="gather")),
-         lambda: taskbench_step_blocked_plain(tv_src, tv_i, tv_w, tv_act,
-                                              **dict(step_kw, combine="gather")),
-         (2 * W_GATHER * P_ + 2 * S_MAIN * W_GATHER * 2 + S_MAIN) * 4,
-         S_MAIN * W_GATHER * P_ * (2 * 2 + 2 * GRAIN)),
-    )
+    ]
+    k4_plan_ops = []  # (key, W, D, src, idx, wgt): the blocked all-gather launches
+    for W in (W_GATHER, W_PLAN):
+        tables_at, key_of, _ = get_runtime("pallas_step")._global_table_fn(tb_graph("fft", W))
+        tv_i, tv_w, _ = ps_mod._stack_tables(tables_at, key_of,
+                                             [list(range(1, S_MAIN + 1))], dev)
+        key = "time_varying" if W == W_GATHER else f"time_varying_W{W}"
+        k4_plan_ops.append((key, W, 2, rand(1, W, PAYLOAD), tv_i, tv_w))
+    k4_plan_ops.append(("all_to_all_d512", W_GATHER, W_GATHER, a2a_src, a2a_i, a2a_w))
+    for key, W, Dp, src_p, i_p, w_p in k4_plan_ops:
+        n_tables = S_MAIN if w_p.ndim == 4 else 1
+        for rec, form in ((kernels[5], "resident"), (kernels[4], "cooperative")):
+            plan_cases.append((
+                rec, key, f"K4 {form} {'time-varying' if w_p.ndim == 4 else 'static'} "
+                f"M={W} D={Dp}",
+                lambda s_=src_p, i_=i_p, w_=w_p, f_=form: ops.taskbench_step(
+                    s_, i_, w_, tv_act, **dict(blk_kw, combine="gather", form=f_)),
+                lambda s_=src_p, i_=i_p, w_=w_p: taskbench_step_blocked_plain(
+                    s_, i_, w_, tv_act, **dict(step_kw, combine="gather")),
+                (2 * W * P_ + 2 * n_tables * W * Dp + S_MAIN) * 4,
+                S_MAIN * W * P_ * (2 * Dp + 2 * GRAIN)))
     for rec, key, tag, kern, plain, nbytes, nops in plan_cases:
         check_close(f"{tag} timing inputs", kern(), plain(), TOL)
         ms = gpu_ms(kern, 200)
@@ -4498,7 +4571,32 @@ def main() -> int:
               f"launch (plain version {plain_ms * 1e3:.3f} us), bound "
               f"{max(t_bytes, t_ops) * 1e3:.3f} us by "
               f"{'bytes' if t_bytes >= t_ops else 'operations'} | {smi}", flush=True)
-    del pair_src, a2a_src, tv_src
+    del pair_src, a2a_src, k4_plan_ops
+    # K4's cooperative form on the memory body at the main path's
+    # memory_bound run (stencil_1d, radius 1, window D = 3, iterations 4,
+    # scratch 2048, S = 8: a buffer of W + 2 * S rows), beside its bound:
+    # S x K2's shared-memory bound on that buffer
+    Mm = W_MAIN + 2 * S_MAIN
+    src_m = rand(1, Mm, PAYLOAD)
+    w_m = torch.rand((1, Mm, 3), device=dev, generator=gen) / 3
+    mem_kw = dict(kind="memory_bound", iterations=mem_it, scratch=scratch, combine="window",
+                  steps_per_launch=S_MAIN)
+    got_m = ops.taskbench_step(src_m, None, w_m, actb, **mem_kw)
+    want_m = taskbench_step_blocked_plain(src_m, None, w_m, actb,
+                                          **{k: v for k, v in mem_kw.items()
+                                             if k != "steps_per_launch"})
+    mem_err = check_close("K4 cooperative memory body timing inputs", got_m, want_m, TOL)
+    ms_m = gpu_ms(lambda: ops.taskbench_step(src_m, None, w_m, actb, **mem_kw), 50)
+    smem_m = S_MAIN * Mm * 4 * scratch * (2 * mem_it + 2)
+    bound_m = smem_m / k2["smem_bytes_per_s"] * 1e3
+    kernels[4]["memory_body"] = {
+        "rows": Mm, "S": S_MAIN, "iterations": mem_it, "scratch": scratch, "ms": ms_m,
+        "max_abs_err": mem_err, "smem_bytes": smem_m, "smem_bound_ms": bound_m}
+    print(f"[time] K4 cooperative memory body ({Mm} rows, S={S_MAIN}, iterations "
+          f"{mem_it}, scratch {scratch}): {ms_m * 1e3:.3f} us per launch, bound "
+          f"{bound_m * 1e3:.3f} us (S x K2's shared-memory bound on the buffer: "
+          f"{smem_m} bytes) | {smi}", flush=True)
+    del src_m, got_m, want_m
 
     # K5 at internlm2's and hymba's prefill shapes (bf16, and its f32 form at
     # internlm2's), K6 at the serving decode warm and L2-cold, each beside

@@ -54,7 +54,9 @@ reference's, resolved once and shared by the build methods and
              (1, S, W, D) tables (period-1 patterns keep one static (1, W,
              D) pair); every row advances exactly (no valid-span shrink),
              the masked tail comes from `_act_schedule`, and no radius is
-             declared, so K4 takes its cooperative form.
+             declared, so K4 takes its resident form (one cluster a column
+             slice holding the whole buffer; the memory body: the
+             cooperative form).
 
 Every table a run reads is built on the host once per build and moved to
 the card before the run; per timestep the loop only picks a slice (a view)
@@ -223,11 +225,16 @@ from repro_torch.kernels.launch_plan import sm_count
 from repro_torch.kernels.taskbench_step import (
     WEIGHT_ACCUM_DTYPE,
     WEIGHT_DTYPE,
+    blocked_form,
     blocked_plan,
-    cooperative_only,
+    default_clusters,
     finalize_weights,
     halo_rows,
     prepare_step_operands,
+    resident_clusters,
+    share_clusters,
+    why_not_resident,
+    why_not_tiled,
     wrap_rows,
 )
 from repro_torch.launch.mesh import RowMemberMesh, make_row_member_mesh
@@ -911,7 +918,7 @@ class PallasStepRuntime(Runtime):
         rule = ("a depth fits when its K4 launch takes the tiled form, a tile "
                 f"under {SMEM_LIMIT} bytes of shared memory")
         if s == 1:
-            why = (cooperative_only(3, _memory_body(g.kernel), halo)
+            why = (why_not_tiled(3, _memory_body(g.kernel), halo)
                    or (f"T = {total_steps} leaves one combine step" if total_steps <= 2
                        else "no depth > 1 finds such a tile"))
             return 1, f"auto -> S=1: no depth > 1 fits, since {why} ({rule})"
@@ -926,21 +933,39 @@ class PallasStepRuntime(Runtime):
                    f"under T - 1 = {total_steps - 1} that fits ({rule}), {sched}; "
                    f"cost model: {model.describe()}")
 
+    def _grids(self) -> int:
+        """K4 launches that run at once on one card: the shards that share
+        it (D on ``devices=["cuda"] * D``), each planned for its share."""
+        return max(self.devices.count(d) for d in self.devices)
+
     def _gathered_fit(self, graph: TaskGraph) -> _schedule.GatherFit:
-        """The card's fit rule for the blocked all-gather plan: ``fits(S)``
-        is whether its K4 launch on the (1, W) state, with the tables the
-        launch holds ((1, S, W, D) time-varying, or one static (1, W, D)
-        pair), takes the tiled form. It declares no radius, so it never
-        does."""
+        """The card's fit rule for the blocked all-gather plan, its
+        counterpart of the reference's VMEM fit: ``fits(S)`` is whether its
+        K4 launch on the (1, W) state, with the tables the launch holds
+        ((1, S, W, D) time-varying, or one static (1, W, D) pair), takes
+        the tiled or the resident form (`blocked_form`: the launch declares
+        no radius, so the resident form, one cluster a column slice holding
+        the whole buffer in shared memory), planned for the card's share of
+        each of the shards that run at once. The memory body never fits."""
         W, P, D = graph.width, graph.payload, graph.max_deps
         memory, time_varying = _memory_body(graph.kernel), _time_varying(graph)
-        combine, sms = self._plan_combine(PLAN_ALLGATHER), self._tile_sms()
+        combine, share = self._plan_combine(PLAN_ALLGATHER), self._card_share()
 
         def fits(s: int) -> bool:
             wgt = (1, s, W, D) if time_varying else (1, W, D)
-            return blocked_plan((1, W, P), wgt, s, combine, memory, None, **sms) is not None
+            return blocked_form((1, W, P), wgt, s, combine, memory, None,
+                                **share).form != "cooperative"
 
         return fits
+
+    def _card_share(self) -> dict:
+        """`blocked_form`'s SMs and co-resident clusters for one of the
+        `_grids` K4 launches that share a card: the card's own divided on
+        the card; on the CPU the H100's 132 SMs (`default_clusters`)."""
+        sms, grids = self._tile_sms().get("sms", 132), self._grids()
+        clusters = (resident_clusters(self.device.index or 0)
+                    if self.device.type == "cuda" else default_clusters(sms))
+        return {"sms": max(1, sms // grids), "clusters": share_clusters(clusters, grids)}
 
     def _gathered_depth(self, graph: TaskGraph) -> Tuple[int, str]:
         """(S, reason) of the all-gather plan: explicit depths through the
@@ -950,17 +975,33 @@ class PallasStepRuntime(Runtime):
         if not _schedule.is_auto(opt):  # explicit: the option parser alone
             return _schedule._resolve_depth(opt, None, graph.steps), ""
         model = self._cost_model(graph.payload)
+        fits = self._gathered_fit(graph)
         s = _schedule.resolve_steps_per_launch_gathered(
-            opt, width=graph.width, block=self._block(graph), fits=self._gathered_fit(graph),
+            opt, width=graph.width, block=self._block(graph), fits=fits,
             total_steps=graph.steps, model=model)
+        rule = ("a depth fits when its K4 launch takes the tiled or the resident "
+                "form, the card's counterpart of the reference's VMEM fit")
         if s > 1:
-            return s, (f"auto -> S={s}: the deepest candidate whose gathered launch "
-                       f"pays off and takes K4's tiled form; cost model: "
-                       f"{model.describe(graph.width)}")
-        why = cooperative_only(4 if _time_varying(graph) else 3,
-                               _memory_body(graph.kernel), None)
-        return 1, (f"auto -> S=1 on the all-gather plan: no depth > 1 fits, since "
-                   f"{why} (a depth fits when its K4 launch takes the tiled form)")
+            return s, (f"auto -> S={s}: the deepest candidate of {_schedule.CANDIDATES} "
+                       f"under T - 1 = {graph.steps - 1} whose gathered launch pays off "
+                       f"and fits ({rule}); cost model: {model.describe(graph.width)}")
+        memory = _memory_body(graph.kernel)
+        if memory:
+            why = why_not_resident(memory)
+        elif graph.steps <= 2:
+            why = f"T = {graph.steps} leaves one combine step"
+        elif not any(fits(c) for c in _schedule.CANDIDATES if c > 1):
+            why = blocked_form(
+                (1, graph.width, graph.payload),
+                (1, 2, graph.width, graph.max_deps) if _time_varying(graph)
+                else (1, graph.width, graph.max_deps), 2,
+                self._plan_combine(PLAN_ALLGATHER), False, None,
+                **self._card_share()).reason
+        else:
+            why = (f"no depth's replication of W - B = {graph.width - self._block(graph)} "
+                   f"rows pays off against the exchange it saves")
+        return 1, (f"auto -> S=1 on the all-gather plan: no depth > 1 pays off and "
+                   f"fits, since {why} ({rule})")
 
     def _gathered_steps_per_launch(self, graph: TaskGraph) -> int:
         return self._gathered_depth(graph)[0]
@@ -1689,11 +1730,12 @@ class PallasStepRuntime(Runtime):
         the one static (1, W, D) pair; each shard then keeps its own B rows,
         so every shard does all W rows' work, as the reference's does. Every
         row advances exactly; the final launch carries the masked tail. No
-        radius is declared: K4 takes its cooperative form (at D > 1 on one
-        card, D cooperative grids at once on the shards' streams)."""
+        radius is declared: K4 takes its resident form, or the cooperative
+        one for the memory body (at D > 1 on one card, D grids at once on
+        the shards' streams, each planned for 1/D of the card: ``grids``)."""
         T, B = graph.steps, self._block(graph)
         kw0 = self._kernel_kw(graph, combine=self._plan_combine(PLAN_ALLGATHER))
-        kwb = dict(kw0, steps_per_launch=S)
+        kwb = dict(kw0, steps_per_launch=S, grids=self._grids())
         selfs = self._per_device(lambda dev: tuple(a[None] for a in _self_tables(B, dev)))
         acts_np = _act_schedule((T,), T, S)[:, 0]  # (L, S)
         acts = self._per_device(lambda dev: torch.from_numpy(acts_np).to(dev))

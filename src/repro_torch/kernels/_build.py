@@ -55,10 +55,12 @@ ENTRIES = {
     "memory_bound": ("memory_bound", (_P, _P, _I, _I, _I, _I, _P)),
     "taskbench_step": ("taskbench_step",
                        (_P, _P, _P, _P) + (_I,) * 12 + (_P,)),
-    # K4's two forms, counted apart: cooperative (any table, the memory
-    # body) and tiled (fixed tables of a known reach)
+    # K4's three forms, counted apart: cooperative (any table, the memory
+    # body), tiled (fixed tables of a known reach) and resident (any table,
+    # one cluster a column slice)
     "taskbench_blocked": ("taskbench_blocked", (_P,) * 6 + (_I,) * 10 + (_P,)),
     "taskbench_blocked_tiled": ("taskbench_blocked", (_P,) * 5 + (_I,) * 10 + (_P,)),
+    "taskbench_blocked_resident": ("taskbench_blocked", (_P,) * 5 + (_I,) * 13 + (_P,)),
     # K5's two forms, counted apart: bf16 on the tensor cores, f32 FMAs
     "flash_attention": ("flash_attention", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
     "flash_attention_f32": ("flash_attention_f32", (_P,) * 4 + (_I,) * 8 + (_F, _P)),
@@ -68,9 +70,11 @@ ENTRIES = {
     "rmsnorm": ("rmsnorm", (_P,) * 3 + (_I, _I, _F, _I, _I, _I, _P)),
 }
 #: C entries that launch nothing and answer a question about a launch
-#: (`query`): K7's head blocks per (chunk, group) at a shape.
+#: (`query`): K7's head blocks per (chunk, group) at a shape; the clusters
+#: of a size K4's resident form holds at once on the current device.
 QUERIES = {
     "ssd_chunk_plan": ("ssd_chunk", (_I,) * 7),
+    "taskbench_blocked_resident_clusters": ("taskbench_blocked", (_I,)),
 }
 #: C entries that launch a probe (`probe`): a kernel of no work, the launch
 #: floor the yardsticks time, and the FMA's dependent latency in cycles. Not

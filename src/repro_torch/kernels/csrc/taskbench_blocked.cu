@@ -29,7 +29,8 @@
 // P = 64, S = 8, grain 64) the bound is the FMA work, ~2.3 us; the tiled
 // form adds the halo rows it recomputes (~10% there).
 //
-// Two forms, each with its own C entry and launch counter:
+// Three forms, each with its own C entry and launch counter; the host picks
+// one (taskbench_step.blocked_form) before the launch:
 //
 // Tiled (taskbench_blocked_tiled): tables fixed across depths whose reach,
 // the farthest row a row's taps read, is at most r (the window's
@@ -50,21 +51,50 @@
 // slices of 8 columns, 128 CTAs). A tap outside the declared reach reads
 // NaN, so a table that breaks its promise gives no silently wrong rows.
 //
-// Cooperative (taskbench_blocked): any table (time-varying ones address the
-// whole buffer at every depth), and the memory body, whose sweep mixes a
-// row's columns and costs too much per row to recompute halos. A
-// persistent cooperative launch, as many CTAs as the card holds at once,
-// grid-striding over (member, tile) work items; depths ping-pong through
-// global memory (L2 at these sizes) with cooperative_groups' grid.sync()
-// between them. Compute and empty bodies run as K3's: 1024 consecutive
-// elements per work item, 4 register chains per thread; the memory body
-// runs a row per warp: the combined row to shared memory, then
+// Resident (taskbench_blocked_resident): any table, fixed (K, M, D) or
+// time-varying (K, S, M, D), of any reach (all_to_all's D = M too), with
+// the compute or empty body. One thread block cluster of C CTAs (C in 1, 2,
+// 4, 8, 16) per (member, column slice) holds all M rows of its slice for
+// all S depths: CTA `rank` owns rows [rank * R, (rank + 1) * R), R =
+// ceil(M / C), in two shared buffers that ping-pong between depths, and
+// copies them from `src` once (cp.async, 16-byte pieces where the slice
+// allows), with its rows' weights and indices for every depth where they
+// fit the budget (else they are read from global memory, each entry once
+// per row for the slice's columns, through L1). A tap on a row another CTA
+// owns reads that CTA's shared memory (distributed shared memory), so the
+// buffer never goes back to L2 between depths and no row is recomputed.
+// A thread's item is 4 columns of one row where the slice moves 16 bytes
+// at a time (else 1), so a tap's owner and address are found once for the
+// item; an item's taps (up to 8 slots) are all loaded before they are
+// summed, so a remote row costs one round trip an item, not one a tap; a
+// window row whose taps all lie in the CTA's own rows reads them straight
+// from its buffer.
+// Depths are separated by the cluster's hardware barrier
+// (barrier.cluster.arrive.release after a depth's last store,
+// barrier.cluster.wait.acquire before the next depth's first read;
+// __syncthreads() at C = 1); one barrier a depth suffices for the
+// ping-pong, and the last active depth's barrier keeps every CTA's shared
+// memory alive until the cluster has read it. Only the last depth is
+// written to `out`. An ordinary cluster launch (cudaLaunchKernelEx), no
+// grid barrier, capturable; the host (taskbench_step.plan_resident) picks C
+// and the slice width from the SMs (and co-resident clusters) it is given
+// and the 227 KB budget, and refuses a buffer no cluster holds.
+//
+// Cooperative (taskbench_blocked): any table, and the memory body, whose
+// sweep mixes a row's columns and is bound by shared memory, which a
+// cluster of at most 16 SMs would starve; also any buffer no cluster
+// holds. A persistent cooperative launch, as many CTAs as the card holds
+// at once, grid-striding over (member, tile) work items; depths ping-pong
+// through global memory (L2 at these sizes) with cooperative_groups'
+// grid.sync() between them. Compute and empty bodies run as K3's: 1024
+// consecutive elements per work item, 4 register chains per thread; the
+// memory body runs a row per warp: the combined row to shared memory, then
 // tb::memory_sweep_warp.
 //
-// In both forms a row's arithmetic depends only on its own inputs (taps in
-// the same order, fmaf, the same body), never on M, its tile or the grid:
-// the two forms give the same bits, and so do the pipelined runtime's
-// phases and one launch.
+// In every form a row's arithmetic depends only on its own inputs (taps in
+// the same order, fmaf, the same body), never on M, its tile, its cluster
+// or the grid: the forms give the same bits, and so do the pipelined
+// runtime's phases and one launch.
 #include <cooperative_groups.h>
 
 #include "bodies.cuh"
@@ -488,6 +518,453 @@ cudaError_t launch_tiled(const TiledArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- resident form
+
+constexpr int RES_THREADS = 512;  // threads of a resident CTA
+constexpr int MAX_CLUSTER = 16;   // the largest (non-portable) cluster
+
+struct ResidentArgs {
+  const float* src;
+  const int* idx;
+  const float* wgt;
+  const float* act;
+  float* out;
+  int K, M, P, D, S;
+  int time_varying;
+  int iterations;   // the FMA body's (0: the empty body)
+  int rows;         // rows a CTA owns, R = ceil(M / cluster)
+  int col_shift;    // log2 of the column slice's width
+  int n_slices;     // column slices per member
+  int cluster;      // CTAs per cluster, C
+  int tables_smem;  // 1: the CTA's rows' tables (every depth's) in shared memory
+  int vec;          // 1: src rows copied and out rows stored 16 bytes at a time
+};
+
+// Shared-memory floats of a resident CTA: two buffers of R rows of
+// 1 << col_shift floats and, with `tables`, the rows' weights and
+// (gather/onehot) indices of T tables (S time-varying ones, or the one).
+__host__ __device__ inline size_t resident_smem_floats(int R, int col_shift, int D,
+                                                       int T, bool uses_idx,
+                                                       bool tables) {
+  return 2 * (static_cast<size_t>(R) << col_shift) +
+         (tables ? static_cast<size_t>(T) * R * D * (uses_idx ? 2 : 1) : 0);
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src));
+}
+
+// The cluster's barrier: every thread of every CTA arrives (its stores
+// before it released) and waits (the others' stores acquired after it).
+__device__ __forceinline__ void cluster_barrier(int C) {
+  if (C == 1) {
+    __syncthreads();
+    return;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// What a resident CTA knows of its place: member k, its rank in the
+// cluster, its rows [r0, r0 + R) and its column slice [c0, c0 + cw).
+struct Place {
+  int k, rank, r0, R, c0, cw, sh;
+  int nr;      // the rows this CTA owns (a trailing rank may own none)
+  float invR;  // 1 / R, for the owner of a row without an integer division
+};
+
+// The CTA of the cluster that owns row r: r / R, from a float product
+// corrected by one step (exact for the rows a launch can hold).
+__device__ __forceinline__ int owner_of(const Place& p, int r) {
+  int o = __float2int_rz(__int2float_rn(r) * p.invR);
+  if (o * p.R > r) --o;
+  else if ((o + 1) * p.R <= r) ++o;
+  return o;
+}
+
+// The weights (and indices) of owned row i at table t.
+struct RowTables {
+  const float* w;
+  const int* ix;
+};
+
+__device__ __forceinline__ RowTables row_tables(const ResidentArgs& a, const Place& p,
+                                                const float* ws, const int* is, int t,
+                                                int i) {
+  if (a.tables_smem) {
+    const size_t o = (static_cast<size_t>(t) * p.R + (i - p.r0)) * a.D;
+    return {ws + o, is + o};
+  }
+  const int T = a.time_varying ? a.S : 1;
+  const size_t o = ((static_cast<size_t>(p.k) * T + t) * a.M + i) * a.D;
+  return {a.wgt + o, a.idx == nullptr ? nullptr : a.idx + o};
+}
+
+// V consecutive floats of a resident buffer (V = 4: one 16-byte access;
+// the row stride and the column are multiples of 4 floats there).
+template <int V>
+__device__ __forceinline__ void load_v(float (&x)[V], const float* q) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(q);
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) x[v] = q[v];
+  }
+}
+
+// The combined values of owned row i, columns c .. c + V - 1 of the slice,
+// at one depth, into acc: the taps read the previous depth's buffer `cur`
+// of the CTA that owns each row (its own, or another's through distributed
+// shared memory), each tap's owner and address found once for the V
+// columns. Each column sums its taps in slot order with fmaf, as the other
+// forms do. DW is the window's D when known at compile time (0: a.D).
+template <int MODE, int DW, int V>
+__device__ __forceinline__ void resident_combine(const ResidentArgs& a, const Place& p,
+                                                 const float* __restrict__ cur,
+                                                 const RowTables& tb_row, int i, int c,
+                                                 float (&acc)[V]) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // a row this CTA owns is read from its own buffer, any other from the
+  // owner's, mapped into the cluster's shared window
+  auto read = [&](float (&x)[V], int r) {
+    const bool own = static_cast<unsigned>(r - p.r0) < static_cast<unsigned>(p.nr);
+    const int o = own ? p.rank : owner_of(p, r);
+    const float* q = cur + ((r - o * p.R) << p.sh) + c;
+    load_v<V>(x, own ? q : cluster.map_shared_rank(q, o));
+  };
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  const float* wr = tb_row.w;
+  if constexpr (MODE == WINDOW) {
+    const int D = DW > 0 ? DW : a.D;
+    const int h = (D - 1) / 2;
+    if (i - h >= p.r0 && i - h + D <= p.r0 + p.nr) {
+      // every tap on an owned row (all but the rows at the CTA's edges):
+      // the taps read together from this CTA's buffer, summed in order
+      const float* base = cur + ((i - h - p.r0) << p.sh) + c;
+      if constexpr (DW > 0) {
+        float x[DW][V];
+#pragma unroll
+        for (int j = 0; j < DW; ++j) load_v<V>(x[j], base + (j << p.sh));
+#pragma unroll
+        for (int j = 0; j < DW; ++j) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(x[j][v], wr[j], acc[v]);
+        }
+      } else {
+        for (int j = 0; j < D; ++j) {
+          float x[V];
+          load_v<V>(x, base + (j << p.sh));
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], wr[j], acc[v]);
+        }
+      }
+      return;
+    }
+    if constexpr (DW > 0) {
+      // a row at the CTA's edge: every tap's load in flight together (a
+      // tap outside the buffer loads row i and adds nothing), then the sum
+      // in order
+      float x[DW][V];
+#pragma unroll
+      for (int j = 0; j < DW; ++j) {
+        const int r = i - h + j;
+        read(x[j], r >= 0 && r < a.M ? r : i);
+      }
+#pragma unroll
+      for (int j = 0; j < DW; ++j) {
+        const int r = i - h + j;
+        if (r >= 0 && r < a.M) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(x[j][v], wr[j], acc[v]);
+        }
+      }
+    } else {
+      for (int j = 0; j < D; ++j) {
+        const int r = i - h + j;
+        if (r >= 0 && r < a.M) {
+          float x[V];
+          read(x, r);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], wr[j], acc[v]);
+        }
+      }
+    }
+  } else if (a.D <= tb::MERGE_REGS) {
+    // up to MERGE_REGS slots: every slot's load in flight together (another
+    // CTA's row costs a distributed-shared-memory round trip), then the
+    // combine of tb::for_each_slot, in its order, on the loaded values
+    constexpr int NS = tb::MERGE_REGS;
+    int r[NS];
+    float w[NS];
+    float x[NS][V];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      // padding slots name row -1, which no in-range slot matches
+      r[j] = j < a.D ? (MODE == ONEHOT ? tb_row.ix[j] : tb::gather_row(tb_row.ix[j], a.M))
+                     : -1;
+      w[j] = j < a.D ? wr[j] : 0.f;
+      if (j < a.D) read(x[j], r[j] >= 0 && r[j] < a.M ? r[j] : i);
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (r[j] < 0 || r[j] >= a.M) continue;
+      float ws = w[j];
+      if constexpr (MODE == ONEHOT) {
+        bool seen = false;
+#pragma unroll
+        for (int q = 0; q < j; ++q) seen |= r[q] == r[j];
+        if (seen) continue;
+        ws = 0.f;
+#pragma unroll
+        for (int q = j; q < NS; ++q)
+          if (r[q] == r[j]) ws += w[q];
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x[j][v], ws, acc[v]);
+    }
+  } else {
+    tb::for_each_slot<MODE == ONEHOT>(tb_row.ix, wr, a.M, a.D, [&](int r, float w) {
+      float x[V];
+      read(x, r);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], w, acc[v]);
+    });
+  }
+}
+
+// The NC items of one warp in a group of a depth's owned items, an item V
+// consecutive columns of one row (V = 4 where the slice moves 16 bytes at a
+// time, else 1): item j is e = e0 + j * RES_THREADS + threadIdx.x, owned
+// row e >> (sh - log2 V), columns from (e mod (width / V)) * V; the NC * V
+// values are the thread's register chains.
+template <int MODE, int DW, int V, int NC>
+__device__ __forceinline__ void resident_chains(const ResidentArgs& a, const Place& p,
+                                                const float* __restrict__ cur,
+                                                float* __restrict__ nxt,
+                                                const float* ws, const int* is, int t,
+                                                int e0, int n) {
+  constexpr int VS = V == 4 ? 2 : 0;
+  const int ish = p.sh - VS;  // log2 of the items a row
+  float v[NC * V];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int e = e0 + j * RES_THREADS + threadIdx.x;
+    const int c = (e & ((1 << ish) - 1)) << VS;
+    float acc[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) acc[u] = 0.f;
+    if (e < n && c < p.cw) {
+      const int i = p.r0 + (e >> ish);
+      resident_combine<MODE, DW, V>(a, p, cur, row_tables(a, p, ws, is, t, i), i, c, acc);
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[j * V + u] = acc[u];
+  }
+  tb::fma_body(v, a.iterations);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int e = e0 + j * RES_THREADS + threadIdx.x;
+    const int c = (e & ((1 << ish) - 1)) << VS;
+    if (e < n && c < p.cw) {
+      float* q = nxt + ((e >> ish) << p.sh) + c;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(q) =
+            make_float4(v[j * V], v[j * V + 1], v[j * V + 2], v[j * V + 3]);
+      } else {
+        *q = v[j * V];
+      }
+    }
+  }
+}
+
+// One depth's owned items of this CTA, in groups of RES_THREADS * MC items:
+// a warp runs as many items (chains of V values) as hold one of its own.
+template <int MODE, int DW, int V>
+__device__ __forceinline__ void resident_depth(const ResidentArgs& a, const Place& p,
+                                               const float* __restrict__ cur,
+                                               float* __restrict__ nxt, const float* ws,
+                                               const int* is, int t, int n) {
+  constexpr int MC = MAX_CHAINS / V;  // items a thread, at most
+  const int warp0 = threadIdx.x & ~31;  // this warp's first thread
+  for (int e0 = 0; e0 < n; e0 += RES_THREADS * MC) {
+    const int left = n - e0 - warp0;
+    const int nc = left <= 0 ? 0 : min(MC, (left + RES_THREADS - 1) / RES_THREADS);
+    if constexpr (V == 4) {
+      if (nc == 1) resident_chains<MODE, DW, V, 1>(a, p, cur, nxt, ws, is, t, e0, n);
+      else if (nc == 2) resident_chains<MODE, DW, V, 2>(a, p, cur, nxt, ws, is, t, e0, n);
+    } else {
+      switch (nc) {
+        case 0: break;
+        case 1: resident_chains<MODE, DW, V, 1>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 2: resident_chains<MODE, DW, V, 2>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 3: resident_chains<MODE, DW, V, 3>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 4: resident_chains<MODE, DW, V, 4>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 5: resident_chains<MODE, DW, V, 5>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 6: resident_chains<MODE, DW, V, 6>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        case 7: resident_chains<MODE, DW, V, 7>(a, p, cur, nxt, ws, is, t, e0, n); break;
+        default: resident_chains<MODE, DW, V, 8>(a, p, cur, nxt, ws, is, t, e0, n); break;
+      }
+    }
+  }
+}
+
+template <int MODE, int DW>
+__global__ void __launch_bounds__(RES_THREADS)
+    blocked_resident_kernel(ResidentArgs a) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  Place p;
+  p.k = blockIdx.y;
+  p.rank = static_cast<int>(cluster.block_rank());
+  p.sh = a.col_shift;
+  p.R = a.rows;
+  p.r0 = p.rank * p.R;
+  p.c0 = (blockIdx.x / a.cluster) << p.sh;
+  p.cw = min(1 << p.sh, a.P - p.c0);
+  p.invR = 1.f / static_cast<float>(p.R);
+  const int width = 1 << p.sh;
+  const int nr = max(0, min(a.M, p.r0 + p.R) - p.r0);  // rows this CTA owns
+  p.nr = nr;
+  const int n = nr << p.sh;                              // its elements
+  const int T = a.time_varying ? a.S : 1;
+  float* buf0 = reinterpret_cast<float*>(smem4);
+  float* buf1 = buf0 + (p.R << p.sh);
+  float* ws = buf1 + (p.R << p.sh);
+  int* is = reinterpret_cast<int*>(ws + static_cast<size_t>(T) * p.R * a.D);
+  const size_t row0 = static_cast<size_t>(p.k) * a.M + p.r0;
+  // the owned rows of the slice, once, all copies in flight together
+  if (a.vec) {
+    const int qs = p.sh - 2;  // log2 of the 16-byte pieces a row
+    for (int e = threadIdx.x; e < (nr << qs); e += RES_THREADS) {
+      const int c = (e & ((1 << qs) - 1)) << 2;
+      float* dst = buf0 + ((e >> qs) << p.sh) + c;
+      if (c < p.cw)
+        copy_async16(dst, a.src + (row0 + (e >> qs)) * a.P + p.c0 + c);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += RES_THREADS) {
+      const int c = e & (width - 1);
+      if (c < p.cw)
+        tb::copy_async4(buf0 + e, a.src + (row0 + (e >> p.sh)) * a.P + p.c0 + c);
+      else
+        buf0[e] = 0.f;
+    }
+  }
+  if (a.tables_smem) {  // the owned rows' tables, every depth's
+    for (int t = 0; t < T; ++t) {
+      const size_t g0 = ((static_cast<size_t>(p.k) * T + t) * a.M + p.r0) * a.D;
+      const size_t s0 = static_cast<size_t>(t) * p.R * a.D;
+      for (int e = threadIdx.x; e < nr * a.D; e += RES_THREADS) {
+        tb::copy_async4(ws + s0 + e, a.wgt + g0 + e);
+        if constexpr (MODE != WINDOW)
+          tb::copy_async4(reinterpret_cast<float*>(is + s0 + e),
+                          reinterpret_cast<const float*>(a.idx + g0 + e));
+      }
+    }
+  }
+  tb::commit_async();
+  tb::wait_async<0>();
+  // every CTA's depth-0 rows in place before any CTA reads them
+  cluster_barrier(a.cluster);
+  float* cur = buf0;
+  float* nxt = buf1;
+  const float* act = a.act + static_cast<size_t>(p.k) * a.S;
+  float on = act[0];
+  for (int d = 0; d < a.S; ++d) {
+    const float on_d = on;
+    if (d + 1 < a.S) on = act[d + 1];  // the next depth's, read ahead
+    // an inactive depth carries the buffer through: keep `cur` (the mask is
+    // the member's, the same in every CTA of the cluster)
+    if (on_d <= 0.5f) continue;
+    const int t = a.time_varying ? d : 0;
+    if (a.vec)
+      resident_depth<MODE, DW, 4>(a, p, cur, nxt, ws, is, t, nr << (p.sh - 2));
+    else
+      resident_depth<MODE, DW, 1>(a, p, cur, nxt, ws, is, t, n);
+    // the next depth reads what this one wrote, in every CTA of the
+    // cluster, and writes what this one read; after the last active depth
+    // this barrier also keeps each CTA's buffers alive until the others
+    // have read them
+    cluster_barrier(a.cluster);
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  float* out = a.out + row0 * a.P + p.c0;
+  if (a.vec) {
+    const int qs = p.sh - 2;
+    for (int e = threadIdx.x; e < (nr << qs); e += RES_THREADS) {
+      const int c = (e & ((1 << qs) - 1)) << 2;
+      if (c < p.cw)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(e >> qs) * a.P + c) =
+            *reinterpret_cast<const float4*>(cur + ((e >> qs) << p.sh) + c);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n; e += RES_THREADS) {
+      const int c = e & (width - 1);
+      if (c < p.cw) out[static_cast<size_t>(e >> p.sh) * a.P + c] = cur[e];
+    }
+  }
+}
+
+// The kernel's attributes, set once per device: the opt-in shared memory,
+// and clusters of 16 (beyond the portable 8).
+template <int MODE, int DW>
+cudaError_t resident_attributes() {
+  static unsigned long long done = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  int smem_max = 0;
+  if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev)) != cudaSuccess)
+    return err;
+  const void* kernel = reinterpret_cast<const void*>(blocked_resident_kernel<MODE, DW>);
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem_max)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                  1)) != cudaSuccess)
+    return err;
+  if (dev < 64) done |= 1ull << dev;
+  return cudaSuccess;
+}
+
+template <int MODE, int DW>
+cudaError_t launch_resident(const ResidentArgs& a, cudaStream_t stream) {
+  cudaError_t err = resident_attributes<MODE, DW>();
+  if (err != cudaSuccess) return err;
+  const size_t smem =
+      resident_smem_floats(a.rows, a.col_shift, a.D, a.time_varying ? a.S : 1,
+                           MODE != WINDOW, a.tables_smem != 0) *
+      sizeof(float);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.n_slices) * a.cluster, a.K);
+  cfg.blockDim = dim3(RES_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, blocked_resident_kernel<MODE, DW>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // mode: 0 window, 1 gather, 2 onehot. time_varying: idx/wgt are (K, S, M, D).
@@ -550,4 +1027,73 @@ extern "C" int taskbench_blocked_tiled(const float* src, const int* idx,
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The resident form (see the header): any table, the FMA body with
+// `iterations` (0 for the empty body). Clusters of `cluster` CTAs, each
+// owning `rows` rows of a 1 << col_shift column slice; `tables_smem` 1
+// keeps each CTA's rows' tables in shared memory; `vec` 1 moves src and
+// out 16 bytes at a time (the caller checks the alignment).
+extern "C" int taskbench_blocked_resident(const float* src, const int* idx,
+                                          const float* wgt, const float* act,
+                                          float* out, int K, int M, int P, int D,
+                                          int S, int mode, int time_varying,
+                                          int iterations, int rows, int col_shift,
+                                          int cluster, int tables_smem, int vec,
+                                          void* stream) {
+  if (rows < 1 || col_shift < 0 || col_shift > 30 || cluster < 1 ||
+      cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0 ||
+      static_cast<long long>(rows) * cluster < M || (vec && col_shift < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ResidentArgs a{src, idx, wgt, act, out, K, M, P, D, S, time_varying, iterations,
+                 rows, col_shift, (P + (1 << col_shift) - 1) >> col_shift, cluster,
+                 tables_smem, vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (mode) {
+    case WINDOW:
+      err = time_varying ? cudaErrorInvalidValue
+            : D == 3     ? launch_resident<WINDOW, 3>(a, s)
+            : D == 5     ? launch_resident<WINDOW, 5>(a, s)
+                         : launch_resident<WINDOW, 0>(a, s);
+      break;
+    case GATHER:
+      err = launch_resident<GATHER, 0>(a, s);
+      break;
+    case ONEHOT:
+      err = launch_resident<ONEHOT, 0>(a, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The resident form's co-resident clusters of `cluster` CTAs on the current
+// device, one CTA an SM (the opt-in shared memory a CTA): the capacity
+// taskbench_step.plan_resident fills. A negative value is -cudaError_t.
+extern "C" int taskbench_blocked_resident_clusters(int cluster) {
+  if (cluster < 1 || cluster > MAX_CLUSTER) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = resident_attributes<GATHER, 0>();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int dev = 0, smem_max = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev)) != cudaSuccess)
+    return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(RES_THREADS);
+  cfg.dynamicSmemBytes = smem_max;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(blocked_resident_kernel<GATHER, 0>), &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }

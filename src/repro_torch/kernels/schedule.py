@@ -32,13 +32,18 @@ schedule runs, never what it computes.
 What differs is the fit rule. The reference sizes a depth against a TPU
 core's VMEM budget, with payloads padded to 128 lanes; those are facts of
 the TPU. Here the choosers take a ``fits`` predicate instead, and the
-runtime passes the card's rule: a depth fits when the K4 launch the runtime
-would make at it takes K4's tiled form (``taskbench_step.blocked_plan``
-finds a cut under ``bodies.SMEM_LIMIT``). Whether a launch can run says
-nothing, since K4's cooperative form runs at any size; what matters is the
-form's cost per depth. So the memory body, time-varying tables and a launch
-with no declared radius (the all-gather plan) never fit, and "auto"
-resolves them to one step a launch.
+runtime passes the card's rules. Whether a launch can run says nothing,
+since K4's cooperative form runs at any size; what matters is the form's
+cost per depth. The halo plan: a depth fits when every K4 launch the
+runtime would make at it takes K4's tiled form
+(``taskbench_step.blocked_plan`` finds a cut under ``bodies.SMEM_LIMIT``),
+so the memory body never fits there and "auto" resolves it to one step a
+launch. The all-gather plan: a depth fits when its K4 launch takes the
+tiled or the resident form (``taskbench_step.blocked_form``: one cluster a
+column slice holds the whole gathered buffer in shared memory for all S
+depths, the card's counterpart of "the buffer fits VMEM"), so its
+time-varying tables and its radius-less launch fit, and the memory body
+does not.
 
 ``DEFAULT_GATHER_WIDTH_CAP`` is the reference's: the widest state the
 all-gather plan takes by default. Its value comes from a TPU core's VMEM;

@@ -46,15 +46,22 @@ rows still valid after S depths (each depth's valid span shrinks by the
 pattern's radius per side); ``taskbench_step_interior`` and
 ``taskbench_step_boundary`` are the pipelined runtime's two phases.
 
-K4's two forms. ``radius=r`` declares that the tables reach at most r
+K4's three forms. ``radius=r`` declares that the tables reach at most r
 rows: row i's taps read rows in [i - r, i + r] only (the window's reach is
-D - 1 - (D - 1) // 2, and must not exceed r). With fixed tables and the
-compute or empty body, a declared radius takes the tiled form
+D - 1 - (D - 1) // 2, and must not exceed r). `blocked_form` picks the
+form before the launch, each choice with its reason: with fixed tables,
+a declared radius and the compute or empty body, the tiled form
 (``taskbench_blocked_tiled``, rows tiled over CTAs by `plan_tiles`, each
-tile carrying its own S * r halo); without one, with time-varying tables,
-or with the memory body, the cooperative form (``taskbench_blocked``).
-Both give the same bits. A table that reaches past its declared radius
-raises on the CPU; on the card the tiled form reads NaN for such a tap.
+tile carrying its own S * r halo); else, with the compute or empty body,
+the resident form (``taskbench_blocked_resident``, one thread block
+cluster per (member, column slice) holding every row of the slice in
+shared memory for all S depths, cut by `plan_resident`), for any table:
+no radius, time-varying tables, all_to_all's D = M; else (the memory
+body, or a buffer no cluster holds) the persistent cooperative form
+(``taskbench_blocked``). ``form=`` pins one (a timing or a comparison);
+a pinned form that does not apply raises. All three give the same bits.
+A table that reaches past its declared radius raises on the CPU; on the
+card the tiled form reads NaN for such a tap.
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bodies import SMEM_LIMIT, apply_body, check_scratch
 from repro_torch.kernels.launch_plan import (
     LaunchPlan,
+    aligned,
     chains_for,
     cut_ctas,
     sm_count,
@@ -427,6 +435,116 @@ def tile_spans(plan: TilePlan, M: int, S: int, reach: int):
     return spans
 
 
+#: The cluster sizes the resident form takes (16 is beyond the portable 8).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+class ResidentPlan(NamedTuple):
+    """How the resident K4 form cuts a (K, M, P) buffer: one cluster of
+    ``cluster`` CTAs per (member, column slice of 1 << col_shift columns),
+    CTA ``rank`` owning rows [rank * rows, (rank + 1) * rows) of the slice;
+    with ``tables_smem`` each CTA keeps its rows' tables (every depth's) in
+    shared memory, else it reads them from global memory."""
+
+    cluster: int
+    rows: int
+    col_shift: int
+    n_slices: int
+    tables_smem: bool
+    smem_bytes: int
+    ctas: int
+
+
+def resident_smem_bytes(rows: int, col_shift: int, D: int, tables: int,
+                        uses_idx: bool, tables_smem: bool) -> int:
+    """Shared memory of a resident CTA (the kernel's
+    ``resident_smem_floats``): two buffers of its rows' slice and, with
+    ``tables_smem``, its rows' weights and indices of ``tables`` tables."""
+    return 4 * (2 * (rows << col_shift)
+                + (tables * rows * D * (2 if uses_idx else 1) if tables_smem else 0))
+
+
+def default_clusters(sms: int) -> tuple:
+    """Clusters of each of `CLUSTER_SIZES` that ``sms`` SMs hold at once,
+    one CTA an SM, where the card is not asked (`resident_clusters`)."""
+    return tuple(sms // c for c in CLUSTER_SIZES)
+
+
+def share_clusters(clusters: tuple, grids: int) -> tuple:
+    """The clusters of one of ``grids`` launches that share the card."""
+    return tuple(c // grids for c in clusters)
+
+
+@lru_cache(maxsize=256)
+def plan_resident(K: int, M: int, P: int, S: int, D: int, time_varying: bool,
+                  uses_idx: bool, sms: int = 132, clusters: Optional[tuple] = None,
+                  smem_limit: int = SMEM_LIMIT) -> Optional[ResidentPlan]:
+    """The resident form's cut of a (K, M, P) buffer, or None where no
+    cluster holds it.
+
+    Over column slices of 2^j floats (at least MIN_SLICE, one 32-byte
+    sector, unless the payload is narrower; at most the payload rounded up
+    to a power of two) and clusters of C in `CLUSTER_SIZES` CTAs (each
+    owning ceil(M / C) rows; ``clusters[i]`` clusters of size
+    CLUSTER_SIZES[i] run at once, one CTA an SM (the H100 holds 7 clusters
+    of 16, not 8: a denser cut's second wave, or two CTAs an SM, costs more
+    than its narrower rows save on the all-gather plan's tables);
+    `default_clusters(sms)` if not given), it takes the cut that
+    minimises the modelled time: waves of co-resident clusters, times a
+    CTA's work, the elements it owns over S depths (a depth counted as at
+    least LATENCY_ELEMS), doubled where its rows' tables do not fit the
+    shared-memory budget beside its two buffers and are read from global
+    memory; ties go to fewer CTAs, then to smaller clusters. A cut whose
+    two buffers alone exceed the budget is no cut.
+    """
+    if min(K, M, P, S, D) < 1:
+        return None
+    caps = default_clusters(sms) if clusters is None else clusters
+    tables = S if time_varying else 1
+    top = max(0, (P - 1).bit_length())
+    low = min(top, (MIN_SLICE - 1).bit_length())
+    best, best_key = None, None
+    for sh in range(low, top + 1):
+        n_slices = -(-P // (1 << sh))
+        for C, cap in zip(CLUSTER_SIZES, caps):
+            if cap < 1:
+                continue
+            rows = -(-M // C)
+            if resident_smem_bytes(rows, sh, D, tables, uses_idx, False) > smem_limit:
+                continue
+            smem = resident_smem_bytes(rows, sh, D, tables, uses_idx, True)
+            in_smem = smem <= smem_limit
+            if not in_smem:
+                smem = resident_smem_bytes(rows, sh, D, tables, uses_idx, False)
+            n_clusters = K * n_slices
+            work = S * max(rows << sh, LATENCY_ELEMS) * (1 if in_smem else 2)
+            ctas = n_clusters * C
+            key = (-(-n_clusters // cap) * work, ctas, C)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = ResidentPlan(C, rows, sh, n_slices, in_smem, smem, ctas)
+    return best
+
+
+def resident_spans(plan: ResidentPlan, M: int):
+    """Each CTA rank's owned rows [r0, r1) of a cluster, as the kernel
+    computes them (a trailing rank may own none)."""
+    return [(min(M, r * plan.rows), min(M, (r + 1) * plan.rows))
+            for r in range(plan.cluster)]
+
+
+@lru_cache(maxsize=None)
+def resident_clusters(index: int) -> tuple:
+    """Clusters of each of `CLUSTER_SIZES` the resident form holds at once
+    on card ``index``, one CTA an SM (asked of the card once)."""
+    with torch.cuda.device(index):
+        caps = tuple(_build.query("taskbench_blocked_resident_clusters", c)
+                     for c in CLUSTER_SIZES)
+    if min(caps) < 0:
+        raise RuntimeError(f"CUDA occupancy query for K4's resident form failed: {caps}")
+    return caps
+
+
 _MODE_CODE = {"window": 0, "gather": 1, "onehot": 2, "pair": 3}
 
 
@@ -445,7 +563,9 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    steps_per_launch: int = 1,
                    radius: Optional[int] = None,
                    wrap: Optional[int] = None,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   form: Optional[str] = None,
+                   grids: int = 1) -> torch.Tensor:
     """K3 (one timestep) or K4 (``steps_per_launch > 1``) on the card.
 
     Checks the operands as the reference does, then launches
@@ -455,8 +575,11 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
     e.g. the owned rows of a halo-extended buffer), or
     ``csrc/taskbench_blocked.cu`` (its tiled form when ``radius`` declares
     the tables' reach and the form applies, see the module docstring) and
-    returns (K, M, payload). Raises on tensors that are not on the card,
-    not float32 (int32 idx), or not on one device.
+    returns (K, M, payload). K4's form is `blocked_form`'s, planned for
+    1/``grids`` of the card (``grids`` K4 launches run at once on it, the
+    all-gather plan's shards), or the one ``form`` pins. Raises on tensors
+    that are not on the card, not float32 (int32 idx), or not on one
+    device, and on a pinned form that does not apply.
     """
     check_step_operands(src, idx, wgt, act, combine=combine, kind=kind,
                         iterations=iterations, scratch=scratch,
@@ -469,7 +592,8 @@ def taskbench_step(src, idx, wgt, act=None, *, kind: str = "compute_bound",
         if out is not None:
             raise ValueError("out= is K3's (steps_per_launch = 1)")
         return _launch_blocked(src, idx if uses_idx else None, wgt, act, combine,
-                               memory, body_iters, scratch, radius)
+                               memory, body_iters, scratch, radius, form, grids)
+    _check_k4_options(form, grids, steps_per_launch)
     tensors = (src, wgt, idx) if uses_idx else (src, wgt)
     _require_card(tensors, (torch.float32, torch.float32, torch.int32))
     K, S, P = src.shape
@@ -513,9 +637,16 @@ def step_plan(K: int, W: int, P: int, sms: int = 132) -> LaunchPlan:
     return LaunchPlan(chains, *cut_ctas(W * -(-P // chains), sms, K))
 
 
-def cooperative_only(wgt_ndim: int, memory: bool,
-                     radius: Optional[int]) -> Optional[str]:
-    """Why a K4 launch takes the cooperative form whatever its size (each
+#: K4's forms, fastest first, and the C entry (launch counter) of each.
+K4_FORMS = ("tiled", "resident", "cooperative")
+K4_ENTRIES = {"tiled": "taskbench_blocked_tiled",
+              "resident": "taskbench_blocked_resident",
+              "cooperative": "taskbench_blocked"}
+
+
+def why_not_tiled(wgt_ndim: int, memory: bool,
+                  radius: Optional[int]) -> Optional[str]:
+    """Why a K4 launch cannot take the tiled form whatever its size (each
     rule that binds, joined), or None when the tiled form may apply."""
     why = []
     if memory:
@@ -523,16 +654,85 @@ def cooperative_only(wgt_ndim: int, memory: bool,
     if radius is None:
         why.append("the launch declares no radius (its tables may reach any row)")
     if wgt_ndim != 3:
-        why.append("time-varying (K, S, M, D) tables run only in K4's cooperative form")
+        why.append("time-varying (K, S, M, D) tables have no tiled form")
     return "; ".join(why) or None
+
+
+def why_not_resident(memory: bool) -> Optional[str]:
+    """Why a K4 launch cannot take the resident form whatever its size, or
+    None when it may apply: the memory body's sweep mixes a row's columns
+    and is bound by shared memory, which a cluster of at most 16 SMs would
+    starve."""
+    if memory:
+        return "the memory body runs only in K4's cooperative form"
+    return None
+
+
+class BlockedForm(NamedTuple):
+    """K4's form for one launch: ``form`` in `K4_FORMS`, its cut (a
+    `TilePlan`, a `ResidentPlan`, or None for the cooperative form), and
+    why each faster form does not apply ("" for the tiled form)."""
+
+    form: str
+    plan: object
+    reason: str
+
+    @property
+    def entry(self) -> str:
+        return K4_ENTRIES[self.form]
+
+
+def blocked_form(src_shape, wgt_shape, S: int, combine: str, memory: bool,
+                 radius: Optional[int], sms: int = 132,
+                 clusters: Optional[tuple] = None,
+                 form: Optional[str] = None) -> BlockedForm:
+    """K4's form rule: the tiled form where it applies (`blocked_plan`);
+    else the resident form where `plan_resident` gives a cut; else the
+    persistent cooperative form. The reason names the rule that binds for
+    each form passed over. ``form`` pins one; a pinned form that does not
+    apply raises ValueError with that reason."""
+    if form is not None and form not in K4_FORMS:
+        raise ValueError(f"unknown K4 form {form!r}; known {K4_FORMS}")
+    K, M, P = src_shape
+    D = wgt_shape[-1]
+    time_varying = len(wgt_shape) == 4
+    why = []
+    tiled_why = why_not_tiled(len(wgt_shape), memory, radius)
+    if tiled_why is None:
+        plan = blocked_plan(src_shape, wgt_shape, S, combine, memory, radius, sms)
+        if plan is None:
+            tiled_why = f"no tile fits {SMEM_LIMIT} bytes of shared memory"
+        elif form in (None, "tiled"):
+            return BlockedForm("tiled", plan, "")
+        else:
+            tiled_why = f"form={form!r} pinned"
+    if form == "tiled":
+        raise ValueError(f"K4's tiled form does not apply: {tiled_why}")
+    why.append(f"not tiled: {tiled_why}")
+    resident_why = why_not_resident(memory)
+    if resident_why is None:
+        plan = plan_resident(K, M, P, S, D, time_varying, combine != "window", sms,
+                             clusters)
+        if plan is None:
+            resident_why = (f"no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds the "
+                            f"{M}-row buffer's two copies in {SMEM_LIMIT} bytes of "
+                            f"shared memory a CTA")
+        elif form in (None, "resident"):
+            return BlockedForm("resident", plan, "; ".join(why))
+        else:
+            resident_why = f"form={form!r} pinned"
+    if form == "resident":
+        raise ValueError(f"K4's resident form does not apply: {resident_why}")
+    why.append(f"not resident: {resident_why}")
+    return BlockedForm("cooperative", None, "; ".join(why))
 
 
 def blocked_plan(src_shape, wgt_shape, S: int, combine: str, memory: bool,
                  radius: Optional[int], sms: int = 132) -> Optional[TilePlan]:
-    """K4's form rule: the tiled form's plan when a radius is declared, the
-    (K, M, D) tables are fixed, the body is not the memory sweep and a tile
-    fits in shared memory; None for the cooperative form."""
-    if cooperative_only(len(wgt_shape), memory, radius):
+    """The tiled form's plan when a radius is declared, the (K, M, D)
+    tables are fixed, the body is not the memory sweep and a tile fits in
+    shared memory; None where the tiled form does not apply."""
+    if why_not_tiled(len(wgt_shape), memory, radius):
         return None
     K, M, P = src_shape
     D = wgt_shape[-1]
@@ -541,8 +741,10 @@ def blocked_plan(src_shape, wgt_shape, S: int, combine: str, memory: bool,
 
 
 def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch,
-                    radius=None):
-    """One K4 launch on checked operands; idx is None for window."""
+                    radius=None, form=None, grids=1):
+    """One K4 launch on checked operands; idx is None for window. The form
+    is `blocked_form`'s for 1/grids of the card's SMs and clusters (grids
+    K4 launches at once on the card)."""
     tensors = (src, wgt, act) if idx is None else (src, wgt, act, idx)
     _require_card(tensors, (torch.float32,) * 3 + (torch.int32,))
     K, M, P = src.shape
@@ -552,27 +754,38 @@ def _launch_blocked(src, idx, wgt, act, combine, memory, iterations, scratch,
     out = torch.empty_like(src)
     if not out.numel():
         return out
-    plan = blocked_plan(src.shape, wgt.shape, S, combine, memory, radius,
-                        sm_count(src.device.index or 0))
+    dev = src.device.index or 0
+    chosen = blocked_form(src.shape, wgt.shape, S, combine, memory, radius,
+                          max(1, sm_count(dev) // grids),
+                          share_clusters(resident_clusters(dev), grids), form)
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    idx_ptr = None if idx is None else idx.data_ptr()
     with torch.cuda.device(src.device):
-        if plan is not None:
-            if K > 65535:
-                raise ValueError(f"K = {K} members exceed the kernel's grid (65535)")
-            _build.launch("taskbench_blocked_tiled", src.data_ptr(),
-                          None if idx is None else idx.data_ptr(),
+        if chosen.form != "cooperative" and K > 65535:
+            raise ValueError(f"K = {K} members exceed the kernel's grid (65535)")
+        if chosen.form == "tiled":
+            plan = chosen.plan
+            _build.launch("taskbench_blocked_tiled", src.data_ptr(), idx_ptr,
                           wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
                           K, M, P, D, S, _MODE_CODE[combine],
                           window_reach(D) if combine == "window" else radius,
-                          iterations, plan.tile_rows, plan.col_shift, stream)
-            return out
-        tmp = torch.empty_like(src)  # the depths' ping-pong partner of out
-        _build.launch("taskbench_blocked", src.data_ptr(),
-                      None if idx is None else idx.data_ptr(),
-                      wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
-                      tmp.data_ptr(), K, M, P, D, S, _MODE_CODE[combine],
-                      int(wgt.ndim == 4), int(memory), iterations, scratch,
-                      stream)
+                          iterations, plan.tile_rows, plan.col_shift, stream,
+                          ctas=plan.ctas)
+        elif chosen.form == "resident":
+            plan = chosen.plan
+            vec = plan.col_shift >= 2 and P % 4 == 0 and aligned(src, out)
+            _build.launch("taskbench_blocked_resident", src.data_ptr(), idx_ptr,
+                          wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                          K, M, P, D, S, _MODE_CODE[combine], int(wgt.ndim == 4),
+                          iterations, plan.rows, plan.col_shift, plan.cluster,
+                          int(plan.tables_smem), int(vec), stream, ctas=plan.ctas)
+        else:
+            tmp = torch.empty_like(src)  # the depths' ping-pong partner of out
+            _build.launch("taskbench_blocked", src.data_ptr(), idx_ptr,
+                          wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                          tmp.data_ptr(), K, M, P, D, S, _MODE_CODE[combine],
+                          int(wgt.ndim == 4), int(memory), iterations, scratch,
+                          stream)
     return out
 
 
@@ -582,17 +795,25 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
                    steps_per_launch: int = 1,
                    radius: Optional[int] = None,
                    wrap: Optional[int] = None,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   form: Optional[str] = None,
+                   grids: int = 1) -> torch.Tensor:
     """The step on the tensors' device: K3/K4 on a CUDA tensor (launch or
-    raise); on a CPU tensor the plain version, after the same checks and a
-    check that the tables reach no farther than a declared ``radius``
-    (copied into ``out`` where given, which K3 writes directly)."""
+    raise); on a CPU tensor the plain version, after the same checks, a
+    check that the tables reach no farther than a declared ``radius`` and
+    that a pinned K4 ``form`` applies (copied into ``out`` where given,
+    which K3 writes directly)."""
     kw = dict(kind=kind, iterations=iterations, scratch=scratch, combine=combine)
     if src.device.type == "cuda":
         return taskbench_step(src, idx, wgt, act, steps_per_launch=steps_per_launch,
-                              radius=radius, wrap=wrap, out=out, **kw)
+                              radius=radius, wrap=wrap, out=out, form=form,
+                              grids=grids, **kw)
     check_step_operands(src, idx, wgt, act, steps_per_launch=steps_per_launch,
                         radius=radius, wrap=wrap, **kw)
+    _check_k4_options(form, grids, steps_per_launch)
+    if form is not None:  # raises where the pinned form does not apply
+        blocked_form(src.shape, wgt.shape, steps_per_launch, combine,
+                     kind == "memory_bound" and iterations > 0, radius, form=form)
     if radius is not None and combine != "window":
         reach = table_reach(idx, wgt, combine)
         if reach > radius:
@@ -611,6 +832,15 @@ def step_on_device(src, idx, wgt, act=None, *, kind: str = "compute_bound",
             f"out must be a contiguous {tuple(res.shape)} {res.dtype} tensor, got "
             f"{tuple(out.shape)} {out.dtype}")
     return out.copy_(res)
+
+
+def _check_k4_options(form: Optional[str], grids: int, steps_per_launch: int) -> None:
+    if form is not None and steps_per_launch <= 1:
+        raise ValueError("form is K4's (steps_per_launch > 1)")
+    if form is not None and form not in K4_FORMS:
+        raise ValueError(f"unknown K4 form {form!r}; known {K4_FORMS}")
+    if grids < 1:
+        raise ValueError(f"grids must be >= 1, got {grids}")
 
 
 def taskbench_step_interior(src, idx, wgt, act, *, depth: int,

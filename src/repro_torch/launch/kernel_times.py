@@ -36,8 +36,14 @@ path's shape: ``nearest`` at radius 2 (window D = 5), W = 2112, payload
 S = 2 and S = 8 (the difference over 6 depths is the time per depth, the
 rest the time per launch besides); and the pipelined runtime's two phases
 at S = 8, the boundary buffer (96 rows) and the interior (2112 rows). Each
-in both of K4's forms: the tiled form (radius 2) and the cooperative form
-(no ``radius``). The
+in K4's three forms: the tiled form (radius 2), the resident form and the
+cooperative form (each pinned with ``form=``). Then the blocked all-gather
+plan's launches in the resident and the cooperative form: fft's
+time-varying (1, 8, W, 2) tables at W = 512 and 2048 (the first launch's,
+as the runtime builds them) and all_to_all's static (1, 512, 512) table,
+grain 64; and the cooperative form's memory body at the main path's
+memory_bound run (stencil_1d, window D = 3, 2128 rows, S = 8, iterations
+4, scratch 2048) beside S x K2's shared-memory bound on that buffer. The
 bound is the larger of the HBM bytes (src, weights and act read once, the
 buffer written once) and the f32 operations (per depth a D-tap combine
 and the grain's FMA chain per element) at the f32 FMA peak.
@@ -404,18 +410,21 @@ def k3_cases(latency):
                                                             latency, step=True)
 
 
-def k4_cost(rows: int, S: int, D: int = 2 * TB_RADIUS + 1) -> Tuple[int, int]:
+def k4_cost(rows: int, S: int, D: int = 2 * TB_RADIUS + 1,
+            table_words: int = 0) -> Tuple[int, int]:
     """(bytes, f32 operations) of one K4 launch on a ``rows``-row buffer:
-    src, weights and act read once, the buffer written once; per depth a
-    D-tap combine and the grain's FMA chain per element."""
-    return ((2 * rows * TB_PAYLOAD + rows * D + S) * 4,
+    src, weights (``table_words`` words of weights and indices, if given)
+    and act read once, the buffer written once; per depth a D-tap combine
+    and the grain's FMA chain per element."""
+    return ((2 * rows * TB_PAYLOAD + (table_words or rows * D) + S) * 4,
             S * rows * TB_PAYLOAD * (2 * D + 2 * TB_GRAIN))
 
 
 def k4_cases(reps: int = 200, seed: int = 1):
     """K4 at the blocked main path's shape, each form: the full buffer
-    (2144 rows) at S = 2 and S = 8, and the pipelined phases at S = 8.
-    Yields (label, record)."""
+    (2144 rows) at S = 2 and S = 8, and the pipelined phases at S = 8; the
+    all-gather plan's launches in the resident and cooperative forms; the
+    memory body in the cooperative form. Yields (label, record)."""
     from repro_torch.core import KernelSpec, TaskGraph
     from repro_torch.core.runtimes import pallas_step as ps
 
@@ -429,14 +438,14 @@ def k4_cases(reps: int = 200, seed: int = 1):
     wb = torch.from_numpy(ps._window_operands(g, TB_RADIUS)[1])[None].cuda()
     depth = TB_S * TB_RADIUS
     M = TB_W + 2 * depth
-    wext = ps._wrap(wb, depth, 1)
+    wext = _k34.wrap_rows(wb, depth)
     src = rand(1, M, TB_PAYLOAD)
     ph = ps._phase_tables(None, wb, depth, "window")
     state = rand(1, TB_W, TB_PAYLOAD)
     bl, br = rand(1, 3 * depth, TB_PAYLOAD), rand(1, 3 * depth, TB_PAYLOAD)
     kw = dict(kind="compute_bound", iterations=TB_GRAIN, scratch=2048, combine="window")
-    for form in ("tiled", "cooperative"):
-        fkw = dict(kw, radius=TB_RADIUS) if form == "tiled" else dict(kw)
+    for form in ("tiled", "resident", "cooperative"):
+        fkw = dict(kw, radius=TB_RADIUS) if form == "tiled" else dict(kw, form=form)
         times = {}
         for S in (2, TB_S):
             act = torch.ones((1, S), device="cuda")
@@ -465,6 +474,60 @@ def k4_cases(reps: int = 200, seed: int = 1):
             nbytes, nops = k4_cost(rows, TB_S)
             yield f"K4 {form} {phase} {rows} rows S={TB_S}", {
                 "form": form, "rows": rows, "S": TB_S, "ms": gpu_ms(fn, reps),
+                **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
+    yield from k4_plan_cases(rand, reps)
+    # the memory body (the cooperative form's alone) at the memory_bound run
+    Mm = TB_W + 2 * TB_S
+    src, wm = rand(1, Mm, TB_PAYLOAD), rand(1, Mm, 3) / 3
+    act = torch.ones((1, TB_S), device="cuda")
+    mkw = dict(kind="memory_bound", iterations=4, scratch=K2_SCRATCH, combine="window")
+    call = lambda: ops.taskbench_step(src, None, wm, act, steps_per_launch=TB_S, **mkw)  # noqa: E731
+    err = (call() - _k34.taskbench_step_blocked_plain(src, None, wm, act, **mkw)
+           ).abs().max().item()
+    smem = TB_S * k2_smem_bytes(Mm, 4, K2_SCRATCH)
+    rate = smem_bytes_per_s()
+    yield f"K4 cooperative memory body {Mm} rows S={TB_S}", {
+        "form": "cooperative", "rows": Mm, "S": TB_S, "iterations": 4,
+        "scratch": K2_SCRATCH, "ms": gpu_ms(call, 50), "max_abs_err": err,
+        "smem_bytes": smem, "smem_bound_ms": smem / rate * 1e3}
+
+
+def k4_plan_cases(rand, reps: int = 200):
+    """The blocked all-gather plan's K4 launches, grain 64, S = 8, in the
+    resident and cooperative forms: fft's time-varying (1, S, W, 2) tables
+    at W = 512 and 2048 and all_to_all's static (1, 512, 512) table.
+    Yields (label, record)."""
+    from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes import pallas_step as ps
+
+    def graph(pattern, W):
+        return TaskGraph(steps=1000, width=W, pattern=pattern, payload=TB_PAYLOAD,
+                         kernel=KernelSpec("compute_bound", TB_GRAIN), seed=0)
+
+    cases = []
+    for W in (512, 2048):
+        tables_at, key_of, _ = get_runtime("pallas_step")._global_table_fn(graph("fft", W))
+        i, w, _ = ps._stack_tables(tables_at, key_of, [list(range(1, TB_S + 1))], "cuda")
+        cases.append((f"fft time-varying M={W} D=2", W, 2, i, w))
+    i, w = (torch.from_numpy(a[:1]).cuda()
+            for a in ps._global_slot_operands(graph("all_to_all", 512)))
+    cases.append(("all_to_all static M=512 D=512", 512, 512, i, w))
+    act = torch.ones((1, TB_S), device="cuda")
+    kw = dict(kind="compute_bound", iterations=TB_GRAIN, scratch=2048, combine="gather")
+    for label, W, D, i, w in cases:
+        src = rand(1, W, TB_PAYLOAD)
+        want = _k34.taskbench_step_blocked_plain(src, i, w, act, **kw)
+        nbytes, nops = k4_cost(W, TB_S, D, table_words=2 * w.numel())
+        outs = {}
+        for form in ("resident", "cooperative"):
+            call = (lambda f=form: ops.taskbench_step(src, i, w, act, steps_per_launch=TB_S,
+                                                      form=f, **kw))
+            outs[form] = call()
+            yield f"K4 {form} {label} S={TB_S}", {
+                "form": form, "rows": W, "S": TB_S, "D": D,
+                "max_abs_err": (outs[form] - want).abs().max().item(),
+                "equal_to_resident": torch.equal(outs[form], outs["resident"]),
+                "ms": gpu_ms(call, reps // 4),
                 **_bound(nbytes, nops / F32_FLOPS_PER_S * 1e3)}
 
 

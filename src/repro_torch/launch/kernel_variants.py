@@ -1,6 +1,6 @@
 """Diagnostic builds of K7, K4, K2, K1 and K3 on the card: where their time goes.
 
-    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--kernel k7|k4|k2|k1|k3] [--only base,noY] [--clock]
+    PYTHONPATH=src python -m repro_torch.launch.kernel_variants [--kernel k7|k4|k4r|k2|k1|k3] [--only base,noY] [--clock]
 
 Each variant is the kernel's source (with the headers of ``csrc/``) with
 one edit, built with nvcc (the port's flags) into
@@ -39,13 +39,27 @@ payload 64, window D = 5, S = 8, grain 64, `plan_tiles`' cut):
   noact     every depth takes depth 0's act flag (no act load per depth)
   t256      256 threads a CTA (512 in the base); t1024: 1024
 
+K4's resident form (``--kernel k4r``, entry ``taskbench_blocked_resident``)
+at the main shape without a radius (window D = 5, grain 64 and 0) and on
+a blocked fft launch's time-varying (1, 8, W, 2) tables at W = 512 and
+2048 (grain 64), each at `plan_resident`'s cut (C CTAs a cluster, slices
+of 2^sh columns) and at other cuts:
+
+  base      the kernel as it is
+  nocombine each item takes its own row's values instead of the taps
+  nosync    no cluster barrier between depths (one before the store)
+
 With ``--clock`` a K4 variant (one that keeps the depth barrier) is built
 with clock64() marks (CTA 0's warps
 write theirs to a device array) and run at grain 0 and 64: per depth, the
 cycles warps 0 and 15 spend from the depth's start to its end of work
 ("work") and to the next depth's start ("depth"), and for depth 2 the
 cycles before its first element, in that element's combine and in its
-body ("element").
+body ("element"). ``--kernel k4r --clock``: the resident kernel's marks at
+the main shape (grain 0 and 64) at clusters of 8 (8-column slices), 4
+(4-column slices) and 1: per depth the cycles of warps 0 and 15 in their
+work, at the cluster barrier and from it to the next depth, and in the
+last pass's combine and body.
 
 K2 (``csrc/memory_bound.cu``) at (2112, 64), scratch 2048, iterations 4:
 
@@ -127,6 +141,21 @@ KERNELS = {
         "nosplit": [("ssd_chunk.cu", "      const int c4 = PP / 4;", "      const int c4 = 0;")],
         "noheads": [("ssd_chunk.cu", "  for (int hl = 0; hl < nh; ++hl) {",
                      "  for (int hl = 0; hl < 0; ++hl) {")],
+    }),
+    "k4r": ("taskbench_blocked.cu", "taskbench_blocked_resident", {
+        "base": [],
+        "nocombine": [("taskbench_blocked.cu",
+                       "#pragma unroll\n  for (int v = 0; v < V; ++v) acc[v] = 0.f;\n"
+                       "  const float* wr = tb_row.w;",
+                       "  load_v<V>(acc, cur + ((i - p.r0) << p.sh) + c);\n"
+                       "  if (acc[0] != 12345.f) return;\n"
+                       "  const float* wr = tb_row.w;")],
+        "nosync": [("taskbench_blocked.cu",
+                    "    // have read them\n    cluster_barrier(a.cluster);", ""),
+                   # one barrier before the store, so that no CTA leaves
+                   # while another reads its shared memory
+                   ("taskbench_blocked.cu", "  float* out = a.out + row0 * a.P + p.c0;",
+                    "  cluster_barrier(a.cluster);\n  float* out = a.out + row0 * a.P + p.c0;")],
     }),
     "k4": ("taskbench_blocked.cu", "taskbench_blocked_tiled", {
         "base": [],
@@ -211,6 +240,35 @@ CLOCK_MARKS = [
     ("taskbench_blocked.cu", "(a, t, cur, nxt, ws, is, r0, e0, n); break;",
      "(a, t, cur, nxt, ws, is, r0, e0, n, d); break;"),
 ]
+# The resident kernel's clock marks (--kernel k4r --clock): 0 at the start,
+# 38 before and 1 after the loads' cluster barrier, per depth d 2 + 3d at
+# its start, 3 + 3d after its work and 4 + 3d after its barrier, 39 before
+# the store; 30-32 around the last pass's combine and body.
+RES_CLOCK_MARKS = [
+    ("taskbench_blocked.cu", '#include "combine.cuh"',
+     '#include "combine.cuh"\n__device__ long long tb_clocks[16 * 40];'),
+    ("taskbench_blocked.cu", "  cg::cluster_group cluster = cg::this_cluster();\n  Place p;",
+     "  " + _MARK % "0" + "\n  cg::cluster_group cluster = cg::this_cluster();\n  Place p;"),
+    ("taskbench_blocked.cu",
+     "  // every CTA's depth-0 rows in place before any CTA reads them\n"
+     "  cluster_barrier(a.cluster);",
+     "  " + _MARK % "38" + "\n  cluster_barrier(a.cluster);\n  " + _MARK % "1"),
+    ("taskbench_blocked.cu", "    const int t = a.time_varying ? d : 0;\n    if (a.vec)",
+     "    const int t = a.time_varying ? d : 0;\n    " + _MARK % "2 + 3 * d" + "\n    if (a.vec)"),
+    ("taskbench_blocked.cu", "    // have read them\n    cluster_barrier(a.cluster);",
+     "    // have read them\n    " + _MARK % "3 + 3 * d" + "\n    cluster_barrier(a.cluster);\n    "
+     + _MARK % "4 + 3 * d"),
+    ("taskbench_blocked.cu", "  float* out = a.out + row0 * a.P + p.c0;",
+     "  " + _MARK % "39" + "\n  float* out = a.out + row0 * a.P + p.c0;"),
+    ("taskbench_blocked.cu", "  float v[NC * V];\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {",
+     "  float v[NC * V];\n  " + _MARK % "30" + "\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {"),
+    ("taskbench_blocked.cu", "  tb::fma_body(v, a.iterations);\n#pragma unroll\n  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * RES_THREADS + threadIdx.x;\n    const int c = (e & ((1 << ish) - 1)) << VS;",
+     "  if (v[0] == 12345.f) v[0] = 1.f;\n  " + _MARK % "31" + "\n  tb::fma_body(v, a.iterations);\n"
+     "  if (v[0] == 12345.f) v[0] = 1.f;\n  " + _MARK % "32" + "\n#pragma unroll\n"
+     "  for (int j = 0; j < NC; ++j) {\n"
+     "    const int e = e0 + j * RES_THREADS + threadIdx.x;\n    const int c = (e & ((1 << ish) - 1)) << VS;"),
+]
 CLOCK_READ = """
 extern "C" int tb_read_clocks(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, tb_clocks, sizeof(long long) * 16 * 40);
@@ -228,7 +286,8 @@ def build(kernel: str, names, clock: bool = False) -> dict:
     procs = {}
     for name in names:
         texts = dict(files)
-        edits = variants[name] + (CLOCK_MARKS if clock else [])
+        edits = variants[name] + (
+            (RES_CLOCK_MARKS if kernel == "k4r" else CLOCK_MARKS) if clock else [])
         if clock:
             texts[source] += CLOCK_READ
         for fname, old, new in edits:
@@ -407,7 +466,110 @@ def k3_cases():
                lambda a: {"max_abs_err": (a[3] - a[4]).abs().max().item()})
 
 
-CASES = {"k7": k7_cases, "k4": k4_cases, "k2": k2_cases, "k1": k1_cases, "k3": k3_cases}
+def _resident_ops(W: int, seed: int = 1):
+    """(src, idx, wgt) of a blocked fft launch at width W: its first
+    launch's time-varying (1, 8, W, 2) tables, as the runtime builds them."""
+    from repro_torch.core import KernelSpec, TaskGraph, get_runtime
+    from repro_torch.core.runtimes import pallas_step as ps
+    from repro_torch.launch.kernel_times import TB_GRAIN, TB_PAYLOAD, TB_S
+
+    g = TaskGraph(steps=1000, width=W, pattern="fft", payload=TB_PAYLOAD,
+                  kernel=KernelSpec("compute_bound", TB_GRAIN), seed=0)
+    tables_at, key_of, _ = get_runtime("pallas_step")._global_table_fn(g)
+    idx, wgt, _ = ps._stack_tables(tables_at, key_of, [list(range(1, TB_S + 1))], "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((1, W, TB_PAYLOAD), device="cuda", generator=gen) * 0.9 + 0.1, idx, wgt
+
+
+def k4r_cases():
+    from repro_torch.kernels import taskbench_step as k34
+    from repro_torch.launch.kernel_times import TB_GRAIN, TB_PAYLOAD, TB_RADIUS, TB_S, TB_W
+
+    P, S = TB_PAYLOAD, TB_S
+    shapes = [("main", TB_W + 2 * TB_S * TB_RADIUS, 5, False), ("fft", 512, 2, True),
+              ("fft", 2048, 2, True)]
+    clusters = k34.resident_clusters(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, M, D, tv in shapes:
+        plan = k34.plan_resident(1, M, P, S, D, tv, tv, sms, clusters)
+        cuts = [(plan.cluster, plan.col_shift)] + [
+            c for c in ((16, 3), (8, 3), (8, 2), (4, 2), (4, 3), (2, 3), (1, 3))
+            if c != (plan.cluster, plan.col_shift)]
+
+        def make(M=M, D=D, tv=tv):
+            act = torch.ones((1, S), device="cuda")
+            if tv:
+                src, idx, wgt = _resident_ops(M)
+                combine = "gather"
+            else:
+                gen = torch.Generator(device="cuda").manual_seed(1)
+                src = torch.rand((1, M, P), device="cuda", generator=gen) * 0.9 + 0.1
+                idx, wgt = None, torch.rand((1, M, D), device="cuda", generator=gen) / D
+                combine = "window"
+            want = k34.taskbench_step_blocked_plain(src, idx, wgt, act, kind="compute_bound",
+                                                    iterations=TB_GRAIN, combine=combine)
+            return src, idx, wgt, act, torch.empty_like(src), want
+
+        grains = (TB_GRAIN, 0) if label == "main" else (TB_GRAIN,)
+        for (C, sh), grain in itertools.product(cuts, grains):
+            rows = -(-M // C)
+            tables = k34.resident_smem_bytes(rows, sh, D, S if tv else 1, tv, True) \
+                <= k34.SMEM_LIMIT
+            if k34.resident_smem_bytes(rows, sh, D, S if tv else 1, tv, False) > k34.SMEM_LIMIT:
+                continue
+
+            def call(lib, a, M=M, D=D, tv=tv, C=C, sh=sh, grain=grain, rows=rows,
+                     tables=tables):
+                src, idx, wgt, act, out, _ = a
+                return lib.taskbench_blocked_resident(
+                    src.data_ptr(), None if idx is None else idx.data_ptr(), wgt.data_ptr(),
+                    act.data_ptr(), out.data_ptr(), 1, M, P, D, S, int(tv), int(tv), grain,
+                    rows, sh, C, int(tables), int(sh >= 2), _stream())
+
+            yield ({"shape": label, "shape_K_M_P_D_S": [1, M, P, D, S], "grain": grain,
+                    "cluster": C, "col_shift": sh, "ctas": C * -(-P // (1 << sh)),
+                    "planned": (C, sh) == cuts[0]},
+                   make, call, lambda a: (a[4],),
+                   lambda a, g=grain: {"max_abs_err": (a[4] - a[5]).abs().max().item()
+                                       if g == TB_GRAIN else None})
+
+
+def k4r_clocks(name: str, lib) -> None:
+    """K4's resident variant ``name`` built with clock marks: prints, at
+    grain 0 and 64 and clusters of 8, 4 and 1, the marks' cycles for warps
+    0 and 15 of CTA 0 (see --clock)."""
+    from repro_torch.launch.kernel_times import TB_PAYLOAD, TB_RADIUS, TB_S, TB_W
+
+    M, P, S, D = TB_W + 2 * TB_S * TB_RADIUS, TB_PAYLOAD, TB_S, 2 * TB_RADIUS + 1
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    src = torch.rand((1, M, P), device="cuda", generator=gen)
+    wgt = torch.rand((1, M, D), device="cuda", generator=gen) / D
+    act, out = torch.ones((1, S), device="cuda"), torch.empty_like(src)
+    lib.tb_read_clocks.argtypes = [ctypes.c_void_p]
+    marks = (ctypes.c_longlong * (16 * 40))()
+    for (C, sh), grain in itertools.product(((8, 3), (4, 2), (1, 3)), (0, 64)):
+        for _ in range(5):  # the last run's marks are read
+            err = lib.taskbench_blocked_resident(
+                src.data_ptr(), None, wgt.data_ptr(), act.data_ptr(), out.data_ptr(),
+                1, M, P, D, S, 0, 0, grain, -(-M // C), sh, C, 1, 1, _stream())
+            if err:
+                raise RuntimeError(f"variant {name}: launch failed ({err})")
+        torch.cuda.synchronize()
+        if lib.tb_read_clocks(ctypes.addressof(marks)):
+            raise RuntimeError("reading the clock marks failed")
+        for w in (0, 15):
+            t = marks[w * 40:(w + 1) * 40]
+            print(json.dumps({
+                "variant": name, "cluster": C, "col_shift": sh, "grain": grain, "warp": w,
+                "load": t[38] - t[0], "load_barrier": t[1] - t[38],
+                "work": [t[3 + 3 * d] - t[2 + 3 * d] for d in range(S)],
+                "barrier": [t[4 + 3 * d] - t[3 + 3 * d] for d in range(S)],
+                "to_next_depth": [t[2 + 3 * (d + 1)] - t[4 + 3 * d] for d in range(S - 1)],
+                "last_pass": {"combine": t[31] - t[30], "body": t[32] - t[31]}}), flush=True)
+
+
+CASES = {"k7": k7_cases, "k4": k4_cases, "k4r": k4r_cases, "k2": k2_cases, "k1": k1_cases,
+         "k3": k3_cases}
 
 
 def k4_clocks(name: str, lib) -> None:
@@ -453,13 +615,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device is available")
-    if args.clock and args.kernel != "k4":
-        raise SystemExit("kernel_variants: --clock marks K4's tiled kernel only")
+    if args.clock and args.kernel not in ("k4", "k4r"):
+        raise SystemExit("kernel_variants: --clock marks K4's tiled and resident kernels only")
     names = (args.only or ",".join(KERNELS[args.kernel][2])).split(",")
     libs = build(args.kernel, names, clock=args.clock)
     if args.clock:
         for name in names:
-            k4_clocks(name, libs[name])
+            (k4r_clocks if args.kernel == "k4r" else k4_clocks)(name, libs[name])
         return 0
     smi = card()
     for case, make, call, outputs, errors in CASES[args.kernel]():

@@ -11,7 +11,8 @@ fails raises, and ``build`` never falls back to the eager loop; the decode
 step's graph equal to the eager step. ``pallas_step``'s stride and
 all-gather plans at small widths: each run's graph equal to its eager loop,
 its replay's launches equal to ``dispatches_per_run`` (T K3, or 1 K3 and
-ceil((T-1)/S) K4 in the cooperative form when blocked), butterfly compute
+ceil((T-1)/S) K4 in the resident form when blocked, the cooperative one
+for the memory body), butterfly compute
 runs equal to ``fused`` with the kernels bit for bit, the blocked
 all-gather plan under masked tails. Ensembles: stacked and tuple ensembles
 on both backends, each graph equal to its eager loop bit for bit and its
@@ -29,6 +30,7 @@ count, and within tolerance of the one-device run and the CPU plain path
 at grain 1; the ensembles; ``overlap``'s transfers under compute (> 0 us;
 0 with ``overlap=False`` at D = 2); K3 writing into ``out=``; the memory
 body's cooperative K4 grids over shards; the halo probe; the stride and
+all-gather plans' resident K4 launches over shards; the stride and
 all-gather plans over shards (fft, tree, spread, all_to_all under each
 transport, blocked too), each bit for bit its eager loop and its D = 1 run
 (all_to_all's row mean within tolerance); the stride, gather and
@@ -253,9 +255,11 @@ def test_blocked_kernel_matches_plain(cuda, combine, time_varying, kind, iterati
     K, M, D = 3, 70, 5 if combine == "window" else 3
     src, idx, wgt, act = _blocked_operands(combine, K, S, M, D, time_varying, S, cuda)
     kw = dict(kind=kind, iterations=iterations, scratch=40, combine=combine)
-    before = ops.launch_counts()["taskbench_blocked"]
+    # no radius: the resident form, the cooperative one for the memory body
+    entry = "taskbench_blocked" if kind == "memory_bound" else "taskbench_blocked_resident"
+    before = ops.launch_counts()[entry]
     got = ops.taskbench_step(src, idx, wgt, act, steps_per_launch=S, **kw)
-    assert ops.launch_counts()["taskbench_blocked"] == before + 1
+    assert ops.launch_counts()[entry] == before + 1
     want = taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
     assert got.shape == (K, M, 13)
     assert (got - want).abs().max().item() <= TOL
@@ -358,10 +362,10 @@ def _act(K, S, device):
 @pytest.mark.parametrize("tail", [False, True])
 def test_tiled_blocked_kernel_equals_cooperative(cuda, combine, kind, iterations, S,
                                                  M, P, tail):
-    """K4's tiled form, bit for bit the cooperative form, and within TOL of
-    the plain version, on buffers that are and are not a multiple of the
-    tile, with every depth active (the whole halo read) or a masked tail
-    and a frozen member."""
+    """K4's tiled form, bit for bit the cooperative and resident forms (each
+    pinned), and within TOL of the plain version, on buffers that are and
+    are not a multiple of the tile, with every depth active (the whole halo
+    read) or a masked tail and a frozen member."""
     K, r = 3, 2
     src = _rand((K, M, P), S + M, cuda)
     idx, wgt = _reach_tables(combine, K, M, r, S, cuda)
@@ -370,10 +374,12 @@ def test_tiled_blocked_kernel_equals_cooperative(cuda, combine, kind, iterations
               steps_per_launch=S)
     ops.reset_launch_counts()
     tiled = ops.taskbench_step(src, idx, wgt, act, radius=r, **kw)
-    coop = ops.taskbench_step(src, idx, wgt, act, **kw)
+    coop = ops.taskbench_step(src, idx, wgt, act, form="cooperative", **kw)
+    resident = ops.taskbench_step(src, idx, wgt, act, form="resident", **kw)
     counts = ops.launch_counts()
-    assert counts["taskbench_blocked_tiled"] == 1 and counts["taskbench_blocked"] == 1
-    assert torch.equal(tiled, coop)
+    assert (counts["taskbench_blocked_tiled"], counts["taskbench_blocked"],
+            counts["taskbench_blocked_resident"]) == (1, 1, 1)
+    assert torch.equal(tiled, coop) and torch.equal(tiled, resident)
     kw.pop("steps_per_launch")
     want = taskbench_step_blocked_plain(src, idx, wgt, act, **kw)
     assert (tiled - want).abs().max().item() <= TOL
@@ -383,9 +389,9 @@ def test_tiled_blocked_kernel_equals_cooperative(cuda, combine, kind, iterations
 
 def test_blocked_form_rule_and_its_counters(cuda):
     """The tiled form takes fixed tables with a declared radius and the
-    compute or empty body; no radius, time-varying tables and the memory
-    body take the cooperative form; a window wider than the radius is
-    refused."""
+    compute or empty body; no radius and time-varying tables take the
+    resident form, the memory body the cooperative form; a window wider
+    than the radius is refused."""
     K, M, P, S, r = 2, 50, 16, 3, 2
     src = _rand((K, M, P), 7, cuda)
     act = torch.ones((K, S), device=cuda)
@@ -395,9 +401,9 @@ def test_blocked_form_rule_and_its_counters(cuda):
     cases = [  # (operands, kind, iterations, radius, form)
         ((idx, wgt), "compute_bound", 4, r, "taskbench_blocked_tiled"),
         ((idx, wgt), "empty", 0, r, "taskbench_blocked_tiled"),
-        ((idx, wgt), "compute_bound", 4, None, "taskbench_blocked"),
+        ((idx, wgt), "compute_bound", 4, None, "taskbench_blocked_resident"),
         ((idx, wgt), "memory_bound", 2, r, "taskbench_blocked"),
-        ((tv_idx, tv_wgt), "compute_bound", 4, r, "taskbench_blocked"),
+        ((tv_idx, tv_wgt), "compute_bound", 4, r, "taskbench_blocked_resident"),
     ]
     for (i, w), kind, it, radius, form in cases:
         ops.reset_launch_counts()
@@ -895,7 +901,9 @@ def _plan_run(cuda, pattern, width, opts, kind, iterations, steps, seed):
     want_counts = dict.fromkeys(counts, 0)
     if plan.kind == ps.PLAN_ALLGATHER and plan.steps_per_launch > 1:
         want_counts["taskbench_step"] = 1
-        want_counts["taskbench_blocked"] = -(-(steps - 1) // plan.steps_per_launch)
+        memory = kind == "memory_bound" and iterations > 0
+        form = "taskbench_blocked" if memory else "taskbench_blocked_resident"
+        want_counts[form] = -(-(steps - 1) // plan.steps_per_launch)
     else:
         want_counts["taskbench_step"] = steps
     assert counts == want_counts
@@ -1440,7 +1448,7 @@ def test_sharded_plans_equal_their_eager_loop_and_d1(cuda, pattern, opts, D):
     """The stride and all-gather plans over D shards of one card (W = 64:
     at D = 4 the strides from 16 on are block exchanges): the run, one
     graph, equals its eager loop bit for bit in three runs; it launches D
-    times a shard's K3 (and, blocked, cooperative K4) count; it equals the
+    times a shard's K3 (and, blocked, resident K4) count; it equals the
     one-device run bit for bit (all_to_all's row mean within tolerance) and
     the CPU plain path within tolerance at grain 1."""
     g = TaskGraph(steps=9, width=64, pattern=pattern, payload=16,
@@ -1462,7 +1470,8 @@ def test_sharded_plans_equal_their_eager_loop_and_d1(cuda, pattern, opts, D):
         assert counts["taskbench_step"] == D * per == sum(counts.values())
     else:
         assert plan.kind == "allgather"
-        assert (counts["taskbench_step"], counts["taskbench_blocked"]) == (D, D * (per - 1))
+        assert (counts["taskbench_step"], counts["taskbench_blocked_resident"]) == \
+            (D, D * (per - 1))
     one = _sharded("pallas_step", opts, 1, cuda).execute(g, x)
     if pattern == "all_to_all" and opts.get("psum_mean", True) and plan.steps_per_launch == 1:
         np.testing.assert_allclose(got.cpu().numpy(), one, rtol=1e-5, atol=1e-6)

@@ -321,7 +321,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_launching():
         rmsnorm(x, torch.ones(8))
     assert ops.launch_counts() == {"taskbench_compute": 0, "memory_bound": 0,
                                    "taskbench_step": 0, "taskbench_blocked": 0,
-                                   "taskbench_blocked_tiled": 0, "flash_attention": 0, "flash_attention_f32": 0,
+                                   "taskbench_blocked_tiled": 0,
+                                   "taskbench_blocked_resident": 0, "flash_attention": 0,
+                                   "flash_attention_f32": 0,
                                    "decode_attention": 0, "ssd_chunk": 0,
                                    "rmsnorm": 0}
 

@@ -16,8 +16,9 @@ the plain path.
 The runtime on small graphs (W <= 64, T <= 12) under the analytic model
 (``tests/conftest.py`` pins ``REPRO_COST_MODEL=off``): "auto" resolves the
 reference's (plan, S, pipelined) and launch count where the fit rules agree
-(halo compute), and the port's documented answer where they do not
-(memory_bound, the all-gather plan: S = 1, its reason naming the rule);
+(halo compute; the all-gather plan, whose launch fits when it takes K4's
+resident form), and the port's documented answer where they do not
+(memory_bound: S = 1, its reason naming the rule);
 every "auto" output is within ``rtol=1e-5, atol=1e-6`` (compute) or
 ``atol=1e-5`` (memory_bound) of the reference's run and of ``fused``, and
 equal bit for bit to the explicit run of the depth and schedule it resolved
@@ -535,21 +536,25 @@ def test_auto_resolves_memory_bound_to_one_step():
     ("spread", 32, "allgather"), ("all_to_all", 32, "allgather"),
     ("fft", 1, "allgather"), ("fft", 32, "stride"), ("tree", 16, "stride")])
 def test_auto_on_the_other_plans(pattern, width, want_ref):
-    """The all-gather plan's K4 launch declares no radius, so "auto"
-    resolves it to S = 1 (the reference blocks it under its VMEM rule); a
-    butterfly keeps the stride plan under the analytic model, as the
-    reference's does. Outputs within tolerance of the reference and of
-    fused, and bit for bit their explicit twins."""
+    """The all-gather plan's K4 launch fits when it takes the resident form
+    (a cluster a column slice holds the whole buffer), the card's
+    counterpart of the reference's VMEM fit, so "auto" resolves the
+    reference's (plan, S) there, its reason naming the rule; a butterfly
+    keeps the stride plan under the analytic model, as the reference's
+    does. Outputs within tolerance of the reference and of fused, and bit
+    for bit their explicit twins."""
     g, r, init = _pair(pattern, width=width)
     rt = get_runtime("pallas_step", device="cpu", steps_per_launch="auto")
     ref = ref_runtime("pallas_step", steps_per_launch="auto")
     got, want = rt._schedule_for_graph(g), ref._schedule_for_graph(r)
-    assert (got.kind, got.steps_per_launch) == (want_ref, 1)
     assert want.kind == want_ref
-    assert "declares no radius" in got.reason
-    if pattern == "spread":
-        assert "time-varying" in got.reason and want.steps_per_launch > 1
-    assert rt.dispatches_per_run(g) == g.steps
+    assert (got.kind, got.steps_per_launch) == (want.kind, want.steps_per_launch)
+    if want_ref == "allgather":
+        assert got.steps_per_launch > 1
+        assert "resident form" in got.reason and "VMEM fit" in got.reason
+    else:
+        assert got.reason == want.reason
+    assert rt.dispatches_per_run(g) == ref.dispatches_per_run(r)
     out = rt.execute(g, init)
     np.testing.assert_allclose(out, np.asarray(ref.execute(r, init)), **COMPUTE_TOL)
     fused = get_runtime("fused", device="cpu").execute(g, init)
@@ -557,10 +562,24 @@ def test_auto_on_the_other_plans(pattern, width, want_ref):
     np.testing.assert_array_equal(out, _explicit_twin(rt, g).execute(g, init))
 
 
+def test_auto_on_the_all_gather_plan_keeps_the_memory_body_per_step():
+    """The memory body takes only K4's cooperative form, so "auto" on the
+    all-gather plan resolves it to S = 1, the reason naming the rule."""
+    g, _, init = _pair("spread", "memory_bound", 3)
+    rt = get_runtime("pallas_step", device="cpu", steps_per_launch="auto")
+    got = rt._schedule_for_graph(g)
+    assert (got.kind, got.steps_per_launch) == ("allgather", 1)
+    assert "memory body" in got.reason and "resident form" in got.reason
+    assert rt.dispatches_per_run(g) == g.steps
+    np.testing.assert_array_equal(rt.execute(g, init),
+                                  _explicit_twin(rt, g).execute(g, init))
+
+
 def test_auto_under_a_measured_card_model_runs_serial():
     """A one-device card model (X = 1) resolves every halo compute run to
-    the deepest tiled depth, serial; the butterfly's ranking sees no depth
-    > 1 and keeps the stride plan."""
+    the deepest tiled depth, serial; the butterfly's ranking sees the
+    all-gather plan's depth fit (K4's resident form) and re-routes as the
+    reference's does under the same model."""
     model = MODELS["measured-card"]
     for pattern in HALO:
         g, _, init = _pair(pattern, width=64, steps=12)
@@ -573,9 +592,15 @@ def test_auto_under_a_measured_card_model_runs_serial():
         assert rt.dispatches_per_run(g) == 1 + 2  # ceil(11 / 8)
         np.testing.assert_array_equal(rt.execute(g, init),
                                       _explicit_twin(rt, g).execute(g, init))
-    g, _, _ = _pair("fft", width=64)
-    assert get_runtime("pallas_step", device="cpu", steps_per_launch=0,
-                       cost_model=model)._schedule_for_graph(g)[:2] == ("stride", 1)
+    g, r, init = _pair("fft", width=64)
+    rt = get_runtime("pallas_step", device="cpu", steps_per_launch=0, cost_model=model)
+    ref = ref_runtime("pallas_step", steps_per_launch=0,
+                      cost_model=ref_probes.CostModel.from_dict(model))
+    got, want = rt._schedule_for_graph(g), ref._schedule_for_graph(r)
+    assert got[:2] == want[:2] == ("allgather", 8)
+    assert got.reason == want.reason
+    np.testing.assert_array_equal(rt.execute(g, init),
+                                  _explicit_twin(rt, g).execute(g, init))
 
 
 def test_fit_rule_is_the_tiled_form():
@@ -886,12 +911,12 @@ def test_auto_on_a_butterfly_across_shards(case, ref_auto):
     """At D = 4 the port's "auto" sees the measured stride and gather walls
     through `gathered_beats_strides`, whose verdict on the shards' shape
     (B = W / 4, the off-block strides) equals the reference's on the same
-    model. Where the reference keeps the stride plan the port resolves its
-    (plan, S); where the reference re-routes, the port's fit rule finds no
-    blocked depth for the all-gather plan (its K4 launch declares no
-    radius) and keeps the stride plan, the reason naming the rule. Either
-    way the run is within tolerance of the reference's and bit for bit its
-    explicit twin."""
+    model. The port resolves the reference's (plan, S) either way: where
+    the reference keeps the stride plan, and where it re-routes to the
+    blocked all-gather plan, whose K4 launch fits when it takes the
+    resident form (planned for a quarter of the card, the four shards'
+    grids running at once). Either way the run is within tolerance of the
+    reference's and bit for bit its explicit twin."""
     arrays, meta = ref_auto
     key = case["key"]
     g = TaskGraph(kernel=KernelSpec("compute_bound", 1, 30),
@@ -912,11 +937,13 @@ def test_auto_on_a_butterfly_across_shards(case, ref_auto):
         assert not verdict[0]
     else:
         assert want_kind == "allgather" and want_S == 8 and verdict[0]
-        assert (got.kind, got.steps_per_launch) == ("stride", 1)
-        assert "declares no radius" in got.reason
-    assert rt.dispatches_per_run(g) == g.steps
+        assert (got.kind, got.steps_per_launch) == ("allgather", 8)
+        assert got.reason == verdict[1]
+    S = got.steps_per_launch
+    assert rt.dispatches_per_run(g) == (g.steps if S == 1 else 1 + -(-(g.steps - 1) // S))
     init = arrays[f"{key}/init"]
     out = rt.execute(g, init)
     np.testing.assert_allclose(out, arrays[f"{key}/out"], **COMPUTE_TOL)
-    twin = get_runtime("pallas_step", devices=["cpu"] * 4, steps_per_launch=1)
+    twin = get_runtime("pallas_step", devices=["cpu"] * 4, steps_per_launch=S)
+    assert twin._schedule_for_graph(g)[:2] == got[:2]
     np.testing.assert_array_equal(out, twin.execute(g, init))
