@@ -43,7 +43,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              launch) at the serving decode (q 8 x 16
              x 128 over an 8 x 8 x 1088 x 128 cache, lengths 0 .. 1088,
              window 0 and 256), K5 and K6 at hymba-1.5b's (group 5, head
-             dim 64, window 1024); K7 at mamba2-130m's and hymba-1.5b's
+             dim 64, window 1024), K5 at llama-3.2-vision's cross-attention
+             (non-causal, q 4 x 64 x 1024 x 128 over k/v 4 x 8 x 1600 x
+             128) and K6 over that cache read whole, and K5 and K6 at each
+             other served arch's prefill and decode (SERVED_ATTN: head dims
+             64 to 256, groups 1 to 8, each window of its layer kinds,
+             lengths over its run's decode reads); K7 at mamba2-130m's and hymba-1.5b's
              prefill chunks, at T = 5, at G = 2 and at P = 12, with some
              dtA <= -30; K8 at mamba2's norm shapes, (37, 1000), (5, 33)
              and x at an odd offset (the scalar path); each in bf16 and
@@ -233,7 +238,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              their device time.
   7b. shards the port over row shards of the card
              (``devices=["cuda"] * D``): the main shape (W = 2112, T =
-             1000, grain 64) at D = 4 on the 7 halo patterns through
+             250 for the time limit, grain 64) at D = 4 on the 7 halo
+             patterns through
              ``bsp_scan``, ``overlap`` and ``pallas_step`` S = 1 and S = 8
              pipelined and serial; on stencil_1d and nearest also ``bsp``,
              ``overlap=False``, ``halo_via="allgather"``,
@@ -252,7 +258,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              pallas_step ensemble) against the CPU plain path. At grain 64
              every state is at the fixed point, so the comparisons below
              check graphs, counts and bits only.
-             The stride and all-gather plans at T = 1000 (D = 4, B = 512
+             The stride and all-gather plans at T = 250 (D = 4, B = 512
              and 128): fft and tree at W = 2048 on the stride plan under
              ``halo_impl`` "xla" and "ppermute" (in-block strides by the
              XOR shuffle, block strides by the XOR block exchange), fft at
@@ -332,7 +338,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
              model on its plain path on the card; 3 more decode steps
              under ``torch.profiler`` (device kernels, and host operators
              by self CPU time), then 3 as replays of the step's graph
-             (device kernels); the prefill again, warm. Then [norm]:
+             (device kernels); the prefill again, warm. The same for
+             [serve-moe] granite-moe-3b-a800m at full width and depth
+             (batch 8, prompt 1024, 64 tokens; 32 K5, 32 x 63 K6; the
+             plain path replays the kernel path's routing, and the
+             (token, layer) choices on which the two paths' own routers
+             differ are printed), [serve-xattn]
+             llama-3.2-vision-90b at full width with 5 of its 100 layers
+             (4 attn + 1 xattn; batch 4, prompt 1024, 16 tokens; 4 K5 and
+             1 of its f32 form over the f32 image K/V, 5 x 15 K6; served
+             with zero image embeddings as the reference's
+             serve, teacher-forced with 0.02 N(0, 1) image embeddings and
+             the cross-attention gates at 1, so the cross term counts),
+             [serve-embed] musicgen-medium (batch 8, 1024 prompt
+             embeddings, 64 steps each drawing its embedding inside the
+             step's graph; 48 K5, 48 x 63 K6) and [serve-int8]
+             internlm2-1.8b with the int8 KV cache at [serve]'s shape (its
+             decode logits also against [serve]'s); each kernel-vs-plain
+             limit lies between the sound path's reading and a broken
+             control's (beside each TOL_SERVE_*). Then [serve-archs]: one
+             serve each of gemma3-4b, minitron-8b, stablelm-3b and
+             mixtral-8x7b at full width with 2 of its 32 layers (batch 4,
+             prompt 1024, 16 tokens), launches held exactly. Then [norm]:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
@@ -356,7 +383,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              launch at S = 2 and S = 8 and as the pipelined phases, and one
              whole pipelined launch with its interior on the same stream
              or a second one, queued and as graph nodes; K5 at internlm2's and hymba's prefill
-             shapes, and K6 at the serving decode warm and L2-cold, beside
+             shapes and at llama-3.2-vision's cross-attention, and K6 at
+             the serving decode warm and L2-cold, beside
              ``scaled_dot_product_attention`` on the same inputs under
              PyTorch's choice of backend and each backend pinned
              (``repro_torch.launch.attention_times``); K7 at the mamba2
@@ -483,6 +511,55 @@ HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN = "hymba-1.5b", 4, 1024, 16
 # 3.22-5.64% at every step. Each limit lies between the two.
 TOL_SERVE_SSM = {"max": 0.025, "rms": 0.015}
 TOL_SERVE_HYB = {"max": 0.035, "rms": 0.031}
+# The serving cells of the other layer and input kinds (PERF.md section 4).
+# granite-moe-3b-a800m at full width and depth (32 layers, d_model 1536,
+# 24/8 heads of 64, 40 experts top-8 of d_ff 512), batch 8, prompt 1024, 64
+# tokens: prefill capacity C = 2048 an expert, so capacity_factor 1.25
+# drops. llama-3.2-vision-90b at full width cut from 100 layers to one
+# block of 4 attn + 1 xattn (90B parameters do not fit 80 GB; 5 layers are
+# ~6.4B), batch 4, prompt 1024, 16 tokens; its teacher-forced runs take
+# 0.02 N(0, 1) image embeddings and gates of IMAGE_GATE, so that the cross
+# term is not 0. musicgen-medium at full width and depth (48 layers, MHA 24
+# heads of 64), batch 8, 1024 prompt embeddings, 64 steps. [serve-int8]:
+# internlm2-1.8b with kv_quant at [serve]'s shape.
+MOE_ARCH, MOE_B, MOE_PROMPT, MOE_GEN = "granite-moe-3b-a800m", 8, 1024, 64
+VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT, VLM_GEN = "llama-3.2-vision-90b", 5, 4, 1024, 16
+EMB_ARCH, EMB_B, EMB_PROMPT, EMB_GEN = "musicgen-medium", 8, 1024, 64
+IMAGE_SEED, IMAGE_GATE = 5, 1.0
+# [serve-archs]: one serve each at batch 4, prompt 1024, 16 tokens; mixtral-8x7b
+# at full width with 2 of its 32 layers (~3.2B parameters; 47B do not fit)
+ARCHS_SERVED = ("gemma3-4b", "minitron-8b", "stablelm-3b", "mixtral-8x7b")
+ARCHS_LAYERS = {"mixtral-8x7b": 2}
+ARCHS_B, ARCHS_PROMPT, ARCHS_GEN = 4, 1024, 16
+# The self-attention shapes the new serving paths give K5 and K6 (arch,
+# batch, prompt, generated tokens), held to their plain versions in
+# [parity]; [serve]'s and [serve-hybrid]'s are held there already
+SERVED_ATTN = ((MOE_ARCH, MOE_B, MOE_PROMPT, MOE_GEN),
+               (VLM_ARCH, VLM_B, VLM_PROMPT, VLM_GEN),
+               (EMB_ARCH, EMB_B, EMB_PROMPT, EMB_GEN),
+               *((arch, ARCHS_B, ARCHS_PROMPT, ARCHS_GEN) for arch in ARCHS_SERVED))
+# The new paths' kernel-vs-plain limits, as TOL_SERVE_*: max |diff| / max
+# |logit| ("max") and ||diff|| / ||logits|| ("rms") over the prefill and 4
+# teacher-forced decode steps. Readings on an H100 80GB HBM3 at 700 W
+# (sound path; a control from benchmarks/torch_serve_controls.py, broken on
+# the kernel path only; a K6 that misses each step's own token leaves the
+# prefill as it is, so its readings are the decode steps'); the readings
+# repeat to the last digit from run to run:
+# - [serve-moe], the plain path replaying the kernel path's routing: sound
+#   max 0.98-1.17%, rms 1.05-1.10%; the K6 control max 1.30-1.53%, rms
+#   1.24-1.31% in the decode steps; a combine weighting each expert 1/K
+#   max 22.4-26.5%, rms 22.5-23.9% at every step.
+# - [serve-xattn] (f32 image K/V): sound max 0.87-1.22%, rms 0.92-1.03%;
+#   K6 control max 4.56-17.2%, rms 3.95-12.1%.
+# - [serve-embed]: sound max 1.74-2.16%, rms 1.96-2.08%; K6 control max
+#   4.04-6.84%, rms 3.51-4.27%.
+# - [serve-int8]: sound max 1.39-1.73%, rms 1.58-1.61%; K6 control max
+#   3.38-10.6%, rms 3.39-5.39%.
+# Each limit lies between the two.
+TOL_SERVE_MOE = {"max": 0.0125, "rms": 0.0118}
+TOL_SERVE_VLM = {"max": 0.025, "rms": 0.02}
+TOL_SERVE_EMBED = {"max": 0.03, "rms": 0.028}
+TOL_SERVE_INT8 = {"max": 0.025, "rms": 0.025}
 # K7 and K8 against their plain versions: both compute in f32 precision
 # (K7's TF32 tensor-core products with each f32 operand split into TF32
 # parts, its C B^T and K8 in f32 FMAs, against einsums and reductions:
@@ -526,8 +603,9 @@ PROFILE_ISSUES = 3
 
 
 # [shards]: the port over D row shards of one card (``devices=["cuda"] * D``):
-# the main shape at D = 4 (B = 528) and D = 2 (at T_SHARD_D2 steps: the time
-# limit; the step walls are per step); every halo pattern runs bsp,
+# the main shape at D = 4 (B = 528) and D = 2, at T_SHARD and T_SHARD_D2
+# steps (the time limit: [shards] took 388-557 s of the script's 935-1232 s
+# at T = 1000 on an H100 80GB HBM3 at 700 W; the step walls are per step); every halo pattern runs bsp,
 # bsp_scan, overlap (overlap=True and False, halo_via="allgather") and
 # pallas_step S = 1 and S = 8 (pipelined, serial, halo_impl "xla" and
 # "ppermute") and "auto"; the main schedules at D = 1 on stencil_1d for the
@@ -537,7 +615,7 @@ PROFILE_ISSUES = 3
 # eager loop three times (the three timed replays): a race between streams
 # or in the allocator gives wrong bits only sometimes.
 SHARD_D = (4, 2)
-T_SHARD_D2 = 250
+T_SHARD = T_SHARD_D2 = 250
 # The grain-1 evidence stays inside the contraction horizon: each step
 # halves a row's distance from the FMA's fixed point 0.2 (every combine is
 # convex), so after T steps the state is within 0.8 * 2**-T of it, and a
@@ -558,8 +636,8 @@ SHOWS_MIN = 100 * 1e-5  # 100 x TOL
 # and 8 under each gather transport (all_to_all also with psum_mean=False),
 # and "auto" under the D = 4 model, at D = 4; fft at W_PLAN and spread at
 # W_GATHER at D = 2; each run against its D = 1 run. T_SHARD_PLANS steps
-# each at D = 4 (the main shape's T), T_SHARD_D2 at D = 2.
-T_SHARD_PLANS = T_MAIN
+# each at D = 4 (the sharded main shape's T), T_SHARD_D2 at D = 2.
+T_SHARD_PLANS = T_SHARD
 GATHER_TRANSPORTS = ("xla", "ppermute", "chunked")
 
 
@@ -2187,6 +2265,492 @@ def restart_phase(dev, rand, smi, *, W=W_MAIN, T=T_MAIN, S=S_MAIN, every=RESTART
     return launches
 
 
+def serve_path(dev, smi, tag: str, cfg, batch: int, prompt: int, gen: int, want: dict,
+               tol: dict, *, image_gate=None, keep_logits: bool = False,
+               profile_prefill: bool = False):
+    """Serve ``cfg`` through ``serve`` (random weights from seed 0, greedy;
+    each decode step after the first a graph replay), the launch counters
+    zeroed just before and held to ``want`` just after, and again with
+    every decode step eager (the same tokens and logits); then one model of
+    the same weights (seed 0) through the kernels and through the plain
+    path (``use_flash=False`` on the same weights, so they are held once),
+    teacher-forced with the served inputs (the prefill and 4 decode steps
+    held to ``tol``: limits on max |diff| / max |logit| and ||diff|| /
+    ||logits||, None where a metric is only printed; a MoE model's plain
+    path replays the kernel path's routing), 3 more eager decode
+    steps and 3 graph replays under torch.profiler, and the prefill again,
+    warm. With ``image_gate`` the teacher-forced runs take 0.02·N(0, 1)
+    image embeddings (seed IMAGE_SEED) and every cross-attention gate at
+    ``image_gate`` (``serve`` itself runs as the reference's: zero image
+    embeddings, zero gates). The (token, layer) prefill decisions on which
+    the two paths' own MoE routers differ are printed.
+    With ``profile_prefill`` one more warm prefill runs under
+    torch.profiler (its kernels' device times by name). Returns (cfg, serve
+    result, launches, stats); the result's decode logits (on the CPU) with
+    ``keep_logits``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.runtimes._capture import Graphed
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import _grow_caches, make_inputs, serve, step_embeds
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    arch = cfg.name
+    cap = prompt + gen
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, verbose=True,
+                device="cuda", keep_logits=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # the same run with every decode step eager: the same tokens and the
+    # same logits, bit for bit (the graph replays the same kernels on the
+    # same buffers, and draws what the eager steps draw)
+    res_eager = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
+                      verbose=False, device="cuda", graph=False, keep_logits=True)
+    if not np.array_equal(res.tokens, res_eager.tokens):
+        fail(f"{tag} the graph's greedy tokens differ from the eager loop's")
+    if not torch.equal(res.logits, res_eager.logits):
+        fail(f"{tag} the graph's decode logits differ from the eager loop's, max "
+             f"|difference| {(res.logits - res_eager.logits).abs().max().item()}")
+    rep_eager = res_eager.report
+    print(f"{tag} decode as one CUDA graph a step (captured in "
+          f"{res.capture_s:.6f} s, {res.graph_nodes} nodes): tokens and logits of "
+          f"{gen - 1} steps equal the eager loop's bit for bit; p50 step wall "
+          f"{res.report.p50_wall * 1e3:.3f} ms, eager {rep_eager.p50_wall * 1e3:.3f} ms "
+          f"| {smi}", flush=True)
+    res.logits = res.logits.cpu() if keep_logits else None
+    res_eager.logits = None
+    want_d = dict.fromkeys(_build.ENTRIES, 0)
+    want_d.update(want)
+    if launches != want_d:
+        fail(f"{tag} launches {launches}, expected {want_d}")
+    if want.get("flash_attention"):
+        # the counters name the form: the prefill's attention was bf16
+        print(f"{tag} K5 received {cfg.dtype} operands: "
+              f"{launches['flash_attention']} launches of its tensor-core form, "
+              f"{launches['flash_attention_f32']} of its f32 form", flush=True)
+    if res.tokens.shape != (batch, gen) or res.poisoned_steps:
+        fail(f"{tag} tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
+    rep = res.report
+    stats = {
+        "arch": arch, "n_layers": cfg.n_layers, "batch": batch, "prompt": prompt,
+        "gen": gen, "prefill_s": res.prefill_s,
+        "prefill_tok_per_s": batch * prompt / res.prefill_s,
+        "decode_tok_per_s": res.tokens_per_s,
+        "decode_tok_per_s_steady": rep.tokens_per_s,
+        "step_wall_p50_ms": rep.p50_wall * 1e3,
+        "step_wall_mean_ms": rep.mean_wall * 1e3,
+        "eager_step_wall_p50_ms": rep_eager.p50_wall * 1e3,
+        "eager_step_wall_mean_ms": rep_eager.mean_wall * 1e3,
+        "eager_decode_tok_per_s_steady": rep_eager.tokens_per_s,
+        "capture_s": res.capture_s, "graph_nodes": res.graph_nodes,
+        "flagged_steps": len(res.flagged_steps),
+        "peak_gib_serve": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    del res_eager
+    torch.cuda.empty_cache()
+    # one model (seed 0) through the kernels and then the plain path, on the
+    # served inputs, teacher-forced with the served tokens (or embeddings)
+    model = Model(cfg, device=dev, seed=0)
+    inputs = make_inputs(cfg, batch, prompt, 0, dev)
+    forced = image_gate is None  # the served inputs: the served tokens must follow
+    if image_gate is not None:
+        img = torch.Generator(device=dev).manual_seed(IMAGE_SEED)
+        inputs["image_embeds"] = 0.02 * torch.randn(inputs["image_embeds"].shape,
+                                                    generator=img, device=dev)
+        for li, kind in enumerate(model.kinds):
+            if kind == "xattn":
+                model.layers[li].gate_attn.fill_(image_gate)
+                model.layers[li].gate_mlp.fill_(image_gate)
+    served = torch.from_numpy(res.tokens).to(dev)
+    # serve's per-step embeddings: the same draws from a fresh generator
+    embedder = torch.Generator(device=dev).manual_seed(0 + 3)
+    step_in = ([step_embeds(cfg, batch, embedder, dev) for _ in range(11)]
+               if cfg.embed_inputs else None)
+
+    def feed(i, tok=None):
+        if cfg.embed_inputs:
+            return {"embeds": step_in[i] if tok is None else tok}
+        return {"tokens": served[:, i:i + 1] if tok is None else tok}
+
+    # A MoE model's plain path replays the kernel path's discrete routing
+    # (each router call's experts, slots and drops, in call order) weighted
+    # by its own router's gates at those experts: a near-tie that bf16
+    # rounds the other way then changes no expert, and the limit holds K5,
+    # K6 and the combine rather than the router's discontinuity. Each
+    # path's own top-k choice is recorded too.
+    own = {True: [], False: []}  # (mode, own top-k experts (G, Ng, K)) a call
+    kernel_routes = []
+    route = moe_mod.route
+
+    def recording(use_flash):
+        def spy(p, xt, cfg_, mode):
+            r = route(p, xt, cfg_, mode)
+            logits = xt.float() @ p["router"].float()
+            experts = torch.sort(logits, dim=-1, descending=True,
+                                 stable=True)[1][..., :cfg_.top_k]
+            own[use_flash].append((mode, experts))
+            if use_flash:
+                kernel_routes.append((r, experts))
+                return r
+            rk, ek = kernel_routes[len(own[False]) - 1]
+            gates = torch.softmax(torch.gather(logits, -1, ek), dim=-1).to(xt.dtype)
+            return rk._replace(gates=gates)
+        return spy
+
+    state = {}
+    for use_flash in (True, False):  # the kernels' caches stay for the profile
+        model.cfg = dataclasses.replace(cfg, use_flash=use_flash)
+        moe_mod.route = recording(use_flash)
+        try:
+            lg, c = model.prefill(**inputs)
+            lgs = [lg]
+            c = _grow_caches(model, c, batch, cap)
+            lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+            for i in range(4):
+                lg, c = model.decode_step(lengths=lengths, caches=c, **feed(i))
+                lgs.append(lg)
+                lengths = lengths + 1
+        finally:
+            moe_mod.route = route
+        state[use_flash] = (lgs, c, lengths) if use_flash else (lgs, None, None)
+        del c
+    model.cfg = cfg
+    if len(own[True]) != len(own[False]):
+        fail(f"{tag} {len(own[True])} router calls on the kernel path, "
+             f"{len(own[False])} on the plain path")
+    del kernel_routes
+    rel, rms = [], []
+    for i, (lk, lp) in enumerate(zip(state[True][0], state[False][0])):
+        what = "prefill" if i == 0 else f"decode step {i - 1}"
+        if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())):
+            fail(f"{tag} {what}: non-finite logits")
+        if forced and not torch.equal(lk.argmax(-1), served[:, i]):
+            fail(f"{tag} {what}: the kernel path's argmax differs from the served token")
+        rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
+        rms.append((torch.linalg.vector_norm(lk - lp) / torch.linalg.vector_norm(lp)).item())
+    print(f"{tag} kernel vs plain path{' (one routing)' if cfg.n_experts else ''}, prefill "
+          f"and 4 decode steps: max |diff| / max |logit| {rel} (limit {tol['max']}); "
+          f"||diff|| / ||logits|| {rms} (limit {tol['rms']})", flush=True)
+    for metric, got in (("max", rel), ("rms", rms)):
+        if tol[metric] is not None and not max(got) <= tol[metric]:
+            fail(f"{tag} kernel vs plain path ({metric}): {got}, above {tol[metric]}")
+    agree = [float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+             for lk, lp in zip(state[True][0], state[False][0])]
+    if cfg.n_experts:
+        # how often the two paths' own routers would have chosen apart in the
+        # prefill: in some expert or its rank, and as unordered top-k sets
+        pre = [(a, b) for (ma, a), (_, b) in zip(own[True], own[False]) if ma == "prefill"]
+        if len(pre) != cfg.n_layers:
+            fail(f"{tag} recorded {len(pre)} prefill routings, expected {cfg.n_layers}")
+        ranked = [int((a != b).any(-1).sum()) for a, b in pre]
+        unordered = [int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum()) for a, b in pre]
+        decisions = cfg.n_layers * batch * prompt
+        stats.update(routing_decisions=decisions, routing_decisions_differ=sum(ranked),
+                     routing_sets_differ=sum(unordered))
+        print(f"{tag} prefill routing, each path's own router: {sum(ranked)} of {decisions} "
+              f"(token, layer) top-{cfg.top_k} choices differ in some expert or its rank, "
+              f"{sum(unordered)} as unordered sets (per layer {ranked}, {unordered})",
+              flush=True)
+    del own
+    # where a decode step's device time goes: 3 more steps of the kernel
+    # path under torch.profiler, its kernels' device times summed by name
+    km, (_, c, lengths) = model, state[True]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(4, 7):
+            _, c = km.decode_step(lengths=lengths, caches=c, **feed(i))
+            lengths = lengths + 1
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3
+
+    def device_ms(prof):
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        return by_name
+
+    by_name = device_ms(prof)
+    busy_ms = sum(by_name.values())
+    # and as graph replays: step 7 eagerly on the capture stream (the
+    # warm-up), the step captured, then steps 8-10 replayed
+    tokb = feed(7)[("embeds" if cfg.embed_inputs else "tokens")].clone()
+
+    def tf_step():
+        lg, _ = km.decode_step(lengths=lengths, caches=c, **feed(None, tokb))
+        lengths.add_(1)
+        return lg
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tf_step()
+        step_graph = Graphed(tf_step, stream)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            t1 = time.perf_counter()
+            for i in range(8, 11):
+                tokb.copy_(feed(i)[("embeds" if cfg.embed_inputs else "tokens")])
+                step_graph.replay()
+            torch.cuda.synchronize()
+            graph_window_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.current_stream().wait_stream(stream)
+    step_graph.close()
+    g_by_name = device_ms(gprof)
+    graph_busy_ms = sum(g_by_name.values())
+    g_top = sorted(g_by_name.items(), key=lambda kv: -kv[1])[:8]
+    # and where its host time goes: the operators by self CPU time
+    cpu_avg = prof.key_averages()
+    cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
+    cpu_ops_ms = sum(a.self_cpu_time_total for a in cpu_avg) / 1e3
+    # the prefill again, its bf16 weight copies and libraries now warm
+    t1 = time.perf_counter()
+    km.prefill(**inputs)
+    torch.cuda.synchronize()
+    stats["prefill_warm_s"] = time.perf_counter() - t1
+    if profile_prefill:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pprof:
+            t1 = time.perf_counter()
+            km.prefill(**inputs)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t1) * 1e3
+        p_by_name = device_ms(pprof)
+        p_top = sorted(p_by_name.items(), key=lambda kv: -kv[1])[:10]
+        stats["profile_prefill"] = {
+            "window_ms": pre_ms, "device_busy_ms": sum(p_by_name.values()),
+            "top_kernels_ms": {name[:80]: ms for name, ms in p_top}}
+        print(f"{tag} one warm prefill under torch.profiler: {pre_ms:.3f} ms, device "
+              f"busy {sum(p_by_name.values()):.3f} ms; top kernels "
+              f"{[(n[:60], round(ms, 3)) for n, ms in p_top]}", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    stats["profile_3_steps"] = {
+        "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / window_ms,
+        "top_kernels_ms": {name[:80]: ms for name, ms in top},
+        "cpu_ops_self_ms": cpu_ops_ms,
+        "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
+                            for a in cpu_top}}
+    stats["profile_3_replays"] = {
+        "window_ms": graph_window_ms, "device_busy_ms": graph_busy_ms,
+        "busy_share": graph_busy_ms / graph_window_ms,
+        "top_kernels_ms": {name[:80]: ms for name, ms in g_top}}
+    stats.update(kernel_vs_plain_rel=rel, kernel_vs_plain_rms=rms,
+                 argmax_agreement=agree,
+                 peak_gib_with_the_teacher_forced_runs=torch.cuda.max_memory_allocated()
+                 / 2**30)
+    del model, state, c, km, inputs, step_in
+    torch.cuda.empty_cache()
+    print(f"{tag} 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
+          f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
+    print(f"{tag} 3 decode steps as graph replays under torch.profiler: "
+          f"{graph_window_ms:.3f} ms, device busy {graph_busy_ms:.3f} ms "
+          f"({graph_busy_ms / graph_window_ms:.4f}); top kernels "
+          f"{[(n[:60], round(ms, 3)) for n, ms in g_top]}", flush=True)
+    print(f"{tag} the 3 eager steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
+          f"in all; the top by self CPU time (ms, calls): "
+          f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
+          flush=True)
+    print(f"{tag} {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16 "
+          f"compute), batch {batch}, prompt {prompt}, gen {gen}: prefill "
+          f"{stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
+          f"warm {stats['prefill_warm_s'] * 1e3:.3f} ms), "
+          f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
+          f"p50 step wall {rep.p50_wall * 1e3:.3f} ms (eager "
+          f"{rep_eager.p50_wall * 1e3:.3f} ms); capture {res.capture_s:.6f} s, "
+          f"{res.graph_nodes} nodes; peak {stats['peak_gib_serve']:.3f} GiB serving, "
+          f"{stats['peak_gib_with_the_teacher_forced_runs']:.3f} GiB with the "
+          f"teacher-forced runs; launches {launches}; "
+          f"kernel vs plain path, max |diff| / max |logit|: {rel}, ||diff|| / "
+          f"||logits||: {rms} (argmax agreement {agree}); "
+          f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    print(json.dumps({tag.strip("[]"): stats}), flush=True)
+    return cfg, res, launches, stats
+
+
+def attention_kinds_parity(dev, gen) -> dict:
+    """K5 and K6 at every shape the new serving paths give them, against
+    their plain versions under the ``check_attn`` limits, in bf16 and f32:
+    K5 non-causal at llama-3.2-vision's cross-attention (q 4 x 64 heads x
+    1024 x 128 over k/v 4 x 8 x 1600 x 128) and K6 at group 8 over its
+    1600-position image cache read whole; and for each served arch's
+    self-attention (SERVED_ATTN: its batch, heads, head dim and each window
+    of its layer kinds) K5 at its causal prefill and K6 at its decode, the
+    cache at the run's capacity and the batch's lengths spread over the
+    run's decode reads (prompt + 1 to prompt + gen - 1). Returns the max abs
+    error per launch counter."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import ENTRY as K5_FORM
+    from repro_torch.models.attention import _window_for
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    errs = dict.fromkeys((*K5_FORM.values(), "decode_attention"), 0.0)
+    vlm = get_config(VLM_ARCH)
+    vq, vkv, vhd, n_img = vlm.n_heads, vlm.n_kv_heads, vlm.head_dim_, vlm.n_image_tokens
+    for dtype in (torch.bfloat16, torch.float32):
+        form = K5_FORM[dtype]
+        q = normal(VLM_B, vq, VLM_PROMPT, vhd, dtype=dtype)
+        k, v = (normal(VLM_B, vkv, n_img, vhd, dtype=dtype) for _ in range(2))
+        errs[form] = max(errs[form], check_attn(
+            f"K5 {dtype} cross-attention {VLM_ARCH}",
+            ops.flash_attention(q, k, v, causal=False),
+            ref.attention_plain(q, k, v, causal=False)))
+        q = normal(VLM_B, vq, vhd, dtype=dtype)
+        full = torch.full((VLM_B,), n_img, dtype=torch.int32, device=dev)
+        errs["decode_attention"] = max(errs["decode_attention"], check_attn(
+            f"K6 {dtype} group {vq // vkv} over the {n_img}-position image cache",
+            ops.decode_attention(q, k, v, full), ref.decode_attention_plain(q, k, v, full)))
+        del q, k, v
+        for arch, B, prompt, gen_ in SERVED_ATTN:
+            c = get_config(arch)
+            Hq, Hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim_
+            windows = sorted({_window_for(c, kind) for kind in c.layer_plan_flat()
+                              if kind not in ("ssm", "xattn")})
+            what = f"{arch} (B {B}, {Hq}/{Hkv} heads of {hd})"
+            q = normal(B, Hq, prompt, hd, dtype=dtype)
+            k, v = (normal(B, Hkv, prompt, hd, dtype=dtype) for _ in range(2))
+            for window in windows:
+                errs[form] = max(errs[form], check_attn(
+                    f"K5 {dtype} {what} prefill {prompt}, window {window}",
+                    ops.flash_attention(q, k, v, causal=True, window=window),
+                    ref.attention_plain(q, k, v, causal=True, window=window)))
+            cap = prompt + gen_
+            q = normal(B, Hq, hd, dtype=dtype)
+            k, v = (normal(B, Hkv, cap, hd, dtype=dtype) for _ in range(2))
+            lengths = (prompt + 1 + torch.arange(B, device=dev) * (gen_ - 2) // (B - 1)
+                       ).to(torch.int32)
+            for window in windows:
+                errs["decode_attention"] = max(errs["decode_attention"], check_attn(
+                    f"K6 {dtype} {what} over a {cap}-position cache, lengths "
+                    f"{lengths.tolist()}, window {window}",
+                    ops.decode_attention(q, k, v, lengths, window=window),
+                    ref.decode_attention_plain(q, k, v, lengths, window=window)))
+            del q, k, v
+    torch.cuda.synchronize()
+    return errs
+
+
+def serve_kinds_phase(dev, smi, serve_logits=None, serve_tokens=None) -> dict:
+    """[serve-moe], [serve-xattn], [serve-embed], [serve-int8] through
+    ``serve_path`` and [serve-archs] (one ``serve`` each), each run's launch
+    counters zeroed just before it and held exactly to its K5 and K6
+    launches just after. With [serve]'s decode logits and tokens, [serve-int8]
+    prints its own decode logits against them. Runs alone after
+    ``_build.build_all()``. Returns {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import serve
+
+    t0 = time.perf_counter()
+    launches = {}
+    # granite-moe-3b-a800m at full width and depth: K5 once per layer in the
+    # prefill, K6 per layer and decode step; the experts are batched matrix
+    # products (no kernel of the port, as in the reference)
+    cfg = get_config(MOE_ARCH)
+    L, steps = cfg.n_layers, MOE_GEN - 1
+    _, _, launches["serve-moe"], _ = serve_path(
+        dev, smi, "[serve-moe]", cfg, MOE_B, MOE_PROMPT, MOE_GEN,
+        dict(flash_attention=L, decode_attention=L * steps), TOL_SERVE_MOE,
+        profile_prefill=True)
+    # llama-3.2-vision-90b at full width, cut to one block of 4 attn layers
+    # and 1 xattn layer: K5 per layer (the xattn layer's non-causal over the
+    # 1600 image tokens, in its f32 form: f32 image embeddings give f32
+    # image K/V, as in the reference), K6 per layer and step (the xattn
+    # layer's over its static f32 image cache)
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    if cfg.layer_plan() != ((("attn",) * (VLM_LAYERS - 1) + ("xattn",), 1),):
+        fail(f"[serve-xattn] layer plan {cfg.layer_plan()}")
+    L, steps = cfg.n_layers, VLM_GEN - 1
+    _, _, launches["serve-xattn"], _ = serve_path(
+        dev, smi, "[serve-xattn]", cfg, VLM_B, VLM_PROMPT, VLM_GEN,
+        dict(flash_attention=L - 1, flash_attention_f32=1, decode_attention=L * steps),
+        TOL_SERVE_VLM, image_gate=IMAGE_GATE)
+    # musicgen-medium at full width and depth: embedding prompts, a fresh
+    # embedding drawn inside each decode step's graph
+    cfg = get_config(EMB_ARCH)
+    L, steps = cfg.n_layers, EMB_GEN - 1
+    _, _, launches["serve-embed"], _ = serve_path(
+        dev, smi, "[serve-embed]", cfg, EMB_B, EMB_PROMPT, EMB_GEN,
+        dict(flash_attention=L, decode_attention=L * steps), TOL_SERVE_EMBED)
+    # internlm2-1.8b with the int8 KV cache at [serve]'s shape
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), kv_quant=True)
+    L, steps = cfg.n_layers, SERVE_GEN - 1
+    _, res8, launches["serve-int8"], _ = serve_path(
+        dev, smi, "[serve-int8]", cfg, SERVE_B, SERVE_PROMPT, SERVE_GEN,
+        dict(flash_attention=L, decode_attention=L * steps), TOL_SERVE_INT8,
+        keep_logits=serve_logits is not None)
+    if serve_logits is not None:
+        # step i's logits compare where both runs fed the same tokens so far
+        same = np.cumprod(res8.tokens == serve_tokens, axis=1).astype(bool)
+        gaps = []
+        for i in range(steps):
+            rows = torch.from_numpy(same[:, i])
+            if not bool(rows.any()):
+                break
+            a, b = res8.logits[i][rows], serve_logits[i][rows]
+            gaps.append(((a - b).abs().max() / b.abs().max()).item())
+        print(f"[serve-int8] the int8 cache's decode logits against [serve]'s bf16 "
+              f"cache, max |diff| / max |logit| per step over the sequences whose "
+              f"tokens agree so far ({len(gaps)} steps; {int(same[:, -1].sum())} of "
+              f"{SERVE_B} sequences agree throughout): max {max(gaps) if gaps else None}, "
+              f"{gaps}", flush=True)
+        res8.logits = None
+    # the other registered archs, one serve each (graph decode), freed in turn
+    for arch in ARCHS_SERVED:
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        if arch in ARCHS_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=ARCHS_LAYERS[arch])
+        attn = sum(kind != "ssm" for kind in cfg.layer_plan_flat())
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(cfg, batch=ARCHS_B, prompt_len=ARCHS_PROMPT, gen=ARCHS_GEN, seed=0,
+                    verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = dict(dict.fromkeys(_build.ENTRIES, 0), flash_attention=attn,
+                    decode_attention=attn * (ARCHS_GEN - 1))
+        if got != want:
+            fail(f"[serve-archs] {arch}: launches {got}, expected {want}")
+        if res.tokens.shape != (ARCHS_B, ARCHS_GEN) or res.poisoned_steps:
+            fail(f"[serve-archs] {arch}: tokens {res.tokens.shape}, poisoned steps "
+                 f"{res.poisoned_steps}")
+        launches[f"serve-archs {arch}"] = got
+        rep = res.report
+        print(f"[serve-archs] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.param_count() / 1e9:.3f}B parameters), batch {ARCHS_B}, prompt "
+              f"{ARCHS_PROMPT}, gen {ARCHS_GEN}: prefill {res.prefill_s * 1e3:.3f} ms, "
+              f"p50 decode step {rep.p50_wall * 1e3:.3f} ms as a graph replay (captured in "
+              f"{res.capture_s:.6f} s, {res.graph_nodes} nodes), {rep.tokens_per_s:.1f} "
+              f"tok/s steady; launches K5 {got['flash_attention']}, K6 "
+              f"{got['decode_attention']}; {len(res.flagged_steps)} steps flagged, none "
+              f"poisoned; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"{time.perf_counter() - t1:.3f} s | {smi}", flush=True)
+        del res
+        torch.cuda.empty_cache()
+    print(f"[serve-kinds] {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    return launches
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -2295,7 +2859,7 @@ def main() -> int:
     from repro_torch.core.runtimes._capture import Graphed, GraphRun, time_runs
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import ENTRY as K5_FORM  # form per dtype
-    from repro_torch.launch.serve import _grow_caches, make_prompts, serve
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.models.model import Model
     from repro_torch.kernels.bodies import apply_body
     from repro_torch.kernels.taskbench_step import (
@@ -2622,6 +3186,11 @@ def main() -> int:
         errs["decode_attention"] = max(errs["decode_attention"], check_attn(
             f"K6 hymba {dtype}", ops.decode_attention(q, kc, vc, lengths, window=win),
             ref.decode_attention_plain(q, kc, vc, lengths, window=win)))
+    # K5 and K6 at every shape of the other serving paths: cross-attention
+    # over 1600 image tokens and its cache read whole, and each served
+    # arch's prefill and decode (head dims 64, 80, 128, 256; groups 1-8)
+    for form, err in attention_kinds_parity(dev, gen).items():
+        errs[form] = max(errs[form], err)
     # K7 at the serving prefills' chunks (mamba2: BC = 8 x 8 chunks, 24
     # heads, N 128; hymba: 50 heads, N 16), at a 5-token prompt, with two
     # groups; some dtA <= -30, whose decays underflow and must stay finite
@@ -3987,7 +4556,7 @@ def main() -> int:
                                 "profiled": prof_rows, "refused": refused}}), flush=True)
 
     # --------------------------------------------------------------- shards
-    launches_shards, _ = shards_phase(dev, rand, smi, counted_calls)
+    launches_shards, _ = shards_phase(dev, rand, smi, counted_calls, T=T_SHARD)
 
     # ---------------------------------------------------------------- trace
     trace_phase(dev, rand, smi)
@@ -4034,221 +4603,25 @@ def main() -> int:
     print(f"[metg] {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
 
     # ---------------------------------------------------------------- serve
-    def serve_path(tag: str, arch: str, batch: int, prompt: int, gen: int,
-                   want: dict, tol: float):
-        """Serve ``arch`` at full width and depth through ``serve`` (random
-        weights from seed 0, greedy; each decode step after the first a
-        graph replay), the launch counters zeroed just before and held to
-        ``want`` just after, and again with every decode step eager (the
-        same tokens and logits); then the same model through the
-        kernels and through the plain path, teacher-forced with the served
-        tokens (the prefill and 4 decode steps held to ``tol``: limits on
-        max |diff| / max |logit| and ||diff|| / ||logits||, None where a
-        metric is only printed), 3 more eager decode steps and 3 graph
-        replays under torch.profiler, and the prefill again, warm.
-        Returns (cfg, serve result, launches, stats)."""
-        t0 = time.perf_counter()
-        cfg = get_config(arch)
-        cap = prompt + gen
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        res = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, verbose=True,
-                    device="cuda", keep_logits=True)
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
-        # the same run with every decode step eager: the same tokens and the
-        # same logits, bit for bit (the graph replays the same kernels on the
-        # same buffers)
-        res_eager = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0,
-                          verbose=False, device="cuda", graph=False, keep_logits=True)
-        if not np.array_equal(res.tokens, res_eager.tokens):
-            fail(f"{tag} the graph's greedy tokens differ from the eager loop's")
-        if not torch.equal(res.logits, res_eager.logits):
-            fail(f"{tag} the graph's decode logits differ from the eager loop's, max "
-                 f"|difference| {(res.logits - res_eager.logits).abs().max().item()}")
-        rep_eager = res_eager.report
-        print(f"{tag} decode as one CUDA graph a step (captured in "
-              f"{res.capture_s:.6f} s, {res.graph_nodes} nodes): tokens and logits of "
-              f"{gen - 1} steps equal the eager loop's bit for bit; p50 step wall "
-              f"{res.report.p50_wall * 1e3:.3f} ms, eager {rep_eager.p50_wall * 1e3:.3f} ms "
-              f"| {smi}", flush=True)
-        res.logits = res_eager.logits = None
-        want_d = dict.fromkeys(_build.ENTRIES, 0)
-        want_d.update(want)
-        if launches != want_d:
-            fail(f"{tag} launches {launches}, expected {want_d}")
-        if want.get("flash_attention"):
-            # the counters name the form: the prefill's attention was bf16
-            print(f"{tag} K5 received {cfg.dtype} operands: "
-                  f"{launches['flash_attention']} launches of its tensor-core form, "
-                  f"{launches['flash_attention_f32']} of its f32 form", flush=True)
-        if res.tokens.shape != (batch, gen) or res.poisoned_steps:
-            fail(f"{tag} tokens {res.tokens.shape}, poisoned steps {res.poisoned_steps}")
-        rep = res.report
-        stats = {
-            "arch": arch, "batch": batch, "prompt": prompt, "gen": gen,
-            "prefill_s": res.prefill_s,
-            "prefill_tok_per_s": batch * prompt / res.prefill_s,
-            "decode_tok_per_s": res.tokens_per_s,
-            "decode_tok_per_s_steady": rep.tokens_per_s,
-            "step_wall_p50_ms": rep.p50_wall * 1e3,
-            "step_wall_mean_ms": rep.mean_wall * 1e3,
-            "eager_step_wall_p50_ms": rep_eager.p50_wall * 1e3,
-            "eager_step_wall_mean_ms": rep_eager.mean_wall * 1e3,
-            "eager_decode_tok_per_s_steady": rep_eager.tokens_per_s,
-            "capture_s": res.capture_s, "graph_nodes": res.graph_nodes,
-            "flagged_steps": len(res.flagged_steps),
-            "peak_gib_serve": torch.cuda.max_memory_allocated() / 2**30,
-        }
-        # the same model (seed 0) through the kernels and through the plain
-        # path, on the served prompts, teacher-forced with the served tokens
-        models = {"kernels": Model(cfg, device=dev, seed=0),
-                  "plain": Model(dataclasses.replace(cfg, use_flash=False),
-                                 device=dev, seed=0)}
-        prompts = make_prompts(cfg, batch, prompt, 0, dev)
-        served = torch.from_numpy(res.tokens).to(dev)
-        state = {}
-        for label, model in models.items():
-            lg, c = model.prefill(prompts)
-            state[label] = [lg], _grow_caches(model, c, batch, cap)
-        lengths = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
-        for i in range(4):
-            for label, model in models.items():
-                lgs, c = state[label]
-                lg, c = model.decode_step(served[:, i:i + 1], lengths, c)
-                state[label] = lgs + [lg], c
-            lengths = lengths + 1
-        rel, rms = [], []
-        for i, (lk, lp) in enumerate(zip(state["kernels"][0], state["plain"][0])):
-            what = "prefill" if i == 0 else f"decode step {i - 1}"
-            if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())):
-                fail(f"{tag} {what}: non-finite logits")
-            if not torch.equal(lk.argmax(-1), served[:, i]):
-                fail(f"{tag} {what}: the kernel path's argmax differs from the served token")
-            rel.append(((lk - lp).abs().max() / lp.abs().max()).item())
-            rms.append((torch.linalg.vector_norm(lk - lp) / torch.linalg.vector_norm(lp)).item())
-        print(f"{tag} kernel vs plain path, prefill and 4 decode steps: max |diff| / "
-              f"max |logit| {rel} (limit {tol['max']}); ||diff|| / ||logits|| {rms} "
-              f"(limit {tol['rms']})", flush=True)
-        for metric, got in (("max", rel), ("rms", rms)):
-            if tol[metric] is not None and not max(got) <= tol[metric]:
-                fail(f"{tag} kernel vs plain path ({metric}): {got}, above {tol[metric]}")
-        agree = [float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-                 for lk, lp in zip(state["kernels"][0], state["plain"][0])]
-        # where a decode step's device time goes: 3 more steps of the kernel
-        # path under torch.profiler, its kernels' device times summed by name
-        from torch.profiler import ProfilerActivity, profile
-
-        km, (_, c) = models["kernels"], state["kernels"]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            for i in range(4, 7):
-                _, c = km.decode_step(served[:, i:i + 1], lengths, c)
-                lengths = lengths + 1
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t1) * 1e3
-        def device_ms(prof):
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            return by_name
-
-        by_name = device_ms(prof)
-        busy_ms = sum(by_name.values())
-        # and as graph replays: step 7 eagerly on the capture stream (the
-        # warm-up), the step captured, then steps 8-10 replayed
-        tokb = served[:, 7:8].clone()
-
-        def tf_step():
-            lg, _ = km.decode_step(tokb, lengths, c)
-            lengths.add_(1)
-            return lg
-
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            tf_step()
-            step_graph = Graphed(tf_step, stream)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
-                t1 = time.perf_counter()
-                for i in range(8, 11):
-                    tokb.copy_(served[:, i:i + 1])
-                    step_graph.replay()
-                torch.cuda.synchronize()
-                graph_window_ms = (time.perf_counter() - t1) * 1e3
-        torch.cuda.current_stream().wait_stream(stream)
-        step_graph.close()
-        g_by_name = device_ms(gprof)
-        graph_busy_ms = sum(g_by_name.values())
-        g_top = sorted(g_by_name.items(), key=lambda kv: -kv[1])[:8]
-        # and where its host time goes: the operators by self CPU time
-        cpu_avg = prof.key_averages()
-        cpu_top = sorted(cpu_avg, key=lambda a: -a.self_cpu_time_total)[:12]
-        cpu_ops_ms = sum(a.self_cpu_time_total for a in cpu_avg) / 1e3
-        # the prefill again, its bf16 weight copies and libraries now warm
-        t1 = time.perf_counter()
-        km.prefill(prompts)
-        torch.cuda.synchronize()
-        stats["prefill_warm_s"] = time.perf_counter() - t1
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        stats["profile_3_steps"] = {
-            "window_ms": window_ms, "device_busy_ms": busy_ms,
-            "busy_share": busy_ms / window_ms,
-            "top_kernels_ms": {name[:80]: ms for name, ms in top},
-            "cpu_ops_self_ms": cpu_ops_ms,
-            "top_cpu_self_ms": {a.key[:80]: [a.self_cpu_time_total / 1e3, a.count]
-                                for a in cpu_top}}
-        stats["profile_3_replays"] = {
-            "window_ms": graph_window_ms, "device_busy_ms": graph_busy_ms,
-            "busy_share": graph_busy_ms / graph_window_ms,
-            "top_kernels_ms": {name[:80]: ms for name, ms in g_top}}
-        stats.update(kernel_vs_plain_rel=rel, kernel_vs_plain_rms=rms,
-                     argmax_agreement=agree,
-                     peak_gib_with_two_models=torch.cuda.max_memory_allocated() / 2**30)
-        del models, state, c, km
-        torch.cuda.empty_cache()
-        print(f"{tag} 3 decode steps under torch.profiler: {window_ms:.3f} ms, device "
-              f"busy {busy_ms:.3f} ms ({busy_ms / window_ms:.4f}); top kernels "
-              f"{[(n[:60], round(ms, 3)) for n, ms in top]}", flush=True)
-        print(f"{tag} 3 decode steps as graph replays under torch.profiler: "
-              f"{graph_window_ms:.3f} ms, device busy {graph_busy_ms:.3f} ms "
-              f"({graph_busy_ms / graph_window_ms:.4f}); top kernels "
-              f"{[(n[:60], round(ms, 3)) for n, ms in g_top]}", flush=True)
-        print(f"{tag} the 3 eager steps, host operators' self CPU time {cpu_ops_ms:.3f} ms "
-              f"in all; the top by self CPU time (ms, calls): "
-              f"{[(a.key[:60], a.self_cpu_time_total / 1e3, a.count) for a in cpu_top]}",
-              flush=True)
-        print(f"{tag} {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16 "
-              f"compute), batch {batch}, prompt {prompt}, gen {gen}: prefill "
-              f"{stats['prefill_tok_per_s']:.1f} tok/s ({res.prefill_s * 1e3:.3f} ms; "
-              f"warm {stats['prefill_warm_s'] * 1e3:.3f} ms), "
-              f"decode {res.tokens_per_s:.1f} tok/s ({rep.tokens_per_s:.1f} steady), "
-              f"p50 step wall {rep.p50_wall * 1e3:.3f} ms (eager "
-              f"{rep_eager.p50_wall * 1e3:.3f} ms); launches {launches}; "
-              f"kernel vs plain path, max |diff| / max |logit|: {rel}, ||diff|| / "
-              f"||logits||: {rms} (argmax agreement {agree}); "
-              f"{time.perf_counter() - t0:.3f} s | {smi}", flush=True)
-        print(json.dumps({tag.strip("[]"): stats}), flush=True)
-        return cfg, res, launches, stats
-
     n_layers, steps = cfg_serve.n_layers, SERVE_GEN - 1
     _, res, serve_launches, serve_stats = serve_path(
-        "[serve]", SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN,
+        dev, smi, "[serve]", cfg_serve, SERVE_B, SERVE_PROMPT, SERVE_GEN,
         dict(flash_attention=n_layers, decode_attention=n_layers * steps),
-        {"max": TOL_SERVE_REL, "rms": None})
+        {"max": TOL_SERVE_REL, "rms": None}, keep_logits=True)
     rep = res.report
     # mamba2-130m: K7 once per layer in the prefill, no kernel in decode
     _, res_ssm, ssm_launches, ssm_stats = serve_path(
-        "[serve-ssm]", SSM_ARCH, SSM_B, SSM_PROMPT, SSM_GEN,
+        dev, smi, "[serve-ssm]", cfg_ssm, SSM_B, SSM_PROMPT, SSM_GEN,
         dict(ssd_chunk=cfg_ssm.n_layers), TOL_SERVE_SSM)
     # hymba-1.5b: K5 and K7 once per layer in the prefill, K6 per layer and step
     hl, hs = cfg_hyb.n_layers, HYB_GEN - 1
     _, _, hyb_launches, hyb_stats = serve_path(
-        "[serve-hybrid]", HYB_ARCH, HYB_B, HYB_PROMPT, HYB_GEN,
+        dev, smi, "[serve-hybrid]", cfg_hyb, HYB_B, HYB_PROMPT, HYB_GEN,
         dict(flash_attention=hl, ssd_chunk=hl, decode_attention=hl * hs), TOL_SERVE_HYB)
+    # the MoE kind, cross-attention over image tokens, embedding inputs, the
+    # int8 KV cache and the other registered archs
+    kinds_launches = serve_kinds_phase(dev, smi, res.logits, res.tokens)
+    res.logits = None
 
     # ----------------------------------------------------------------- norm
     # K8's one entry point, ops.rmsnorm, over mamba2-130m's norm shapes: the
@@ -4599,8 +4972,10 @@ def main() -> int:
     del src_m, got_m, want_m
 
     # K5 at internlm2's and hymba's prefill shapes (bf16, and its f32 form at
-    # internlm2's), K6 at the serving decode warm and L2-cold, each beside
-    # scaled_dot_product_attention on the same inputs (a yardstick only)
+    # internlm2's and at llama-vision's cross-attention, which [serve-xattn]
+    # runs over f32 image K/V), K6 at the serving decode warm and L2-cold,
+    # each beside scaled_dot_product_attention on the same inputs (a
+    # yardstick only)
     t5, (got, want) = attention_times.flash_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, hd)
     check_attn("K5 timing inputs", got, want)
     t5h, (got, want) = attention_times.flash_case(HYB_B, hq, hkv, HYB_PROMPT, hhd, window=win)
@@ -4608,6 +4983,11 @@ def main() -> int:
     t5f, (got, want) = attention_times.flash_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, hd,
                                                   dtype=torch.float32, reps=(5, 3, 20))
     check_attn("K5 f32 timing inputs", got, want)
+    vlm = get_config(VLM_ARCH)
+    t5x, (got, want) = attention_times.flash_case(
+        VLM_B, vlm.n_heads, vlm.n_kv_heads, VLM_PROMPT, vlm.head_dim_,
+        Sk=vlm.n_image_tokens, causal=False, dtype=torch.float32, reps=(5, 3, 20))
+    check_attn("K5 cross-attention timing inputs", got, want)
     t6, (got, want) = attention_times.decode_case(SERVE_B, Hq, Hkv, SERVE_PROMPT, cap, hd)
     check_attn("K6 timing inputs", got, want)
     del got, want
@@ -4623,13 +5003,22 @@ def main() -> int:
         "shape_B_Hq_Hkv_S_D": t5["shape"], "dtype": "bfloat16",
         "hymba": {key: t5h[key] for key in ("shape", "window", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms", *yard)},
+        "cross_attention": {"dtype": "float32",
+                            **{key: t5x[key] for key in ("shape", "causal", "ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms",
+                                                         *yard)}},
         "f32_form": {"source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
                      "launches": serve_launches["flash_attention_f32"],
+                     "launches_by_path": {path: n["flash_attention_f32"]
+                                          for path, n in kinds_launches.items()
+                                          if n["flash_attention_f32"]},
                      "max_abs_err": errs["flash_attention_f32"],
                      **{key: t5f[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms", *yard)}},
         "launches_by_path": {"serve": serve_launches["flash_attention"],
-                             "serve-hybrid": hyb_launches["flash_attention"]},
+                             "serve-hybrid": hyb_launches["flash_attention"],
+                             **{path: n["flash_attention"]
+                                for path, n in kinds_launches.items()}},
         "launches_per_run": serve_launches["flash_attention"],
         "prefill_share": n_layers * t5["ms"] / (res.prefill_s * 1e3),
         "prefill_share_warm": n_layers * t5["ms"] / (serve_stats["prefill_warm_s"] * 1e3),
@@ -4653,12 +5042,15 @@ def main() -> int:
         "library_pinned_warm_ms": t6["library_pinned_ms"],
         "shape_B_Hq_Hkv_S_D": t6["shape"], "visible": t6["visible"], "dtype": "bfloat16",
         "launches_by_path": {"serve": serve_launches["decode_attention"],
-                             "serve-hybrid": hyb_launches["decode_attention"]},
+                             "serve-hybrid": hyb_launches["decode_attention"],
+                             **{path: n["decode_attention"]
+                                for path, n in kinds_launches.items()}},
         "launches_per_run": serve_launches["decode_attention"],
         "decode_share": n_layers * t6["cold_ms"] / (rep.p50_wall * 1e3),
     }
     kernels += [k5, k6]
     for tag, t, shape in (("K5", t5, "internlm2"), ("K5", t5h, "hymba"),
+                          ("K5 f32 form", t5x, "llama-vision cross-attention"),
                           ("K5 f32 form", t5f, "internlm2"), ("K6 warm", t6, "internlm2")):
         print(f"[time] {tag} {shape} {t['shape']}: {t['ms'] * 1e3:.3f} us per launch "
               f"(plain version {t['plain_ms'] * 1e3:.3f} us; scaled_dot_product_attention "

@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolution for launchers/tests/benches.
 
 A copy of ``repro.configs.registry`` (the Task Bench grid is not an arch:
-its presets are in ``configs/taskbench.py``). Every arch is listed; ``models.model.Model`` raises ``NotImplementedError`` for the
-kinds the port cannot run yet.
+its presets are in ``configs/taskbench.py``). Every arch is listed, and
+``models.model.Model`` builds and ``launch.serve`` serves each of them.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@
 
 Times ``ops.flash_attention`` (K5) at internlm2-1.8b's serving prefill (8
 x 16 query over 8 KV heads x 1024 x 128, causal) in bf16 and in f32, and
-at hymba-1.5b's (4 x 25 over 5 x 1024 x 64, causal, window 1024) in bf16;
+at hymba-1.5b's (4 x 25 over 5 x 1024 x 64, causal, window 1024) and
+llama-3.2-vision's cross-attention (4 x 64 x 1024 over 8 x 1600 image keys
+x 128, unmasked) in bf16;
 and ``ops.decode_attention`` (K6) at internlm2's serving decode (q 8 x 16
 x 128 over an 8 x 8 x 1088 x 128 bf16 cache, lengths in [1024, 1088)).
 Each beside its plain version and beside ``scaled_dot_product_attention``
@@ -149,31 +151,38 @@ def _randn(gen, *shape, dtype):
 
 
 def flash_case(B: int, Hq: int, Hkv: int, S: int, D: int, window: int = 0,
-               dtype=torch.bfloat16, seed: int = 1, reps=(20, 3, 50)):
-    """K5 over q (B, Hq, S, D), k and v (B, Hkv, S, D), causal (and
-    ``window``, which must be 0 or cover the whole prompt, so that SDPA's
-    plain causal call computes the same function). Returns (record, (got,
-    want)): the kernel's and the plain version's outputs for the caller to
-    check."""
+               dtype=torch.bfloat16, seed: int = 1, reps=(20, 3, 50),
+               Sk: Optional[int] = None, causal: bool = True):
+    """K5 over q (B, Hq, S, D), k and v (B, Hkv, Sk, D) (Sk = S by
+    default), causal (and ``window``, which must be 0 or cover the whole
+    prompt, so that SDPA's plain causal call computes the same function),
+    or with ``causal=False`` unmasked (cross-attention, Sk image keys).
+    Returns (record, (got, want)): the kernel's and the plain version's
+    outputs for the caller to check."""
     if 0 < window < S:
         raise ValueError("the SDPA yardstick has no sliding window: window must be 0 or >= S")
+    Sk = S if Sk is None else Sk
+    if causal and Sk != S:
+        raise ValueError("a causal case takes Sk == S")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = _randn(gen, B, Hq, S, D, dtype=dtype)
-    k, v = _randn(gen, B, Hkv, S, D, dtype=dtype), _randn(gen, B, Hkv, S, D, dtype=dtype)
-    kern = lambda: ops.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
-    plain = lambda: ref.attention_plain(q, k, v, causal=True, window=window)  # noqa: E731
+    k, v = _randn(gen, B, Hkv, Sk, D, dtype=dtype), _randn(gen, B, Hkv, Sk, D, dtype=dtype)
+    kern = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    plain = lambda: ref.attention_plain(q, k, v, causal=causal, window=window)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
+        q, k, v, is_causal=causal, enable_gqa=True)
     got, want = kern(), plain()
     item = q.element_size()
     nbytes = item * (2 * q.numel() + k.numel() + v.numel())
-    nops = 4 * B * Hq * S * S * D / 2  # q k^T and p v over the causal half
+    # q k^T and p v, over the causal half where causal
+    nops = 4 * B * Hq * S * Sk * D / (2 if causal else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     t_ops = nops / peak * 1e3
     kernels = device_kernels(lib)
     rec = {
-        "shape": [B, Hq, Hkv, S, D], "window": window, "dtype": str(dtype).split(".")[-1],
+        "shape": [B, Hq, Hkv, S, D] if Sk == S else [B, Hq, Hkv, S, Sk, D],
+        "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
         "ms": gpu_ms(kern, reps[0]), "plain_ms": gpu_ms(plain, reps[1]),
         "library_ms": gpu_ms(lib, reps[2]), "library_kernels": kernels,
         "library_pinned_ms": pinned_ms(lib, reps[2]),
@@ -246,6 +255,8 @@ def main() -> int:
              ("K5 hymba bf16", lambda: flash_case(4, 25, 5, 1024, 64, window=1024)),
              ("K5 internlm2 f32", lambda: flash_case(8, 16, 8, 1024, 128,
                                                      dtype=torch.float32, reps=(5, 3, 20))),
+             ("K5 llama-vision cross-attention bf16",
+              lambda: flash_case(4, 64, 8, 1024, 128, Sk=1600, causal=False)),
              ("K6 internlm2 bf16", decode_case))
     for label, case in cases:
         rec, (got, want) = case()

@@ -1,18 +1,26 @@
 """Batched serving loop: prefill a prompt batch, decode tokens step by step.
 
-Counterpart of ``repro.launch.serve`` on one device. The serving path runs
-the KV caches, the flash attention kernel (K5) in prefill and the decode
-attention kernel (K6) in every decode step; the ``ssm`` and ``hybrid``
-kinds (mamba2-130m, hymba-1.5b) also run the SSD intra-chunk kernel (K7)
-in prefill and carry O(1) SSM states through decode. The ``moe`` and
-``xattn`` kinds and embedding inputs raise ``NotImplementedError``
-(ROADMAP Queue 1 item 12). The OverheadProfiler reports
-per-token dispatch overhead — the serving analogue of the paper's per-task
-overhead measurement, where a "task" is one decode step of one sequence.
-Each decode step's wall ends with a ``torch.cuda.synchronize()``. Weights
-are random, drawn from ``seed``; prompts from ``seed + 1``; sampling (when
-not greedy) from ``seed + 2``. The reference's ``mesh`` option is not
-ported yet (ROADMAP Queue 1 item 12).
+Counterpart of ``repro.launch.serve`` on one device, for every registered
+arch. The serving path runs the KV caches (int8 with per-position scales
+under ``kv_quant``), the flash attention kernel (K5) in prefill and the
+decode attention kernel (K6) in every decode step; the ``ssm`` and
+``hybrid`` kinds (mamba2-130m, hymba-1.5b) also run the SSD intra-chunk
+kernel (K7) in prefill and carry O(1) SSM states through decode; the
+``moe`` kind routes each token to its top-k experts. The OverheadProfiler
+reports per-token dispatch overhead — the serving analogue of the paper's
+per-task overhead measurement, where a "task" is one decode step of one
+sequence. Each decode step's wall ends with a ``torch.cuda.synchronize()``.
+Weights are random, drawn from ``seed``; prompts from ``seed + 1``;
+sampling (when not greedy) from ``seed + 2``. The reference's ``mesh``
+option is not ported yet (ROADMAP Queue 1).
+
+Inputs as the reference's ``serve`` makes them: with ``embed_inputs``
+(musicgen) the prompts are 0.02·N(0, 1) embeddings drawn from ``seed +
+1``, and each decode step draws a fresh (B, 1, d_model) embedding from
+``seed + 3``. With ``n_image_tokens`` (llama-3.2-vision) the prefill gets
+zero image embeddings (B, n_image_tokens, d_model); with the
+cross-attention gates at their zero init, the cross-attention layers then
+add exactly 0, as in the reference.
 
 On the card each decode step after the first is one CUDA graph replay, the
 counterpart of the reference's jitted decode step: the step reads and
@@ -20,9 +28,11 @@ writes static buffers (the token ``tok``, ``lengths``, incremented in
 place, the health flag, and the capacity-sized caches, updated in place).
 Step 0 runs eagerly on the capture stream: it is a real step and the
 warm-up; the step is captured after it (a capture runs nothing) and
-replayed once for each later step. Sampled decoding registers its
-generator with the graph. ``graph=False`` runs every step eagerly (the
-ablation: what the graph removes); on the CPU every step is eager.
+replayed once for each later step. Sampled decoding and the per-step
+embedding draw register their generators with the graph, so graph and
+eager decode draw the same numbers. ``graph=False`` runs every step
+eagerly (the ablation: what the graph removes); on the CPU every step is
+eager.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
@@ -31,6 +41,9 @@ Usage:
       --batch 8 --prompt-len 1024 --gen 64          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+      --reduced --device cpu       # also mixtral-8x7b, llama-3.2-vision-90b,
+                                   # musicgen-medium, and every other arch
 """
 from __future__ import annotations
 
@@ -39,7 +52,7 @@ import contextlib
 import dataclasses
 import sys
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -90,6 +103,30 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
                          generator=gen, device=device)
 
 
+def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The prefill's keyword inputs `serve` runs for ``seed``: ``tokens``
+    (make_prompts) or, with ``embed_inputs``, ``embeds`` of 0.02·N(0, 1)
+    from ``seed + 1``; with image tokens, zero ``image_embeds``."""
+    if cfg.embed_inputs:
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        out = {"embeds": 0.02 * torch.randn((batch, prompt_len, cfg.d_model),
+                                            generator=gen, device=device)}
+    else:
+        out = {"tokens": make_prompts(cfg, batch, prompt_len, seed, device)}
+    if cfg.n_image_tokens:
+        out["image_embeds"] = torch.zeros((batch, cfg.n_image_tokens, cfg.d_model),
+                                          device=device)
+    return out
+
+
+def step_embeds(cfg: ModelConfig, batch: int, gen: torch.Generator,
+                device) -> torch.Tensor:
+    """One decode step's fresh input embeddings (B, 1, d_model), 0.02·N(0,
+    1) from ``gen`` (seeded ``seed + 3`` in `serve`)."""
+    return 0.02 * torch.randn((batch, 1, cfg.d_model), generator=gen, device=device)
+
+
 def serve(
     cfg: ModelConfig,
     *,
@@ -119,11 +156,12 @@ def serve(
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     model = Model(cfg, device=dev, seed=seed)
     capacity = prompt_len + gen
-    prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
+    inputs = make_inputs(cfg, batch, prompt_len, seed, dev)
     sampler = torch.Generator(device=dev).manual_seed(seed + 2)
+    embedder = torch.Generator(device=dev).manual_seed(seed + 3)
 
     t0 = time.perf_counter()
-    logits, caches = model.prefill(prompts)
+    logits, caches = model.prefill(**inputs)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     # prefill caches hold exactly prompt_len entries; grow to capacity
@@ -153,7 +191,11 @@ def serve(
 
     def step() -> torch.Tensor:
         """One decode step on the static buffers; returns its logits."""
-        lg, _ = model.decode_step(tok, lengths, caches)  # caches in place
+        if cfg.embed_inputs:
+            lg, _ = model.decode_step(lengths=lengths, caches=caches,
+                                      embeds=step_embeds(cfg, batch, embedder, dev))
+        else:
+            lg, _ = model.decode_step(tok, lengths, caches)  # caches in place
         # argmax of poisoned logits still yields a legal token id, so
         # health is read off the logits
         torch.logical_not(torch.isfinite(lg).all(), out=bad)
@@ -170,11 +212,12 @@ def serve(
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(dev))
     graphed: Optional[Graphed] = None
+    gens = (() if greedy else (sampler,)) + ((embedder,) if cfg.embed_inputs else ())
     t0 = time.perf_counter()
     with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         for i in range(gen - 1):
             if use_graph and i == 1:
-                graphed = Graphed(step, stream, () if greedy else (sampler,))
+                graphed = Graphed(step, stream, gens)
                 detector.note_recompile_boundary()
             t1 = time.perf_counter()
             lg = step() if graphed is None else graphed.replay()
@@ -233,8 +276,10 @@ def serve(
 def _grow_caches(model: Model, caches, batch: int, capacity: int):
     """Copy prefill caches (length = prompt_len) into capacity-sized buffers.
 
-    Attention K and V grow along the sequence dim (zeros past the prompt);
-    the SSM conv window and state are O(1) and pass through.
+    Attention K and V (int8 K/V and their scales too) grow along the
+    sequence dim (zeros past the prompt); the SSM conv window and state are
+    O(1) and the cross-attention image caches fixed-size: they pass
+    through.
     """
     full = model.init_caches(batch, capacity)
     for dst, src in zip(full, caches):
@@ -243,7 +288,7 @@ def _grow_caches(model: Model, caches, batch: int, capacity: int):
                 d = dst[part][name]
                 if d.shape == t.shape:
                     dst[part][name] = t.to(d.dtype)
-                else:  # attention K/V: (B, Hkv, S, hd), a prefix along dim 2
+                else:  # attention K/V (B, Hkv, S, hd), scales (B, Hkv, S, 1)
                     d[:, :, :t.shape[2]] = t
     return full
 

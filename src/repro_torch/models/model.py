@@ -1,22 +1,33 @@
 """Top-level model: embedding -> decoder layers -> norm -> LM head.
 
 Counterpart of ``repro.models.model`` for serving (prefill and decode) of
-the dense kinds ``attn``, ``local`` and ``global``, the Mamba-2 kind
-``ssm`` and the Hymba kind ``hybrid``. The reference stacks each layer
-group's parameters on a leading ``reps`` axis and scans it; the port keeps
-one module per layer (``Model.layers``, in layer order) and loops.
-``params_from_reference`` and ``caches_from_reference`` /
-``caches_to_reference`` carry weights and caches (KV caches, SSM conv
-windows and states) between the two layouts.
+every layer kind: ``attn``, ``local``, ``global``, ``moe``, ``ssm``,
+``hybrid`` and ``xattn``, with token or embedding inputs, image tokens and
+the int8 KV cache. The reference stacks each layer group's parameters on a
+leading ``reps`` axis and scans it; the port keeps one module per layer
+(``Model.layers``, in layer order) and loops. ``params_from_reference``
+and ``caches_from_reference`` / ``caches_to_reference`` carry weights and
+caches (KV caches, int8 caches and their scales, image K/V caches, SSM
+conv windows and states) between the two layouts.
+
+Inputs are the reference's batch keys as keyword tensors: ``tokens`` (B,
+S) int, or ``embeds`` (B, S, d_model) with ``cfg.embed_inputs`` (then, with
+untied embeddings, there is no ``embed`` parameter), and in the prefill
+``image_embeds`` (B, n_image_tokens, d_model) with ``cfg.n_image_tokens``.
+``tokens``' embeddings and ``embeds`` are cast to ``cfg.dtype``;
+``image_embeds`` are not, as in the reference: the image K/V take their
+dtype promoted with the weights' (f32 in a bf16 model fed f32 embeddings).
 
 Mixed precision as the reference's ``_cast_group``: parameters are stored
 in ``cfg.param_dtype`` (f32); in the layers every matrix (>= 2 dims, the
-SSM's conv taps among them) computes in ``cfg.dtype`` (bf16 at full size)
-and vectors and scalars (the norms, the SSM's A_log, D, dt_bias and conv
-bias, the hybrid's fuse scalars) stay in f32; the LM head multiplies in
-f32. The bf16 copies of the matrices are made once and kept
-(``_layer_params``) until a parameter changes, where the reference casts
-them anew in every step. A float32 matrix product must not run in TF32 on
+SSM's conv taps and the MoE's stacked experts among them) computes in
+``cfg.dtype`` (bf16 at full size) except the MoE ``router``, which stays
+f32 as the reference's does, and vectors and scalars (the norms, the SSM's
+A_log, D, dt_bias and conv bias, the hybrid's fuse scalars, the
+cross-attention gates) stay in f32; the LM head multiplies in f32. The
+bf16 copies of the matrices are made once and kept (``_layer_params``)
+until a parameter changes, where the reference casts them anew in every
+step. A float32 matrix product must not run in TF32 on
 the card: callers set ``torch.backends.cuda.matmul.allow_tf32 = False``
 (PyTorch's default; ``launch.serve`` sets it).
 
@@ -26,10 +37,8 @@ Forward modes return:
   decode   one token per sequence; ``decode_step`` gives its logits and the
            caches, updated in place
 
-Not ported yet, each raising ``NotImplementedError`` when the model is
-built (ROADMAP Queue 1 item 12): the ``moe`` and ``xattn`` layer kinds,
-embedding inputs (``embed_inputs``), image tokens (``n_image_tokens``), the
-int8 KV cache (``kv_quant``) and the ``train`` mode with its loss.
+The ``train`` mode and its loss are not ported yet (ROADMAP Queue 1 item
+12): ``forward`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -40,30 +49,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import (
-    KINDS,
-    BlockCtx,
-    block_cache_init,
-    block_fwd,
-    block_init,
-)
+from repro_torch.models.blocks import BlockCtx, block_cache_init, block_fwd, block_init
 from repro_torch.models.layers import dtype_of, embed_init, rmsnorm_fwd, rmsnorm_init
 
 Params = Dict[str, Any]
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 12)"
-
-
-def unported_features(cfg: ModelConfig) -> List[str]:
-    """What of ``cfg`` the port cannot run yet; empty when it can serve it."""
-    out = [f"layer kind {k!r}" for k in dict.fromkeys(cfg.layer_plan_flat())
-           if k not in KINDS]
-    if cfg.embed_inputs:
-        out.append("embedding inputs (embed_inputs)")
-    if cfg.n_image_tokens:
-        out.append("image tokens (n_image_tokens)")
-    if cfg.kv_quant:
-        out.append("the int8 KV cache (kv_quant)")
-    return out
 
 
 class ParamTree(nn.Module):
@@ -92,10 +82,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: Union[str, torch.device] = "cuda",
                  seed: int = 0):
         super().__init__()
-        missing = unported_features(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} {NOT_PORTED}")
         self.cfg = cfg
         self.plan = cfg.layer_plan()
         self.kinds = cfg.layer_plan_flat()
@@ -104,7 +90,8 @@ class Model(nn.Module):
             raise RuntimeError("Model(device='cuda') needs a CUDA card; pass "
                                "device='cpu' to run the plain path on the CPU")
         params = self._draw(seed, device)
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        if "embed" in params:
+            self.embed = nn.Parameter(params["embed"], requires_grad=False)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(params["head"], requires_grad=False)
         self.final_norm = nn.Parameter(params["final_norm"], requires_grad=False)
@@ -118,7 +105,9 @@ class Model(nn.Module):
         cfg = self.cfg
         dtype = dtype_of(cfg.param_dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
-        params: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)}
+        params: Params = {}
+        if not cfg.embed_inputs or cfg.tie_embeddings:
+            params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
         if not cfg.tie_embeddings:
             params["head"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype,
                                         device).T.contiguous()
@@ -131,10 +120,8 @@ class Model(nn.Module):
     def init(self, seed: int = 0) -> "Model":
         """Redraw every parameter from ``seed`` (the values differ from the
         reference's ``jax.random`` stream); returns the model."""
-        fresh = self._draw(seed, self.embed.device)
-        flat = {"embed": fresh["embed"], "final_norm": fresh["final_norm"]}
-        if "head" in fresh:
-            flat["head"] = fresh["head"]
+        fresh = self._draw(seed, self.final_norm.device)
+        flat = {k: fresh[k] for k in ("embed", "head", "final_norm") if k in fresh}
         for li, layer in enumerate(fresh["layers"]):
             flat.update(_flatten(layer, f"layers.{li}."))
         self.load_state_dict(flat)
@@ -142,22 +129,26 @@ class Model(nn.Module):
 
     def init_caches(self, batch: int, capacity: int) -> List[Params]:
         """One zeroed cache per layer: {"attn": {"k", "v"}} of (B, Hkv,
-        capacity, hd) in ``cfg.dtype`` for an attention layer, {"ssm":
-        {"conv", "ssd"}} for an SSM layer, both for a hybrid one."""
+        capacity, hd) in ``cfg.dtype`` for an attention layer (int8 with
+        "k_scale" and "v_scale" under ``kv_quant``; n_image_tokens
+        positions for an ``xattn`` layer), {"ssm": {"conv", "ssd"}} for an
+        SSM layer, both for a hybrid one."""
         dtype = dtype_of(self.cfg.dtype)
         return [block_cache_init(self.cfg, kind, batch, capacity, dtype,
-                                 self.embed.device) for kind in self.kinds]
+                                 self.final_norm.device) for kind in self.kinds]
 
     # ---------------------------------------------------------- forward
 
     def _layer_params(self, li: int) -> Params:
         """Layer li's parameters with its matrices in ``cfg.dtype`` (the
-        reference's ``_cast_group``); the cast copies are kept until the
-        parameter's storage or version changes."""
+        reference's ``_cast_group``: every floating matrix but the MoE
+        router); the cast copies are kept until the parameter's storage or
+        version changes."""
         act = dtype_of(self.cfg.dtype)
 
         def cast(name: str, w: torch.Tensor) -> torch.Tensor:
-            if w.ndim < 2 or not w.is_floating_point() or w.dtype == act:
+            if (w.ndim < 2 or not w.is_floating_point() or w.dtype == act
+                    or name.endswith(".router")):
                 return w
             key = (w.data_ptr(), w._version)
             hit = self._cast_cache.get(name)
@@ -171,26 +162,47 @@ class Model(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.head
         return x.float() @ w.float()
 
+    def _embed(self, tokens: Optional[torch.Tensor],
+               embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.cfg.embed_inputs:
+            if embeds is None:
+                raise ValueError(f"{self.cfg.name} takes embeds (B, S, d_model), "
+                                 f"not tokens")
+            x = embeds
+        else:
+            if tokens is None:
+                raise ValueError(f"{self.cfg.name} takes tokens (B, S)")
+            x = self.embed[tokens]
+        return x.to(dtype_of(self.cfg.dtype))
+
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, mode: str,
+    def forward(self, tokens: Optional[torch.Tensor] = None, *, mode: str,
                 lengths: Optional[torch.Tensor] = None,
                 caches: Optional[List[Params]] = None,
+                embeds: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, List[Params], torch.Tensor]:
-        """tokens (B, S) -> (hidden (B, S, D) after the final norm, caches',
-        aux). ``decode`` takes S == 1, ``lengths`` (B,) int32 and the caches."""
+        """tokens (B, S) or embeds (B, S, D) -> (hidden (B, S, D) after the
+        final norm, caches', aux: the MoE loss summed over layers).
+        ``decode`` takes S == 1, ``lengths`` (B,) int32 and the caches; a
+        prefill with image tokens takes ``image_embeds`` (B, I, D)."""
         cfg = self.cfg
         if mode not in ("prefill", "decode"):
             raise NotImplementedError(f"mode {mode!r} {NOT_PORTED}: the port serves "
                                       f"(prefill, decode)")
-        x = self.embed[tokens].to(dtype_of(cfg.dtype))
-        B, S = tokens.shape
+        x = self._embed(tokens, embeds)
+        B, S = x.shape[:2]
         if mode == "decode":
             if lengths is None or caches is None:
                 raise ValueError("decode needs lengths and caches")
             positions = lengths[:, None]
         else:
             positions = torch.arange(S, device=x.device).expand(B, S)
-        ctx = BlockCtx(mode=mode, positions=positions, lengths=lengths)
+            if cfg.n_image_tokens and image_embeds is None:
+                raise ValueError(f"{cfg.name}'s prefill takes image_embeds "
+                                 f"(B, {cfg.n_image_tokens}, d_model)")
+        ctx = BlockCtx(mode=mode, positions=positions, lengths=lengths,
+                       image_embeds=image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
         for li, kind in enumerate(self.kinds):
@@ -203,18 +215,26 @@ class Model(nn.Module):
 
     # ------------------------------------------------------- serve steps
 
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, List[Params]]:
-        """Run the whole prompt (B, S); returns (last-token logits (B, V) f32,
-        caches of capacity S)."""
-        hidden, caches, _ = self.forward(tokens, mode="prefill")
+    def prefill(self, tokens: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, List[Params]]:
+        """Run the whole prompt, tokens (B, S) or embeds (B, S, D); returns
+        (last-position logits (B, V) f32, caches of capacity S)."""
+        hidden, caches, _ = self.forward(tokens, mode="prefill", embeds=embeds,
+                                         image_embeds=image_embeds)
         return self._head(hidden[:, -1]), caches
 
-    def decode_step(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                    caches: List[Params]) -> Tuple[torch.Tensor, List[Params]]:
-        """One token per sequence, tokens (B, 1) at positions ``lengths``;
-        returns (logits (B, V) f32, caches with the token written)."""
+    def decode_step(self, tokens: Optional[torch.Tensor] = None,
+                    lengths: Optional[torch.Tensor] = None,
+                    caches: Optional[List[Params]] = None, *,
+                    embeds: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, List[Params]]:
+        """One position per sequence, tokens (B, 1) or embeds (B, 1, D), at
+        positions ``lengths``; returns (logits (B, V) f32, caches with the
+        position written)."""
         hidden, caches, _ = self.forward(tokens, mode="decode", lengths=lengths,
-                                         caches=caches)
+                                         caches=caches, embeds=embeds)
         return self._head(hidden[:, 0]), caches
 
 
@@ -232,7 +252,12 @@ def _flatten(tree: Params, prefix: str = ""):
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True))
+    """A numpy array (or array-like) as a tensor; bfloat16 (``ml_dtypes``,
+    which ``torch.from_numpy`` refuses) goes through float32."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _layer_slots(cfg: ModelConfig):
@@ -260,11 +285,16 @@ def _map(tree: Params, fn: Callable) -> Params:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """int8 stays int8, every other dtype becomes float32."""
+    return t.cpu().numpy() if t.dtype == torch.int8 else t.float().cpu().numpy()
+
+
 def _stack(trees: List[Params]) -> Params:
     """Dicts of one structure -> one dict of their leaves stacked (float32
-    numpy)."""
+    numpy; int8 stays int8)."""
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else np.stack([t[k].float().cpu().numpy() for t in trees])
+            else np.stack([_numpy(t[k]) for t in trees])
             for k, v in trees[0].items()}
 
 
@@ -277,7 +307,8 @@ def caches_from_reference(cfg: ModelConfig, caches) -> List[Params]:
 
 
 def caches_to_reference(cfg: ModelConfig, caches: List[Params]) -> List[tuple]:
-    """One cache per layer back to the reference's layout, as float32 numpy."""
+    """One cache per layer back to the reference's layout, as float32 numpy
+    (int8 caches as int8; their bf16 scales as float32)."""
     out = []
     li = 0
     for kinds, reps in cfg.layer_plan():

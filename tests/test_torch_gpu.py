@@ -42,6 +42,8 @@ use):  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 This file imports no JAX, so it also runs where JAX is not installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -973,13 +975,25 @@ def test_build_on_the_card_never_falls_back_to_the_eager_loop(cuda, monkeypatch)
             rt.execute(g)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m", "hymba-1.5b"])
+def _served_config(arch):
+    """The reduced config of ``arch``; ``+kv_quant`` adds the int8 cache."""
+    name, _, opt = arch.partition("+")
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, kv_quant=True) if opt == "kv_quant" else cfg
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m", "hymba-1.5b",
+                                  "granite-moe-3b-a800m", "mixtral-8x7b",
+                                  "llama-3.2-vision-90b", "musicgen-medium",
+                                  "internlm2-1.8b+kv_quant"])
 @pytest.mark.parametrize("greedy", [True, False])
 def test_decode_graph_equals_the_eager_step(cuda, arch, greedy):
     """The reduced model served with each decode step a graph replay and
-    with every step eager: the same tokens and logits; K6 launches once per
-    layer and step either way."""
-    cfg = get_config(arch).reduced()
+    with every step eager: the same tokens and logits (the MoE's routing,
+    musicgen's per-step embedding draw and the int8 cache's writes inside
+    the graph); K6 launches once per attention layer (cross-attention
+    included) and step either way."""
+    cfg = _served_config(arch)
     runs = {}
     for graph in (True, False):
         ops.reset_launch_counts()
@@ -993,6 +1007,66 @@ def test_decode_graph_equals_the_eager_step(cuda, arch, greedy):
     assert a.counts == b.counts and a.healthy
     attn = sum(k != "ssm" for k in cfg.layer_plan_flat())
     assert a.counts["decode_attention"] == 6 * attn
+
+
+def test_moe_decode_captures_as_one_graph(cuda):
+    """granite-moe's MoE layer in decode mode (routing, capacity slots, the
+    overflow row, the combine) captured and replayed: equal to the eager
+    call bit for bit, on fresh inputs staged into the static buffer."""
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(gen, cfg, torch.float32, cuda)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe.moe_fwd(p, x, cfg, mode="decode")  # warm-up
+        graphed = _capture.Graphed(lambda: moe.moe_fwd(p, x, cfg, mode="decode"), stream)
+    torch.cuda.current_stream().wait_stream(stream)
+    for seed in (1, 2):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+        out, aux = graphed.replay()
+        torch.cuda.synchronize()
+        want, want_aux = moe.moe_fwd(p, x, cfg, mode="decode")
+        assert torch.equal(out, want) and torch.equal(aux, want_aux)
+    graphed.close()
+
+
+def test_step_embeddings_replay_the_eager_draws(cuda):
+    """musicgen's per-step embedding draw with its generator registered
+    with the graph: the replays draw what eager calls on a fresh generator
+    of the same seed draw, bit for bit, and a fresh tensor each step."""
+    cfg = get_config("musicgen-medium").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        first = serve_mod.step_embeds(cfg, 4, gen, cuda).clone()  # step 0, eager
+        graphed = _capture.Graphed(lambda: serve_mod.step_embeds(cfg, 4, gen, cuda),
+                                   stream, (gen,))
+        got = [first] + [graphed.replay().clone() for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graphed.close()
+    again = torch.Generator(device=cuda).manual_seed(3)
+    want = [serve_mod.step_embeds(cfg, 4, again, cuda) for _ in range(4)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[1], got[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_non_causal_cross_attention_shape(cuda, dtype):
+    """K5 non-causal at Sq 1024 over Sk 1600 image keys, group 8, head dim
+    128 (llama-3.2-vision's cross-attention, two batch rows)."""
+    q = _normal((2, 64, 1024, 128), 11, cuda, dtype)
+    k, v = _normal((2, 8, 1600, 128), 12, cuda, dtype), _normal((2, 8, 1600, 128), 13, cuda, dtype)
+    before = ops.launch_counts()
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.launch_counts()[K5_FORM[dtype]] == before[K5_FORM[dtype]] + 1
+    _attn_close(got, ref.attention_plain(q, k, v, causal=False))
 
 
 # -------------------------------------------------------------- ensembles

@@ -10,8 +10,6 @@ its Pallas kernels in interpret mode. Inputs are drawn with numpy.
 Tolerance, f32: layers and one block atol=rtol=1e-5; logits
 rtol=atol=1e-4 (the same sums in another order, through every layer).
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +22,7 @@ from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import layers as ref_layers
 from repro.models.model import Model as RefModel
-from repro_torch.configs.registry import ARCHS, get_config
+from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import attention, blocks, layers
@@ -252,26 +250,11 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert not any(ops.launch_counts().values())
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(ARCH_NAMES) - {
-    "minitron-8b", "stablelm-3b", "mamba2-130m", "hymba-1.5b"}))
-def test_unported_kinds_raise_not_implemented(arch):
-    """moe, xattn and embedding inputs name the ROADMAP item (the ssm and
-    hybrid kinds are served: tests/test_torch_ssm_lm.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        Model(get_config(arch).reduced(), device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["minitron-8b", "stablelm-3b"])
 def test_other_dense_archs_serve_reduced(arch):
     res = serve_mod.serve(get_config(arch).reduced(), batch=1, prompt_len=6, gen=3,
                           verbose=False, device="cpu")
     assert res.tokens.shape == (1, 3)
-
-
-def test_int8_cache_is_not_ported():
-    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), kv_quant=True)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        Model(cfg, device="cpu")
 
 
 def test_params_from_reference_fills_every_parameter():
