@@ -363,6 +363,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``ops.rmsnorm``, K8's one entry point (the models call its
              plain version, as the reference's do), at mamba2's norm
              shapes, 2 launches.
+  9b. train  (after [serve-archs], before [norm]) training through
+             ``repro_torch.launch``: (a) one ``make_train_step`` on the
+             card against the same step on the CPU, one weight set, f32, on
+             reduced internlm2-1.8b, granite-moe-3b-a800m and hymba-1.5b at
+             accum 1 and 2: the loss, grad_norm and every parameter after
+             the update held to TOL_TRAIN_*, the launch counters zeroed
+             just before each card step and read just after: 0 launches
+             (train mode runs the plain attention and SSD, as the
+             reference's; the serve phases above launch K5, K6 and K7);
+             (b) the restart drill: ``train()`` on reduced internlm2 with a
+             failure at step 6 and checkpoints every 4, its losses bit for
+             bit an uninterrupted run's; (c) ``train()`` at internlm2-1.8b's
+             full width and depth (bf16 compute, f32 masters, batch 4, seq
+             2048, 6 steps, no checkpoints): every loss and grad_norm
+             finite, the last loss below the first, 0 launches; the step
+             wall (median of steps 2-6), tokens/s, peak memory allocated
+             and 6ND model FLOP/s against the bf16 dense peak printed, then
+             one more step under torch.profiler (device busy, device ms by
+             kernel family, the top kernels).
  10. times   each kernel and its plain version timed with CUDA events at
              the main path's shapes and in the main path's form (K3 on the
              W-row state with the halo wrap folded in), beside its bound on
@@ -416,6 +435,7 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, on the tensor cores
 
 HALO_PATTERNS = ("trivial", "no_comm", "stencil_1d", "stencil_1d_periodic",
                  "dom", "nearest", "random_nearest")
@@ -556,6 +576,24 @@ SERVED_ATTN = ((MOE_ARCH, MOE_B, MOE_PROMPT, MOE_GEN),
 # - [serve-int8]: sound max 1.39-1.73%, rms 1.58-1.61%; K6 control max
 #   3.38-10.6%, rms 3.39-5.39%.
 # Each limit lies between the two.
+# [train]: (a) one train step on the card against the same step on the CPU
+# (one weight set, f32) on reduced internlm2, granite-moe and hymba, at
+# accum 1 and 2, batch TRAIN_B x TRAIN_S; the optimizer takes lr 1e-2 and
+# eps 1e-3 there (TRAIN_OPT), so each element's update is smooth in its
+# gradient (Adam's first step is lr g / (|g| + eps)); the loss and
+# grad_norm within TOL_TRAIN_REL, every parameter after the update within
+# TOL_TRAIN_PARAM (the CPU tests hold the CPU step to the JAX package's at
+# 1e-4 as well). (b) the restart drill: train() on reduced internlm2 with a
+# failure at TRAIN_FAIL_AT, checkpoints every TRAIN_CKPT_EVERY, its losses
+# bit for bit an uninterrupted run's. (c) train() itself at internlm2-1.8b's
+# full width and depth, bf16 compute, f32 masters: batch TRAIN_FULL_B, seq
+# TRAIN_FULL_S, TRAIN_FULL_STEPS steps.
+TRAIN_ARCHS = ("internlm2-1.8b", "granite-moe-3b-a800m", "hymba-1.5b")
+TRAIN_B, TRAIN_S = 4, 64
+TRAIN_OPT = dict(lr=1e-2, eps=1e-3, warmup_steps=1)
+TOL_TRAIN_REL, TOL_TRAIN_PARAM = 1e-4, 1e-4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_FULL_ARCH, TRAIN_FULL_B, TRAIN_FULL_S, TRAIN_FULL_STEPS = "internlm2-1.8b", 4, 2048, 6
 TOL_SERVE_MOE = {"max": 0.0125, "rms": 0.0118}
 TOL_SERVE_VLM = {"max": 0.025, "rms": 0.02}
 TOL_SERVE_EMBED = {"max": 0.03, "rms": 0.028}
@@ -2472,13 +2510,6 @@ def serve_path(dev, smi, tag: str, cfg, batch: int, prompt: int, gen: int, want:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t1) * 1e3
 
-    def device_ms(prof):
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        return by_name
-
     by_name = device_ms(prof)
     busy_ms = sum(by_name.values())
     # and as graph replays: step 7 eagerly on the capture stream (the
@@ -2749,6 +2780,202 @@ def serve_kinds_phase(dev, smi, serve_logits=None, serve_tokens=None) -> dict:
         torch.cuda.empty_cache()
     print(f"[serve-kinds] {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
     return launches
+
+
+def device_ms(prof) -> dict:
+    """A torch.profiler window's device kernels: ms summed by name."""
+    import torch
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def train_phase(dev, smi, *, full_cfg=None, full_b=TRAIN_FULL_B, full_s=TRAIN_FULL_S,
+                archs=TRAIN_ARCHS) -> dict:
+    """[train]: (a) ``make_train_step`` on the card against the same step
+    on the CPU, one weight set, at accum 1 and 2, for each of ``archs``
+    reduced: the loss, grad_norm and every parameter after the update held
+    to TOL_TRAIN_*, the launch counters zeroed just before each card step
+    and read just after: no kernel of the port runs in a train step (the
+    attention and SSD run their plain versions in train mode, as the
+    reference's; the serve phases launch K5, K6 and K7); (b) the restart
+    drill on reduced internlm2, its losses bit for bit an uninterrupted
+    run's; (c) ``train()`` at ``full_cfg`` (default internlm2-1.8b at full
+    width and depth), every loss and grad_norm finite, the last loss below
+    the first, its step wall, tokens/s, peak memory and model FLOP/s
+    against the bf16 dense peak printed; on the card one more step of it
+    under torch.profiler (device busy, kernels by name). Runs alone
+    (it builds nothing: no kernel of the port is on the train path);
+    returns the numbers it printed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_shape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizer import AdamW, AdamWConfig
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    shape = get_shape("train_4k")
+    zero = dict.fromkeys(_build.ENTRIES, 0)
+    out = {"card_vs_cpu": []}
+    # (a) the card's train step against the CPU's, one weight set
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        weights = Model(cfg, device="cpu", seed=0).state_dict()
+        batch = SyntheticTokenPipeline(cfg, shape, seed=0, batch_override=TRAIN_B,
+                                       seq_override=TRAIN_S).batch_at(0)
+        for accum in (1, 2):
+            got = {}
+            for where in ("cpu", dev):
+                model = Model(cfg, device=where)
+                model.load_state_dict(weights)
+                opt = AdamW(AdamWConfig(**TRAIN_OPT))
+                step = steps_lib.make_train_step(model, opt, accum)
+                named = dict(model.named_parameters())
+                state = opt.init(named)
+                ops.reset_launch_counts()
+                _, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
+                if where != "cpu":
+                    torch.cuda.synchronize()
+                    launches = ops.launch_counts()
+                    if launches != zero:
+                        fail(f"[train] {arch} accum {accum}: the train step launched "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+                got[str(where)] = ({k: float(v) for k, v in metrics.items()},
+                                   {n: p.detach().cpu() for n, p in named.items()})
+            (m_cpu, p_cpu), (m_card, p_card) = got["cpu"], got[str(dev)]
+            rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "grad_norm")}
+            perr = max(float((p_card[n] - p_cpu[n]).abs().max()) for n in p_cpu)
+            if not all(np.isfinite(list(m_card.values()))):
+                fail(f"[train] {arch} accum {accum}: metrics {m_card}")
+            if max(rel.values()) > TOL_TRAIN_REL or perr > TOL_TRAIN_PARAM:
+                fail(f"[train] {arch} accum {accum}: card against CPU, relative "
+                     f"loss/grad_norm error {rel}, max parameter error {perr}")
+            out["card_vs_cpu"].append({"arch": arch, "accum": accum, "loss": m_card["loss"],
+                                       "rel": rel, "param_err": perr})
+            print(f"[train] {arch} reduced, accum {accum}, batch {TRAIN_B} x {TRAIN_S}: "
+                  f"loss {m_card['loss']:.6f} (CPU {m_cpu['loss']:.6f}), grad_norm "
+                  f"{m_card['grad_norm']:.6f} (CPU {m_cpu['grad_norm']:.6f}); relative "
+                  f"errors {rel}; max |param card - CPU| after the update {perr:.3e}; "
+                  f"0 kernel launches in the card's step", flush=True)
+    # (b) the restart drill: a failure after the checkpoint, the re-run
+    # steps and every later one bit for bit the uninterrupted run's
+    cfg = get_config("internlm2-1.8b").reduced()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        kw = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, ckpt_every=TRAIN_CKPT_EVERY,
+                  verbose=False, profile=False, device=str(dev))
+        a = train(cfg, shape, ckpt_dir=f"{tmp}/a", fail_at=(TRAIN_FAIL_AT,), **kw)
+        b = train(cfg, shape, ckpt_dir=f"{tmp}/b", **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    redo = TRAIN_FAIL_AT - TRAIN_FAIL_AT % TRAIN_CKPT_EVERY
+    if (a.restarts, b.restarts) != (1, 0) or a.losses[:TRAIN_FAIL_AT] != \
+            b.losses[:TRAIN_FAIL_AT] or a.losses[TRAIN_FAIL_AT:] != b.losses[redo:]:
+        fail(f"[train] restart drill: restarts {a.restarts}, losses {a.losses} against "
+             f"the uninterrupted {b.losses}")
+    print(f"[train] restart drill (reduced internlm2, {TRAIN_STEPS} steps, checkpoints "
+          f"every {TRAIN_CKPT_EVERY}, a failure at step {TRAIN_FAIL_AT}): 1 restart, the "
+          f"{len(a.losses)} losses bit for bit the uninterrupted run's {b.losses}",
+          flush=True)
+    # (c) train() at full width: bf16 compute, f32 masters, no checkpoints
+    cfg = full_cfg or get_config(TRAIN_FULL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = train(cfg, shape, steps=TRAIN_FULL_STEPS, batch=full_b, seq=full_s,
+                ckpt_dir=None, log_every=1, verbose=True, device=str(dev))
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != zero:
+        fail(f"[train] full width: launches {launches}")
+    if not (np.isfinite(res.losses).all() and np.isfinite(res.grad_norms).all()):
+        fail(f"[train] full width: losses {res.losses}, grad norms {res.grad_norms}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"[train] full width: the loss did not fall: {res.losses}")
+    wall = res.report.p50_wall  # the median of steps 2-6 (step 1 is the warm-up)
+    flops = steps_lib.step_flops_estimate(cfg, shape) * (full_b * full_s) / (
+        shape.global_batch * shape.seq_len)
+    out["full"] = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": cfg.param_count(),
+                   "batch": full_b, "seq": full_s, "losses": res.losses,
+                   "grad_norms": res.grad_norms, "step_wall_p50_ms": wall * 1e3,
+                   "tokens_per_s": full_b * full_s / wall, "peak_bytes": peak,
+                   "model_flops": flops, "bf16_peak_share": flops / wall / BF16_FLOPS_PER_S,
+                   "phase_s": phase_s}
+    print(f"[train] {cfg.name} full width ({cfg.n_layers} layers, {cfg.param_count()} "
+          f"parameters, {cfg.dtype} compute, {cfg.param_dtype} masters), batch {full_b} x "
+          f"seq {full_s}, {TRAIN_FULL_STEPS} steps: losses {res.losses}, grad norms "
+          f"{res.grad_norms}", flush=True)
+    print(f"[train] step wall {wall * 1e3:.3f} ms (median of steps 2-{TRAIN_FULL_STEPS}); "
+          f"{full_b * full_s / wall:.1f} tokens/s; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB) allocated; model FLOPs (6ND) {flops:.4e} a step, "
+          f"{flops / wall / 1e12:.3f} TFLOP/s = {flops / wall / BF16_FLOPS_PER_S:.4f} of "
+          f"the bf16 dense peak; 0 kernel launches; train() {phase_s:.3f} s | {smi}",
+          flush=True)
+    # where a full-width step's device time goes: one more step (after a
+    # warm-up step) under torch.profiler, its kernels summed by name
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        model = Model(cfg, device=dev, seed=0)
+        opt = AdamW()
+        step = steps_lib.make_train_step(model, opt)
+        state = opt.init(dict(model.named_parameters()))
+        data = SyntheticTokenPipeline(cfg, shape, batch_override=full_b, seq_override=full_s,
+                                      device=dev).batch_at(0)
+        state, _ = step(state, data)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(state, data)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t1) * 1e3
+        del model, opt, step, state
+        by_name = device_ms(prof)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+        # kernel families by the libraries' names: cuBLAS's f32 GEMMs
+        # ("f32f32", "sgemm": the plain attention's f32 products and the f32
+        # head), its bf16 ones ("nvjet", "bf16"), ATen's softmax and
+        # elementwise kernels and reductions
+        families = dict.fromkeys(("gemm_f32", "gemm_bf16", "softmax", "elementwise",
+                                  "reduce", "other"), 0.0)
+        for n, ms in by_name.items():
+            low = n.lower()
+            fam = ("gemm_f32" if "f32f32" in low or "sgemm" in low else
+                   "gemm_bf16" if "nvjet" in low or ("gemm" in low and "bf16" in low) else
+                   "softmax" if "softmax" in low else
+                   "elementwise" if "elementwise" in low else
+                   "reduce" if "reduce" in low else "other")
+            families[fam] += ms
+        out["profile"] = {"window_ms": window_ms, "device_busy_ms": busy,
+                          "kernels": sum(1 for e in prof.events() if e.device_type ==
+                                         torch.autograd.DeviceType.CUDA),
+                          "families_ms": families,
+                          "top_kernels_ms": {n[:90]: ms for n, ms in top}}
+        print(f"[train] one full-width step under torch.profiler: {window_ms:.3f} ms, "
+              f"device busy {busy:.3f} ms ({busy / window_ms:.4f}), "
+              f"{out['profile']['kernels']} kernels; device ms by family "
+              f"{ {k: round(v, 3) for k, v in families.items()} }; top kernels "
+              f"{[(n[:70], round(ms, 3)) for n, ms in top]} | {smi}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[train] {time.perf_counter() - t0:.3f} s | {smi}", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def fail(msg: str) -> None:
@@ -4622,6 +4849,11 @@ def main() -> int:
     # int8 KV cache and the other registered archs
     kinds_launches = serve_kinds_phase(dev, smi, res.logits, res.tokens)
     res.logits = None
+
+    # ---------------------------------------------------------------- train
+    # one train step on the card against the CPU's, the restart drill and
+    # train() at internlm2-1.8b's full width: no kernel of the port runs
+    train_phase(dev, smi)
 
     # ----------------------------------------------------------------- norm
     # K8's one entry point, ops.rmsnorm, over mamba2-130m's norm shapes: the

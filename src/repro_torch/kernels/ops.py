@@ -174,7 +174,7 @@ def ssd(
     a_cum = torch.cumsum(dtac.float(), dim=-1).reshape(B, NC, H, T)
     chunk_decay = torch.exp(a_cum[..., -1])  # (B, NC, H)
     decay_in = torch.exp(a_cum)  # decay from the chunk's start to each token
-    ch = cc.reshape(B, NC, G, T, N).repeat_interleave(H // G, dim=2).float()
+    ch = ref.repeat_heads(cc.reshape(B, NC, G, T, N), H // G, 2).float()
     carry = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
     y_inter = []

@@ -71,6 +71,16 @@ def taskbench_step_ref(src, idx, wgt, *, kind: str = "compute_bound",
 NEG_INF = -1e30
 
 
+def repeat_heads(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``x.repeat_interleave(n, dim)`` as an expand and a reshape: the same
+    values, and a backward that sums each entry's n copies in one
+    reduction, where repeat_interleave's backward adds them with atomics on
+    the card, in an order that varies from run to run."""
+    shape = x.shape
+    x = x.unsqueeze(dim + 1).expand(*shape[:dim + 1], n, *shape[dim + 1:])
+    return x.reshape(*shape[:dim], shape[dim] * n, *shape[dim + 1:])
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -85,8 +95,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = Hq // Hkv
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    kx = k.repeat_interleave(G, dim=1).float()
-    vx = v.repeat_interleave(G, dim=1).float()
+    kx = repeat_heads(k, G, 1).float()
+    vx = repeat_heads(v, G, 1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * sm_scale
     qi = torch.arange(Sq, device=q.device)[:, None]
     kj = torch.arange(Sk, device=q.device)[None, :]
@@ -169,8 +179,8 @@ def ssd_chunk_plain(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """
     T = x.shape[2]
     ratio = x.shape[1] // b.shape[1]
-    bh = b.repeat_interleave(ratio, dim=1).float()  # (BC, H, T, N)
-    ch = c.repeat_interleave(ratio, dim=1).float()
+    bh = repeat_heads(b, ratio, 1).float()  # (BC, H, T, N)
+    ch = repeat_heads(c, ratio, 1).float()
     xf = x.float()
     dta = dta.float()
     a = torch.empty_like(dta)  # (BC, H, T)

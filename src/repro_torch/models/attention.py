@@ -1,7 +1,10 @@
 """Attention module: GQA + RoPE + SWA/local:global + KV cache + cross-attn.
 
-Counterpart of ``repro.models.attention`` in two modes:
+Counterpart of ``repro.models.attention`` in three modes:
 
+  train    the whole sequence, no cache, differentiable: always the plain
+           ``ops.flash_attention`` (``use_kernel=False``), on the card too,
+           as the reference's train mode (K5 has no backward)
   prefill  the whole prompt through ``ops.flash_attention`` (K5 on the
            card), returning the populated KV cache
   decode   one token: the cache is written at ``lengths`` and read through
@@ -21,7 +24,7 @@ quantizes the K/V it computed (its attention uses the unquantized values),
 and decode quantizes the new token, writes it, and dequantizes the whole
 cache to the activation dtype before K6.
 
-Not ported yet (ROADMAP Queue 1): the ``train`` mode and the
+Not ported yet (ROADMAP Queue 1 item 12, slice 23): the
 sequence-parallel cache read over a mesh.
 
 Unlike the reference, decode writes the new token into the cache tensors in
@@ -40,7 +43,7 @@ from repro_torch.models.layers import dense_init, rmsnorm_fwd, rope
 
 Params = Dict[str, torch.Tensor]
 KINDS = ("attn", "local", "global", "moe", "xattn")
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
@@ -103,23 +106,22 @@ def attn_fwd(
     *,
     cfg: ModelConfig,
     kind: str,  # attn | local | global | moe | xattn
-    mode: str,  # prefill | decode
+    mode: str,  # train | prefill | decode
     positions: torch.Tensor,  # (B, S) absolute positions
     cache: Optional[Params] = None,  # {"k","v"}: (B, Hkv, S_max, hd)
     lengths: Optional[torch.Tensor] = None,  # (B,) int32 tokens already in cache
     kv_src: Optional[torch.Tensor] = None,  # cross-attn source (B, I, D)
-) -> Tuple[torch.Tensor, Params]:
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (out (B, S, D), the cache: None in train mode)."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     if mode not in MODES:
-        raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet: the port serves "
-            f"(prefill, decode); training is ROADMAP Queue 1 item 12")
+        raise ValueError(f"unknown attention mode {mode!r}")
     B, S, _ = x.shape
     hd = cfg.head_dim_
     cross = kind == "xattn"
     window = 0 if cross else _window_for(cfg, kind)
-    use_kernel = cfg.use_flash
+    use_kernel = cfg.use_flash and mode != "train"  # K5 and K6 are forward-only
 
     if mode == "decode":
         if cache is None or lengths is None or S != 1:
@@ -158,7 +160,7 @@ def attn_fwd(
         return out @ p["wo"], cache  # written in place
 
     if cross and kv_src is None:
-        raise ValueError("a cross-attention prefill needs kv_src (the image embeddings)")
+        raise ValueError(f"cross-attention in {mode} mode needs kv_src (the image embeddings)")
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, kv_src if cross else x, cfg)
     if not cross:
@@ -174,6 +176,8 @@ def attn_fwd(
     out = ops.flash_attention(qh.to(kh.dtype), kh, vh, causal=not cross, window=window,
                               use_kernel=use_kernel).to(x.dtype)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
+    if mode == "train":
+        return out @ p["wo"], None
     if cfg.kv_quant and not cross:
         qk, sk = _quantize_kv(kh)
         qv, sv = _quantize_kv(vh)

@@ -13,7 +13,8 @@ Counterpart of ``repro.models.blocks``:
                           sublayers (f32 scalars, 0 at init)
 
 Every block returns (x, cache', aux) as the reference's does; aux is the
-MoE load-balancing loss of a ``moe`` block and 0 for the other kinds.
+MoE load-balancing loss of a ``moe`` block and 0 for the other kinds. In
+``train`` mode no sublayer writes a cache and the cache is None.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ KINDS = attention.KINDS + ("ssm", "hybrid")
 
 @dataclasses.dataclass
 class BlockCtx:
-    mode: str  # prefill | decode
+    mode: str  # train | prefill | decode
     positions: Optional[torch.Tensor] = None  # (B, S)
     lengths: Optional[torch.Tensor] = None  # (B,)
     image_embeds: Optional[torch.Tensor] = None  # (B, I, D)
@@ -92,7 +93,7 @@ def block_fwd(
     kind: str,
     ctx: BlockCtx,
     cache: Optional[Params] = None,
-) -> Tuple[torch.Tensor, Params, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     _check_kind(kind)
     eps = cfg.norm_eps
     cache = cache or {}
@@ -124,4 +125,4 @@ def block_fwd(
         if kind == "xattn":
             m = torch.tanh(p["gate_mlp"]).to(x.dtype) * m
         x = x + m
-    return x, new_cache, aux
+    return x, None if ctx.mode == "train" else new_cache, aux

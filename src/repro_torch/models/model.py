@@ -1,22 +1,24 @@
 """Top-level model: embedding -> decoder layers -> norm -> LM head.
 
-Counterpart of ``repro.models.model`` for serving (prefill and decode) of
-every layer kind: ``attn``, ``local``, ``global``, ``moe``, ``ssm``,
-``hybrid`` and ``xattn``, with token or embedding inputs, image tokens and
-the int8 KV cache. The reference stacks each layer group's parameters on a
-leading ``reps`` axis and scans it; the port keeps one module per layer
-(``Model.layers``, in layer order) and loops. ``params_from_reference``
-and ``caches_from_reference`` / ``caches_to_reference`` carry weights and
-caches (KV caches, int8 caches and their scales, image K/V caches, SSM
-conv windows and states) between the two layouts.
+Counterpart of ``repro.models.model`` for training and serving (prefill
+and decode) of every layer kind: ``attn``, ``local``, ``global``, ``moe``,
+``ssm``, ``hybrid`` and ``xattn``, with token or embedding inputs, image
+tokens and the int8 KV cache. The reference stacks each layer group's
+parameters on a leading ``reps`` axis and scans it; the port keeps one
+module per layer (``Model.layers``, in layer order) and loops.
+``params_from_reference`` and ``caches_from_reference`` /
+``caches_to_reference`` carry weights and caches (KV caches, int8 caches
+and their scales, image K/V caches, SSM conv windows and states) between
+the two layouts.
 
 Inputs are the reference's batch keys as keyword tensors: ``tokens`` (B,
 S) int, or ``embeds`` (B, S, d_model) with ``cfg.embed_inputs`` (then, with
 untied embeddings, there is no ``embed`` parameter), and in the prefill
-``image_embeds`` (B, n_image_tokens, d_model) with ``cfg.n_image_tokens``.
-``tokens``' embeddings and ``embeds`` are cast to ``cfg.dtype``;
-``image_embeds`` are not, as in the reference: the image K/V take their
-dtype promoted with the weights' (f32 in a bf16 model fed f32 embeddings).
+and in training ``image_embeds`` (B, n_image_tokens, d_model) with
+``cfg.n_image_tokens``. ``tokens``' embeddings and ``embeds`` are cast to
+``cfg.dtype``; ``image_embeds`` are not, as in the reference: the image
+K/V take their dtype promoted with the weights' (f32 in a bf16 model fed
+f32 embeddings).
 
 Mixed precision as the reference's ``_cast_group``: parameters are stored
 in ``cfg.param_dtype`` (f32); in the layers every matrix (>= 2 dims, the
@@ -24,21 +26,31 @@ SSM's conv taps and the MoE's stacked experts among them) computes in
 ``cfg.dtype`` (bf16 at full size) except the MoE ``router``, which stays
 f32 as the reference's does, and vectors and scalars (the norms, the SSM's
 A_log, D, dt_bias and conv bias, the hybrid's fuse scalars, the
-cross-attention gates) stay in f32; the LM head multiplies in f32. The
-bf16 copies of the matrices are made once and kept (``_layer_params``)
-until a parameter changes, where the reference casts them anew in every
-step. A float32 matrix product must not run in TF32 on
-the card: callers set ``torch.backends.cuda.matmul.allow_tf32 = False``
-(PyTorch's default; ``launch.serve`` sets it).
+cross-attention gates) stay in f32; the LM head multiplies in f32. Serving
+keeps the ``cfg.dtype`` copies of the matrices (``_layer_params``) until a
+parameter changes, where the reference casts them anew in every step;
+training casts them anew in every forward, inside the autograd graph, so
+the gradient reaches the f32 parameter. A float32 matrix product must not
+run in TF32 on the card: callers set
+``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default;
+``launch.serve`` and ``launch.train`` set it).
 
 Forward modes return:
+  train    (hidden, None, aux) from ``forward``, recording the autograd
+           graph (the serving modes run under ``torch.no_grad()``); each
+           layer is checkpointed (``torch.utils.checkpoint``, the
+           counterpart of the reference's ``jax.checkpoint`` over its scan
+           body): its activations are recomputed in the backward. The
+           attention and SSD run their plain versions, never K5, K6 or K7,
+           as the reference's train mode does. ``loss`` gives the mean
+           next-token cross entropy + 0.01 x the MoE aux loss
   prefill  (hidden, caches, aux) from ``forward``; ``prefill`` gives the
            last position's logits and the caches
   decode   one token per sequence; ``decode_step`` gives its logits and the
            caches, updated in place
 
-The ``train`` mode and its loss are not ported yet (ROADMAP Queue 1 item
-12): ``forward`` raises ``NotImplementedError`` for them.
+Parameters are created without gradients (serving records no graph);
+``train_mode()`` makes every one trainable.
 """
 from __future__ import annotations
 
@@ -46,20 +58,24 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import BlockCtx, block_cache_init, block_fwd, block_init
 from repro_torch.models.layers import dtype_of, embed_init, rmsnorm_fwd, rmsnorm_init
 
 Params = Dict[str, Any]
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 12)"
+NOT_PORTED = ("not ported yet (ROADMAP Queue 1 item 12, slice 23: the sharded LM "
+              "stack over a mesh; item 13: the XLA tooling)")
+MODES = ("train", "prefill", "decode")
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: leaves become parameters (no
-    gradient), dicts become submodules, so ``state_dict`` keys are the
-    dict paths joined by dots."""
+    """A nested dict of tensors as a module: leaves become parameters
+    (created without gradients; see ``Model.train_mode``), dicts become
+    submodules, so ``state_dict`` keys are the dict paths joined by dots."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -104,7 +120,8 @@ class Model(nn.Module):
     def _draw(self, seed: int, device: torch.device) -> Params:
         cfg = self.cfg
         dtype = dtype_of(cfg.param_dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # a meta model (shapes and dtypes, no storage) draws nothing
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         params: Params = {}
         if not cfg.embed_inputs or cfg.tie_embeddings:
             params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
@@ -127,6 +144,19 @@ class Model(nn.Module):
         self.load_state_dict(flat)
         return self
 
+    def stacked_ndims(self) -> Dict[str, int]:
+        """Each parameter's dims as the reference stores it: a layer's
+        tensors carry its layer group's leading ``reps`` axis (what its
+        AdamW's decay rule reads)."""
+        return {n: p.ndim + n.startswith("layers.") for n, p in self.named_parameters()}
+
+    def train_mode(self) -> "Model":
+        """Make every parameter trainable (``requires_grad``); returns the
+        model. The serving modes still record no graph."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
     def init_caches(self, batch: int, capacity: int) -> List[Params]:
         """One zeroed cache per layer: {"attn": {"k", "v"}} of (B, Hkv,
         capacity, hd) in ``cfg.dtype`` for an attention layer (int8 with
@@ -139,17 +169,21 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------- forward
 
-    def _layer_params(self, li: int) -> Params:
+    def _layer_params(self, li: int, train: bool = False) -> Params:
         """Layer li's parameters with its matrices in ``cfg.dtype`` (the
         reference's ``_cast_group``: every floating matrix but the MoE
-        router); the cast copies are kept until the parameter's storage or
-        version changes."""
+        router). For serving the cast copies are kept until the
+        parameter's storage or version changes; for training (``train``)
+        each is cast anew inside the autograd graph, so its gradient
+        reaches the parameter."""
         act = dtype_of(self.cfg.dtype)
 
         def cast(name: str, w: torch.Tensor) -> torch.Tensor:
             if (w.ndim < 2 or not w.is_floating_point() or w.dtype == act
                     or name.endswith(".router")):
                 return w
+            if train:
+                return w.to(act)
             key = (w.data_ptr(), w._version)
             hit = self._cast_cache.get(name)
             if hit is None or hit[0] != key:
@@ -172,24 +206,28 @@ class Model(nn.Module):
         else:
             if tokens is None:
                 raise ValueError(f"{self.cfg.name} takes tokens (B, S)")
-            x = self.embed[tokens]
+            x = F.embedding(tokens, self.embed)
         return x.to(dtype_of(self.cfg.dtype))
 
-    @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor] = None, *, mode: str,
                 lengths: Optional[torch.Tensor] = None,
                 caches: Optional[List[Params]] = None,
                 embeds: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, List[Params], torch.Tensor]:
+                ) -> Tuple[torch.Tensor, Optional[List[Params]], torch.Tensor]:
         """tokens (B, S) or embeds (B, S, D) -> (hidden (B, S, D) after the
-        final norm, caches', aux: the MoE loss summed over layers).
-        ``decode`` takes S == 1, ``lengths`` (B,) int32 and the caches; a
-        prefill with image tokens takes ``image_embeds`` (B, I, D)."""
+        final norm, caches' (None in train mode), aux: the MoE loss summed
+        over layers). ``decode`` takes S == 1, ``lengths`` (B,) int32 and
+        the caches; with image tokens, ``train`` and ``prefill`` take
+        ``image_embeds`` (B, I, D). Only ``train`` records the autograd
+        graph."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; the modes are {MODES}")
+        with torch.set_grad_enabled(mode == "train" and torch.is_grad_enabled()):
+            return self._forward(tokens, mode, lengths, caches, embeds, image_embeds)
+
+    def _forward(self, tokens, mode, lengths, caches, embeds, image_embeds):
         cfg = self.cfg
-        if mode not in ("prefill", "decode"):
-            raise NotImplementedError(f"mode {mode!r} {NOT_PORTED}: the port serves "
-                                      f"(prefill, decode)")
         x = self._embed(tokens, embeds)
         B, S = x.shape[:2]
         if mode == "decode":
@@ -199,11 +237,18 @@ class Model(nn.Module):
         else:
             positions = torch.arange(S, device=x.device).expand(B, S)
             if cfg.n_image_tokens and image_embeds is None:
-                raise ValueError(f"{cfg.name}'s prefill takes image_embeds "
+                raise ValueError(f"{cfg.name}'s {mode} takes image_embeds "
                                  f"(B, {cfg.n_image_tokens}, d_model)")
         ctx = BlockCtx(mode=mode, positions=positions, lengths=lengths,
                        image_embeds=image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train":
+            for li, kind in enumerate(self.kinds):
+                # per-layer activation checkpointing: the layer (its casts
+                # included) runs again in the backward
+                x, a = checkpoint(self._train_layer, li, kind, x, ctx, use_reentrant=False)
+                aux = aux + a
+            return rmsnorm_fwd(self.final_norm, x, cfg.norm_eps), None, aux
         new_caches = []
         for li, kind in enumerate(self.kinds):
             x, c, a = block_fwd(self._layer_params(li), x, cfg=cfg, kind=kind, ctx=ctx,
@@ -213,8 +258,45 @@ class Model(nn.Module):
         x = rmsnorm_fwd(self.final_norm, x, cfg.norm_eps)
         return x, new_caches, aux
 
+    def _train_layer(self, li: int, kind: str, x: torch.Tensor, ctx: BlockCtx):
+        x, _, aux = block_fwd(self._layer_params(li, train=True), x, cfg=self.cfg,
+                              kind=kind, ctx=ctx)
+        return x, aux
+
+    # -------------------------------------------------------------- loss
+
+    def loss(self, tokens: Optional[torch.Tensor] = None,
+             labels: Optional[torch.Tensor] = None, *,
+             embeds: Optional[torch.Tensor] = None,
+             image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean next-token cross entropy over ``labels`` (B, S), shifted by
+        the caller (the pipeline), plus 0.01 x the MoE aux loss; logits in
+        f32 through the head, ``cfg.loss_chunk`` positions at a time (each
+        chunk checkpointed) when it divides S. Call ``backward()`` on it
+        for the gradients."""
+        if labels is None:
+            raise ValueError("loss takes labels (B, S)")
+        hidden, _, aux = self.forward(tokens, mode="train", embeds=embeds,
+                                      image_embeds=image_embeds)
+        B, S, _ = hidden.shape
+        chunk = self.cfg.loss_chunk
+        if chunk and S % chunk == 0 and chunk < S:
+            total = sum(checkpoint(self._ce_sum, hidden[:, i:i + chunk],
+                                   labels[:, i:i + chunk], use_reentrant=False)
+                        for i in range(0, S, chunk))
+        else:
+            total = self._ce_sum(hidden, labels)
+        return total / (B * S) + 0.01 * aux
+
+    def _ce_sum(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Summed cross entropy of hidden states h (B, c, D) at labels y."""
+        logits = self._head(h)
+        lse = torch.logsumexp(logits, dim=-1)
+        return (lse - logits.gather(-1, y[..., None].long())[..., 0]).sum()
+
     # ------------------------------------------------------- serve steps
 
+    @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor] = None, *,
                 embeds: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None,
@@ -225,6 +307,7 @@ class Model(nn.Module):
                                          image_embeds=image_embeds)
         return self._head(hidden[:, -1]), caches
 
+    @torch.no_grad()
     def decode_step(self, tokens: Optional[torch.Tensor] = None,
                     lengths: Optional[torch.Tensor] = None,
                     caches: Optional[List[Params]] = None, *,

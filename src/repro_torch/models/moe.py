@@ -1,10 +1,13 @@
 """Mixture-of-Experts layer: top-k router + capacity dispatch.
 
-Counterpart of ``repro.models.moe`` in ``prefill`` and ``decode`` mode.
-Dispatch is sort-free capacity bucketing: each token's slot in its expert
-is the count of earlier assignments to that expert (a cumsum over expert
-one-hots in token-major assignment order), and the kept rows are scattered
-into (G, E, C, d) buckets. The expert FFNs run as batched matrix products
+Counterpart of ``repro.models.moe`` in ``train``, ``prefill`` and
+``decode`` mode. Dispatch is sort-free capacity bucketing: each token's
+slot in its expert is the count of earlier assignments to that expert (a
+cumsum over expert one-hots in token-major assignment order), and the kept
+rows are scattered into (G, E, C, d) buckets, out of place, so autograd
+takes the scatter's gradient as a gather. Train and prefill take
+``cfg.capacity_factor``'s capacity and drop what overflows; decode has
+exact capacity. The expert FFNs run as batched matrix products
 over stacked expert weights; the reference computes them outside any
 Pallas kernel (``jnp.einsum``), so here they are plain ``torch.matmul``.
 
@@ -32,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
@@ -59,8 +62,8 @@ def _dispatch_groups(cfg: ModelConfig, N: int, mode: str) -> int:
 
 def capacity(cfg: ModelConfig, Ng: int, mode: str) -> int:
     """Slots per expert and group: ceil(Ng K / E x capacity_factor) in
-    prefill, Ng K (no drop possible) in decode; at least 8, a multiple of
-    8."""
+    train and prefill, Ng K (no drop possible) in decode; at least 8, a
+    multiple of 8."""
     K, E = cfg.top_k, cfg.n_experts
     C = Ng * K if mode == "decode" else int(math.ceil(Ng * K / E * cfg.capacity_factor))
     return max(8, -(-C // 8) * 8)
@@ -108,9 +111,7 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss () f32)."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"moe mode {mode!r} is not ported yet: the port serves (prefill, "
-            f"decode); training is ROADMAP Queue 1 item 12")
+        raise ValueError(f"unknown moe mode {mode!r}")
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
@@ -124,8 +125,8 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, mode: str
     # last row takes every dropped assignment and is sliced off
     flat = torch.where(r.keep, r.e_idx * C + r.s_idx, E * C)  # (G, Ng*K)
     xk = xt[:, :, None, :].expand(G, Ng, K, D).reshape(G, Ng * K, D)
-    buckets = x.new_zeros((G, E * C + 1, D))
-    buckets.scatter_(1, flat[..., None].expand(G, Ng * K, D), xk)
+    buckets = x.new_zeros((G, E * C + 1, D)).scatter(
+        1, flat[..., None].expand(G, Ng * K, D), xk)
     buckets = buckets[:, :E * C].reshape(G, E, C, D)
 
     # ---- expert FFN, batched over (G, E)

@@ -5,8 +5,11 @@ produces (z, x, B, C, dt); the short causal depthwise conv runs over (x, B,
 C); the selective scan is the chunked SSD of ``kernels.ops.ssd`` (K7 on the
 card); the output is RMSNorm(y * silu(z)) @ out_proj.
 
-Two modes, as the port serves: ``prefill`` runs the whole prompt and
-returns the decode state, ``decode`` one token. Decode carries two states,
+Three modes: ``train`` runs the whole sequence, differentiable, through
+``ops.ssd``'s plain version (``use_kernel=False``, on the card too, as the
+reference's train mode: K7 has no backward) and writes no cache;
+``prefill`` runs the whole prompt and returns the decode state, ``decode``
+one token. Decode carries two states,
 the conv window (the last ssm_conv - 1 inputs) and the (H, N, P) SSM state,
 both O(1) in the sequence length. Unlike the reference, decode updates both
 in the caller's tensors in place (and returns them), as ``attn_fwd`` does
@@ -25,7 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rmsnorm_fwd
 
 Params = Dict[str, torch.Tensor]
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def _dims(cfg: ModelConfig):
@@ -72,14 +75,13 @@ def ssm_fwd(
     x: torch.Tensor,  # (B, S, D); S == 1 in decode
     *,
     cfg: ModelConfig,
-    mode: str,  # prefill | decode
+    mode: str,  # train | prefill | decode
     cache: Optional[Params] = None,  # {"conv": (B, cw-1, C), "ssd": (B, H, N, P)}
     lengths: Optional[torch.Tensor] = None,  # unused: the state carries position
-) -> Tuple[torch.Tensor, Params]:
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (out (B, S, D), the cache: None in train mode)."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"ssm mode {mode!r} is not ported yet: the port serves (prefill, "
-            f"decode); training is ROADMAP Queue 1 item 12")
+        raise ValueError(f"unknown ssm mode {mode!r}")
     di, G, N, P, H, conv_ch = _dims(cfg)
     B, S, _ = x.shape
     A = -torch.exp(p["A_log"])  # (H,) negative
@@ -116,10 +118,12 @@ def ssm_fwd(
     xh = xin.reshape(B, Sp, H, P)
     y, final_state = ops.ssd(xh, bm.reshape(B, Sp, G, N), cm.reshape(B, Sp, G, N),
                              dtv * A[None, None, :], dtv, chunk=chunk,
-                             use_kernel=cfg.use_flash)
+                             use_kernel=cfg.use_flash and mode != "train")
     y = y.float() + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(B, Sp, di)[:, :S].to(x.dtype)
     y = rmsnorm_fwd(p["norm_w"], y * F.silu(z), cfg.norm_eps)
+    if mode == "train":
+        return y @ p["out_proj"], None
     cw = p["conv_w"].shape[0]
     if S >= cw - 1:
         tail = conv_in[:, S - (cw - 1): S].clone()  # a copy: conv_in is freed

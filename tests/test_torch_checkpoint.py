@@ -2,8 +2,9 @@
 package's, on the CPU.
 
 The reference's ``tests/test_checkpoint.py`` cases run here against the
-port, all but those that need the trainer, a device mesh or the data
-pipeline (ROADMAP Queue 1 item 12): the round trip, ``keep``, ``async_save``,
+port, all but those that need the trainer or the data pipeline (in
+``tests/test_torch_trainer.py``) or a device mesh (ROADMAP Queue 1 item 12,
+slice 23): the round trip, ``keep``, ``async_save``,
 a shape mismatch, no ``.tmp`` left behind, the restart drill bit for bit an
 uninterrupted run, the restart budget, the content checksum, corrupt and
 truncated files, a manifest from before checksums, and the fallback past a

@@ -1818,3 +1818,45 @@ def test_restart_over_a_launch_plan_on_the_card(cuda, S, tmp_path):
     assert restarts == 2 and final["c"].device.type == "cuda"
     want = rt.build_ensemble(ens)(xs)
     assert all(torch.equal(a, b) for a, b in zip(lp.finalize(final["c"]), want))
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-3b-a800m", "hymba-1.5b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, accum):
+    """One make_train_step on the card against the same step on the CPU,
+    one weight set, f32 (the JAX package's step is held to the CPU's in
+    tests/test_torch_trainer.py): the loss and grad_norm within 1e-4
+    relative, every parameter after the update within 1e-4 (lr 1e-2, eps
+    1e-3: each update smooth in its gradient); the card's step launches no
+    kernel of the port (train mode runs the plain attention and SSD)."""
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizer import AdamW, AdamWConfig
+
+    cfg = get_config(arch).reduced()
+    weights = Model(cfg, device="cpu").state_dict()
+    batch = SyntheticTokenPipeline(cfg, get_shape("train_4k"), batch_override=4,
+                                   seq_override=32).batch_at(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = Model(cfg, device=dev)
+        model.load_state_dict(weights)
+        opt = AdamW(AdamWConfig(lr=1e-2, eps=1e-3, warmup_steps=1))
+        named = dict(model.named_parameters())
+        ops.reset_launch_counts()
+        _, metrics = make_train_step(model, opt, accum)(
+            opt.init(named), {k: v.to(dev) for k, v in batch.items()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == dict.fromkeys(_build.ENTRIES, 0)
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.detach().cpu() for n, p in named.items()})
+    (m_cpu, p_cpu), (m_card, p_card) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm", "lr"):
+        assert m_card[key] == pytest.approx(m_cpu[key], rel=1e-4)
+    for n in p_cpu:
+        torch.testing.assert_close(p_card[n], p_cpu[n], rtol=0, atol=1e-4)

@@ -524,9 +524,16 @@ def test_params_from_reference_fills_every_parameter(case):
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "llama-3.2-vision-90b", "musicgen-medium"])
 def test_train_mode_is_not_ported(name):
+    """Named when train mode raised; training is ported now: the forward in
+    train mode runs, writes no cache and records the graph
+    (tests/test_torch_train.py holds its loss and gradients to the
+    reference)."""
     cfg, model = _port_model(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        model.forward(**_port_batch(cfg, 1, 4, 0), mode="train")
+    model.train_mode()
+    hidden, caches, aux = model.forward(**_port_batch(cfg, 1, 4, 0), mode="train")
+    assert hidden.shape == (1, 4, cfg.d_model) and caches is None
+    assert hidden.requires_grad and bool(torch.isfinite(hidden).all())
+    assert bool(torch.isfinite(aux)) and (float(aux.detach()) > 0) == bool(cfg.n_experts)
 
 
 def _serve_controls():

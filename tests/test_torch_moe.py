@@ -193,10 +193,20 @@ def test_moe_aux_loss_nonzero_and_capacity_drops():
 
 
 def test_train_mode_is_not_ported():
+    """Named when train mode raised; training is ported now: train mode
+    routes as the prefill does (capacity_factor's capacity, drops) and is
+    differentiable, the reference's gradients held in
+    tests/test_torch_train.py."""
     cfg = get_config("mixtral-8x7b").reduced()
     p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        moe.moe_fwd(p, torch.zeros((1, 2, cfg.d_model)), cfg, mode="train")
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    out, aux = moe.moe_fwd(p, x, cfg, mode="train")
+    want, want_aux = moe.moe_fwd(p, x, cfg, mode="prefill")
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
+    (out.square().sum() + aux).backward()
+    for k, v in p.items():
+        assert v.grad is not None and float(v.grad.abs().max()) > 0, k
 
 
 def test_moe_forward_syncs_nothing_with_the_host(monkeypatch):
